@@ -1,17 +1,23 @@
 """phantom_tpu_torch — the PyTorch/CUDA port of phantom_tpu.
 
 A second package beside the JAX one, which stays the reference the port
-is tested against.  So far it carries the CKKS multiply + relinearize +
-rescale step (ops/pipeline32.py) with hand-written CUDA kernels for
-Hopper (sm_90a) for its NTTs and base conversions (csrc/), keygen,
-symmetric encryption and decryption.  It imports torch and numpy and
-never JAX: the host math of the JAX package is loaded without it
-(host.py).
+is tested against.  So far it carries CKKS hybrid key switching: the
+multiply + relinearize + rescale step, rotations and hoisted rotations
+(ops/pipeline32.py), with hand-written CUDA kernels for Hopper (sm_90a)
+for its NTTs, base conversions and the fused modup + key inner product
+(csrc/), keygen (relin and Galois keys), symmetric encryption and
+decryption.  It imports torch and numpy and never JAX, and keeps its own
+copy of the host math (host/).  Its entry points build on the CUDA device
+unless given device="cpu".
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from .schemes.context import Context, make_context  # noqa: F401
+from .schemes.keys import create_galois_keys  # noqa: F401
 from .schemes.params import EncryptionParameters  # noqa: F401
-from .ops.pipeline32 import (CKKSPipeline32, build_pipeline32,  # noqa: F401
-                             mult_relin_rescale32)
+from .ops.pipeline32 import (CKKSPipeline32, Galois32,  # noqa: F401
+                             build_galois32, build_keyswitch32,
+                             build_pipeline32, hoisted_linear_combo32,
+                             hoisting_sum32, keyswitch_from_ntt32,
+                             mult_relin_rescale32, rotate32)

@@ -2,7 +2,10 @@
 
 All `csrc/*.cu` files compile with nvcc into one shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes), for `sm_90a`.  The library goes to `build/phantom_tpu_torch/`
+minutes), for `sm_90a`: one nvcc per source, all started together, then
+one link, so a first build takes as long as its slowest source however
+many kernels are added (chip_smoke.py builds from scratch inside a fixed
+time limit).  The library goes to `build/phantom_tpu_torch/`
 beside the package, named by a hash of the sources and flags, at the
 first kernel launch; a failed build raises with nvcc's stderr.  Every C
 entry point returns `cudaGetLastError()`, which `check` turns into an
@@ -27,7 +30,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "phantom_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +45,8 @@ _SIGNATURES = {
                                _P], _I),
     "ptk_fold_matmul_smem": ([_I, _I], _I),
     "ptk_fold_matmul": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ptk_modup_ip": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _I, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -71,6 +76,15 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libptk_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise on the first that
+    failed."""
+    errs = [(cmd, p.communicate()[1], p.returncode) for cmd, p in procs]
+    for cmd, err, rc in errs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
+
+
 def build() -> str:
     """Compile the library unless a build of these sources exists; returns
     its path."""
@@ -78,18 +92,21 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{' '.join(cmd)}\n{r.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        _run(procs)
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", so, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(so, path)
     return path
 
 

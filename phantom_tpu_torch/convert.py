@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.pipeline32 import convert_key32
+from .ops.pipeline32 import Galois32, convert_key32
 from .schemes.context import Context
 
 
@@ -29,3 +29,11 @@ def relin_evk(ctx: Context, rlk_data: np.ndarray,
     """RelinKey.data (dnum, 2, K, N) -> the level's evk
     (beta, 2, size_qlp, N), through the rows of qlp_rows."""
     return convert_key32(ctx, residues(rlk_data), chain_index)
+
+
+def galois_keys(ctx: Context, glk_data: np.ndarray, elts,
+                chain_index: int = 1) -> Galois32:
+    """GaloisKeys.data (n_elts, dnum, 2, K, N) with its elements -> the
+    level's rotation state, on the context's device."""
+    return Galois32(ctx, residues(glk_data), elts, chain_index).to(
+        ctx.key_q.device)

@@ -18,6 +18,7 @@ namespace ptk {
 namespace {
 
 struct BconvLoad {
+  static constexpr bool kStoreSkipped = true;  // self rows pass through
   const uint32_t* y;    // (G, alpha, N)
   const uint32_t* mat;  // (G, k_out, alpha)
   int alpha, k_out;

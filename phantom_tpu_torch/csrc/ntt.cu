@@ -22,6 +22,7 @@ namespace {
 
 // K2 prologue: the input row, lazy [0, 2q) tolerated
 struct RowLoad {
+  static constexpr bool kStoreSkipped = true;
   const uint32_t* x;
   __device__ __forceinline__ bool skip(int, int) const { return false; }
   __device__ __forceinline__ uint32_t load(int row, int, int, int64_t gi,

@@ -143,17 +143,19 @@ struct FwdEpilogue {
 };
 
 // Forward column pass: prologue load, column stages, raw store to out.
-// Pro supplies skip(j, g) (row passes through untransformed) and
-// load(row, j, g, gi, n, bq, skip) (the canonical input value).
+// Pro supplies skip(j, g) (row passes through untransformed),
+// load(row, j, g, gi, n, bq, skip) (the canonical input value) and
+// kStoreSkipped (false: a skipped row is not stored at all).
 template <class Pro>
 __global__ void __launch_bounds__(kThreads)
 fwd_col_kernel(Pro pro, NttTables tb, Geometry G, uint32_t* out) {
   __shared__ uint32_t s[kTile];
   const int tile = blockIdx.x, row = blockIdx.y;
   const int j = row % tb.L, g = row / tb.L;
+  const bool skip = pro.skip(j, g);
+  if (skip && !Pro::kStoreSkipped) return;  // uniform over the block
   const int limb = tb.rows[j];
   const Barrett bq = make_barrett(tb.q[limb]);
-  const bool skip = pro.skip(j, g);
   uint32_t* o = out + static_cast<int64_t>(row) * G.n;
   for (int e = threadIdx.x; e < kTile; e += blockDim.x)
     s[e] = pro.load(row, j, g, col_index(G, tile, e), G.n, bq, skip);

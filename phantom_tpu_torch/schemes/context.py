@@ -15,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
+import torch
 from torch import nn
 
 from .. import host
@@ -97,14 +98,14 @@ def _keyswitch_consts(data_moduli, special_moduli, n: int) -> KeySwitchConsts:
 
 class Context(nn.Module):
     """Parameters, the NTT tables over all of QP (buffers: `.to(device)`
-    moves them) and chain levels 0 to LEVELS - 1."""
+    moves them) and chain levels 0 to LEVELS - 1.  Built on the CPU;
+    `make_context` places it."""
 
     def __init__(self, params: EncryptionParameters):
         super().__init__()
         self.params = params
         qp = list(params.coeff_modulus)
-        self.ntt = NTTTables32(host.make_rns_ntt_tables(
-            params.n, [host.Modulus(q) for q in qp]))
+        self.ntt = NTTTables32(host.make_rns_ntt_tables(params.n, qp))
         self.register_buffer("key_q", u32_tensor(qp))
         chain = [ContextData(0, tuple(qp), None, None)]
         data = list(params.data_moduli)
@@ -123,8 +124,22 @@ class Context(nn.Module):
         return self.chain[chain_index]
 
 
-def make_context(params: EncryptionParameters) -> Context:
-    return Context(params)
+def resolve_device(device=None) -> torch.device:
+    """The device a build function puts its buffers on: `device` if given,
+    else the CUDA device; without one, pass device="cpu" to build on the
+    CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to build on "
+                           "the CPU")
+    return torch.device("cuda")
+
+
+def make_context(params: EncryptionParameters, device=None) -> Context:
+    """The context with its tables on `device` (default: the CUDA
+    device)."""
+    return Context(params).to(resolve_device(device))
 
 
 def qlp_rows(ctx: Context, size_ql: int) -> List[int]:

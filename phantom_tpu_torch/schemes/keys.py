@@ -2,7 +2,8 @@
 
 Counterpart of the CKKS paths of phantom_tpu/schemes/keys.py.  Keys live in
 NTT form over the full key base QP; the relin key holds dnum digit keys,
-each an encryption of zero with P * s^2 added on its own digit's rows.
+each an encryption of zero with P * s^2 added on its own digit's rows, and
+a Galois key the same with P * sigma_elt(s) in place of P * s^2.
 Randomness comes from an explicit `torch.Generator` (ops/sampling.py),
 so keys match the JAX package's in structure and distribution, not bits.
 Tensors are int32 residues on the generator's device; forward NTTs go
@@ -11,11 +12,14 @@ through the K2 wrapper.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Sequence, Tuple
+
 import torch
 
 from ..ops import sampling as smp
 from ..ops.modmath32 import u32
 from ..ops.ntt_kernels import ntt_forward
+from . import galois as gal
 from .context import Context
 
 
@@ -67,6 +71,24 @@ def gen_relin_key(ctx: Context, sk: torch.Tensor,
                   gen: torch.Generator) -> torch.Tensor:
     s_sq = sk.long() * sk.long() % _qcol(ctx.key_q)
     return _gen_kswitch_key(ctx, sk, s_sq.int(), gen)
+
+
+class GaloisKeys(NamedTuple):
+    data: torch.Tensor      # (n_elts, dnum, 2, K, N)
+    elts: Tuple[int, ...]
+
+
+def create_galois_keys(ctx: Context, sk: torch.Tensor, gen: torch.Generator,
+                       steps: Sequence[int]) -> GaloisKeys:
+    """One key-switching key per rotation step, switching sigma_elt(s)
+    (the NTT-form permutation of sk) back to s."""
+    n = ctx.params.n
+    elts = tuple(gal.get_elts_from_steps(steps, n))
+    data = []
+    for elt in elts:
+        perm = torch.from_numpy(gal.make_ntt_perm(elt, n)).to(sk.device)
+        data.append(_gen_kswitch_key(ctx, sk, sk[:, perm], gen))
+    return GaloisKeys(torch.stack(data), elts)
 
 
 def encrypt_symmetric(ctx: Context, sk: torch.Tensor, plain: torch.Tensor,

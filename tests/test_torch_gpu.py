@@ -16,6 +16,7 @@ import torch
 from phantom_tpu_torch import make_context
 from phantom_tpu_torch.host import numth
 from phantom_tpu_torch.ops import bconv_kernels as bk
+from phantom_tpu_torch.ops import modup_ip_kernels as mk
 from phantom_tpu_torch.ops import ntt_kernels as nk
 from phantom_tpu_torch.schemes.params import EncryptionParameters
 
@@ -35,7 +36,7 @@ def _setup(dev, logn):
     n = 1 << logn
     ctx = make_context(EncryptionParameters.create(
         n, numth.get_primes(2 * n, 28, 5),
-        numth.get_primes(2 * n, 29, 2))).to(dev)
+        numth.get_primes(2 * n, 29, 2)), device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(logn)
     rows = torch.tensor([6, 0, 6, 2], dtype=torch.int32, device=dev)
@@ -113,6 +114,43 @@ def test_k5_fold_matmul(dev, logn, k_in, k_out):
     q = torch.tensor(numth.get_primes(2 * n, 29, k_out), dtype=torch.int32,
                      device=dev)
     _same(bk.fold_matmul(y, mat, q), bk.fold_matmul_plain(y, mat, q))
+
+
+@pytest.mark.parametrize("self_mul", [False, True], ids=["pass", "self_mul"])
+@pytest.mark.parametrize("alpha,beta,k_data", [(2, 2, 4), (8, 6, 43)])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k4_modup_ip(dev, logn, alpha, beta, k_data, self_mul):
+    """K4 at the alpha = 8 slice's shapes (beta = 6, a short last digit of
+    3 rows, k_out = 51) and a small one, both passthrough variants."""
+    n = 1 << logn
+    k_out = k_data + alpha
+    ctx = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, k_data),
+        numth.get_primes(2 * n, 29, alpha)), device=dev)
+    t = ctx.ntt
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + beta)
+    q = t.q.long().view(-1, 1)
+    k = alpha * beta
+
+    def res(shape, rows):
+        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                % q[:rows]).int()
+
+    y = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    y[:k_data] = res((k_data, n), k_data)
+    mats = torch.randint(0, 1 << 30, (beta, k_out, alpha), generator=gen,
+                         device=dev).int()
+    a = torch.zeros_like(y)
+    a[:k_data] = res((k_data, n), k_data)
+    c2 = (a, a.roll(1, 1).contiguous()) if self_mul else a
+    evk = torch.stack([torch.stack([res((k_out, n), k_out)
+                                    for _ in range(2)])
+                       for _ in range(beta)])
+    before = mk.modup_ip.launches
+    got = mk.modup_ip(y, mats, c2, evk, t, k_data=k_data)
+    assert mk.modup_ip.launches == before + 1
+    _same(got, mk.modup_ip_plain(y, mats, c2, evk, t, k_data=k_data))
 
 
 def test_launch_counts(dev):

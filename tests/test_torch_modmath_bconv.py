@@ -10,6 +10,7 @@ from phantom_tpu.host import numth
 from phantom_tpu.host.rns import BaseConverter, RNSBase
 from phantom_tpu.ops import bconv32 as jbc
 from phantom_tpu.ops import modmath32 as jm
+from phantom_tpu_torch import host as thost
 from phantom_tpu_torch.ops import bconv32 as tbc
 from phantom_tpu_torch.ops import modmath32 as tm
 
@@ -87,11 +88,14 @@ def test_shoup(mod):
 
 @pytest.fixture(scope="module")
 def conv():
-    """Digit -> complement converter of a short last digit (3 of alpha=4)."""
+    """Digit -> complement converter of a short last digit (3 of alpha=4):
+    the JAX package's host converter, and the port's own copy of it."""
     qs = numth.get_primes(2 * 1024, 28, 7)
     ps = numth.get_primes(2 * 1024, 29, 4)
     host = BaseConverter(RNSBase(qs[4:7]), RNSBase(qs[:4] + ps))
-    return host, jbc.consts32_from_host(host), tbc.consts32_from_host(host)
+    port = thost.BaseConverter(thost.RNSBase(qs[4:7]),
+                               thost.RNSBase(qs[:4] + ps))
+    return host, jbc.consts32_from_host(host), tbc.consts32_from_host(port)
 
 
 def test_consts_match(conv):

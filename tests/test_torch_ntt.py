@@ -17,6 +17,7 @@ from phantom_tpu.ops import ntt32 as jntt32
 from phantom_tpu.ops import ntt_mxu
 from phantom_tpu.ops import ntt_mxu_pallas as nmp
 from phantom_tpu.ops.modmath32 import compute_shoup32
+from phantom_tpu_torch import host as thost
 from phantom_tpu_torch.ops import ntt32 as tntt32
 from phantom_tpu_torch.ops import ntt_kernels as nk
 
@@ -40,7 +41,7 @@ def tabs():
     j32 = jntt32.tables32_from_tables64(ntt64.tables_from_host(host))
     jmxu = ntt_mxu.prepare_mxu_tables(j32, fused_kernel=True)
     q = np.array(qs, dtype=np.uint32)[:, None]
-    return j32, jmxu, tntt32.NTTTables32(host), q
+    return j32, jmxu, tntt32.NTTTables32(thost.make_rns_ntt_tables(N, qs)), q
 
 
 def _res(q, shape, lazy=False):
@@ -56,11 +57,27 @@ def _scale(q):
 
 
 def test_tables_match(tabs):
+    """The port's own host tables against the JAX package's."""
     j32, _, tt, _ = tabs
     for name in ("q", "root_powers", "root_powers_shoup", "inv_root_powers",
                  "inv_root_powers_shoup", "inv_degree", "inv_degree_shoup"):
         np.testing.assert_array_equal(u32(getattr(tt, name)),
                                       np.asarray(getattr(j32, name)), name)
+
+
+@pytest.mark.parametrize("n,bits,count", [(1 << 16, 28, 44),
+                                          (1 << 16, 29, 22), (1 << 12, 30, 3)])
+def test_host_copy_matches(n, bits, count):
+    """The port's prime search and, at full width, NTT tables of a few of
+    the primes, against the JAX package's host code."""
+    qs = numth.get_primes(2 * n, bits, count)
+    assert thost.numth.get_primes(2 * n, bits, count) == qs
+    ref = make_rns_ntt_tables(n, [Modulus(q) for q in qs[:2]])
+    got = thost.make_rns_ntt_tables(n, qs[:2])
+    for name in ("root_powers", "root_powers_shoup", "inv_root_powers",
+                 "inv_root_powers_shoup", "inv_degree", "inv_degree_shoup"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      np.asarray(getattr(ref, name)), name)
 
 
 @pytest.mark.parametrize("lazy", [False, True])

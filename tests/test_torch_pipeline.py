@@ -1,7 +1,8 @@
 """The port's CKKS mult+relin+rescale step against the JAX package:
-its tables against build_pipeline32's, its output against JAX
-mult_relin_rescale32 on the xla-split structure (Pallas kernels in
-interpret mode) and against the golden file, a real JAX key carried over
+its tables against build_pipeline32's, its output on both modup routes
+against JAX mult_relin_rescale32 on the xla-split structure (golden files
+at n = 128 and n = 1024, made by tests/fixtures/gen_torch_port_fixtures.py
+with the Pallas kernels in interpret mode), a real JAX key carried over
 by convert.py against the u64 evaluator, and its own keys and encryptions
 decrypting to the exact product.  Bit-exact throughout."""
 
@@ -13,7 +14,6 @@ import pytest
 import torch
 
 import chip_smoke
-from phantom_tpu.host import numth
 from phantom_tpu.ops import pipeline32 as jpp
 from phantom_tpu.schemes import EncryptionParameters as JaxParams
 from phantom_tpu.schemes import Scheme, keys as jkeys
@@ -23,48 +23,34 @@ from phantom_tpu_torch.ops import pipeline32 as tpp
 from phantom_tpu_torch.schemes import keys as tkeys
 from phantom_tpu_torch.schemes.params import EncryptionParameters
 
-N = 128
-GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port",
-                      "ckks_step_n1024.npz")
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port")
+GOLDEN = os.path.join(FIXTURES, "ckks_step_n1024.npz")
+CPU = "cpu"
 
 
 def u32(t):
     return t.numpy().view(np.uint32)
 
 
-def _contexts(k, alpha):
-    qs = numth.get_primes(2 * N, 28, k)
-    ps = numth.get_primes(2 * N, 29, alpha)
-    jctx = jax_context(JaxParams.create(Scheme.CKKS, N, qs + ps,
-                                        special_modulus_size=alpha))
-    return jctx, make_context(EncryptionParameters.create(N, qs, ps))
-
-
-def _residues(rng, moduli, lead):
-    q = np.array(moduli, dtype=np.uint64)[:, None]
-    return (rng.integers(0, 1 << 62, lead + (len(moduli), N),
-                         dtype=np.uint64) % q).astype(np.uint32)
-
-
-@pytest.fixture(scope="module", params=[(4, 2), (5, 2)],
-                ids=["even", "uneven"])
+@pytest.fixture(scope="module", params=["even", "uneven"])
 def step(request):
-    """JAX and port pipelines on one random relin key, random d1 and d2."""
-    k, alpha = request.param
-    jctx, tctx = _contexts(k, alpha)
-    rng = np.random.default_rng(k)
-    dnum = -(-k // alpha)
-    qp = jctx.params.coeff_modulus
-    rlk = np.stack([_residues(rng, qp, (2,)) for _ in range(dnum)])
+    """The golden file's random relin key, d1, d2 and JAX output (k = 4
+    and 5 data primes, alpha = 2, n = 128), with the JAX and port
+    pipelines built on that key."""
+    g = np.load(os.path.join(FIXTURES, f"step_n128_{request.param}.npz"))
+    qs, ps = g["data_moduli"].tolist(), g["special_moduli"].tolist()
+    n = g["d1"].shape[-1]
+    jctx = jax_context(JaxParams.create(Scheme.CKKS, n, qs + ps,
+                                        special_modulus_size=len(ps)))
     jp = jpp.build_pipeline32(jctx, jkeys.RelinKey(data=jnp.asarray(
-        rlk.astype(np.uint64))), use_pallas="mxu-pallas")
-    tp = tpp.build_pipeline32(tctx, convert.residues(rlk))
-    d1, d2 = (_residues(rng, qp[:k], (2,)) for _ in range(2))
-    return jp, tp, d1, d2
+        g["rlk"].astype(np.uint64))), use_pallas="mxu-pallas")
+    tctx = make_context(EncryptionParameters.create(n, qs, ps), device=CPU)
+    tp = tpp.build_pipeline32(tctx, convert.residues(g["rlk"]), device=CPU)
+    return jp, tp, g
 
 
 def test_tables_match_build_pipeline32(step):
-    jp, tp, _, _ = step
+    jp, tp, _ = step
     jks, tks = jp.ks, tp.ks
     pairs = [(jks.pinv, tks.pinv), (jks.pinv_shoup, tks.pinv_shoup),
              (jks.modup_scale, tks.modup_scale),
@@ -92,13 +78,16 @@ def test_tables_match_build_pipeline32(step):
     assert int(jp.half) == tp.half
 
 
-def test_step_matches_jax(step, monkeypatch):
-    jp, tp, d1, d2 = step
-    monkeypatch.setattr(jpp, "MODUP_VARIANT", "xla-split")
-    ref = np.asarray(jpp.mult_relin_rescale32(jp, jnp.asarray(d1),
-                                              jnp.asarray(d2)))
-    got = tp(convert.residues(d1), convert.residues(d2))
-    np.testing.assert_array_equal(u32(got), ref)
+def test_step_matches_jax(step):
+    """Both of the port's routes (alpha = 2: the K4 route by default, the
+    xla-split route through its own function) equal the JAX xla-split
+    output."""
+    _, tp, g = step
+    d1, d2 = convert.residues(g["d1"]), convert.residues(g["d2"])
+    assert tp.ks.fused_modup
+    np.testing.assert_array_equal(u32(tp(d1, d2)), g["out"])
+    np.testing.assert_array_equal(
+        u32(tpp._mult_relin_rescale_split(tp, d1, d2)), g["out"])
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +95,7 @@ def golden():
     g = np.load(GOLDEN)
     ctx = make_context(EncryptionParameters.create(
         g["d1"].shape[-1], g["data_moduli"].tolist(),
-        g["special_moduli"].tolist()))
+        g["special_moduli"].tolist()), device=CPU)
     return g, ctx
 
 
@@ -132,9 +121,9 @@ def test_jax_key_via_convert_matches_u64_evaluator(golden):
 def test_keygen_encrypt_step_decrypt():
     """The port's own keys and encryptions at n = 1024 (the chip smoke's
     flow on the CPU): the step decrypts to the exact m1 m2."""
-    ctx = make_context(chip_smoke.chain_params(1024, 5, 2))
+    ctx = make_context(chip_smoke.chain_params(1024, 5, 2), device=CPU)
     sk, pipe, d1, d2, m1, m2 = chip_smoke.make_step_inputs(
-        ctx, 11, chip_smoke.DELTA_BITS, torch.device("cpu"))
+        ctx, 11, chip_smoke.DELTA_BITS, torch.device(CPU))
     out = pipe(d1, d2)
     dist = chip_smoke.check_decrypt(ctx, sk, out, m1, m2,
                                     chip_smoke.DELTA_BITS)
