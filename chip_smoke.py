@@ -8,35 +8,43 @@ Two configurations, both N = 2^16 with 43 data primes of 28 bits from
 chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
   headline  22 special primes of 29 bits (dnum 2, the last digit 21 rows):
             the multiply + relinearize + rescale step on the xla-split
-            modup (K1, K2, K3, K5);
+            modup (K1, K2, K5, K9) through each epilogue: the pair (K1,
+            K3, then the rescale's K1 and K3), K8 with 8 rows per block
+            (then the rescale), K7 (moddown and rescale in one);
   alpha 8   8 special primes of 29 bits (dnum 6, the last digit 3 rows):
-            rotations, hoisted rotations and the step on the fused modup
-            (K1, K3, K4), as the JAX package's default dispatch runs them
-            at alpha <= 8.
+            rotations, hoisted rotations (K9 per step) and the step on the
+            fused modup (K1, K3, K4), as the JAX package's default dispatch
+            runs them at alpha <= 8.
 Phases, one line each or more; any failure exits non-zero:
 
   1. device    card name and power limit, CUDA, nvcc, triton, device count
   2. build     the kernels of phantom_tpu_torch/csrc, built from source
-  3. golden    the step (n = 1024, alpha = 2: the K4 route) and the
-               rotation golden file (rotation, key switch, both hoisted
-               forms, moddown, the step) through the kernels, bit-equal to
-               the JAX package's outputs
-  4. kernels   every kernel call of one headline step is bit-equal to its
-               plain torch version on the same inputs, and both are timed
+  3. golden    the step (n = 1024, alpha = 2) through each epilogue on both
+               routes, and the rotation golden file (rotation, key switch,
+               both hoisted forms, moddown, the step through each
+               epilogue) through the kernels, bit-equal to the JAX
+               package's outputs
+  4. kernels   every kernel call of one headline step through each
+               epilogue is bit-equal to its plain torch version on the
+               same inputs, and both are timed
   5. step      keys from a seeded generator, two encryptions of small
                integer polynomials times 2^22 (coefficient encoding), the
                step through the kernels bit-equal to the step through the
-               plain versions, the launch counts, and a decryption equal
-               to the exact negacyclic product m1 m2
+               plain versions and through the other two epilogues, the
+               launch counts, and a decryption equal to the exact
+               negacyclic product m1 m2
   6. timing    a chain of steps, each output re-padded into the next input
                (as bench.py does), kernel path against plain path in turns,
-               timed with CUDA events
+               then the three epilogues in turns (pair, K8, K7, K7, K8,
+               pair), timed with CUDA events; K8 alone at 1, 2, 4 and 8
+               rows per block
   7. profile   torch.profiler over a few chained kernel-path steps: the
                device-busy time, the idle share and the top device kernels
   8. alpha-8 setup   the secret key, the relin key, Galois keys for steps
                1..7 and two encryptions, from a seeded generator
   9. alpha-8 kernels one rotation, one hoisting_sum32, one
-               hoisted_linear_combo32 and one step with every kernel call
+               hoisted_linear_combo32 and the step on both routes and
+               through the K8 and K7 epilogues, with every kernel call
                bit-equal to its plain version, and timed
  10. rotate    rotate32(., 1): kernels = plain, launch counts, decryption
                equal to sigma_g(m1)
@@ -44,15 +52,16 @@ Phases, one line each or more; any failure exits non-zero:
                over steps 0..7 with weights in [-3, 3]: kernels = plain,
                launch counts, decryptions equal to sum sigma(m1) and
                sum w_s sigma_s(m1)
- 12. alpha-8 step  the K4 route = the plain path = the xla-split route,
-               launch counts, decryption equal to m1 m2
+ 12. alpha-8 step  the K4 route = the plain path = the xla-split route =
+               the K8 and K7 epilogues, launch counts, decryption equal to
+               m1 m2
  13. alpha-8 timing  chained steps on both routes in turns, chained
                rotations, hoisting_sum32, hoisted_linear_combo32, peak
                memory
 Then a {"kernels": [...]} line: per kernel its launches over the counted
-path runs (headline step, rotation, both hoisted forms, alpha-8 step),
-its largest error against plain, and the summed time of the same calls
-through the kernel and the plain version beside their bound.  The bound of
+path runs (EXPECTED), its largest error against plain, and the summed time
+of the probed calls (phases 4 and 9) through the kernel and the plain
+version beside their bound.  The bound of
 a call is the larger of its bytes (each input, the NTT tables' rows
 included, read once, each output written once) at 3.35 TB/s and its 32-bit
 integer multiplies (a Shoup product 3, a Barrett product 8, a 32x32->64
@@ -100,14 +109,34 @@ KERNELS = [  # name, wrapper attribute, source, the TPU kernel it replaces
      "phantom_tpu/ops/bconv_pallas.py:97"),
     ("K4", "modup_ip", "phantom_tpu_torch/csrc/modup_ip.cu",
      "phantom_tpu/ops/ntt_mxu_pallas.py:1427"),
+    ("K9", "inner_product", "phantom_tpu_torch/csrc/ip.cu",
+     "phantom_tpu/ops/ntt_mxu_pallas.py:1378"),
+    ("K8", "moddown_rows", "phantom_tpu_torch/csrc/moddown_rows.cu",
+     "phantom_tpu/ops/ntt_mxu_pallas.py:877"),
+    ("K7", "moddown_rescale", "phantom_tpu_torch/csrc/moddown_rescale.cu",
+     "phantom_tpu/ops/ntt_mxu_pallas.py:1101"),
 ]
+
+
+def _launches(**kw):
+    return {name: kw.get(name, 0) for name, *_ in KERNELS}
+
+
 EXPECTED = {  # launches per path run
-    "headline step": {"K1": 3, "K2": 1, "K3": 2, "K5": 2, "K4": 0},
-    "rotation": {"K1": 2, "K2": 0, "K3": 1, "K5": 0, "K4": 1},
-    "hoisting_sum32": {"K1": 2, "K2": 0, "K3": 2, "K5": 0, "K4": 0},
-    "hoisted_linear_combo32": {"K1": 2, "K2": 0, "K3": 2, "K5": 0, "K4": 0},
-    "alpha-8 step": {"K1": 3, "K2": 0, "K3": 2, "K5": 0, "K4": 1},
+    "headline step": _launches(K1=3, K2=1, K3=2, K5=2, K9=1),
+    "headline step, K8 epilogue": _launches(K1=3, K2=1, K3=1, K5=2, K9=1,
+                                            K8=1),
+    "headline step, K7 epilogue": _launches(K1=2, K2=1, K5=2, K9=1, K7=1),
+    "rotation": _launches(K1=2, K3=1, K4=1),
+    "hoisting_sum32": _launches(K1=2, K3=2, K9=7),
+    "hoisted_linear_combo32": _launches(K1=2, K3=2, K9=7),
+    "alpha-8 step": _launches(K1=3, K3=2, K4=1),
+    "alpha-8 step, K8 epilogue": _launches(K1=3, K3=1, K4=1, K8=1),
+    "alpha-8 step, K7 epilogue": _launches(K1=2, K4=1, K7=1),
+    "alpha-8 xla-split step": _launches(K1=3, K2=1, K3=2, K5=6, K9=1),
 }
+EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
+    "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 132 * 64 * 1.98e9
 
@@ -243,11 +272,10 @@ def remix(out, q):
     return torch.cat([out, pad], dim=1)
 
 
-def rotate_golden(device, path: str = ROTATE_GOLDEN):
-    """The rotation golden file through the port on `device`: returns
-    {name: (port output, JAX output)} for the rotation, the key switch,
-    both hoisted forms, moddown32 and the step."""
-    import torch
+def rotate_golden_state(device, path: str = ROTATE_GOLDEN):
+    """The rotation golden file on `device`: (the file, its context, the
+    key-switch tables, its Galois keys, its tensors d1, d2, pts,
+    moddown_in)."""
     from phantom_tpu_torch import convert, make_context
     from phantom_tpu_torch.ops import pipeline32 as pp
     from phantom_tpu_torch.schemes.params import EncryptionParameters
@@ -257,13 +285,23 @@ def rotate_golden(device, path: str = ROTATE_GOLDEN):
         g["special_moduli"].tolist()), device=device)
     ks = pp.build_keyswitch32(ctx, device=device)
     gal = convert.galois_keys(ctx, g["glk"], g["elts"].tolist())
-    pipe = pp.build_pipeline32(ctx, convert.residues(g["rlk"]).to(device),
-                               device=device)
     t = {k: convert.residues(g[k]).to(device)
          for k in ("d1", "d2", "pts", "moddown_in")}
+    return g, ctx, ks, gal, t
+
+
+def rotate_golden(device, path: str = ROTATE_GOLDEN):
+    """The rotation golden file through the port on `device`: returns
+    {name: (port output, JAX output)} for the rotation, the key switch,
+    both hoisted forms, moddown32 and the step through each epilogue of
+    EPILOGUES (K8's last block of rows at k = 5 masks three)."""
+    from phantom_tpu_torch import convert
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    g, ctx, ks, gal, t = rotate_golden_state(device, path)
+    rlk = convert.residues(g["rlk"]).to(device)
     d1 = t["d1"]
     kidx = gal.key_index(int(g["elts"][0]))
-    return {
+    out = {
         "rotate": (pp.rotate32(ks, gal, d1, 1), g["rotate"]),
         "keyswitch": (pp.keyswitch_from_ntt32(ks, d1[1], gal.evks[kidx]),
                       g["keyswitch"]),
@@ -274,8 +312,12 @@ def rotate_golden(device, path: str = ROTATE_GOLDEN):
             ks, gal, d1, g["combo_steps"].tolist(), list(t["pts"])),
             g["combo"]),
         "moddown": (pp.moddown32(ks, t["moddown_in"]), g["moddown"]),
-        "step": (pipe(d1, t["d2"]), g["step"]),
     }
+    for name, kw in EPILOGUES.items():
+        pipe = pp.build_pipeline32(ctx, rlk, device=device, **kw)
+        out["step" if name == "pair" else f"step_{name}"] = (
+            pipe(d1, t["d2"]), g["step"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -342,12 +384,12 @@ def call_bound(name: str, a: dict, out):
                 byt += w * sum(_n(d) for d in a["tensor_add"])
                 ops += 9 * x.numel()
         return byt, ops
-    if name == "K3":
+    if name in ("K3", "K8"):
         y, mat = a["y"], a["mat"]
         g_, alpha, n = y.shape
-        k_out = mat.shape[1]
+        k_out = mat.shape[-2]  # K8's (k, alpha) serves both halves
         self_n = 0
-        if a["self_rows"] is not None:
+        if name == "K3" and a["self_rows"] is not None:
             kd = g_ * alpha if a["k_data"] is None else a["k_data"]
             self_n = sum(max(0, min((g + 1) * alpha, kd, k_out) - g * alpha)
                          for g in range(g_))
@@ -361,6 +403,28 @@ def call_bound(name: str, a: dict, out):
         ops += 8 * conv * n if a["v"] is not None else 0
         ops += 3 * _n(a["sub_from"])
         ops += 9 * _n(out) if a["tensor_add"] is not None else 0
+        return byt, ops
+    if name == "K9":
+        t, evk = a["t"], a["evk"]
+        beta, k_out, n = t.shape
+        byt = w * (t.numel() + evk.numel() + _n(out) + _n(a["perm"]))
+        return byt, (4 * beta * k_out * n + 2 * k_out * n * _reduce_ops(
+            beta, _max(t), _max(evk)))
+    if name == "K7":
+        y, mat = a["y"], a["mat"]
+        _, alpha, n = y.shape
+        k = mat.shape[0]
+        byt = w * (y.numel() + mat.numel() + _n(a["v"]) + _n(a["sub_from"])
+                   + sum(_n(d) for d in a["tensor_add"]) + _n(out)) + \
+            _table_bytes(a["t"], a["rows"], k) + 8 * n  # + the last iNTT row
+        # per word: the conversion and v (as K3), the forward NTT of every
+        # row; the last limb's iNTT, n^-1 and its epilogue (s - x) P^-1 +
+        # c_g (12); the other rows' delta P^-1, xl mod q_j, s P^-1, c_g and
+        # q_last^-1 (26)
+        ops = 2 * k * n * (2 * alpha + _reduce_ops(alpha, _max(y), _max(mat))
+                           + 8)
+        ops += _ntt_ops(2 * k, n) + _ntt_ops(2, n) + 3 * 2 * n
+        ops += 12 * 2 * n + 26 * 2 * (k - 1) * n
         return byt, ops
     if name == "K4":
         y, mats, c2, evk = a["y"], a["mats"], a["c2"], a["evk"]
@@ -525,7 +589,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from phantom_tpu_torch import _build, make_context
-    from phantom_tpu_torch.ops import bconv_kernels, modup_ip_kernels
+    from phantom_tpu_torch.ops import bconv_kernels, ip_kernels
+    from phantom_tpu_torch.ops import moddown_kernels, modup_ip_kernels
     from phantom_tpu_torch.ops import ntt_kernels
     from phantom_tpu_torch.ops import pipeline32 as pp
     from phantom_tpu_torch.schemes import galois
@@ -556,14 +621,19 @@ def main() -> int:
     gctx = make_context(EncryptionParameters.create(
         int(g["d1"].shape[-1]), g["data_moduli"].tolist(),
         g["special_moduli"].tolist()))
-    gpipe = pp.build_pipeline32(gctx, torch.as_tensor(g["rlk"].view(np.int32),
-                                                      device=dev))
-    gout = gpipe(*(torch.as_tensor(g[k].view(np.int32), device=dev)
-                   for k in ("d1", "d2")))
-    if not np.array_equal(gout.cpu().numpy().view(np.uint32), g["out"]):
-        raise RuntimeError("golden: kernel path differs from the JAX output")
-    print(f"golden: step bit-equal to the JAX package's output "
-          f"{tuple(g['out'].shape)}")
+    grlk = torch.as_tensor(g["rlk"].view(np.int32), device=dev)
+    gd = [torch.as_tensor(g[k].view(np.int32), device=dev)
+          for k in ("d1", "d2")]
+    for name, kw in EPILOGUES.items():
+        gpipe = pp.build_pipeline32(gctx, grlk, **kw)
+        for route, gout in (("K4", gpipe(*gd)), ("xla-split", pp.
+                            _mult_relin_rescale_split(gpipe, *gd))):
+            if not np.array_equal(gout.cpu().numpy().view(np.uint32),
+                                  g["out"]):
+                raise RuntimeError(f"golden: step ({name} epilogue, {route} "
+                                   "route) differs from the JAX output")
+        print(f"golden: step, {name} epilogue, K4 and xla-split routes, "
+              f"bit-equal to the JAX package's output {tuple(g['out'].shape)}")
     for name, (got, want) in rotate_golden(dev).items():
         if not np.array_equal(got.cpu().numpy().view(np.uint32), want):
             raise RuntimeError(f"golden: {name} differs from the JAX output")
@@ -582,10 +652,15 @@ def main() -> int:
 
     wrappers = [ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                 ntt_kernels.bconv_ntt_forward, bconv_kernels.fold_matmul,
-                modup_ip_kernels.modup_ip]
+                modup_ip_kernels.modup_ip, ip_kernels.inner_product,
+                moddown_kernels.moddown_rows, moddown_kernels.moddown_rescale]
     probes = _probes(pp, wrappers)
     since = {name: 0 for name, *_ in KERNELS}
-    pipe(d1, d2, probes)
+    # the same relin key through each epilogue
+    pipes = {name: pp.CKKSPipeline32(ctx, pipe.evk, **kw).to(dev) if kw
+             else pipe for name, kw in EPILOGUES.items()}
+    for p in pipes.values():
+        p(d1, d2, probes)
     _print_calls(probes, card, since)
 
     launches = {name: 0 for name, *_ in KERNELS}
@@ -594,6 +669,14 @@ def main() -> int:
     if not torch.equal(out, out_plain):
         raise RuntimeError("step: kernel path differs from plain path")
     print(f"step: kernel path bit-equal to plain path {tuple(out.shape)}")
+    for name in ("K8", "K7"):
+        got = _count(wrappers, f"headline step, {name} epilogue",
+                     lambda: pipes[name](d1, d2), launches)
+        if not torch.equal(got, out):
+            raise RuntimeError(f"step: the {name} epilogue differs from the "
+                               "pair")
+    print(f"step: the K8 (R = {EPILOGUES['K8']['moddown_rows']}) and K7 "
+          "epilogues bit-equal to the pair")
     dist = check_decrypt(ctx, sk, out, m1, m2, DELTA_BITS)
     print(f"decrypt: equals m1*m2 in all {params.n} coefficients; largest "
           f"distance before rounding {dist:.3e}")
@@ -616,6 +699,32 @@ def main() -> int:
                            "headline step")
     if not torch.equal(finals["plain path"], finals["kernel path"]):
         raise RuntimeError("timing: chained outputs differ")
+
+    def epilogue_chain(route):
+        def run(steps):
+            d = d1
+            for _ in range(steps):
+                d = remix(pipes[route](d, d2), q_pad)
+            return d
+        return run
+
+    finals = _chain_timing(("pair", "K8", "K7", "K7", "K8", "pair"),
+                           epilogue_chain, CHAIN_STEPS, card,
+                           "headline step by epilogue")
+    if not all(torch.equal(f, finals["pair"]) for f in finals.values()):
+        raise RuntimeError("timing: chained outputs differ by epilogue")
+    # K8 alone on the step's operands at each R (the epilogue's R is fixed)
+    k8_args = []
+
+    def keep_args(*a):
+        k8_args.extend(a)
+        return moddown_kernels.moddown_rows(*a)
+
+    pipes["K8"](d1, d2, pp.KERNELS._replace(moddown_rows=keep_args))
+    times = {r: _time(lambda: moddown_kernels.moddown_rows(*k8_args[:-1], r),
+                      REPS) for r in (1, 2, 4, 8)}
+    print("timing K8 per call by rows per block: " + ", ".join(
+        f"R={r} {ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
 
     # 7. profile: where one chained kernel-path step's device time goes
     from torch.autograd import DeviceType
@@ -644,7 +753,7 @@ def main() -> int:
             ms = e.self_device_time_total / 1e3 / PROFILE_STEPS
             print(f"profile   {ms:8.4f} ms/step "
                   f"{e.count // PROFILE_STEPS:4d}x  {e.key[:90]}")
-    del sk, pipe, d1, d2, out, out_plain, finals, d, prof
+    del sk, pipe, pipes, d1, d2, out, out_plain, finals, d, prof
     torch.cuda.empty_cache()
 
     # 8. alpha = 8 setup
@@ -671,8 +780,13 @@ def main() -> int:
     combo = lambda ops: pp.hoisted_linear_combo32(ks8, gal, e1,
                                                   range(8), pts, ops)
     step8 = lambda ops: pipe8(e1, e2, ops)
-    for fn in (rot, hoist, combo, step8):
+    split8 = lambda ops: pp._mult_relin_rescale_split(pipe8, e1, e2, ops)
+    pipes8 = {name: pp.CKKSPipeline32(ctx8, pipe8.evk, **kw).to(dev)
+              for name, kw in EPILOGUES.items() if kw}
+    for fn in (rot, hoist, combo, step8, split8):
         fn(probes)
+    for p in pipes8.values():
+        p(e1, e2, probes)
     _print_calls(probes, card, since)
 
     # 10-12. each path: launch counts, kernels = plain, decryption
@@ -698,13 +812,21 @@ def main() -> int:
                   launches)
     if not torch.equal(out8, step8(pp.PLAIN)):
         raise RuntimeError("alpha-8 step: kernel path differs from plain")
-    out_split = pp._mult_relin_rescale_split(pipe8, e1, e2, pp.KERNELS)
+    out_split = _count(wrappers, "alpha-8 xla-split step",
+                       lambda: split8(pp.KERNELS), launches)
     if not torch.equal(out8, out_split):
         raise RuntimeError("alpha-8 step: K4 route differs from xla-split")
+    for name, p in pipes8.items():
+        got = _count(wrappers, f"alpha-8 step, {name} epilogue",
+                     lambda: p(e1, e2), launches)
+        if not torch.equal(got, out8):
+            raise RuntimeError(f"alpha-8 step: the {name} epilogue differs "
+                               "from the pair")
     dist = check_decrypt(ctx8, sk8, out8, n1, n2, DELTA_BITS)
-    print(f"alpha-8 step: K4 route bit-equal to the plain path and to the "
-          f"xla-split route (K5/K2) {tuple(out8.shape)}; decrypts to m1*m2 "
-          f"in all {params8.n} coefficients, largest distance {dist:.3e}")
+    print(f"alpha-8 step: K4 route bit-equal to the plain path, to the "
+          f"xla-split route (K5/K2/K9) and through the K8 and K7 epilogues "
+          f"{tuple(out8.shape)}; decrypts to m1*m2 in all {params8.n} "
+          f"coefficients, largest distance {dist:.3e}")
 
     # 13. alpha = 8 timing
     q8 = ctx8.key_q[params8.size_q - 1:params8.size_q].view(1, 1, 1)

@@ -47,6 +47,11 @@ _SIGNATURES = {
     "ptk_fold_matmul": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "ptk_modup_ip": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                       _P, _P, _I, _P], _I),
+    "ptk_inner_product": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ptk_moddown_rows": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                          _P, _P, _P, _P, _P, _P], _I),
+    "ptk_moddown_rescale": ([_P] * 14 + [_I, _I, _I] + [_P] * 8
+                            + [_I, _P], _I),
 }
 
 _lock = threading.Lock()

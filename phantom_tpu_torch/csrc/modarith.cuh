@@ -77,6 +77,15 @@ __device__ __forceinline__ uint32_t reduce128(uint64_t hi, uint64_t lo,
   return add_mod(mul_mod(reduce64(hi, b), pow64, b), reduce64(lo, b), b.q);
 }
 
+// lo + hi 2^64 += t k: a 64-bit low word and a carry count, exact for up
+// to 2^32 products below 2^64; reduce128(hi, lo) reduces the sum once.
+__device__ __forceinline__ void mac(uint64_t& lo, uint32_t& hi, uint32_t t,
+                                    uint32_t k) {
+  const uint64_t p = static_cast<uint64_t>(t) * k;
+  lo += p;
+  hi += lo < p;
+}
+
 // sum_i a[i * stride] * m[i] over k terms, exact in 128 bits (each product
 // is below 2^60, so 2^64 sums cannot overflow the high word), mod q.
 __device__ __forceinline__ uint32_t dot_mod(const uint32_t* a,

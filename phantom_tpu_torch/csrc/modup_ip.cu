@@ -69,13 +69,6 @@ struct ModupArgs {
   }
 };
 
-__device__ __forceinline__ void mac(uint64_t& lo, uint32_t& hi, uint32_t t,
-                                    uint32_t k) {
-  const uint64_t p = static_cast<uint64_t>(t) * k;
-  lo += p;
-  hi += lo < p;
-}
-
 // Launch B: one block per (chunk, j), the digit loop inside.
 __global__ void __launch_bounds__(kThreads)
 modup_ip_chunk_kernel(ModupArgs m, NttTables tb, Geometry G,

@@ -20,18 +20,6 @@
 namespace ptk {
 namespace {
 
-// K2 prologue: the input row, lazy [0, 2q) tolerated
-struct RowLoad {
-  static constexpr bool kStoreSkipped = true;
-  const uint32_t* x;
-  __device__ __forceinline__ bool skip(int, int) const { return false; }
-  __device__ __forceinline__ uint32_t load(int row, int, int, int64_t gi,
-                                           int n, const Barrett& bq,
-                                           bool) const {
-    return csub(x[static_cast<int64_t>(row) * n + gi], bq.q);
-  }
-};
-
 struct InvArgs {
   const uint32_t* x;       // (nrows, N) in [0, 2q)
   const uint32_t* mul_by;  // optional (nrows, N): transform x * mul_by

@@ -142,6 +142,19 @@ struct FwdEpilogue {
   }
 };
 
+// The plain prologue (K2's, and K8's chunk pass): the row as stored, lazy
+// [0, 2q) tolerated.
+struct RowLoad {
+  static constexpr bool kStoreSkipped = true;
+  const uint32_t* x;
+  __device__ __forceinline__ bool skip(int, int) const { return false; }
+  __device__ __forceinline__ uint32_t load(int row, int, int, int64_t gi,
+                                           int n, const Barrett& bq,
+                                           bool) const {
+    return csub(x[static_cast<int64_t>(row) * n + gi], bq.q);
+  }
+};
+
 // Forward column pass: prologue load, column stages, raw store to out.
 // Pro supplies skip(j, g) (row passes through untransformed),
 // load(row, j, g, gi, n, bq, skip) (the canonical input value) and

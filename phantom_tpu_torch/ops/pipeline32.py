@@ -13,21 +13,28 @@ special base's size alpha against KERNEL_BCONV_ALPHA_MAX = 8.
     modup                           K1, K5 per digit, K2 over the
                                     complement rows, the digit rows
                                     spliced back
-    inner product                   plain torch
+    inner product                   K9
   on both:
     moddown pair                    K1 over the P rows emitting the floor
                                     correction v, then K3: exact P -> Ql
                                     conversion, forward NTT, (x - .) P^-1
     rescale                         K1 of the last limb, + half, then K3
                                     with alpha = 1, post_sub, * q_last^-1
+  the CKKS step's epilogue, fixed when its pipeline is built:
+    the pair (default)              the moddown pair, then rescale
+    moddown_rows=R                  K1, then K8 (R output rows per block)
+                                    for the pair, then rescale
+    merged_epilogue=True            K1, then K7: the pair and the rescale
+                                    with one forward NTT per row
 
 The CKKS step on the fused route never stores the tensor term c2 = d1[1]
 d2[1]: K1 computes it in its prologue (mul_by) and K4 again in its
 passthrough rows; the xla-split route computes it in plain torch.  The
-terms c0 and c1 ride K3's epilogue (tensor_add) on both.  Rotations permute
-NTT-form ciphertexts with a gather (the evaluation order out[k] =
-p(psi^(2 rev(k)+1)) turns sigma_g into an index permutation) and key-switch
-c1; the hoisted forms share one modup over all steps.
+terms c0 and c1 ride the moddown's epilogue (tensor_add) on both.
+Rotations permute NTT-form ciphertexts with a gather (the evaluation order
+out[k] = p(psi^(2 rev(k)+1)) turns sigma_g into an index permutation) and
+key-switch c1; the hoisted forms share one modup over all steps, and K9
+reads it through each step's permutation.
 
 Every function takes `ops`, the kernels it calls: `KERNELS` (the default)
 dispatches each to its CUDA kernel or, for CPU tensors, its plain version;
@@ -45,7 +52,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import bconv_kernels, modup_ip_kernels, ntt_kernels
+from . import (bconv_kernels, ip_kernels, moddown_kernels, modup_ip_kernels,
+               ntt_kernels)
 from .bconv32 import BaseConvConsts32, ModulusVec32, matmul_reduce32
 from .modmath32 import u32
 from .ntt32 import u32_tensor
@@ -63,15 +71,23 @@ class Kernels(NamedTuple):
     bconv_ntt_forward: Callable  # K3
     fold_matmul: Callable        # K5
     modup_ip: Callable           # K4
+    inner_product: Callable      # K9
+    moddown_rows: Callable       # K8
+    moddown_rescale: Callable    # K7
 
 
 KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                   ntt_kernels.bconv_ntt_forward, bconv_kernels.fold_matmul,
-                  modup_ip_kernels.modup_ip)
+                  modup_ip_kernels.modup_ip, ip_kernels.inner_product,
+                  moddown_kernels.moddown_rows,
+                  moddown_kernels.moddown_rescale)
 PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.bconv_ntt_forward_plain,
                 bconv_kernels.fold_matmul_plain,
-                modup_ip_kernels.modup_ip_plain)
+                modup_ip_kernels.modup_ip_plain,
+                ip_kernels.inner_product_plain,
+                moddown_kernels.moddown_rows_plain,
+                moddown_kernels.moddown_rescale_plain)
 
 
 def _rows(idx) -> torch.Tensor:
@@ -215,23 +231,12 @@ def modup_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
 
 
 def inner_product32(ks: KeySwitch32, t_modup: torch.Tensor,
-                    evk: torch.Tensor):
-    """(s0, s1) = sum_d t_d evk[d] mod q over QlP, exact for any beta.
-    Products are below 2^60 (q < 2^30), so four of them and a reduced
-    partial sum fit int64: the partial sum is reduced every four digits
-    (with beta <= 4, once at the end, as the JAX package's u64-pair
-    branch)."""
-    beta = t_modup.shape[0]
-    q = _qcol(ks.mv_qlp.q)
-    acc = [None, None]
-    for d in range(beta):
-        t_d = t_modup[d].long()
-        for j in range(2):
-            p_ = t_d * evk[d, j].long()
-            acc[j] = p_ if acc[j] is None else acc[j] + p_
-            if d % 4 == 3 and d + 1 < beta:
-                acc[j] %= q
-    return [(a % q).int() for a in acc]
+                    evk: torch.Tensor, ops: Kernels = KERNELS, perm=None):
+    """(s0, s1) = sum_d t_d evk[d] mod q over QlP, exact for any beta (K9).
+    perm: a gather index over the coefficients of t (a hoisted rotation's
+    NTT-form permutation), which K9 applies as it reads t."""
+    s = ops.inner_product(t_modup, evk, ks.mv_qlp.q, perm)
+    return s[0], s[1]
 
 
 def _modup_ip_split(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
@@ -239,7 +244,7 @@ def _modup_ip_split(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
     """modup_ip32 on the xla-split route at any alpha: modup_xla32, then
     inner_product32."""
     y = _modup_inverse(ks, c2_ntt, ops)
-    return inner_product32(ks, modup_xla32(ks, y, c2_ntt, ops), evk)
+    return inner_product32(ks, modup_xla32(ks, y, c2_ntt, ops), evk, ops)
 
 
 def modup_ip32(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
@@ -256,16 +261,28 @@ def modup_ip32(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
     return s[0], s[1]
 
 
-def _moddown(ks: KeySwitch32, xs, tensor_add, ops: Kernels) -> torch.Tensor:
-    """G = len(xs) <= 2 inputs (size_qlp, N) -> (G, size_ql, N): one K1
-    over the G x alpha P rows (emitting the floor correction v), one K3
-    over G x size_ql outputs."""
+def _moddown_inputs(ks: KeySwitch32, xs, ops: Kernels):
+    """K1 over the G x alpha P rows of G = len(xs) <= 2 inputs (size_qlp,
+    N), emitting the floor correction v; returns (y, v, the Ql rows)."""
     k = ks.size_ql
     xp = torch.stack([x[k:] for x in xs])
     sub = torch.stack([x[:k] for x in xs])
     y, v = ops.ntt_inverse(xp, ks.ntt, ks.rows_p, scale=ks.moddown_scale,
                            scale_shoup=ks.moddown_scale_shoup,
                            emit_floor_div=(ks.p_to_q.U, ks.p_to_q.V))
+    return y, v, sub
+
+
+def _moddown(ks: KeySwitch32, xs, tensor_add, ops: Kernels,
+             rows_per_block=None) -> torch.Tensor:
+    """G = len(xs) <= 2 inputs (size_qlp, N) -> (G, size_ql, N): K1, then
+    one K3 over G x size_ql outputs, or with rows_per_block (G = 2) one K8
+    serving that many output rows per block."""
+    y, v, sub = _moddown_inputs(ks, xs, ops)
+    if rows_per_block is not None:
+        return ops.moddown_rows(y, ks.p_to_q.qhat_mod_p, v, ks.p_to_q.q_mod_p,
+                                sub, tensor_add, ks.ntt, ks.rows_ql, ks.pinv,
+                                ks.pinv_shoup, rows_per_block)
     return ops.bconv_ntt_forward(
         y, ks.moddown_mat[:len(xs)], ks.ntt, ks.rows_ql, v=v,
         vmul=ks.p_to_q.q_mod_p, sub_from=sub, epi_scale=ks.pinv,
@@ -303,11 +320,24 @@ def keyswitch_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
 
 class CKKSPipeline32(nn.Module):
     """The step's state at one level: key-switch tables, the relin evk
-    (beta, 2, size_qlp, N) and the rescale constants.  Calling it runs
-    mult_relin_rescale32."""
+    (beta, 2, size_qlp, N), the rescale constants and the epilogue, fixed
+    at construction: the moddown pair then rescale (the default, as in the
+    JAX package), K8 with `moddown_rows` = R output rows per block, or K7
+    with `merged_epilogue`.  The two options exclude each other.  Calling
+    it runs mult_relin_rescale32."""
 
-    def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1):
+    def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
+                 moddown_rows=None, merged_epilogue: bool = False):
         super().__init__()
+        if moddown_rows is not None:
+            if merged_epilogue:
+                raise ValueError("choose one epilogue: moddown_rows or "
+                                 "merged_epilogue")
+            if not 1 <= moddown_rows <= moddown_kernels.MAX_ROWS:
+                raise ValueError(f"moddown_rows={moddown_rows} outside "
+                                 f"[1, {moddown_kernels.MAX_ROWS}]")
+        self._moddown_rows = moddown_rows
+        self._merged_epilogue = bool(merged_epilogue)
         rc = ctx.get_context_data(chain_index).rescale
         self.ks = KeySwitch32(ctx, chain_index)
         k = self.ks.size_ql
@@ -321,16 +351,29 @@ class CKKSPipeline32(nn.Module):
         self.register_buffer("half_mod_q", u32_tensor(rc.half_mod_q))
         self.half = rc.half
 
+    @property
+    def moddown_rows(self):
+        """R for the K8 epilogue, or None."""
+        return self._moddown_rows
+
+    @property
+    def merged_epilogue(self) -> bool:
+        """True for the K7 epilogue."""
+        return self._merged_epilogue
+
     def forward(self, d1: torch.Tensor, d2: torch.Tensor,
                 ops: Kernels = KERNELS) -> torch.Tensor:
         return mult_relin_rescale32(self, d1, d2, ops)
 
 
 def build_pipeline32(ctx: Context, rlk: torch.Tensor, chain_index: int = 1,
-                     device=None) -> CKKSPipeline32:
-    """rlk: the relin key (dnum, 2, K, N) over QP."""
+                     device=None, moddown_rows=None,
+                     merged_epilogue: bool = False) -> CKKSPipeline32:
+    """rlk: the relin key (dnum, 2, K, N) over QP; the epilogue options as
+    CKKSPipeline32's."""
     return CKKSPipeline32(ctx, convert_key32(ctx, rlk, chain_index),
-                          chain_index).to(resolve_device(device))
+                          chain_index, moddown_rows, merged_epilogue).to(
+                              resolve_device(device))
 
 
 def _rescale(p: CKKSPipeline32, x: torch.Tensor,
@@ -354,7 +397,9 @@ def mult_relin_rescale32(p: CKKSPipeline32, d1: torch.Tensor,
 
     Bit-identical to the JAX package's mult_relin_rescale32 (and so to
     its u64 evaluator's multiply_and_relin + rescale_to_next) on either
-    route: at alpha <= 8 the K4 route, above it _mult_relin_rescale_split."""
+    route (at alpha <= 8 the K4 route, above it _mult_relin_rescale_split)
+    and through each epilogue (_relin_rescale).  With merged_epilogue the
+    result is a view: rows [0, size_ql - 1) of K7's output."""
     ks = p.ks
     if not ks.fused_modup:
         return _mult_relin_rescale_split(p, d1, d2, ops)
@@ -378,9 +423,19 @@ def _mult_relin_rescale_split(p: CKKSPipeline32, d1: torch.Tensor,
 
 def _relin_rescale(p: CKKSPipeline32, s0, s1, d1, d2,
                    ops: Kernels) -> torch.Tensor:
-    """The moddown pair with the tensor terms c0, c1 added, then rescale."""
-    m0, m1 = moddown32_pair(p.ks, s0, s1, (d1, d2), ops)
-    return _rescale(p, torch.stack([m0, m1]), ops)
+    """The moddown of both halves with the tensor terms c0, c1 added, then
+    rescale, through the pipeline's epilogue: the pair (K1, K3) or K1 and
+    K8, then _rescale; or K1 and K7, which rescales too."""
+    ks = p.ks
+    if not p.merged_epilogue:
+        return _rescale(p, _moddown(ks, [s0, s1], (d1, d2), ops,
+                                    p.moddown_rows), ops)
+    y, v, sub = _moddown_inputs(ks, [s0, s1], ops)
+    out = ops.moddown_rescale(
+        y, ks.p_to_q.qhat_mod_p, v, ks.p_to_q.q_mod_p, sub, (d1, d2), ks.ntt,
+        ks.rows_ql, ks.pinv, ks.pinv_shoup, p.half, p.half_mod_q,
+        p.qlast_inv, p.qlast_inv_shoup)
+    return out[:, :ks.size_ql - 1]
 
 
 # ---------------------------------------------------------------------------
@@ -389,8 +444,8 @@ def _relin_rescale(p: CKKSPipeline32, s0, s1, d1, d2,
 
 class Galois32(nn.Module):
     """Rotation state at one level: the Galois elements, their NTT-form
-    gather indices `perms` (n_elts, N) and keys `evks` (n_elts, beta, 2,
-    size_qlp, N)."""
+    gather indices `perms` (n_elts, N) int32 and keys `evks` (n_elts,
+    beta, 2, size_qlp, N)."""
 
     def __init__(self, ctx: Context, data: torch.Tensor,
                  elts: Sequence[int], chain_index: int = 1):
@@ -399,7 +454,7 @@ class Galois32(nn.Module):
         n = ctx.params.n
         self.elts = tuple(int(e) for e in elts)
         self.register_buffer("perms", torch.from_numpy(np.stack(
-            [gal.make_ntt_perm(e, n) for e in self.elts])))
+            [gal.make_ntt_perm(e, n) for e in self.elts]).astype(np.int32)))
         self.register_buffer("evks", torch.stack(
             [convert_key32(ctx, k, chain_index) for k in data]))
 
@@ -461,7 +516,7 @@ def hoisted_linear_combo32(ks: KeySwitch32, g: Galois32, d: torch.Tensor,
         else:
             kidx = g.step_index(s)
             perm = g.perms[kidx]
-            s0, s1 = inner_product32(ks, t_up[:, :, perm], g.evks[kidx])
+            s0, s1 = inner_product32(ks, t_up, g.evks[kidx], ops, perm)
             w0 = s0.long() * pt % qlp
             w1 = s1.long() * pt % qlp
             term0 = c0[:, perm] * pt[:k] % q
@@ -486,7 +541,7 @@ def hoisting_sum32(ks: KeySwitch32, g: Galois32, d: torch.Tensor,
     for s in steps:
         kidx = g.step_index(s)
         perm = g.perms[kidx]
-        s0, s1 = inner_product32(ks, t_up[:, :, perm], g.evks[kidx])
+        s0, s1 = inner_product32(ks, t_up, g.evks[kidx], ops, perm)
         acc_c0 = (d[0][:, perm].long() + acc_c0) % q
         acc0 = (s0.long() + acc0) % qlp
         acc1 = (s1.long() + acc1) % qlp

@@ -16,8 +16,11 @@ import torch
 from phantom_tpu_torch import make_context
 from phantom_tpu_torch.host import numth
 from phantom_tpu_torch.ops import bconv_kernels as bk
+from phantom_tpu_torch.ops import ip_kernels as ik
+from phantom_tpu_torch.ops import moddown_kernels as mdk
 from phantom_tpu_torch.ops import modup_ip_kernels as mk
 from phantom_tpu_torch.ops import ntt_kernels as nk
+from phantom_tpu_torch.ops import pipeline32 as pp
 from phantom_tpu_torch.schemes.params import EncryptionParameters
 
 pytestmark = pytest.mark.gpu
@@ -151,6 +154,88 @@ def test_k4_modup_ip(dev, logn, alpha, beta, k_data, self_mul):
     got = mk.modup_ip(y, mats, c2, evk, t, k_data=k_data)
     assert mk.modup_ip.launches == before + 1
     _same(got, mk.modup_ip_plain(y, mats, c2, evk, t, k_data=k_data))
+
+
+@pytest.mark.parametrize("beta,k_out,perm", [(2, 65, False), (6, 51, False),
+                                             (6, 51, True)],
+                         ids=["beta2", "beta6", "beta6_perm"])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k9_inner_product(dev, logn, beta, k_out, perm):
+    """K9 at the headline's shapes (beta = 2, k_out = 65) and the hoisted
+    forms' (beta = 6, k_out = 51, with and without the gather index),
+    residues up to q - 1."""
+    n = 1 << logn
+    q = torch.tensor(numth.get_primes(2 * n, 29, k_out), dtype=torch.int32,
+                     device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + beta)
+
+    def res(shape):
+        r = torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+        r = (r % q.long().view(-1, 1)).int()
+        r[..., :4] = (q - 1).view(-1, 1)
+        return r
+
+    t, evk = res((beta, k_out, n)), res((beta, 2, k_out, n))
+    p = (torch.randperm(n, generator=gen, device=dev).int() if perm
+         else None)
+    before = ik.inner_product.launches
+    got = ik.inner_product(t, evk, q, p)
+    assert ik.inner_product.launches == before + 1
+    _same(got, ik.inner_product_plain(t, evk, q, p))
+
+
+def _moddown_operands(dev, logn, k, alpha):
+    """The moddown epilogues' operands at (k, alpha): the port's constants,
+    seeded residues for y (over P), sub, d1, d2 (over Ql) and a small v."""
+    n = 1 << logn
+    ctx = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, k),
+        numth.get_primes(2 * n, 29, alpha)), device=dev)
+    pipe = pp.CKKSPipeline32(ctx, torch.zeros(1, dtype=torch.int32)).to(dev)
+    ks = pipe.ks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + k + alpha)
+
+    def res(shape, q):
+        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                % q.long().view(-1, 1)).int()
+
+    y = res((2, alpha, n), ks.mv_qlp.q[k:])
+    v = torch.randint(0, alpha + 1, (2, n), generator=gen, device=dev).int()
+    sub, d1, d2 = (res((2, k, n), ks.mv_ql.q) for _ in range(3))
+    return pipe, (y, ks.p_to_q.qhat_mod_p, v, ks.p_to_q.q_mod_p, sub,
+                  (d1, d2), ks.ntt, ks.rows_ql, ks.pinv, ks.pinv_shoup)
+
+
+MODDOWN_SHAPES = [(43, 22), (43, 8), (5, 2)]  # headline, alpha 8, small
+
+
+@pytest.mark.parametrize("rows_per_block", [8, 2, 1])
+@pytest.mark.parametrize("k,alpha", MODDOWN_SHAPES)
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k8_moddown_rows(dev, logn, k, alpha, rows_per_block):
+    """K8 with and without the tensor adds; k % R != 0 masks a tail."""
+    _, args = _moddown_operands(dev, logn, k, alpha)
+    before = mdk.moddown_rows.launches
+    got = mdk.moddown_rows(*args, rows_per_block)
+    assert mdk.moddown_rows.launches == before + 1
+    _same(got, mdk.moddown_rows_plain(*args, rows_per_block))
+    bare = args[:5] + (None,) + args[6:]
+    _same(mdk.moddown_rows(*bare, rows_per_block),
+          mdk.moddown_rows_plain(*bare, rows_per_block))
+
+
+@pytest.mark.parametrize("k,alpha", MODDOWN_SHAPES + [(2, 3)])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k7_moddown_rescale(dev, logn, k, alpha):
+    pipe, args = _moddown_operands(dev, logn, k, alpha)
+    args += (pipe.half, pipe.half_mod_q, pipe.qlast_inv,
+             pipe.qlast_inv_shoup)
+    before = mdk.moddown_rescale.launches
+    got = mdk.moddown_rescale(*args)
+    assert mdk.moddown_rescale.launches == before + 1
+    _same(got, mdk.moddown_rescale_plain(*args))
 
 
 def test_launch_counts(dev):

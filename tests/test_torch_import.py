@@ -12,7 +12,8 @@ import torch
 from phantom_tpu_torch import make_context
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-from phantom_tpu_torch.ops import bconv_kernels, modup_ip_kernels, ntt_kernels
+from phantom_tpu_torch.ops import (bconv_kernels, ip_kernels, moddown_kernels,
+                                   modup_ip_kernels, ntt_kernels)
 
 _NO_JAX = """
 import os, sys
@@ -82,9 +83,16 @@ def meta_args():
 
 @pytest.mark.parametrize("kernel", ["ntt_forward", "ntt_inverse",
                                     "bconv_ntt_forward", "fold_matmul",
-                                    "modup_ip"])
+                                    "modup_ip", "inner_product",
+                                    "moddown_rows", "moddown_rescale"])
 def test_meta_tensor_raises(meta_args, kernel):
     t, x = meta_args
+
+    def m(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    md = (m(2, 1, 1024), m(1, 1), m(2, 1024), m(1), m(2, 1, 1024),
+          (m(2, 1, 1024), m(2, 1, 1024)), t, None, m(1), m(1))
     calls = {
         "ntt_forward": lambda: ntt_kernels.ntt_forward(x, t),
         "ntt_inverse": lambda: ntt_kernels.ntt_inverse(x, t),
@@ -98,6 +106,11 @@ def test_meta_tensor_raises(meta_args, kernel):
             x[:2], torch.empty((1, 3, 2), dtype=torch.int32, device="meta"),
             x[:2], torch.empty((1, 2, 3, 1024), dtype=torch.int32,
                                device="meta"), t),
+        "inner_product": lambda: ip_kernels.inner_product(
+            m(1, 1, 1024), m(1, 2, 1, 1024), m(1)),
+        "moddown_rows": lambda: moddown_kernels.moddown_rows(*md),
+        "moddown_rescale": lambda: moddown_kernels.moddown_rescale(
+            *md, 1, m(0), m(0), m(0)),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()

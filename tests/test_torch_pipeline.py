@@ -1,9 +1,11 @@
 """The port's CKKS mult+relin+rescale step against the JAX package:
 its tables against build_pipeline32's, its output on both modup routes
-against JAX mult_relin_rescale32 on the xla-split structure (golden files
-at n = 128 and n = 1024, made by tests/fixtures/gen_torch_port_fixtures.py
-with the Pallas kernels in interpret mode), a real JAX key carried over
-by convert.py against the u64 evaluator, and its own keys and encryptions
+and through each epilogue against JAX mult_relin_rescale32 on the
+xla-split structure (golden files at n = 128 and n = 1024, made by
+tests/fixtures/gen_torch_port_fixtures.py with the Pallas kernels in
+interpret mode; the JAX package's composed and merged epilogues are
+bit-identical, tests/test_pipeline32.py), a real JAX key carried over by
+convert.py against the u64 evaluator, and its own keys and encryptions
 decrypting to the exact product.  Bit-exact throughout."""
 
 import os
@@ -36,7 +38,7 @@ def u32(t):
 def step(request):
     """The golden file's random relin key, d1, d2 and JAX output (k = 4
     and 5 data primes, alpha = 2, n = 128), with the JAX and port
-    pipelines built on that key."""
+    pipelines built on that key and the port's context."""
     g = np.load(os.path.join(FIXTURES, f"step_n128_{request.param}.npz"))
     qs, ps = g["data_moduli"].tolist(), g["special_moduli"].tolist()
     n = g["d1"].shape[-1]
@@ -46,11 +48,15 @@ def step(request):
         g["rlk"].astype(np.uint64))), use_pallas="mxu-pallas")
     tctx = make_context(EncryptionParameters.create(n, qs, ps), device=CPU)
     tp = tpp.build_pipeline32(tctx, convert.residues(g["rlk"]), device=CPU)
-    return jp, tp, g
+    return jp, tp, g, tctx
+
+
+EPILOGUES = {"K8_R2": dict(moddown_rows=2), "K8_R8": dict(moddown_rows=8),
+             "K7": dict(merged_epilogue=True)}
 
 
 def test_tables_match_build_pipeline32(step):
-    jp, tp, _ = step
+    jp, tp, *_ = step
     jks, tks = jp.ks, tp.ks
     pairs = [(jks.pinv, tks.pinv), (jks.pinv_shoup, tks.pinv_shoup),
              (jks.modup_scale, tks.modup_scale),
@@ -82,12 +88,32 @@ def test_step_matches_jax(step):
     """Both of the port's routes (alpha = 2: the K4 route by default, the
     xla-split route through its own function) equal the JAX xla-split
     output."""
-    _, tp, g = step
+    _, tp, g, _ = step
     d1, d2 = convert.residues(g["d1"]), convert.residues(g["d2"])
     assert tp.ks.fused_modup
     np.testing.assert_array_equal(u32(tp(d1, d2)), g["out"])
     np.testing.assert_array_equal(
         u32(tpp._mult_relin_rescale_split(tp, d1, d2)), g["out"])
+
+
+@pytest.mark.parametrize("epilogue", list(EPILOGUES))
+def test_step_epilogues_match_jax(step, epilogue):
+    """The step through K8 (R = 2 and 8: a masked tail row at k = 5, k <
+    R) and through K7, on both routes, equals the JAX output."""
+    _, tp, g, ctx = step
+    p = tpp.CKKSPipeline32(ctx, tp.evk, **EPILOGUES[epilogue])
+    d1, d2 = convert.residues(g["d1"]), convert.residues(g["d2"])
+    np.testing.assert_array_equal(u32(p(d1, d2)), g["out"])
+    np.testing.assert_array_equal(
+        u32(tpp._mult_relin_rescale_split(p, d1, d2)), g["out"])
+
+
+def test_epilogue_options_exclude_each_other(step):
+    _, tp, _, ctx = step
+    with pytest.raises(ValueError, match="choose one"):
+        tpp.CKKSPipeline32(ctx, tp.evk, moddown_rows=2, merged_epilogue=True)
+    with pytest.raises(ValueError, match="outside"):
+        tpp.CKKSPipeline32(ctx, tp.evk, moddown_rows=9)
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +128,15 @@ def golden():
 def test_golden(golden):
     g, ctx = golden
     p = tpp.CKKSPipeline32(ctx, convert.residues(g["evk"]))
+    got = p(convert.residues(g["d1"]), convert.residues(g["d2"]))
+    np.testing.assert_array_equal(u32(got), g["out"])
+
+
+@pytest.mark.parametrize("epilogue", ["K8_R8", "K7"])
+def test_golden_epilogues(golden, epilogue):
+    g, ctx = golden
+    p = tpp.CKKSPipeline32(ctx, convert.residues(g["evk"]),
+                           **EPILOGUES[epilogue])
     got = p(convert.residues(g["d1"]), convert.residues(g["d2"]))
     np.testing.assert_array_equal(u32(got), g["out"])
 

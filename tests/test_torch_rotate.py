@@ -2,7 +2,9 @@
 golden file tests/fixtures/torch_port/rotate_n1024.npz (n = 1024, five
 data primes, alpha = 2, beta = 3 with a short last digit; real JAX keys
 carried over by convert.py, outputs of the mxu-pallas engine's default
-dispatch, which runs the fused modup + inner product at alpha <= 8),
+dispatch, which runs the fused modup + inner product at alpha <= 8), the
+step through each of its epilogues against the same file, the hoisted
+forms' inner products through ops.inner_product with their permutations,
 inner_product32 at beta > 4, the Galois tables, and the port's own keys
 and encryptions decrypting to the rotated polynomials.  Bit-exact."""
 
@@ -25,7 +27,7 @@ from phantom_tpu_torch.schemes.params import EncryptionParameters
 
 CPU = torch.device("cpu")
 GOLDEN = ["rotate", "keyswitch", "hoisting_sum", "linear_combo", "moddown",
-          "step"]
+          "step", "step_K8", "step_K7"]
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +39,31 @@ def golden():
 def test_rotate_golden(golden, name):
     got, want = golden[name]
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_hoisted_forms_through_inner_product():
+    """Each key-switched step of both hoisted forms is one ops.inner_product
+    call on the shared modup tensor with that step's permutation (step 0
+    of the combination needs none); the outputs equal the golden file."""
+    g, _, ks, gal, t = chip_smoke.rotate_golden_state(CPU)
+    calls = []
+
+    def inner_product(t_up, evk, q, perm=None):
+        calls.append(perm)
+        return tpp.PLAIN.inner_product(t_up, evk, q, perm)
+
+    ops = tpp.PLAIN._replace(inner_product=inner_product)
+    hoist = g["hoist_steps"].tolist()
+    combo = g["combo_steps"].tolist()
+    got = tpp.hoisting_sum32(ks, gal, t["d1"], hoist, ops)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), g["hoist"])
+    got = tpp.hoisted_linear_combo32(ks, gal, t["d1"], combo, list(t["pts"]),
+                                     ops)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), g["combo"])
+    keyed = hoist + [s for s in combo if s % (t["d1"].shape[-1] // 2)]
+    assert len(calls) == len(keyed)
+    for perm, s in zip(calls, keyed):
+        assert torch.equal(perm, gal.perms[gal.step_index(s)])
 
 
 def test_galois_tables_match():
