@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CKKS key switching on one NVIDIA GPU and
-check it.
+"""Drive the PyTorch/CUDA port's CKKS key switching and BFV multiply on one
+NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
 
-Two configurations, both N = 2^16 with 43 data primes of 28 bits from
+Three configurations, all N = 2^16 with 43 data primes of 28 bits from
 chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
   headline  22 special primes of 29 bits (dnum 2, the last digit 21 rows):
             the multiply + relinearize + rescale step on the xla-split
@@ -14,7 +14,13 @@ chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
   alpha 8   8 special primes of 29 bits (dnum 6, the last digit 3 rows):
             rotations, hoisted rotations (K9 per step) and the step on the
             fused modup (K1, K3, K4), as the JAX package's default dispatch
-            runs them at alpha <= 8.
+            runs them at alpha <= 8;
+  BFV       `bench.py --scheme bfv` at its defaults: alpha 22, t the 20-bit
+            batching prime, the 44 Rl primes below min(QP), so D = Ql u Rl
+            has 87 rows: the HPS multiply + relinearize step in coefficient
+            form on the default engine (K5 x10, K2, K1 x3, K4's coefficient
+            form, K3) and on "pallas-roll" (K6 for every transform, K5 x14,
+            K9).
 Phases, one line each or more; any failure exits non-zero:
 
   1. device    card name and power limit, CUDA, nvcc, triton, device count
@@ -58,6 +64,27 @@ Phases, one line each or more; any failure exits non-zero:
  13. alpha-8 timing  chained steps on both routes in turns, chained
                rotations, hoisting_sum32, hoisted_linear_combo32, peak
                memory
+ 14. BFV golden  the BFV step (n = 1024, alpha = 2, a short last digit)
+               and the key switch of its d1[1] on both engines through the
+               kernels, and the decryption of the step, bit-equal to the
+               JAX package's outputs
+ 15. BFV setup  the context, the secret and relin keys and two symmetric
+               encryptions of polynomials with coefficients in [-3, 3], from
+               a seeded generator
+ 16. BFV kernels  every kernel call of one step on each engine bit-equal to
+               its plain version, and timed; K6 (at 8, 4 and 2 blocks per
+               row) beside K2 and K1 on the same operands: the D forward
+               (2, 2, 87, N) and the D inverse (3, 87, N)
+ 17. BFV step  kernel path = plain path on each engine, the engines equal,
+               the launch counts; d1, d2 decrypt to m1, m2, and the step's
+               output to m1 m2 mod (X^N + 1, t) in every coefficient where
+               HPS's bound holds (hps_bound; the golden file of phase 14
+               is inside it, the full configuration is not: its count of
+               right coefficients is printed)
+ 18. BFV timing  chained steps (each output the next d1, d2 fixed), the
+               engines in turns (default, roll, roll, default), the plain
+               path once, peak memory per engine; the profiler over a few
+               chained steps of each engine
 Then a {"kernels": [...]} line: per kernel its launches over the counted
 path runs (EXPECTED), its largest error against plain, and the summed time
 of the probed calls (phases 4 and 9) through the kernel and the plain
@@ -89,8 +116,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
 GOLDEN = os.path.join(FIXTURES, "ckks_step_n1024.npz")
 ROTATE_GOLDEN = os.path.join(FIXTURES, "rotate_n1024.npz")
+BFV_GOLDEN = os.path.join(FIXTURES, "bfv_step_n1024.npz")
 HEADLINE = dict(n=1 << 16, limbs=43, alpha=22, bits=28)
 ALPHA8 = dict(n=1 << 16, limbs=43, alpha=8, bits=28)
+BFV = dict(n=1 << 16, limbs=43, alpha=22, bits=28, t_bits=20)
+ENGINES = ("mxu-pallas", "pallas-roll")
+CHAIN_BFV_STEPS = 10
+CLUSTERS = (8, 4, 2)  # K6's blocks per 2^16-word row, timed in turns
 STEPS = tuple(range(1, 8))
 DELTA_BITS = 22
 SEED = 2026
@@ -115,6 +147,12 @@ KERNELS = [  # name, wrapper attribute, source, the TPU kernel it replaces
      "phantom_tpu/ops/ntt_mxu_pallas.py:877"),
     ("K7", "moddown_rescale", "phantom_tpu_torch/csrc/moddown_rescale.cu",
      "phantom_tpu/ops/ntt_mxu_pallas.py:1101"),
+    ("K4c", "modup_ip_coeff", "phantom_tpu_torch/csrc/modup_ip.cu",
+     "phantom_tpu/ops/ntt_mxu_pallas.py:1427"),
+    ("K6f", "ntt_forward_roll", "phantom_tpu_torch/csrc/ntt_roll.cu",
+     "phantom_tpu/ops/ntt_pallas_roll.py:274"),
+    ("K6i", "ntt_inverse_roll", "phantom_tpu_torch/csrc/ntt_roll.cu",
+     "phantom_tpu/ops/ntt_pallas_roll.py:306"),
 ]
 
 
@@ -134,6 +172,13 @@ EXPECTED = {  # launches per path run
     "alpha-8 step, K8 epilogue": _launches(K1=3, K3=1, K4=1, K8=1),
     "alpha-8 step, K7 epilogue": _launches(K1=2, K4=1, K7=1),
     "alpha-8 xla-split step": _launches(K1=3, K2=1, K3=2, K5=6, K9=1),
+    # the JAX package's dispatch: 4 lifts and 3 scale-and-rounds of 2 K5
+    # each; K4's coefficient form, the moddown pair (K1, K3)
+    "BFV step, mxu-pallas": _launches(K1=3, K2=1, K3=1, K4c=1, K5=10),
+    # every transform K6: D forward, modup, 2 moddown forwards (fused) and
+    # D inverse, 2 moddown inverses, the switched pair; K5 also converts
+    # each digit (2) and each moddown (2)
+    "BFV step, pallas-roll": _launches(K5=14, K9=1, K6f=4, K6i=4),
 }
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
@@ -154,6 +199,71 @@ def chain_params(n: int, limbs: int, alpha: int, bits: int = 28):
     qs = numth.get_primes(2 * n, bits, limbs + 1)
     ps = numth.get_primes(2 * n, bits + 1, alpha)
     return EncryptionParameters.create(n, qs[:limbs], ps)
+
+
+def bfv_params(n: int, limbs: int, alpha: int, bits: int = 28,
+               t_bits: int = 20):
+    """chain_params' primes with BFV's plain modulus, the largest t_bits-bit
+    prime == 1 mod 2n (bench.py --scheme bfv)."""
+    from phantom_tpu_torch import EncryptionParameters
+    from phantom_tpu_torch.host.modulus import PlainModulus
+    p = chain_params(n, limbs, alpha, bits)
+    return EncryptionParameters.create(n, p.data_moduli, p.special_moduli,
+                                       "bfv", PlainModulus.batching(n, t_bits))
+
+
+def make_bfv_inputs(ctx, seed: int, device):
+    """The secret key, the relin key over QP and two symmetric encryptions
+    of random polynomials with coefficients in [-3, 3], from a seeded
+    generator on `device`."""
+    import torch
+    from phantom_tpu_torch.schemes import keys
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sk = keys.gen_secret_key(ctx, gen)
+    rlk = keys.gen_relin_key(ctx, sk, gen)
+    rng = np.random.default_rng(seed)
+    m1, m2 = (rng.integers(-3, 4, ctx.params.n) for _ in range(2))
+    d1, d2 = (keys.encrypt_symmetric(ctx, sk, torch.as_tensor(m,
+                                                              device=device),
+                                     gen) for m in (m1, m2))
+    return sk, rlk, d1, d2, m1, m2
+
+
+def hps_bound(ctx):
+    """(log2 Rl/Ql, log2 2Nt, whether Rl/Ql > 2Nt) at chain index 1.  The
+    HPS step lifts each operand to its value in [0, Ql), so a product
+    coefficient is below N Ql^2 in size and W = round(t x / Ql) below
+    N t Ql; W is read back from its residues mod Rl as a centered value,
+    which is exact only when |W| < Rl / 2: Rl / Ql > 2 N t suffices."""
+    import math
+    b = ctx.get_context_data(1).bfv
+    margin = sum(math.log2(r) for r in b.rl) - math.log2(b.big_ql)
+    need = math.log2(2 * ctx.params.n * ctx.params.plain_modulus)
+    return margin, need, margin > need
+
+
+def bfv_golden(device, path: str = BFV_GOLDEN):
+    """The BFV golden file through the port on `device`: {name: (port
+    output, JAX output)} for the step and the key switch of d1[1] on each
+    engine, and the decryption of the JAX step output."""
+    from phantom_tpu_torch import convert, make_context
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    g = np.load(path)
+    ctx = make_context(EncryptionParameters.create(
+        int(g["d1"].shape[-1]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), "bfv", int(g["t"])), device=device)
+    d1, d2, out, sk = (convert.residues(g[k]).to(device)
+                       for k in ("d1", "d2", "out", "sk"))
+    res = {"decrypt": (keys.decrypt(ctx, sk, out), g["pt_out"])}
+    for engine in ENGINES:
+        p = convert.bfv_pipeline(ctx, g["rlk"], engine=engine)
+        res[f"step, {engine}"] = (p(d1, d2), g["out"])
+        res[f"keyswitch32, {engine}"] = (pp.keyswitch32(p.ks, d1[1], p.evk),
+                                         g["keyswitch"])
+    return res
 
 
 def encode_coeffs(ctx, m: np.ndarray, delta_bits: int, rows=None):
@@ -360,7 +470,7 @@ def call_bound(name: str, a: dict, out):
         return (w * (_n(a["y"]) + _n(a["mat"]) + _n(out)),
                 k_out * n * (2 * k_in + _reduce_ops(k_in, _max(a["y"]),
                                                     _max(a["mat"]))))
-    if name in ("K1", "K2"):
+    if name in ("K1", "K2", "K6f", "K6i"):
         x = a["x"]
         n, num_l = x.shape[-1], x.shape[-2]
         rows_n = x.numel() // n
@@ -368,7 +478,7 @@ def call_bound(name: str, a: dict, out):
         byt = w * (x.numel() + out0.numel()) + _table_bytes(
             a["t"], a["rows"], num_l)
         ops = _ntt_ops(rows_n, n)
-        if name == "K1":
+        if name in ("K1", "K6i"):
             ops += 3 * x.numel()
             if a["mul_by"] is not None:
                 byt += w * a["mul_by"].numel()
@@ -426,12 +536,14 @@ def call_bound(name: str, a: dict, out):
         ops += _ntt_ops(2 * k, n) + _ntt_ops(2, n) + 3 * 2 * n
         ops += 12 * 2 * n + 26 * 2 * (k - 1) * n
         return byt, ops
-    if name == "K4":
-        y, mats, c2, evk = a["y"], a["mats"], a["c2"], a["evk"]
+    if name in ("K4", "K4c"):
+        y, mats, c2, evk = a["y"], a["mats"], a.get("c2"), a["evk"]
         beta, k_out, alpha = mats.shape
         n = y.shape[-1]
-        kd = beta * alpha if a["k_data"] is None else a["k_data"]
-        pairs = c2 if isinstance(c2, tuple) else (c2,)
+        # the coefficient form (K4c) passes no row through
+        kd = 0 if c2 is None else (beta * alpha if a["k_data"] is None
+                                   else a["k_data"])
+        pairs = () if c2 is None else c2 if isinstance(c2, tuple) else (c2,)
         conv = beta * k_out - kd
         byt = w * (y.numel() + mats.numel() + len(pairs) * kd * n
                    + evk.numel() + _n(out)) + _table_bytes(
@@ -583,6 +695,203 @@ def _chain_timing(runs, make_chain, steps: int, card: str, what: str):
     return finals
 
 
+def _profile(run, steps: int, card: str, what: str) -> None:
+    """torch.profiler over `steps` calls of run(): device-busy time per
+    call against the wall time, and the top device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    if busy_ms == 0:
+        print(f"profile {what}: device time not measured (no CUDA events) "
+              f"[{card}]")
+        return
+    print(f"profile {what}: {busy_ms:.3f} ms device-busy of {wall_ms:.3f} ms "
+          f"wall per step, idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3 / steps
+        print(f"profile   {ms:8.4f} ms/step {e.count // steps:4d}x  "
+              f"{e.key[:90]}")
+
+
+def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
+    """Phases 14-18: the BFV HPS step on both engines."""
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import bfv32, ntt_kernels, ntt_roll_kernels
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import keys
+
+    # 14. golden
+    for name, (got, want) in bfv_golden(dev).items():
+        if not np.array_equal(got.cpu().numpy().astype(np.uint32), want):
+            raise RuntimeError(f"BFV golden: {name} differs from the JAX "
+                               "output")
+        print(f"BFV golden: {name} bit-equal to the JAX package's output "
+              f"{tuple(want.shape)}")
+
+    # 15. setup
+    t0 = time.time()
+    params = bfv_params(**BFV)
+    ctx = make_context(params)
+    t_ctx = time.time() - t0
+    sk, rlk, d1, d2, m1, m2 = make_bfv_inputs(ctx, SEED, dev)
+    pipes = {e: bfv32.build_bfv32(ctx, rlk, engine=e) for e in ENGINES}
+    torch.cuda.synchronize()
+    print(f"BFV setup: N={params.n} L={params.size_q} alpha={params.size_p} "
+          f"dnum={pipes[ENGINES[0]].ks.beta} t={params.plain_modulus} "
+          f"|Rl|={len(ctx.rl_moduli)} (D {len(ctx.rl_moduli) + params.size_q}"
+          f" rows); context (host tables of {ctx.ntt.num_limbs} moduli) "
+          f"{t_ctx:.1f} s, keys and encryptions {time.time() - t0:.1f} s")
+
+    # 16. kernels under the probes, and K6 beside K2 / K1 on equal work
+    for p in pipes.values():
+        p(d1, d2, probes)
+    _print_calls(probes, card, since)
+    seen = {}
+
+    def keep(name, fn):
+        def call(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return call
+
+    pipes["pallas-roll"](d1, d2, pp.KERNELS._replace(
+        ntt_forward_roll=keep("fwd", ntt_roll_kernels.ntt_forward_roll),
+        ntt_inverse_roll=keep("inv", ntt_roll_kernels.ntt_inverse_roll)))
+    for what, two_pass, one_pass, bname in (
+            ("D forward", ntt_kernels.ntt_forward,
+             ntt_roll_kernels.ntt_forward_roll, "K2"),
+            ("D inverse", ntt_kernels.ntt_inverse,
+             ntt_roll_kernels.ntt_inverse_roll, "K1")):
+        (x, t, rows), _ = seen["fwd" if bname == "K2" else "inv"]
+        ref = two_pass(x, t, rows)
+        ba = inspect.signature(getattr(pp.PLAIN, two_pass.__name__)).bind(
+            x, t, rows)
+        ba.apply_defaults()
+        b_ms, b_by = bound_ms(*call_bound(bname, ba.arguments, ref))
+        runs = [(f"K6 C={c}", lambda c=c: one_pass(x, t, rows, cluster=c))
+                for c in CLUSTERS] + [(f"{bname} two-pass",
+                                       lambda: two_pass(x, t, rows))]
+        for label, fn in runs:
+            if not torch.equal(fn(), ref):
+                raise RuntimeError(f"{what}: {label} differs from {bname}")
+        times = {}
+        for label, fn in runs + runs[::-1]:
+            times.setdefault(label, []).append(_time(fn, REPS))
+        runs_ms = {k: ", ".join(f"{u:.4f}" for u in v)
+                   for k, v in times.items()}
+        print(f"K6 vs two-pass, {what} {tuple(x.shape)} (equal work, "
+              f"bit-equal): " + ", ".join(
+                  f"{k} {np.mean(v):.4f} ms ({runs_ms[k]})"
+                  for k, v in times.items())
+              + f"; bound {b_ms:.4f} ms by {b_by} [{card}]")
+
+    # 17. step: kernels = plain, engines equal, launches, decryption
+    outs = {}
+    for e, p in pipes.items():
+        outs[e] = _count(wrappers, f"BFV step, {e}", lambda: p(d1, d2),
+                         launches)
+        if not torch.equal(outs[e], p(d1, d2, pp.PLAIN)):
+            raise RuntimeError(f"BFV step ({e}): kernel path differs from "
+                               "the plain path")
+    if not torch.equal(*outs.values()):
+        raise RuntimeError("BFV step: the engines differ")
+    print(f"BFV step: kernel path bit-equal to the plain path on both "
+          f"engines, the engines bit-equal {tuple(outs[ENGINES[0]].shape)}")
+    t_ = params.plain_modulus
+    for name, d, m in (("d1", d1, m1), ("d2", d2, m2)):
+        if not np.array_equal(keys.decrypt(ctx, sk, d).cpu().numpy(), m % t_):
+            raise RuntimeError(f"BFV decrypt: {name} does not decrypt to its "
+                               "message")
+    got = keys.decrypt(ctx, sk, outs[ENGINES[0]]).cpu().numpy()
+    right = int((got == negacyclic_product(m1, m2) % t_).sum())
+    margin, need, inside = hps_bound(ctx)
+    if inside and right != params.n:
+        raise RuntimeError(f"BFV decrypt: {params.n - right} coefficients of "
+                           "m1*m2 differ inside HPS's bound")
+    print(f"BFV decrypt: d1, d2 decrypt to m1, m2 in all {params.n} "
+          f"coefficients; the step's output to m1*m2 mod (X^N + 1, t) in "
+          f"{right} of {params.n}; HPS's bound Rl/Ql > 2 N t: log2 Rl/Ql = "
+          f"{margin:.2f}, log2 2Nt = {need:.2f}, "
+          f"{'inside' if inside else 'OUTSIDE'} the bound")
+
+    # 18. timing
+    def chain(route):
+        p = pipes["mxu-pallas" if route == "plain path" else route]
+        ops = pp.PLAIN if route == "plain path" else pp.KERNELS
+
+        def run(steps):
+            d = d1
+            for _ in range(steps):
+                d = p(d, d2, ops)
+            return d
+        return run
+
+    finals = _chain_timing(ENGINES + ENGINES[::-1] + ("plain path",), chain,
+                           CHAIN_BFV_STEPS, card, "BFV step")
+    if not all(torch.equal(f, finals["plain path"]) for f in finals.values()):
+        raise RuntimeError("BFV timing: chained outputs differ")
+    for e in ENGINES:
+        d = [d1]
+
+        def run(e=e):
+            d[0] = pipes[e](d[0], d2)
+        _profile(run, PROFILE_STEPS, card, f"BFV step, {e}")
+        _bfv_stages(pipes[e], d1, d2, card)
+
+
+def _bfv_stages(p, d1, d2, card: str) -> None:
+    """Where one BFV step's time goes: each stage timed alone on the
+    step's own operands (CUDA events), the D -> Rl scale-and-round's K5
+    omega matmul beside the whole round."""
+    import torch
+    from phantom_tpu_torch.ops import bfv32, scaleround32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    ks, ops = p.ks, pp.KERNELS
+
+    def lift():
+        return torch.stack([bfv32._lift(p, d1, ops), bfv32._lift(p, d2, ops)])
+
+    lifted = lift()
+    ab = pp._fwd(ks, lifted, p.rows_d, ops)
+    tp = bfv32._tensor_2x2(p, ab)
+    prod = pp._inv(ks, tp, p.rows_d, ops)
+    d3 = torch.stack([bfv32._scale_and_round_hps32(p, x) for x in prod])
+    sr = p.sr_to_r
+    y = prod[0]
+    stages = {
+        "lift (K5 x4)": lift,
+        "D forward": lambda: pp._fwd(ks, lifted, p.rows_d, ops),
+        "tensor product": lambda: bfv32._tensor_2x2(p, ab),
+        "D inverse": lambda: pp._inv(ks, tp, p.rows_d, ops),
+        "scale-and-round x3 (K5 x6)": lambda: [
+            bfv32._scale_and_round_hps32(p, x) for x in prod],
+        "relinearize": lambda: bfv32.bfv_relin32(p, d3),
+    }
+    times = {k: _time(f, REPS) for k, f in stages.items()}
+    round_ms = _time(lambda: scaleround32.scale_and_round_exact32(y, sr),
+                     REPS)
+    omega_ms = _time(lambda: ops.fold_matmul(y, sr.omega_mod_out,
+                                             sr.obase.q), REPS)
+    print(f"BFV stages, {ks.engine}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; sum {sum(times.values()):.3f} ms; one D -> Rl round "
+          f"{round_ms:.3f} ms, of it the K5 omega matmul {omega_ms:.3f} ms "
+          f"[{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -591,12 +900,13 @@ def main() -> int:
     from phantom_tpu_torch import _build, make_context
     from phantom_tpu_torch.ops import bconv_kernels, ip_kernels
     from phantom_tpu_torch.ops import moddown_kernels, modup_ip_kernels
-    from phantom_tpu_torch.ops import ntt_kernels
+    from phantom_tpu_torch.ops import ntt_kernels, ntt_roll_kernels
     from phantom_tpu_torch.ops import pipeline32 as pp
     from phantom_tpu_torch.schemes import galois
+    from phantom_tpu_torch.schemes.context import resolve_device
     from phantom_tpu_torch.schemes.params import EncryptionParameters
 
-    dev = torch.device("cuda")
+    dev = resolve_device()
     card = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
     print(card)
@@ -653,7 +963,10 @@ def main() -> int:
     wrappers = [ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                 ntt_kernels.bconv_ntt_forward, bconv_kernels.fold_matmul,
                 modup_ip_kernels.modup_ip, ip_kernels.inner_product,
-                moddown_kernels.moddown_rows, moddown_kernels.moddown_rescale]
+                moddown_kernels.moddown_rows, moddown_kernels.moddown_rescale,
+                modup_ip_kernels.modup_ip_coeff,
+                ntt_roll_kernels.ntt_forward_roll,
+                ntt_roll_kernels.ntt_inverse_roll]
     probes = _probes(pp, wrappers)
     since = {name: 0 for name, *_ in KERNELS}
     # the same relin key through each epilogue
@@ -727,33 +1040,12 @@ def main() -> int:
         f"R={r} {ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
 
     # 7. profile: where one chained kernel-path step's device time goes
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    d = d1
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            d = remix(pipe(d, d2), q_pad)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / (
-        PROFILE_STEPS)
-    if busy_ms == 0:
-        print(f"profile: device time not measured (no CUDA events) [{card}]")
-    else:
-        print(f"profile: {busy_ms:.3f} ms device-busy of {wall_ms:.3f} ms "
-              f"wall per step, idle share {1 - busy_ms / wall_ms:.3f} "
-              f"[{card}]")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-            ms = e.self_device_time_total / 1e3 / PROFILE_STEPS
-            print(f"profile   {ms:8.4f} ms/step "
-                  f"{e.count // PROFILE_STEPS:4d}x  {e.key[:90]}")
-    del sk, pipe, pipes, d1, d2, out, out_plain, finals, d, prof
+    dd = [d1]
+
+    def prof_step():
+        dd[0] = remix(pipe(dd[0], d2), q_pad)
+    _profile(prof_step, PROFILE_STEPS, card, "headline step")
+    del sk, pipe, pipes, d1, d2, out, out_plain, finals, dd
     torch.cuda.empty_cache()
 
     # 8. alpha = 8 setup
@@ -865,6 +1157,12 @@ def main() -> int:
           f"{_time(lambda: combo(pp.KERNELS), REPS):.3f} ms; both hoisted "
           f"forms max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+    del ctx8, sk8, pipe8, e1, e2, gal, ks8, pts, pipes8, finals, out8
+    del out_split
+    torch.cuda.empty_cache()
+
+    # 14-18. BFV
+    _bfv_phases(card, probes, wrappers, since, launches, dev)
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):

@@ -32,6 +32,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "phantom_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+# bytes of shared memory one block can opt into on sm_90 (above 48 KB only
+# as dynamic shared memory, after cudaFuncSetAttribute)
+SMEM_OPTIN = 232448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -52,6 +56,7 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P], _I),
     "ptk_moddown_rescale": ([_P] * 14 + [_I, _I, _I] + [_P] * 8
                             + [_I, _P], _I),
+    "ptk_ntt_roll": ([_P] * 6 + [_I] * 4 + [_P] * 5 + [_I, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,10 @@
 
 Takes numpy arrays only (call `np.asarray` on a JAX array first), so this
 module, like the rest of the port, never imports JAX.  Residues are below
-2^30, so u64 and u32 words both become int32 tensors with the same bits.
+2^30, so u64 and u32 words both become int32 tensors with the same bits:
+`residues` carries ciphertexts (CKKS in NTT form, BFV in coefficient
+form), secret keys and plaintexts; the relin key becomes a level's evk
+(`relin_evk`) or a whole BFV step (`bfv_pipeline`).
 """
 
 from __future__ import annotations
@@ -10,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.pipeline32 import Galois32, convert_key32
+from .ops.bfv32 import BFVPipeline32, build_bfv32
+from .ops.pipeline32 import DEFAULT_ENGINE, Galois32, convert_key32
 from .schemes.context import Context
 
 
@@ -37,3 +41,11 @@ def galois_keys(ctx: Context, glk_data: np.ndarray, elts,
     level's rotation state, on the context's device."""
     return Galois32(ctx, residues(glk_data), elts, chain_index).to(
         ctx.key_q.device)
+
+
+def bfv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,
+                 engine: str = DEFAULT_ENGINE) -> BFVPipeline32:
+    """A BFV context's RelinKey.data (dnum, 2, K, N) -> the HPS step at
+    this level on `engine`, on the context's device."""
+    return build_bfv32(ctx, residues(rlk_data).to(ctx.key_q.device),
+                       chain_index, engine, ctx.key_q.device)

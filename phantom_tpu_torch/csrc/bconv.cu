@@ -8,7 +8,11 @@
 // matrix in shared memory, and every output row is one exact 128-bit dot
 // product and one reduction.  At the main path's shapes (k_in ~ 22,
 // k_out ~ 44) it reads y once and writes out once, so device memory bounds
-// it, with k_in * k_out 64-bit products per column beside that.
+// it, with k_in * k_out 64-bit products per column beside that.  BFV's
+// scale-and-round from D = Ql u Rl (k_in 87, k_out 44 at the headline)
+// stages 59,856 bytes, past the 48 KB a launch gets by default: above
+// that the launch opts into the larger dynamic shared memory first, and a
+// size beyond the device's limit fails there with its CUDA error.
 
 #include "modarith.cuh"
 
@@ -56,7 +60,14 @@ int ptk_fold_matmul_smem(int k_in, int k_out) {
 int ptk_fold_matmul(void* out, const void* y, const void* mat, const void* q,
                     int k_in, int k_out, int n, void* stream) {
   const int blocks = (n + kBconvCols - 1) / kBconvCols;
-  fold_matmul_kernel<<<blocks, kBconvCols, ptk_fold_matmul_smem(k_in, k_out),
+  const int smem = ptk_fold_matmul_smem(k_in, k_out);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fold_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  fold_matmul_kernel<<<blocks, kBconvCols, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(y), static_cast<const uint32_t*>(mat),
       static_cast<const uint32_t*>(q), k_in, k_out, n,

@@ -6,8 +6,12 @@
 //   T_d[j] = NTT_j(sum_i y[d alpha + i] * mat[d, j, i] mod q_j)
 // except inside digit d (d alpha <= j < min((d+1) alpha, k_data)), where
 // T_d[j] is the NTT-form passthrough row a[j], or a[j] b[j] mod q_j (the
-// fused tensor product of the CKKS step).  The digit sum is exact: a 64-bit
-// low word and a carry count per element, one 128-bit reduction at the end.
+// fused tensor product of the CKKS step).  With a null, the coefficient
+// form (the TPU kernel's c2_ntt=None, BFV's relinearization), there is no
+// passthrough: every (d, j) pair converts and transforms, the digit's own
+// rows through the qhat diagonal the caller puts in mat, and launch A
+// stores every row.  The digit sum is exact: a 64-bit low word and a carry
+// count per element, one 128-bit reduction at the end.
 //
 // The TPU kernel carries the digit sum in VMEM across its sequential grid
 // axis; CUDA blocks run in no order, so here one block owns a 4096-word
@@ -39,8 +43,10 @@ struct ModupArgs {
   const uint32_t* evk;  // (beta, 2, k_out, N)
   int alpha, beta, k_out, k_data;
 
+  // the coefficient form (a null) has no passthrough rows
   __device__ __forceinline__ bool in_digit(int d, int j) const {
-    return j >= d * alpha && j < min((d + 1) * alpha, k_data);
+    return a != nullptr && j >= d * alpha &&
+           j < min((d + 1) * alpha, k_data);
   }
 
   __device__ __forceinline__ uint32_t convert(int d, int j, int64_t gi,
@@ -135,7 +141,8 @@ using namespace ptk;
 extern "C" {
 
 // K4.  out: (2, k_out, N); scratch: (beta, k_out, N), used when N > 4096;
-// y, a, b: (beta * alpha, N), b may be null; mat: (beta, k_out, alpha);
+// y, a, b: (beta * alpha, N), b may be null, and a too (the coefficient
+// form); mat: (beta, k_out, alpha);
 // evk: (beta, 2, k_out, N); q, w, ws: the whole base's forward tables; rows:
 // (k_out,) table row of each output row.
 int ptk_modup_ip(void* out, void* scratch, const void* y, const void* mat,

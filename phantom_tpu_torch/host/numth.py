@@ -1,9 +1,9 @@
 """Exact-integer number theory for parameters and tables.
 
 The port's own copy of what it uses of phantom_tpu/host/numth.py:
-Miller-Rabin primality, the NTT-friendly prime search (primes == 1 mod 2N,
-downward from 2^bits), modular inverses and the minimal primitive 2N-th
-root of unity.  Pure Python with exact integers; the minimal-root walk over
+Miller-Rabin primality, the NTT-friendly prime searches (primes == 1 mod
+2N, downward from 2^bits or from a bound), modular inverses and the
+minimal primitive 2N-th root of unity.  Pure Python with exact integers; the minimal-root walk over
 the N odd powers is vectorised with numpy (every modulus here is below
 2^31, so each product fits 64 bits).
 """
@@ -64,6 +64,22 @@ def get_primes(factor: int, bit_size: int, count: int) -> List[int]:
     if len(out) < count:
         raise ValueError(
             f"failed to find {count} {bit_size}-bit primes == 1 mod {factor}")
+    return out
+
+
+def get_primes_below(upper_bound: int, factor: int, count: int) -> List[int]:
+    """`count` primes p < upper_bound with p == 1 (mod factor), the largest
+    first: BFV's auxiliary base Rl below min(QP)."""
+    out: List[int] = []
+    value = upper_bound - 1
+    value -= (value - 1) % factor
+    while len(out) < count and value > factor:
+        if is_prime(value):
+            out.append(value)
+        value -= factor
+    if len(out) < count:
+        raise ValueError(f"failed to find {count} primes below {upper_bound} "
+                         f"== 1 mod {factor}")
     return out
 
 

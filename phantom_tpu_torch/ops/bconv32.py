@@ -1,6 +1,8 @@
 """RNS base conversion on 32-bit residues (q < 2^30).
 
-Counterpart of phantom_tpu/ops/bconv32.py:21-182.  Constants come from a
+Counterpart of phantom_tpu/ops/bconv32.py:21-182.  Every conversion takes
+`fold_matmul`, the K5 wrapper or its plain version, so the pipelines'
+`ops` reach every K5 launch.  Constants come from a
 host `BaseConverter`; the conversion matmul runs on K5
 (ops/bconv_kernels.py), the rest is plain int64 torch.  The MXU
 digit-plane formulations and their pow2 fold tables are TPU workarounds
@@ -102,10 +104,20 @@ def floor_sum_div_uv(y: torch.Tensor, q: torch.Tensor, u: torch.Tensor,
     return ((a + ((b + (cc >> 32)) >> 32)) >> 32).int()
 
 
-def bconv_exact32(x: torch.Tensor, c: BaseConvConsts32) -> torch.Tensor:
-    """Value-exact conversion (reference bConv_HPS semantics)."""
+def bconv_approx32(x: torch.Tensor, c: BaseConvConsts32,
+                   fold_matmul=bconv_kernels.fold_matmul) -> torch.Tensor:
+    """Fast (approximate) conversion: sum_i [x_i QhatInv_i] Qhat_i mod p_j,
+    off by a multiple v Q of the exact value (the modup's digit
+    conversion)."""
+    return matmul_reduce32(scale_by_qhat_inv32(x, c), c, fold_matmul)
+
+
+def bconv_exact32(x: torch.Tensor, c: BaseConvConsts32,
+                  fold_matmul=bconv_kernels.fold_matmul) -> torch.Tensor:
+    """Value-exact conversion (reference bConv_HPS semantics).
+    fold_matmul: the matmul's K5 (or its plain version)."""
     y = scale_by_qhat_inv32(x, c)
-    raw = matmul_reduce32(y, c).long()
+    raw = matmul_reduce32(y, c, fold_matmul).long()
     v = floor_sum_div32(y, c).long()
     q = _col(c.obase.q, raw)
     return ((raw - v.unsqueeze(0) * _col(c.q_mod_p, raw)) % q).int()

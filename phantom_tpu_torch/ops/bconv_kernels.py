@@ -11,7 +11,9 @@ headline configuration.
 The CUDA kernel (csrc/bconv.cu) gives each thread one column: the block
 keeps its slice of y and the whole matrix in shared memory, and each
 output is one exact 128-bit dot product.  It reads y once and writes out
-once, so device memory bounds it at these shapes.
+once, so device memory bounds it at these shapes.  BFV's scale-and-round
+from D = Ql u Rl, (87, N) -> (44, N), stages 59,856 bytes, for which the
+launch opts into more than the default 48 KB of shared memory.
 """
 
 from __future__ import annotations
@@ -48,9 +50,9 @@ def fold_matmul(y: torch.Tensor, mat: torch.Tensor,
                          f"q {tuple(q.shape)} against y {tuple(y.shape)}")
     _build.check_operands(y, mat, q)
     lib = _build.library()
-    if lib.ptk_fold_matmul_smem(k_in, k_out) > 48 * 1024:
+    if lib.ptk_fold_matmul_smem(k_in, k_out) > _build.SMEM_OPTIN:
         raise ValueError(f"fold_matmul: k_in={k_in}, k_out={k_out} exceed "
-                         "the kernel's shared memory")
+                         "a block's shared memory")
     out = torch.empty((k_out, n), dtype=torch.int32, device=y.device)
     with torch.cuda.device(y.device):
         err = lib.ptk_fold_matmul(out.data_ptr(), y.data_ptr(),

@@ -12,13 +12,21 @@ package's default dispatch takes at alpha <= 8 for every NTT-form key
 switch (rotations) and for the fused CKKS step.  The modup tensor T
 (beta, k_out, N) never leaves the kernel.
 
+The coefficient-form variant (the TPU kernel with c2_ntt=None, which the
+JAX package's keyswitch32 takes on its default engine for the BFV
+relinearization) is `modup_ip_coeff`, a wrapper of its own with its own
+launch count: no passthrough rows, every (digit, row) pair converted and
+transformed, the digit's own rows included (the caller's mats carry the
+digit's qhat diagonal there, so the conversion recovers x_j from the
+pre-scaled y_j).
+
 The CUDA kernel (csrc/modup_ip.cu) runs the transform in two launches: the
 column pass with the conversion prologue into a (beta, k_out, N) scratch
-(for N > 4096; a digit's own rows are not stored), then one block per (4096-word chunk, row j) that loops over
-the digits, finishes the transform in shared memory, multiplies by the evk
-chunk and keeps the exact digit sum in registers.  It is bound by device
-memory.  The coefficient-form variant (c2=None) and the preconv variant of
-the TPU kernel are not ported.
+(for N > 4096; in the NTT form a digit's own rows are not stored), then
+one block per (4096-word chunk, row j) that loops over the digits,
+finishes the transform in shared memory, multiplies by the evk chunk and
+keeps the exact digit sum in registers.  It is bound by device memory.
+The preconv variant of the TPU kernel is not ported.
 """
 
 from __future__ import annotations
@@ -41,42 +49,52 @@ def _passthrough(c2, j_lo: int, j_hi: int, q: torch.Tensor) -> torch.Tensor:
     return u32(c2[j_lo:j_hi])
 
 
+def _modup(y, mats, t: NTTTables32, rows):
+    """T_d = NTT(sum_i y[d alpha + i] mats[d, :, i]) for every digit and
+    row, int64 (beta, k_out, N), and the moduli (k_out, 1)."""
+    beta, k_out, alpha = mats.shape
+    rows = resolve_rows(t, rows, k_out)
+    q_rows = t.q[rows.long()]
+    x = torch.stack([fold_matmul_plain(y[d * alpha:(d + 1) * alpha], mats[d],
+                                       q_rows) for d in range(beta)])
+    return ntt32.ntt_forward32(x, t, rows).long(), u32(q_rows).view(k_out, 1)
+
+
+def _digit_sum(tn, evk, q) -> torch.Tensor:
+    acc = torch.zeros((2,) + tuple(tn.shape[1:]), dtype=torch.int64,
+                      device=tn.device)
+    for d in range(tn.shape[0]):
+        acc = (acc + tn[d] * u32(evk[d])) % q
+    return acc.int()
+
+
 def modup_ip_plain(y, mats, c2, evk, t: NTTTables32, rows=None,
                    k_data=None) -> torch.Tensor:
     """y: (beta alpha, N); mats: (beta, k_out, alpha); c2: (beta alpha, N)
     or a pair of them; evk: (beta, 2, k_out, N) -> (2, k_out, N) int32."""
     if c2 is None:
-        raise ValueError("modup_ip: the coefficient-form variant (c2=None) "
-                         "is not ported")
+        raise ValueError("modup_ip: c2=None is the coefficient form; call "
+                         "modup_ip_coeff")
     beta, k_out, alpha = mats.shape
-    rows = resolve_rows(t, rows, k_out)
-    q_rows = t.q[rows.long()]
-    q = u32(q_rows).view(k_out, 1)
+    tn, q = _modup(y, mats, t, rows)
     k_data = beta * alpha if k_data is None else k_data
-    x = torch.stack([fold_matmul_plain(y[d * alpha:(d + 1) * alpha], mats[d],
-                                       q_rows) for d in range(beta)])
-    tn = ntt32.ntt_forward32(x, t, rows).long()
-    acc = torch.zeros((2, k_out, y.shape[-1]), dtype=torch.int64,
-                      device=y.device)
     for d in range(beta):
         lo, hi = d * alpha, min((d + 1) * alpha, k_data, k_out)
         if hi > lo:
             tn[d, lo:hi] = _passthrough(c2, lo, hi, q[lo:hi])
-        acc = (acc + tn[d] * u32(evk[d])) % q
-    return acc.int()
+    return _digit_sum(tn, evk, q)
 
 
-def modup_ip(y: torch.Tensor, mats: torch.Tensor, c2, evk: torch.Tensor,
-             t: NTTTables32, rows=None, k_data=None) -> torch.Tensor:
-    """K4 on CUDA tensors; the plain version on CPU tensors.  y, c2 (or
-    each of the pair): (beta alpha, N); mats: (beta, k_out, alpha); evk:
-    (beta, 2, k_out, N); rows: the table row of each of the k_out output
-    rows (default all of `t`'s).  Returns (2, k_out, N) int32 in [0, q)."""
-    if _build.is_plain(y, "modup_ip"):
-        return modup_ip_plain(y, mats, c2, evk, t, rows, k_data)
-    if c2 is None:
-        raise ValueError("modup_ip: the coefficient-form variant (c2=None) "
-                         "is not ported")
+def modup_ip_coeff_plain(y, mats, evk, t: NTTTables32,
+                         rows=None) -> torch.Tensor:
+    """The coefficient form: every (digit, row) converted and transformed,
+    no passthrough.  Shapes as modup_ip_plain's."""
+    tn, q = _modup(y, mats, t, rows)
+    return _digit_sum(tn, evk, q)
+
+
+def _launch(y, mats, c2, evk, t: NTTTables32, rows, k_data):
+    """ptk_modup_ip; c2 None is the coefficient form."""
     if mats.dim() != 3:
         raise ValueError(f"modup_ip: mats {tuple(mats.shape)} is not "
                          "(beta, k_out, alpha)")
@@ -93,8 +111,8 @@ def modup_ip(y: torch.Tensor, mats: torch.Tensor, c2, evk: torch.Tensor,
     _expect(a, (k, n), "c2")
     _expect(b, (k, n), "c2 b")
     _expect(evk, (beta, 2, k_out, n), "evk")
-    opt = [b] if b is not None else []
-    _build.check_operands(y, mats, a, evk, rows, t.q, t.root_powers,
+    opt = [x for x in (a, b) if x is not None]
+    _build.check_operands(y, mats, evk, rows, t.q, t.root_powers,
                           t.root_powers_shoup, *opt)
     out = torch.empty((2, k_out, n), dtype=torch.int32, device=y.device)
     scratch = torch.empty((beta, k_out, n), dtype=torch.int32,
@@ -102,13 +120,42 @@ def modup_ip(y: torch.Tensor, mats: torch.Tensor, c2, evk: torch.Tensor,
     with torch.cuda.device(y.device):
         err = _build.library().ptk_modup_ip(
             out.data_ptr(), scratch.data_ptr(), y.data_ptr(), mats.data_ptr(),
-            a.data_ptr(), None if b is None else b.data_ptr(),
+            None if a is None else a.data_ptr(),
+            None if b is None else b.data_ptr(),
             evk.data_ptr(), beta, alpha, k_out, k_data, t.q.data_ptr(),
             t.root_powers.data_ptr(), t.root_powers_shoup.data_ptr(),
             rows.data_ptr(), logn, _build.stream(y))
     _build.check(err, "modup_ip")
+    return out
+
+
+def modup_ip(y: torch.Tensor, mats: torch.Tensor, c2, evk: torch.Tensor,
+             t: NTTTables32, rows=None, k_data=None) -> torch.Tensor:
+    """K4 on CUDA tensors; the plain version on CPU tensors.  y, c2 (or
+    each of the pair): (beta alpha, N); mats: (beta, k_out, alpha); evk:
+    (beta, 2, k_out, N); rows: the table row of each of the k_out output
+    rows (default all of `t`'s).  Returns (2, k_out, N) int32 in [0, q)."""
+    if _build.is_plain(y, "modup_ip"):
+        return modup_ip_plain(y, mats, c2, evk, t, rows, k_data)
+    if c2 is None:
+        raise ValueError("modup_ip: c2=None is the coefficient form; call "
+                         "modup_ip_coeff")
+    out = _launch(y, mats, c2, evk, t, rows, k_data)
     modup_ip.launches += 1
     return out
 
 
+def modup_ip_coeff(y: torch.Tensor, mats: torch.Tensor, evk: torch.Tensor,
+                   t: NTTTables32, rows=None) -> torch.Tensor:
+    """K4's coefficient form on CUDA tensors; the plain version on CPU
+    tensors.  Shapes as modup_ip's; mats carries each digit's qhat
+    diagonal on its own rows."""
+    if _build.is_plain(y, "modup_ip_coeff"):
+        return modup_ip_coeff_plain(y, mats, evk, t, rows)
+    out = _launch(y, mats, None, evk, t, rows, None)
+    modup_ip_coeff.launches += 1
+    return out
+
+
 modup_ip.launches = 0
+modup_ip_coeff.launches = 0

@@ -1,0 +1,120 @@
+"""K6: the one-pass, row-resident NTT of the "pallas-roll" engine, its
+CUDA kernel and plain twins.
+
+Replaces phantom_tpu/ops/ntt_pallas_roll.py:ntt_forward_roll and
+ntt_inverse_roll (bodies _fwd_kernel, _fwd_fused_kernel, _inv_kernel),
+which the JAX package's "pallas-roll" engine takes for every transform.
+For each row l of (..., L, N), with table row rows[l mod L]:
+
+  ntt_forward_roll  [0, 2q) in, NTT form in [0, q) out; with sub_from,
+                    (sub_from - NTT(x)) epi_scale mod q (the moddown
+                    epilogue)
+  ntt_inverse_roll  [0, 2q) in, coefficients in [0, q) out, times `scale`
+                    per limb, which replaces n^-1
+
+in the repo's order out[k] = p(psi^(2 rev(k) + 1)), reading the port's
+NTTTables32 as K1 and K2 do.  The plain twins are ntt_kernels'
+ntt_forward_plain and ntt_inverse_plain, which compute the same function.
+The TPU kernel's roll/select form and its cols_a/blk_b stage tables are
+Mosaic workarounds and have no counterpart.
+
+The CUDA kernel (csrc/ntt_roll.cu) is one launch per call with each row
+resident on the chip for all log2 N stages: the row is read once and
+written once.  A row of up to 2^13 words (32 KB) sits in one block's
+shared memory; a longer one in the distributed shared memory of a
+thread-block cluster of `cluster` blocks (2^16 words: 8 x 32 KB by
+default), whose stages with a butterfly distance of a block's share or
+more exchange through the cluster.  Twiddles are read from device memory
+(mostly L2).  It is bound by device memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ntt32 import NTTTables32, resolve_rows
+from .ntt_kernels import (_epilogue_args, _expect, _logn, _ptr, _tables,
+                          ntt_forward_plain, ntt_inverse_plain)
+
+MAX_CLUSTER = 8        # the largest portable cluster
+CTA_WORDS = 1 << 13    # the default share of a row per block
+
+
+def default_cluster(n: int) -> int:
+    """Blocks per row: one up to CTA_WORDS words, then shares of
+    CTA_WORDS, at most MAX_CLUSTER blocks."""
+    return min(MAX_CLUSTER, max(1, n // CTA_WORDS))
+
+
+def _cluster(n: int, cluster) -> int:
+    c = default_cluster(n) if cluster is None else int(cluster)
+    if (c < 1 or c > MAX_CLUSTER or c & (c - 1)
+            or n // c * 4 > _build.SMEM_OPTIN):
+        raise ValueError(f"K6: cluster={c} at N={n}: a power of two up to "
+                         f"{MAX_CLUSTER} whose share fits shared memory")
+    return c
+
+
+def _launch(x, t: NTTTables32, rows, inverse: bool, cluster, sub_from=None,
+            epi_scale=None, epi_scale_shoup=None, scale=None,
+            scale_shoup=None) -> torch.Tensor:
+    n, num_l = x.shape[-1], x.shape[-2]
+    logn = _logn(n)
+    c = _cluster(n, cluster)
+    rows = resolve_rows(t, rows, num_l)
+    epi = _epilogue_args(sub_from, epi_scale, epi_scale_shoup, None, x.shape,
+                         num_l)[:3]
+    if inverse:
+        if scale is None:
+            scale = t.inv_degree[rows.long()]
+            scale_shoup = t.inv_degree_shoup[rows.long()]
+        elif scale_shoup is None:
+            raise ValueError("scale needs scale_shoup")
+        _expect(scale, (num_l,), "scale")
+        _expect(scale_shoup, (num_l,), "scale_shoup")
+    tabs = _tables(t, inverse)
+    opt = [a for a in (*epi, scale, scale_shoup) if a is not None]
+    _build.check_operands(x, rows, *tabs, *opt)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _build.library().ptk_ntt_roll(
+            out.data_ptr(), x.data_ptr(), *(a.data_ptr() for a in tabs),
+            rows.data_ptr(), num_l, x.numel() // n, logn, c,
+            *(_ptr(e) for e in epi), _ptr(scale), _ptr(scale_shoup),
+            int(inverse), _build.stream(x))
+    _build.check(err, "ntt_roll")
+    return out
+
+
+def ntt_forward_roll(x: torch.Tensor, t: NTTTables32, rows=None,
+                     sub_from=None, epi_scale=None, epi_scale_shoup=None,
+                     cluster=None) -> torch.Tensor:
+    """K6 forward on a CUDA tensor; ntt_forward_plain on a CPU tensor.
+    x: (..., L, N) in [0, 2q) -> NTT form in [0, q); with sub_from (x's
+    shape): (sub_from - NTT(x)) * epi_scale.  cluster: blocks per row
+    (default default_cluster(N))."""
+    if _build.is_plain(x, "ntt_forward_roll"):
+        return ntt_forward_plain(x, t, rows, sub_from, epi_scale,
+                                 epi_scale_shoup)
+    out = _launch(x, t, rows, False, cluster, sub_from, epi_scale,
+                  epi_scale_shoup)
+    ntt_forward_roll.launches += 1
+    return out
+
+
+def ntt_inverse_roll(x: torch.Tensor, t: NTTTables32, rows=None, scale=None,
+                     scale_shoup=None, cluster=None) -> torch.Tensor:
+    """K6 inverse on a CUDA tensor; ntt_inverse_plain on a CPU tensor.
+    x: (..., L, N) in [0, 2q) -> coefficients in [0, q) times `scale` per
+    limb (default n^-1)."""
+    if _build.is_plain(x, "ntt_inverse_roll"):
+        return ntt_inverse_plain(x, t, rows, scale, scale_shoup)
+    out = _launch(x, t, rows, True, cluster, scale=scale,
+                  scale_shoup=scale_shoup)
+    ntt_inverse_roll.launches += 1
+    return out
+
+
+ntt_forward_roll.launches = 0
+ntt_inverse_roll.launches = 0

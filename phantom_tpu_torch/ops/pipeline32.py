@@ -1,9 +1,26 @@
 """Hybrid key switching, rotations and the CKKS multiply + relinearize +
 rescale step on 32-bit residues.
 
-Counterpart of phantom_tpu/ops/pipeline32.py on its default engine, with
-its two modup structures, chosen as the JAX package chooses them: by the
-special base's size alpha against KERNEL_BCONV_ALPHA_MAX = 8.
+Counterpart of phantom_tpu/ops/pipeline32.py on two of its engines, fixed
+when a KeySwitch32 is built (`engine`, named as in the JAX package's
+normalize_engine):
+
+  "mxu-pallas" (the default; the JAX package's default dispatch), below;
+  "pallas-roll": every transform is K6 (ops/ntt_roll_kernels.py), the
+    coefficient-form key switch converts with K5 (the digit's own rows
+    ride in coefficient form and transform too), K9 takes the inner
+    product, and each half's moddown is K6's inverse of the P rows, the
+    exact conversion (K5) and K6's forward with the (x - .) P^-1 epilogue.
+    It runs BFV only so far: the CKKS entry points raise on it.
+
+The coefficient-form key switch of BFV's relinearization (keyswitch32) on
+the default engine: the QhatInv pre-scale in plain torch, then K4's
+coefficient form (modup + evk inner product, every row converted and
+transformed), then the moddown pair.
+
+The default engine's CKKS paths have two modup structures, chosen as the
+JAX package chooses them: by the special base's size alpha against
+KERNEL_BCONV_ALPHA_MAX = 8.
 
   alpha <= 8, the fused route:
     modup + evk inner product       K1 iNTT (x n^-1 QhatInv), K4
@@ -53,9 +70,10 @@ import torch
 from torch import nn
 
 from . import (bconv_kernels, ip_kernels, moddown_kernels, modup_ip_kernels,
-               ntt_kernels)
-from .bconv32 import BaseConvConsts32, ModulusVec32, matmul_reduce32
-from .modmath32 import u32
+               ntt_kernels, ntt_roll_kernels)
+from .bconv32 import (BaseConvConsts32, ModulusVec32, bconv_approx32,
+                      bconv_exact32, matmul_reduce32)
+from .modmath32 import mul_mod_shoup32, u32
 from .ntt32 import u32_tensor
 from ..schemes import galois as gal
 from ..schemes.context import Context, qlp_rows, resolve_device
@@ -63,6 +81,9 @@ from ..schemes.context import Context, qlp_rows, resolve_device
 # the JAX package's default: the fused modup (K4, K3 self rows) up to this
 # special-base size, the xla-split modup above it (KeySwitch32.fused_modup)
 KERNEL_BCONV_ALPHA_MAX = 8
+DEFAULT_ENGINE = "mxu-pallas"
+ROLL_ENGINE = "pallas-roll"
+ENGINES = (DEFAULT_ENGINE, ROLL_ENGINE)
 
 
 class Kernels(NamedTuple):
@@ -74,20 +95,29 @@ class Kernels(NamedTuple):
     inner_product: Callable      # K9
     moddown_rows: Callable       # K8
     moddown_rescale: Callable    # K7
+    modup_ip_coeff: Callable     # K4, coefficient form
+    ntt_forward_roll: Callable   # K6
+    ntt_inverse_roll: Callable   # K6
 
 
 KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                   ntt_kernels.bconv_ntt_forward, bconv_kernels.fold_matmul,
                   modup_ip_kernels.modup_ip, ip_kernels.inner_product,
                   moddown_kernels.moddown_rows,
-                  moddown_kernels.moddown_rescale)
+                  moddown_kernels.moddown_rescale,
+                  modup_ip_kernels.modup_ip_coeff,
+                  ntt_roll_kernels.ntt_forward_roll,
+                  ntt_roll_kernels.ntt_inverse_roll)
 PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.bconv_ntt_forward_plain,
                 bconv_kernels.fold_matmul_plain,
                 modup_ip_kernels.modup_ip_plain,
                 ip_kernels.inner_product_plain,
                 moddown_kernels.moddown_rows_plain,
-                moddown_kernels.moddown_rescale_plain)
+                moddown_kernels.moddown_rescale_plain,
+                modup_ip_kernels.modup_ip_coeff_plain,
+                ntt_kernels.ntt_forward_plain,
+                ntt_kernels.ntt_inverse_plain)
 
 
 def _rows(idx) -> torch.Tensor:
@@ -99,13 +129,18 @@ def _qcol(q: torch.Tensor) -> torch.Tensor:
 
 
 class KeySwitch32(nn.Module):
-    """u32 tables for hybrid key switching at one level: the QP NTT tables
-    with the row indices of Ql, P, QlP and the concatenated per-digit
-    complement rows, the conversion constants, the fused modup matrices
-    and the fused scales.  Holds no key material."""
+    """u32 tables for hybrid key switching at one level on one engine
+    (ENGINES): the QP NTT tables with the row indices of Ql, P, QlP and
+    the concatenated per-digit complement rows, the conversion constants,
+    the fused modup matrices (NTT and coefficient form) and the fused
+    scales.  Holds no key material."""
 
-    def __init__(self, ctx: Context, chain_index: int = 1):
+    def __init__(self, ctx: Context, chain_index: int = 1,
+                 engine: str = DEFAULT_ENGINE):
         super().__init__()
+        if engine not in ENGINES:
+            raise ValueError(f"engine {engine!r} not in {ENGINES}")
+        self._engine = engine
         cd = ctx.get_context_data(chain_index)
         ks = cd.ks
         k = cd.size_ql
@@ -142,6 +177,19 @@ class KeySwitch32(nn.Module):
         self.register_buffer("rows_compl", _rows(compl))
         self.compl_sizes = tuple(sizes)
         self.register_buffer("modup_mats", u32_tensor(mats))
+        # the coefficient form: the digit's own rows carry its qhat
+        # diagonal, so the conversion of the pre-scaled y_j = x_j QhatInv_j
+        # recovers x_j there; with the per-row QhatInv (and Shoup word)
+        for d, conv in enumerate(ks.digit_convs):
+            lo = d * alpha
+            for i, qh in enumerate(conv.ibase.qhat_mod_qi):
+                mats[d, lo + i, i] = qh
+        self.register_buffer("modup_mats_coeff", u32_tensor(mats))
+        self.register_buffer("modup_qhat_inv", u32_tensor(
+            [v for c in ks.digit_convs for v in c.ibase.qhat_inv_mod_qi]))
+        self.register_buffer("modup_qhat_inv_shoup", u32_tensor(
+            [(v << 32) // q for c in ks.digit_convs for v, q in zip(
+                c.ibase.qhat_inv_mod_qi, c.ibase.moduli)]))
         self.register_buffer("pinv", u32_tensor(ks.pinv_mod_q))
         self.register_buffer("pinv_shoup", u32_tensor(
             [s >> 32 for s in ks.pinv_shoup]))
@@ -158,15 +206,42 @@ class KeySwitch32(nn.Module):
             [(s << 32) // p for s, p in zip(md, special)]))
 
     @property
+    def engine(self) -> str:
+        return self._engine
+
+    @property
     def fused_modup(self) -> bool:
         """The modup route, set by alpha alone: fused (K4, K3 self rows) up
         to KERNEL_BCONV_ALPHA_MAX, xla-split above."""
         return self.size_p <= KERNEL_BCONV_ALPHA_MAX
 
 
-def build_keyswitch32(ctx: Context, chain_index: int = 1,
-                      device=None) -> KeySwitch32:
-    return KeySwitch32(ctx, chain_index).to(resolve_device(device))
+def build_keyswitch32(ctx: Context, chain_index: int = 1, device=None,
+                      engine: str = DEFAULT_ENGINE) -> KeySwitch32:
+    return KeySwitch32(ctx, chain_index, engine).to(resolve_device(device))
+
+
+def _default_engine_only(ks: KeySwitch32, what: str) -> None:
+    if ks.engine != DEFAULT_ENGINE:
+        raise ValueError(f"{what}: runs on the {DEFAULT_ENGINE!r} engine "
+                         f"only so far, not {ks.engine!r}")
+
+
+def _fwd(ks: KeySwitch32, x: torch.Tensor, rows, ops: Kernels,
+         **epi) -> torch.Tensor:
+    """The engine's forward NTT over table rows `rows`, with K2's (sub_from,
+    epi_scale, epi_scale_shoup) epilogue: K2 or K6."""
+    fwd = (ops.ntt_forward_roll if ks.engine == ROLL_ENGINE
+           else ops.ntt_forward)
+    return fwd(x, ks.ntt, rows, **epi)
+
+
+def _inv(ks: KeySwitch32, x: torch.Tensor, rows, ops: Kernels,
+         **kw) -> torch.Tensor:
+    """The engine's inverse NTT (scale, scale_shoup): K1 or K6."""
+    inv = (ops.ntt_inverse_roll if ks.engine == ROLL_ENGINE
+           else ops.ntt_inverse)
+    return inv(x, ks.ntt, rows, **kw)
 
 
 def convert_key32(ctx: Context, key_data: torch.Tensor,
@@ -221,6 +296,7 @@ def modup_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
     """(size_ql, N) NTT form -> the modup tensor (beta, size_qlp, N), NTT
     form.  At alpha <= 8 one K3 converts and transforms every QlP row of
     every digit, the digit's own rows passed through; above, modup_xla32."""
+    _default_engine_only(ks, "modup_from_ntt32")
     y = _modup_inverse(ks, c2_ntt, ops)
     if not ks.fused_modup:
         return modup_xla32(ks, y, c2_ntt, ops)
@@ -243,6 +319,7 @@ def _modup_ip_split(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
                     ops: Kernels = KERNELS):
     """modup_ip32 on the xla-split route at any alpha: modup_xla32, then
     inner_product32."""
+    _default_engine_only(ks, "modup_ip32")
     y = _modup_inverse(ks, c2_ntt, ops)
     return inner_product32(ks, modup_xla32(ks, y, c2_ntt, ops), evk, ops)
 
@@ -254,6 +331,7 @@ def modup_ip32(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
     exists in memory); above, _modup_ip_split."""
     if not ks.fused_modup:
         return _modup_ip_split(ks, c2_ntt, evk, ops)
+    _default_engine_only(ks, "modup_ip32")
     y = _modup_inverse(ks, c2_ntt, ops)
     s = ops.modup_ip(_pad_digit_rows(ks, y), ks.modup_mats,
                      _pad_digit_rows(ks, c2_ntt), evk, ks.ntt, ks.rows_qlp,
@@ -292,17 +370,72 @@ def _moddown(ks: KeySwitch32, xs, tensor_add, ops: Kernels,
 def moddown32(ks: KeySwitch32, x: torch.Tensor,
               ops: Kernels = KERNELS) -> torch.Tensor:
     """(x_Ql - delta(x_P)) * P^-1 over Ql, NTT form in and out:
-    (size_qlp, N) -> (size_ql, N)."""
-    return _moddown(ks, [x], None, ops)[0]
+    (size_qlp, N) -> (size_ql, N).  On the roll engine unfused: the
+    inverse NTT of the P rows, the exact conversion delta (K5), the
+    forward NTT with the (x_Ql - .) P^-1 epilogue."""
+    if ks.engine == DEFAULT_ENGINE:
+        return _moddown(ks, [x], None, ops)[0]
+    k = ks.size_ql
+    delta = bconv_exact32(_inv(ks, x[k:], ks.rows_p, ops), ks.p_to_q,
+                          ops.fold_matmul)
+    return _fwd(ks, delta, ks.rows_ql, ops, sub_from=x[:k],
+                epi_scale=ks.pinv, epi_scale_shoup=ks.pinv_shoup)
 
 
 def moddown32_pair(ks: KeySwitch32, x0: torch.Tensor, x1: torch.Tensor,
                    tensor_add=None, ops: Kernels = KERNELS):
     """moddown32 of both key-switch halves in one K1 and one K3 launch,
-    bit-identical to two moddown32 calls.  tensor_add = (d1, d2) adds the
-    relin tensor terms c0 and c1 in K3's epilogue."""
+    bit-identical to two moddown32 calls (which the roll engine makes).
+    tensor_add = (d1, d2) adds the relin tensor terms c0 and c1 in K3's
+    epilogue (default engine only)."""
+    if ks.engine != DEFAULT_ENGINE:
+        if tensor_add is not None:
+            raise ValueError("moddown32_pair: tensor_add needs the "
+                             f"{DEFAULT_ENGINE!r} engine")
+        return moddown32(ks, x0, ops), moddown32(ks, x1, ops)
     out = _moddown(ks, [x0, x1], tensor_add, ops)
     return out[0], out[1]
+
+
+def _modup_coeff_prescale(ks: KeySwitch32, c2_coeff: torch.Tensor):
+    """x_j QhatInv_j over the Ql rows, each by its digit's QhatInv."""
+    q = _qcol(ks.mv_ql.q)
+    return mul_mod_shoup32(c2_coeff, _qcol(ks.modup_qhat_inv),
+                           _qcol(ks.modup_qhat_inv_shoup), q).int()
+
+
+def modup32(ks: KeySwitch32, c2_coeff: torch.Tensor,
+            ops: Kernels = KERNELS) -> torch.Tensor:
+    """(size_ql, N) coefficient form -> the modup tensor (beta, size_qlp,
+    N), NTT form, as the JAX package's roll engine builds it: per digit the
+    fast conversion (K5) of its rows to the complement, the digit's own
+    rows between, then one forward NTT of the engine (K6 on the roll
+    engine).  keyswitch32 on the default engine never stores this tensor
+    (K4's coefficient form)."""
+    k, alpha = ks.size_ql, ks.size_p
+    out = []
+    for d in range(ks.beta):
+        lo, hi = d * alpha, min((d + 1) * alpha, k)
+        x = c2_coeff[lo:hi]
+        compl = bconv_approx32(x, ks.digit_convs[d], ops.fold_matmul)
+        out.append(torch.cat([compl[:lo], x, compl[lo:]]))
+    return _fwd(ks, torch.stack(out), ks.rows_qlp, ops)
+
+
+def keyswitch32(ks: KeySwitch32, c2_coeff: torch.Tensor, evk: torch.Tensor,
+                ops: Kernels = KERNELS) -> torch.Tensor:
+    """Hybrid key switch of a coefficient-form (size_ql, N) polynomial ->
+    (2, size_ql, N), NTT form.  Default engine: K4's coefficient form on
+    the pre-scaled rows (the modup tensor never exists in memory), then
+    the moddown pair (K1, K3); roll engine: modup32, K9, two moddown32."""
+    if ks.engine == DEFAULT_ENGINE:
+        y = _pad_digit_rows(ks, _modup_coeff_prescale(ks, c2_coeff))
+        s = ops.modup_ip_coeff(y, ks.modup_mats_coeff, evk, ks.ntt,
+                               ks.rows_qlp)
+        s0, s1 = s[0], s[1]
+    else:
+        s0, s1 = inner_product32(ks, modup32(ks, c2_coeff, ops), evk, ops)
+    return torch.stack(moddown32_pair(ks, s0, s1, ops=ops))
 
 
 def keyswitch_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
@@ -327,8 +460,12 @@ class CKKSPipeline32(nn.Module):
     it runs mult_relin_rescale32."""
 
     def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
-                 moddown_rows=None, merged_epilogue: bool = False):
+                 moddown_rows=None, merged_epilogue: bool = False,
+                 engine: str = DEFAULT_ENGINE):
         super().__init__()
+        if engine != DEFAULT_ENGINE:
+            raise ValueError(f"the CKKS step runs on the {DEFAULT_ENGINE!r} "
+                             f"engine only so far, not {engine!r}")
         if moddown_rows is not None:
             if merged_epilogue:
                 raise ValueError("choose one epilogue: moddown_rows or "
@@ -368,12 +505,13 @@ class CKKSPipeline32(nn.Module):
 
 def build_pipeline32(ctx: Context, rlk: torch.Tensor, chain_index: int = 1,
                      device=None, moddown_rows=None,
-                     merged_epilogue: bool = False) -> CKKSPipeline32:
+                     merged_epilogue: bool = False,
+                     engine: str = DEFAULT_ENGINE) -> CKKSPipeline32:
     """rlk: the relin key (dnum, 2, K, N) over QP; the epilogue options as
-    CKKSPipeline32's."""
+    CKKSPipeline32's; `engine` "mxu-pallas" only so far."""
     return CKKSPipeline32(ctx, convert_key32(ctx, rlk, chain_index),
-                          chain_index, moddown_rows, merged_epilogue).to(
-                              resolve_device(device))
+                          chain_index, moddown_rows, merged_epilogue,
+                          engine).to(resolve_device(device))
 
 
 def _rescale(p: CKKSPipeline32, x: torch.Tensor,

@@ -1,13 +1,23 @@
-"""Context: the QP NTT tables and the per-level constants of the first
-levels (counterpart of phantom_tpu/schemes/context.py, CKKS subset).
+"""Context: the NTT tables and the per-level constants of the first
+levels (counterpart of phantom_tpu/schemes/context.py, CKKS and BFV HPS
+subsets).
 
 Chain indexing matches the JAX package: index 0 is the key level (all of
 Q and P), index 1 the first data level (all of Q), and each next level
-drops one data prime.  Only the levels a mult+relin+rescale step from
-level 1 touches are built (0 to 2).  Level constants are Python
-integers and host `BaseConverter`s, as the JAX package's
-`_rescale_consts` / `_keyswitch_consts` compute them; Shoup words here are
-the host's 64-bit ones, floor(w * 2^64 / q).
+drops one data prime.  Only the levels a CKKS mult+relin+rescale step
+from level 1 touches are built (0 to 2); the BFV step stays at level 1.
+Level constants are Python integers and host `BaseConverter`s, as the JAX
+package's `_rescale_consts` / `_keyswitch_consts` / `_hps_mul_consts` and
+scaleround.make_plain_lift_consts compute them; Shoup words here are the
+host's 64-bit ones, floor(w * 2^64 / q).
+
+BFV's auxiliary base Rl (size_q + 1 primes == 1 mod 2N below min(QP), as
+the JAX package picks them) has no table of its own: `ntt` is ONE
+NTTTables32 over QP then Rl, and the base D = Ql u Rl of the HPS product
+is table rows `BFVConsts.rows_d` of it, so the kernels, which take
+(tables, rows), transform D, Ql and QlP rows alike.  The Rl primes are
+below min(QP), 27 or 28 bits at N = 2^16; every kernel keeps its lazy
+values below 4q < 2^32 for any q < 2^30, so they need nothing else.
 """
 
 from __future__ import annotations
@@ -41,12 +51,29 @@ class KeySwitchConsts(NamedTuple):
     modup_scale_shoup: List[int]
 
 
+class BFVConsts(NamedTuple):
+    """A BFV level's HPS multiplication, plain-lift and decryption
+    constants (the fields of the JAX package's HPSMulConsts that HPS uses,
+    and PlainLiftConsts)."""
+
+    rl: Tuple[int, ...]              # Rl at this level: size_ql + 1 primes
+    rows_d: Tuple[int, ...]          # table rows of D = Ql u Rl in ctx.ntt
+    big_ql: int                      # prod(Ql)
+    q_to_r: object                   # host BaseConverter, Ql -> Rl
+    r_to_q: object                   # host BaseConverter, Rl -> Ql
+    rl_half_mod_r: List[int]         # (Rl - 1) / 2 mod r_j
+    rl_half_mod_q: List[int]         # (Rl - 1) / 2 mod q_i
+    delta_mod_q: List[int]           # floor(Ql / t) mod q_i
+    r_t: int                         # Ql mod t
+
+
 @dataclass(frozen=True)
 class ContextData:
     chain_index: int
     moduli: Tuple[int, ...]
     rescale: Optional[RescaleConsts]
     ks: Optional[KeySwitchConsts]
+    bfv: Optional[BFVConsts] = None
 
     @property
     def size_ql(self) -> int:
@@ -96,17 +123,40 @@ def _keyswitch_consts(data_moduli, special_moduli, n: int) -> KeySwitchConsts:
         modup_scale_shoup=shoup(modup_scale))
 
 
+def _bfv_consts(data_moduli, rl_moduli, size_qp: int, t: int) -> BFVConsts:
+    k = len(data_moduli)
+    rl = list(rl_moduli[:k + 1])
+    ql_base, rl_base = host.RNSBase(list(data_moduli)), host.RNSBase(rl)
+    half = (rl_base.prod - 1) >> 1
+    return BFVConsts(
+        rl=tuple(rl), rows_d=tuple(range(k)) + tuple(
+            range(size_qp, size_qp + k + 1)),
+        big_ql=ql_base.prod,
+        q_to_r=host.BaseConverter(ql_base, rl_base),
+        r_to_q=host.BaseConverter(rl_base, ql_base),
+        rl_half_mod_r=[half % r for r in rl],
+        rl_half_mod_q=[half % q for q in data_moduli],
+        delta_mod_q=[ql_base.prod // t % q for q in data_moduli],
+        r_t=ql_base.prod % t)
+
+
 class Context(nn.Module):
-    """Parameters, the NTT tables over all of QP (buffers: `.to(device)`
-    moves them) and chain levels 0 to LEVELS - 1.  Built on the CPU;
-    `make_context` places it."""
+    """Parameters, the NTT tables over all of QP (and Rl for BFV; buffers:
+    `.to(device)` moves them) and chain levels 0 to LEVELS - 1.  Built on
+    the CPU; `make_context` places it."""
 
     def __init__(self, params: EncryptionParameters):
         super().__init__()
         self.params = params
         qp = list(params.coeff_modulus)
-        self.ntt = NTTTables32(host.make_rns_ntt_tables(params.n, qp))
+        bfv = params.scheme == "bfv"
+        self.rl_moduli = tuple(host.numth.get_primes_below(
+            min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
+        self.ntt = NTTTables32(host.make_rns_ntt_tables(
+            params.n, qp + list(self.rl_moduli)))
         self.register_buffer("key_q", u32_tensor(qp))
+        self.register_buffer("rows_qp", torch.arange(len(qp),
+                                                     dtype=torch.int32))
         chain = [ContextData(0, tuple(qp), None, None)]
         data = list(params.data_moduli)
         for lvl in range(min(LEVELS, params.size_q + 1) - 1):
@@ -114,7 +164,9 @@ class Context(nn.Module):
             chain.append(ContextData(
                 chain_index=lvl + 1, moduli=tuple(ql),
                 rescale=_rescale_consts(ql),
-                ks=_keyswitch_consts(ql, params.special_moduli, params.n)))
+                ks=_keyswitch_consts(ql, params.special_moduli, params.n),
+                bfv=_bfv_consts(ql, self.rl_moduli, len(qp),
+                                params.plain_modulus) if bfv else None))
         self.chain = tuple(chain)
 
     def get_context_data(self, chain_index: int) -> ContextData:

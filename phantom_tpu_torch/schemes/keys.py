@@ -1,9 +1,13 @@
-"""CKKS key generation, symmetric encryption and decryption.
+"""Key generation, symmetric encryption and decryption (CKKS and BFV).
 
-Counterpart of the CKKS paths of phantom_tpu/schemes/keys.py.  Keys live in
-NTT form over the full key base QP; the relin key holds dnum digit keys,
-each an encryption of zero with P * s^2 added on its own digit's rows, and
-a Galois key the same with P * sigma_elt(s) in place of P * s^2.
+Counterpart of the CKKS and BFV paths of phantom_tpu/schemes/keys.py.
+Keys live in NTT form over the full key base QP; the relin key holds dnum
+digit keys, each an encryption of zero with P * s^2 added on its own
+digit's rows, and a Galois key the same with P * sigma_elt(s) in place of
+P * s^2.  CKKS ciphertexts are in NTT form; BFV ones in coefficient form
+at the first data level, (c0, c1) = (-(a s + e) + round(Ql m / t), a),
+and BFV decryption is round(t [c0 + c1 s]_Ql / Ql) mod t, through
+ops/scaleround32.py with num = t, den = Ql and the output base {t}.
 Randomness comes from an explicit `torch.Generator` (ops/sampling.py),
 so keys match the JAX package's in structure and distribution, not bits.
 Tensors are int32 residues on the generator's device; forward NTTs go
@@ -18,7 +22,8 @@ import torch
 
 from ..ops import sampling as smp
 from ..ops.modmath32 import u32
-from ..ops.ntt_kernels import ntt_forward
+from ..ops.ntt_kernels import ntt_forward, ntt_inverse
+from ..ops.scaleround32 import ExactScaleRound32, scale_and_round_exact32
 from . import galois as gal
 from .context import Context
 
@@ -30,7 +35,7 @@ def _qcol(q: torch.Tensor) -> torch.Tensor:
 def gen_secret_key(ctx: Context, gen: torch.Generator) -> torch.Tensor:
     """Ternary secret in NTT form over QP: (K, N)."""
     s = smp.lift_signed(smp.sample_ternary(gen, ctx.params.n), ctx.key_q)
-    return ntt_forward(s, ctx.ntt)
+    return ntt_forward(s, ctx.ntt, ctx.rows_qp)
 
 
 def _encrypt_zero_symmetric_ntt(ctx: Context, sk: torch.Tensor,
@@ -40,7 +45,7 @@ def _encrypt_zero_symmetric_ntt(ctx: Context, sk: torch.Tensor,
     q = _qcol(ctx.key_q)
     a = smp.sample_uniform_rns(gen, n, ctx.key_q)
     e = ntt_forward(smp.lift_signed(smp.sample_error_cbd(gen, n), ctx.key_q),
-                    ctx.ntt)
+                    ctx.ntt, ctx.rows_qp)
     c0 = (-(a.long() * sk.long() + e.long())) % q
     return c0.int(), a
 
@@ -91,9 +96,39 @@ def create_galois_keys(ctx: Context, sk: torch.Tensor, gen: torch.Generator,
     return GaloisKeys(torch.stack(data), elts)
 
 
+def _scale_plain_up(ctx: Context, m: torch.Tensor) -> torch.Tensor:
+    """BFV: m (N,) in [0, t) -> round(Ql m / t) mod q_i, (k, N) int64:
+    Delta m + round(r_t m / t) with Ql = Delta t + r_t."""
+    b = ctx.get_context_data(1).bfv
+    t = ctx.params.plain_modulus
+    q = _qcol(ctx.key_q[:len(b.delta_mod_q)])
+    delta = torch.tensor(b.delta_mod_q, device=m.device).view(-1, 1)
+    fix = (b.r_t * m + t // 2) // t
+    return (m.view(1, -1) * delta + fix) % q
+
+
+def _encrypt_bfv(ctx: Context, sk: torch.Tensor, m: torch.Tensor,
+                 gen: torch.Generator) -> torch.Tensor:
+    k = ctx.get_context_data(1).size_ql
+    n = ctx.params.n
+    qk = ctx.key_q[:k]
+    q = _qcol(qk)
+    rows = ctx.rows_qp[:k]
+    a = smp.sample_uniform_rns(gen, n, qk)
+    e = smp.lift_signed(smp.sample_error_cbd(gen, n), qk)
+    a_s = ntt_inverse((a.long() * sk[:k].long() % q).int(), ctx.ntt, rows)
+    c0 = (_scale_plain_up(ctx, m.long() % ctx.params.plain_modulus)
+          - a_s.long() - e.long()) % q
+    return torch.stack([c0.int(), ntt_inverse(a, ctx.ntt, rows)])
+
+
 def encrypt_symmetric(ctx: Context, sk: torch.Tensor, plain: torch.Tensor,
                       gen: torch.Generator) -> torch.Tensor:
-    """plain: (k, N) NTT form over the first k data primes -> (2, k, N)."""
+    """CKKS: plain (k, N) NTT form over the first k data primes -> (2, k,
+    N), NTT form.  BFV: plain (N,), an integer polynomial taken mod t ->
+    (2, size_q, N) at the first data level, coefficient form."""
+    if ctx.params.scheme == "bfv":
+        return _encrypt_bfv(ctx, sk, plain, gen)
     k, n = plain.shape
     qk = ctx.key_q[:k]
     q = _qcol(qk)
@@ -105,8 +140,31 @@ def encrypt_symmetric(ctx: Context, sk: torch.Tensor, plain: torch.Tensor,
 
 
 def decrypt(ctx: Context, sk: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
-    """(size, k, N) ciphertext -> [c0 + c1 s + c2 s^2 + ...]_Ql, the NTT-form
-    plaintext (k, N)."""
+    """CKKS: (size, k, N) ciphertext -> [c0 + c1 s + c2 s^2 + ...]_Ql, the
+    NTT-form plaintext (k, N).  BFV: a coefficient-form ciphertext -> the
+    message (N,) in [0, t)."""
+    if ctx.params.scheme == "bfv":
+        return _decrypt_bfv(ctx, sk, ct)
+    return _dot_with_sk_powers(ctx, sk, ct)
+
+
+def _decrypt_bfv(ctx: Context, sk: torch.Tensor,
+                 ct: torch.Tensor) -> torch.Tensor:
+    k = ct.shape[1]
+    rows = ctx.rows_qp[:k]
+    acc = _dot_with_sk_powers(ctx, sk, ntt_forward(ct, ctx.ntt, rows))
+    ql = ctx.params.data_moduli[:k]
+    big_ql = 1
+    for q in ql:
+        big_ql *= q
+    t = ctx.params.plain_modulus
+    sr = ExactScaleRound32(ql, t, big_ql, [t]).to(ct.device)
+    return scale_and_round_exact32(ntt_inverse(acc, ctx.ntt, rows), sr)[0]
+
+
+def _dot_with_sk_powers(ctx: Context, sk: torch.Tensor,
+                        ct: torch.Tensor) -> torch.Tensor:
+    """[c0 + c1 s + c2 s^2 + ...]_Ql over NTT-form polys (k, N)."""
     k = ct.shape[1]
     q = _qcol(ctx.key_q[:k])
     s = sk[:k].long()

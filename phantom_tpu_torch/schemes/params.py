@@ -1,7 +1,9 @@
-"""CKKS encryption parameters (counterpart of phantom_tpu/schemes/params.py).
+"""Encryption parameters (counterpart of phantom_tpu/schemes/params.py).
 
-The port runs CKKS only so far: a power-of-two degree n, the data primes
-and the special primes of hybrid key switching (alpha of them).
+The port runs two schemes so far: CKKS and BFV (HPS multiplication).  A
+parameter set is a power-of-two degree n, the data primes, the special
+primes of hybrid key switching (alpha of them) and, for BFV, the plain
+modulus t, a prime == 1 mod 2n below every data prime (batching).
 """
 
 from __future__ import annotations
@@ -9,25 +11,43 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
+SCHEMES = ("ckks", "bfv")
+
 
 @dataclass(frozen=True)
 class EncryptionParameters:
     n: int
     data_moduli: Tuple[int, ...]
     special_moduli: Tuple[int, ...]
+    scheme: str = "ckks"
+    plain_modulus: int = 0
 
     def __post_init__(self):
         if self.n < 2 or self.n & (self.n - 1):
             raise ValueError("poly_modulus_degree must be a power of two")
         if not self.data_moduli or not self.special_moduli:
             raise ValueError("need at least one data and one special prime")
+        if self.scheme not in SCHEMES:
+            raise ValueError(f"scheme {self.scheme!r} not in {SCHEMES}")
+        if self.scheme == "bfv":
+            t = self.plain_modulus
+            if t < 2 or (t - 1) % (2 * self.n):
+                raise ValueError("plain modulus must support batching "
+                                 "(== 1 mod 2N)")
+            if t >= min(self.data_moduli):
+                raise ValueError("plain modulus must be below every data "
+                                 "prime")
+        elif self.plain_modulus:
+            raise ValueError("CKKS takes no plain modulus")
 
     @staticmethod
     def create(n: int, data_moduli: Sequence[int],
-               special_moduli: Sequence[int]) -> "EncryptionParameters":
+               special_moduli: Sequence[int], scheme: str = "ckks",
+               plain_modulus: int = 0) -> "EncryptionParameters":
         return EncryptionParameters(
             n=int(n), data_moduli=tuple(int(q) for q in data_moduli),
-            special_moduli=tuple(int(p) for p in special_moduli))
+            special_moduli=tuple(int(p) for p in special_moduli),
+            scheme=scheme, plain_modulus=int(plain_modulus))
 
     @property
     def coeff_modulus(self) -> Tuple[int, ...]:

@@ -31,12 +31,27 @@ step_n128_{even,uneven}.npz: n = 128, 28-bit data primes (4 and 5 of
   numpy.random.default_rng(k), and `out`, mult_relin_rescale32 on the
   xla-split structure of the mxu-pallas engine.
 
-Run from the repo root (CPU, about four minutes):
+bfv_step_n1024.npz: BFV at n = 1024, the same chain (five 28-bit data
+  primes, alpha = 2, so beta = 3 with a short last digit), t =
+  PlainModulus.batching(n, 16) as utils/benchsetup.py picks it, real JAX
+  keys and two symmetric encryptions (coefficient form, chain index 1) of
+  polynomials m1, m2 with coefficients in [-3, 3] taken mod t.  Outputs,
+  on the mxu-pallas engine's default dispatch (K4's coefficient form,
+  modup_ip_mxu_pallas with c2_ntt=None): keyswitch = keyswitch32 of d1[1]
+  with the relin key, out = bfv_mult_relin32(d1, d2) (asserted equal to
+  the xla engine's and to the u64 evaluator's multiply_and_relin), and
+  pt_out, the JAX decryption of out (asserted equal to m1 m2 mod
+  (X^n + 1, t)).  Stored: data_moduli, special_moduli (u64), t, sk, rlk,
+  d1, d2, m1, m2 (int64), keyswitch, out, pt_out.
 
-    PYTHONPATH=. python tests/fixtures/gen_torch_port_fixtures.py
+Run from the repo root (CPU, about four minutes for all; names choose
+files, e.g. `bfv_step` writes only bfv_step_n1024.npz):
+
+    PYTHONPATH=. python tests/fixtures/gen_torch_port_fixtures.py [name ...]
 """
 
 import os
+import sys
 
 import jax
 
@@ -47,9 +62,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from phantom_tpu.host import numth  # noqa: E402
+from phantom_tpu.host.modulus import PlainModulus  # noqa: E402
+from phantom_tpu.ops import bfv32  # noqa: E402
 from phantom_tpu.ops import pipeline32 as pp  # noqa: E402
 from phantom_tpu.schemes import (CKKSEncoder, EncryptionParameters,  # noqa: E402
-                                 Scheme, evaluate, keys, make_context)
+                                 Plaintext, Scheme, evaluate, keys,
+                                 make_context)
 
 DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port")
 N, K_DATA, ALPHA, SEED = 1024, 5, 2, 7
@@ -173,13 +191,63 @@ def step_n128(k, alpha=2, n=128):
           d2=d2, out=out)
 
 
-def main():
-    setup = _setup()
-    ckks_step(*setup)
-    rotate(*setup)
-    step_n128(4)
-    step_n128(5)
+def negacyclic_mod_t(m1, m2, t):
+    n = m1.shape[0]
+    full = np.convolve(m1, m2)
+    full = np.concatenate([full, np.zeros(1, dtype=full.dtype)])
+    return (full[:n] - full[n:]) % t
+
+
+def bfv_step():
+    qs = numth.get_primes(2 * N, 28, K_DATA)
+    ps = numth.get_primes(2 * N, 29, ALPHA)
+    t = PlainModulus.batching(N, max(16, N.bit_length() + 3)).value
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.BFV, N, qs + ps, plain_modulus=t, special_modulus_size=ALPHA))
+    k_sk, k_rlk, k1, k2 = jax.random.split(jax.random.PRNGKey(SEED + 3), 4)
+    sk = keys.gen_secret_key(ctx, k_sk)
+    rlk = keys.gen_relin_key(ctx, sk, k_rlk)
+    rng = np.random.default_rng(SEED + 3)
+    m1, m2 = (rng.integers(-3, 4, N) for _ in range(2))
+    ct1, ct2 = (keys.encrypt_symmetric(ctx, sk, Plaintext(
+        data=jnp.asarray((m % t).astype(np.uint64))[None], chain_index=1), k)
+        for m, k in ((m1, k1), (m2, k2)))
+    d1, d2 = u32(ct1.data), u32(ct2.data)
+    p = bfv32.build_bfv32(ctx, rlk, use_pallas="mxu-pallas")
+    out = np.asarray(bfv32.bfv_mult_relin32(p, jnp.asarray(d1),
+                                            jnp.asarray(d2)))
+    ks_out = np.asarray(pp.keyswitch32(p.ks, jnp.asarray(d1[1]), p.evk))
+    ref_ct = evaluate.multiply_and_relin(ctx, ct1, ct2, rlk)
+    np.testing.assert_array_equal(out, u32(ref_ct.data))
+    px = bfv32.build_bfv32(ctx, rlk, use_pallas=False)
+    np.testing.assert_array_equal(out, np.asarray(bfv32.bfv_mult_relin32(
+        px, jnp.asarray(d1), jnp.asarray(d2))))
+    np.testing.assert_array_equal(ks_out, np.asarray(pp.keyswitch32(
+        px.ks, jnp.asarray(d1[1]), px.evk)))
+    pt_out = np.asarray(keys.decrypt(ctx, sk, ref_ct).data)[0]
+    np.testing.assert_array_equal(pt_out, negacyclic_mod_t(m1, m2, t))
+    _save("bfv_step_n1024.npz",
+          data_moduli=np.array(qs, dtype=np.uint64),
+          special_moduli=np.array(ps, dtype=np.uint64),
+          t=np.array(t, dtype=np.uint64), sk=u32(sk.data),
+          rlk=u32(rlk.data), d1=d1, d2=d2, m1=m1, m2=m2, keyswitch=ks_out,
+          out=out, pt_out=u32(pt_out))
+
+
+def main(names):
+    names = names or ["ckks_step", "rotate", "step_n128", "bfv_step"]
+    if {"ckks_step", "rotate"} & set(names):
+        setup = _setup()
+        if "ckks_step" in names:
+            ckks_step(*setup)
+        if "rotate" in names:
+            rotate(*setup)
+    if "step_n128" in names:
+        step_n128(4)
+        step_n128(5)
+    if "bfv_step" in names:
+        bfv_step()
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

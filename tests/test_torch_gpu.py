@@ -7,8 +7,13 @@ run these with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Every kernel at several sizes, with every option of its wrapper; the
-tables are real NTT tables and the inputs seeded; bit-exact.
+tables are real NTT tables and the inputs seeded; bit-exact.  The BFV step
+on both engines against the plain path and the golden file.
 """
+
+import os
+
+import numpy as np
 
 import pytest
 import torch
@@ -17,9 +22,11 @@ from phantom_tpu_torch import make_context
 from phantom_tpu_torch.host import numth
 from phantom_tpu_torch.ops import bconv_kernels as bk
 from phantom_tpu_torch.ops import ip_kernels as ik
+from phantom_tpu_torch import convert
 from phantom_tpu_torch.ops import moddown_kernels as mdk
 from phantom_tpu_torch.ops import modup_ip_kernels as mk
 from phantom_tpu_torch.ops import ntt_kernels as nk
+from phantom_tpu_torch.ops import ntt_roll_kernels as rk
 from phantom_tpu_torch.ops import pipeline32 as pp
 from phantom_tpu_torch.schemes.params import EncryptionParameters
 
@@ -105,7 +112,8 @@ def test_k3_bconv_forward(dev, logn):
               nk.bconv_ntt_forward_plain(y, mat, t, rows, **kw))
 
 
-@pytest.mark.parametrize("k_in,k_out", [(22, 43), (21, 44), (3, 5), (63, 4)])
+@pytest.mark.parametrize("k_in,k_out", [(22, 43), (21, 44), (3, 5), (63, 4),
+                                        (87, 44), (44, 43)])
 @pytest.mark.parametrize("logn", [10, 16])
 def test_k5_fold_matmul(dev, logn, k_in, k_out):
     n = 1 << logn
@@ -243,3 +251,73 @@ def test_launch_counts(dev):
     before = nk.ntt_forward.launches
     nk.ntt_forward(res((4, 1 << 12)), t, rows)
     assert nk.ntt_forward.launches == before + 1
+
+
+@pytest.mark.parametrize("logn", [10, 12, 13, 14, 15, 16])
+def test_k6_one_pass(dev, logn):
+    """K6 against its plain twins: one block per row up to 2^13 words, a
+    cluster above (every cluster size whose share fits), the fused
+    epilogue and the scaled inverse, lazy [0, 2q) inputs."""
+    n = 1 << logn
+    t, rows, q, res, sc, scs, _ = _setup(dev, logn)
+    x = res((2, 4, n), lazy=True)
+    sizes = [None] + [c for c in (1, 2, 4, 8)
+                      if n // c * 4 <= 232448 and n // c >= 512]
+    for c in sizes:
+        before = rk.ntt_forward_roll.launches
+        _same(rk.ntt_forward_roll(x, t, rows, cluster=c),
+              nk.ntt_forward_plain(x, t, rows))
+        assert rk.ntt_forward_roll.launches == before + 1
+        _same(rk.ntt_inverse_roll(x, t, rows, cluster=c),
+              nk.ntt_inverse_plain(x, t, rows))
+    sub = res((2, 4, n))
+    kw = dict(sub_from=sub, epi_scale=sc, epi_scale_shoup=scs)
+    _same(rk.ntt_forward_roll(x, t, rows, **kw),
+          nk.ntt_forward_plain(x, t, rows, **kw))
+    _same(rk.ntt_inverse_roll(x, t, rows, sc, scs),
+          nk.ntt_inverse_plain(x, t, rows, sc, scs))
+
+
+@pytest.mark.parametrize("alpha,beta,k_data", [(2, 3, 5), (22, 2, 43)])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k4_coeff(dev, logn, alpha, beta, k_data):
+    """K4's coefficient form at the BFV headline's shape (beta 2, k_out 65,
+    alpha 22, a short last digit) and a small one."""
+    n = 1 << logn
+    k_out = k_data + alpha
+    ctx = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, k_data),
+        numth.get_primes(2 * n, 29, alpha)), device=dev)
+    q = ctx.ntt.q
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + alpha)
+    y = torch.randint(0, 1 << 28, (alpha * beta, n), generator=gen,
+                      device=dev).int()
+    y[k_data:] = 0
+    mats = torch.randint(0, 1 << 29, (beta, k_out, alpha), generator=gen,
+                         device=dev).int()
+    evk = (torch.randint(0, 1 << 62, (beta, 2, k_out, n), generator=gen,
+                         device=dev) % q.long().view(-1, 1)).int()
+    before = mk.modup_ip_coeff.launches
+    got = mk.modup_ip_coeff(y, mats, evk, ctx.ntt)
+    assert mk.modup_ip_coeff.launches == before + 1
+    _same(got, mk.modup_ip_coeff_plain(y, mats, evk, ctx.ntt))
+
+
+@pytest.mark.parametrize("engine", ["mxu-pallas", "pallas-roll"])
+def test_bfv_step(dev, engine):
+    """The BFV golden file's step and key switch on each engine: the kernel
+    path equals the plain path and the JAX package's output."""
+    from phantom_tpu_torch import make_context as mc
+    g = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                             "torch_port", "bfv_step_n1024.npz"))
+    ctx = mc(EncryptionParameters.create(
+        g["d1"].shape[-1], g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), "bfv", int(g["t"])), device=dev)
+    p = convert.bfv_pipeline(ctx, g["rlk"], engine=engine)
+    d1, d2 = (convert.residues(g[k]).to(dev) for k in ("d1", "d2"))
+    got = p(d1, d2)
+    _same(got, p(d1, d2, pp.PLAIN))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), g["out"])
+    ks = pp.keyswitch32(p.ks, d1[1], p.evk)
+    assert np.array_equal(ks.cpu().numpy().view(np.uint32), g["keyswitch"])

@@ -13,7 +13,8 @@ from phantom_tpu_torch import make_context
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 from phantom_tpu_torch.ops import (bconv_kernels, ip_kernels, moddown_kernels,
-                                   modup_ip_kernels, ntt_kernels)
+                                   modup_ip_kernels, ntt_kernels,
+                                   ntt_roll_kernels)
 
 _NO_JAX = """
 import os, sys
@@ -22,6 +23,7 @@ sys.modules["flax"] = None
 import chip_smoke
 import phantom_tpu_torch as pt
 from phantom_tpu_torch import convert, host
+from phantom_tpu_torch.ops import bfv32, ntt_roll_kernels, scaleround32
 from phantom_tpu_torch.schemes import keys
 n = 128
 params = pt.EncryptionParameters.create(
@@ -29,6 +31,12 @@ params = pt.EncryptionParameters.create(
 ctx = pt.make_context(params, device="cpu")
 assert ctx.ntt.root_powers.shape == (7, n), ctx.ntt.root_powers.shape
 assert len(ctx.chain) == 3
+bfv = pt.make_context(pt.EncryptionParameters.create(
+    n, params.data_moduli, params.special_moduli, "bfv",
+    host.modulus.PlainModulus.batching(n, 16)), device="cpu")
+assert bfv.ntt.root_powers.shape == (7 + 6, n), bfv.ntt.root_powers.shape
+assert bfv.get_context_data(1).bfv.rows_d == (0, 1, 2, 3, 4) + tuple(
+    range(7, 13))
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -69,6 +77,28 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
         "cpu"
 
 
+def test_bfv_entry_points_need_cuda_or_cpu(monkeypatch):
+    """The BFV context and build_bfv32 go to the CUDA device by default and
+    raise without one unless given "cpu"."""
+    from phantom_tpu_torch import build_bfv32
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.host.modulus import PlainModulus
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 128
+    params = EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, 2), numth.get_primes(2 * n, 29, 1),
+        "bfv", PlainModulus.batching(n, 16))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        make_context(params)
+    ctx = make_context(params, device="cpu")
+    rlk = torch.zeros((2, 2, 3, n), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bfv32(ctx, rlk)
+    p = build_bfv32(ctx, rlk, device="cpu")
+    assert p.rows_d.device.type == "cpu" and p.ks.engine == "mxu-pallas"
+
+
 @pytest.fixture(scope="module")
 def meta_args():
     from phantom_tpu_torch.host import numth
@@ -84,7 +114,9 @@ def meta_args():
 @pytest.mark.parametrize("kernel", ["ntt_forward", "ntt_inverse",
                                     "bconv_ntt_forward", "fold_matmul",
                                     "modup_ip", "inner_product",
-                                    "moddown_rows", "moddown_rescale"])
+                                    "moddown_rows", "moddown_rescale",
+                                    "modup_ip_coeff", "ntt_forward_roll",
+                                    "ntt_inverse_roll"])
 def test_meta_tensor_raises(meta_args, kernel):
     t, x = meta_args
 
@@ -111,6 +143,10 @@ def test_meta_tensor_raises(meta_args, kernel):
         "moddown_rows": lambda: moddown_kernels.moddown_rows(*md),
         "moddown_rescale": lambda: moddown_kernels.moddown_rescale(
             *md, 1, m(0), m(0), m(0)),
+        "modup_ip_coeff": lambda: modup_ip_kernels.modup_ip_coeff(
+            x[:2], m(1, 3, 2), m(1, 2, 3, 1024), t),
+        "ntt_forward_roll": lambda: ntt_roll_kernels.ntt_forward_roll(x, t),
+        "ntt_inverse_roll": lambda: ntt_roll_kernels.ntt_inverse_roll(x, t),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()

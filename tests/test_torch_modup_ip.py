@@ -2,7 +2,9 @@
 path of modup_ip) against the JAX package's Pallas kernel
 modup_ip_mxu_pallas in interpret mode, on the same numpy inputs, n = 256;
 bit-exact.  Cases: the NTT-form passthrough, the self_mul passthrough (a b
-mod q), a short last digit (k = 5, alpha = 2, zero pad row) and beta = 6."""
+mod q), a short last digit (k = 5, alpha = 2, zero pad row) and beta = 6;
+and the coefficient form (modup_ip_coeff_plain against c2_ntt=None) with
+even digits and with a short last one."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,5 +63,27 @@ def test_k4_plain_vs_pallas(case):
         k_data=k_data, interpret=True)
     tc2 = tuple(map(t32, c2)) if self_mul else t32(c2[0])
     got = mk.modup_ip(t32(y), t32(mats), tc2, t32(evk), tt, k_data=k_data)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.stack([np.asarray(s0), np.asarray(s1)]))
+
+
+@pytest.mark.parametrize("alpha,beta,k_data", [(2, 2, 4), (2, 3, 5)],
+                         ids=["even", "uneven"])
+def test_k4_coeff_plain_vs_pallas(alpha, beta, k_data):
+    k, k_out = alpha * beta, k_data + alpha
+    qs = numth.get_primes(2 * N, 28, k_out)
+    j32 = jntt32.tables32_from_tables64(ntt64.tables_from_host(
+        jax_tables(N, [Modulus(q) for q in qs])))
+    jm = ntt_mxu.prepare_mxu_tables(j32, fused_kernel=True)
+    tt = tntt32.NTTTables32(make_rns_ntt_tables(N, qs))
+    rng = np.random.default_rng(k_data)
+    y = rng.integers(0, 1 << 29, (k, N)).astype(np.uint32)
+    mats = rng.integers(0, 1 << 29, (beta, k_out, alpha)).astype(np.uint32)
+    y[k_data:] = 0
+    mats[-1, :, k_data - (beta - 1) * alpha:] = 0
+    evk = rng.integers(0, 1 << 29, (beta, 2, k_out, N)).astype(np.uint32)
+    s0, s1 = nmp.modup_ip_mxu_pallas(jnp.asarray(y), jnp.asarray(mats), None,
+                                     jnp.asarray(evk), jm, interpret=True)
+    got = mk.modup_ip_coeff(t32(y), t32(mats), t32(evk), tt)
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.stack([np.asarray(s0), np.asarray(s1)]))
