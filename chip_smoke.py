@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CKKS key switching and BFV multiply on one
-NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply and BGV
+multiply on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
 
-Three configurations, all N = 2^16 with 43 data primes of 28 bits from
+Four configurations, all N = 2^16 with 43 data primes of 28 bits from
 chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
   headline  22 special primes of 29 bits (dnum 2, the last digit 21 rows):
             the multiply + relinearize + rescale step on the xla-split
             modup (K1, K2, K5, K9) through each epilogue: the pair (K1,
             K3, then the rescale's K1 and K3), K8 with 8 rows per block
-            (then the rescale), K7 (moddown and rescale in one);
+            (then the rescale), K7 (moddown and rescale in one); and on
+            the other two modup routes: "xla" (K1, K5 per digit, K4's
+            preconv form K4p) and "kernel" (K1, K4 at alpha 22);
   alpha 8   8 special primes of 29 bits (dnum 6, the last digit 3 rows):
             rotations, hoisted rotations (K9 per step) and the step on the
             fused modup (K1, K3, K4), as the JAX package's default dispatch
@@ -20,7 +22,13 @@ chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
             has 87 rows: the HPS multiply + relinearize step in coefficient
             form on the default engine (K5 x10, K2, K1 x3, K4's coefficient
             form, K3) and on "pallas-roll" (K6 for every transform, K5 x14,
-            K9).
+            K9);
+  BGV       `bench.py --scheme bgv` at its defaults: alpha 22, t the 20-bit
+            batching prime: the multiply + relinearize + modulus-switch
+            step in NTT form, its key switch on the "auto" route
+            (xla-split: K1, K5 x2, K2, K9) and on "kernel" (K1, K4), the
+            t-corrected moddown of both halves unfused (K1, K5 to Ql and
+            to {t}, K2), the modulus switch K1 and K2.
 Phases, one line each or more; any failure exits non-zero:
 
   1. device    card name and power limit, CUDA, nvcc, triton, device count
@@ -46,49 +54,77 @@ Phases, one line each or more; any failure exits non-zero:
                rows per block
   7. profile   torch.profiler over a few chained kernel-path steps: the
                device-busy time, the idle share and the top device kernels
-  8. alpha-8 setup   the secret key, the relin key, Galois keys for steps
+  8. routes    the step on the "xla" route (K4p) and on the "kernel" route
+               (K4 at alpha 22) with every kernel call bit-equal to its
+               plain version and timed, then each route's launch counts,
+               kernel path = plain path = the xla-split route, decryption
+               equal to m1 m2
+  9. route timing  chained steps on the three routes in turns (xla-split,
+               xla, kernel, kernel, xla, xla-split) with peak memory; the
+               profiler over the "xla" route
+ 10. alpha-8 setup   the secret key, the relin key, Galois keys for steps
                1..7 and two encryptions, from a seeded generator
-  9. alpha-8 kernels one rotation, one hoisting_sum32, one
+ 11. alpha-8 kernels one rotation, one hoisting_sum32, one
                hoisted_linear_combo32 and the step on both routes and
                through the K8 and K7 epilogues, with every kernel call
                bit-equal to its plain version, and timed
- 10. rotate    rotate32(., 1): kernels = plain, launch counts, decryption
+ 12. rotate    rotate32(., 1): kernels = plain, launch counts, decryption
                equal to sigma_g(m1)
- 11. hoist     hoisting_sum32 over steps 1..7 and hoisted_linear_combo32
+ 13. hoist     hoisting_sum32 over steps 1..7 and hoisted_linear_combo32
                over steps 0..7 with weights in [-3, 3]: kernels = plain,
                launch counts, decryptions equal to sum sigma(m1) and
                sum w_s sigma_s(m1)
- 12. alpha-8 step  the K4 route = the plain path = the xla-split route =
+ 14. alpha-8 step  the K4 route = the plain path = the xla-split route =
                the K8 and K7 epilogues, launch counts, decryption equal to
                m1 m2
- 13. alpha-8 timing  chained steps on both routes in turns, chained
+ 15. alpha-8 timing  chained steps on both routes in turns, chained
                rotations, hoisting_sum32, hoisted_linear_combo32, peak
                memory
- 14. BFV golden  the BFV step (n = 1024, alpha = 2, a short last digit)
+ 16. BFV golden  the BFV step (n = 1024, alpha = 2, a short last digit)
                and the key switch of its d1[1] on both engines through the
                kernels, and the decryption of the step, bit-equal to the
                JAX package's outputs
- 15. BFV setup  the context, the secret and relin keys and two symmetric
+ 17. BFV setup  the context, the secret and relin keys and two symmetric
                encryptions of polynomials with coefficients in [-3, 3], from
                a seeded generator
- 16. BFV kernels  every kernel call of one step on each engine bit-equal to
+ 18. BFV kernels  every kernel call of one step on each engine bit-equal to
                its plain version, and timed; K6 (at 8, 4 and 2 blocks per
                row) beside K2 and K1 on the same operands: the D forward
                (2, 2, 87, N) and the D inverse (3, 87, N)
- 17. BFV step  kernel path = plain path on each engine, the engines equal,
+ 19. BFV step  kernel path = plain path on each engine, the engines equal,
                the launch counts; d1, d2 decrypt to m1, m2, and the step's
                output to m1 m2 mod (X^N + 1, t) in every coefficient where
-               HPS's bound holds (hps_bound; the golden file of phase 14
+               HPS's bound holds (hps_bound; the golden file of phase 16
                is inside it, the full configuration is not: its count of
                right coefficients is printed)
- 18. BFV timing  chained steps (each output the next d1, d2 fixed), the
+ 20. BFV timing  chained steps (each output the next d1, d2 fixed), the
                engines in turns (default, roll, roll, default), the plain
                path once, peak memory per engine; the profiler over a few
                chained steps of each engine
+ 21. BGV golden  the BGV step (n = 1024, alpha = 2, a short last digit)
+               on the "auto" and "kernel" routes through the kernels, and
+               the decryption of its output with the tracked correction
+               factor, bit-equal to the JAX package's outputs
+ 22. BGV setup  the context, the secret and relin keys and two symmetric
+               encryptions of polynomials with coefficients in [-3, 3],
+               from a seeded generator
+ 23. BGV kernels  every kernel call of one step on each route bit-equal to
+               its plain version, and timed
+ 24. BGV step  kernel path = plain path on both routes, the routes equal,
+               the launch counts; d1, d2 decrypt to m1, m2 and the step's
+               output, with the factor q_last^-1 mod t, to m1 m2 mod
+               (X^N + 1, t) in every coefficient
+ 25. BGV timing  chained steps (each output re-padded to 43 rows, as
+               bench.py does), kernel path and plain path in turns, peak
+               memory; each stage alone (tensor product, modup + inner
+               product, the t-corrected moddown of both halves, and of
+               each half by itself as two calls, one delta over both
+               halves, the modulus switch); the profiler over a few
+               chained steps
 Then a {"kernels": [...]} line: per kernel its launches over the counted
 path runs (EXPECTED), its largest error against plain, and the summed time
-of the probed calls (phases 4 and 9) through the kernel and the plain
-version beside their bound.  The bound of
+of the probed calls (phases 4, 8, 11, 18 and 23) through the kernel and
+the plain version beside their bound.  The bound of
 a call is the larger of its bytes (each input, the NTT tables' rows
 included, read once, each output written once) at 3.35 TB/s and its 32-bit
 integer multiplies (a Shoup product 3, a Barrett product 8, a 32x32->64
@@ -117,11 +153,15 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
 GOLDEN = os.path.join(FIXTURES, "ckks_step_n1024.npz")
 ROTATE_GOLDEN = os.path.join(FIXTURES, "rotate_n1024.npz")
 BFV_GOLDEN = os.path.join(FIXTURES, "bfv_step_n1024.npz")
+BGV_GOLDEN = os.path.join(FIXTURES, "bgv_step_n1024.npz")
 HEADLINE = dict(n=1 << 16, limbs=43, alpha=22, bits=28)
 ALPHA8 = dict(n=1 << 16, limbs=43, alpha=8, bits=28)
 BFV = dict(n=1 << 16, limbs=43, alpha=22, bits=28, t_bits=20)
+BGV = BFV
+ROUTES = ("xla-split", "xla", "kernel")  # the CKKS step's modup routes
 ENGINES = ("mxu-pallas", "pallas-roll")
 CHAIN_BFV_STEPS = 10
+CHAIN_BGV_STEPS = 10
 CLUSTERS = (8, 4, 2)  # K6's blocks per 2^16-word row, timed in turns
 STEPS = tuple(range(1, 8))
 DELTA_BITS = 22
@@ -153,6 +193,8 @@ KERNELS = [  # name, wrapper attribute, source, the TPU kernel it replaces
      "phantom_tpu/ops/ntt_pallas_roll.py:274"),
     ("K6i", "ntt_inverse_roll", "phantom_tpu_torch/csrc/ntt_roll.cu",
      "phantom_tpu/ops/ntt_pallas_roll.py:306"),
+    ("K4p", "modup_ip_preconv", "phantom_tpu_torch/csrc/modup_ip.cu",
+     "phantom_tpu/ops/ntt_mxu_pallas.py:1427"),
 ]
 
 
@@ -165,6 +207,9 @@ EXPECTED = {  # launches per path run
     "headline step, K8 epilogue": _launches(K1=3, K2=1, K3=1, K5=2, K9=1,
                                             K8=1),
     "headline step, K7 epilogue": _launches(K1=2, K2=1, K5=2, K9=1, K7=1),
+    # the modup iNTT, K5 per digit into the delta, K4p; the pair, rescale
+    "headline step, xla route": _launches(K1=3, K3=2, K5=2, K4p=1),
+    "headline step, kernel route": _launches(K1=3, K3=2, K4=1),
     "rotation": _launches(K1=2, K3=1, K4=1),
     "hoisting_sum32": _launches(K1=2, K3=2, K9=7),
     "hoisted_linear_combo32": _launches(K1=2, K3=2, K9=7),
@@ -179,6 +224,10 @@ EXPECTED = {  # launches per path run
     # D inverse, 2 moddown inverses, the switched pair; K5 also converts
     # each digit (2) and each moddown (2)
     "BFV step, pallas-roll": _launches(K5=14, K9=1, K6f=4, K6i=4),
+    # "auto" = xla-split at alpha 22: the modup (K1, K5 x2, K2), K9; both
+    # halves' moddown K1, K5 to Ql and to {t}, K2; the mod switch K1, K2
+    "BGV step": _launches(K1=3, K2=3, K5=4, K9=1),
+    "BGV step, kernel route": _launches(K1=3, K2=2, K4=1, K5=2),
 }
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
@@ -201,21 +250,22 @@ def chain_params(n: int, limbs: int, alpha: int, bits: int = 28):
     return EncryptionParameters.create(n, qs[:limbs], ps)
 
 
-def bfv_params(n: int, limbs: int, alpha: int, bits: int = 28,
-               t_bits: int = 20):
-    """chain_params' primes with BFV's plain modulus, the largest t_bits-bit
-    prime == 1 mod 2n (bench.py --scheme bfv)."""
+def mod_t_params(n: int, limbs: int, alpha: int, bits: int = 28,
+               t_bits: int = 20, scheme: str = "bfv"):
+    """chain_params' primes with the plain modulus, the largest t_bits-bit
+    prime == 1 mod 2n (bench.py --scheme bfv, and bgv)."""
     from phantom_tpu_torch import EncryptionParameters
     from phantom_tpu_torch.host.modulus import PlainModulus
     p = chain_params(n, limbs, alpha, bits)
     return EncryptionParameters.create(n, p.data_moduli, p.special_moduli,
-                                       "bfv", PlainModulus.batching(n, t_bits))
+                                       scheme,
+                                       PlainModulus.batching(n, t_bits))
 
 
-def make_bfv_inputs(ctx, seed: int, device):
+def make_mod_t_inputs(ctx, seed: int, device):
     """The secret key, the relin key over QP and two symmetric encryptions
     of random polynomials with coefficients in [-3, 3], from a seeded
-    generator on `device`."""
+    generator on `device` (BFV or BGV)."""
     import torch
     from phantom_tpu_torch.schemes import keys
     gen = torch.Generator(device=device)
@@ -263,6 +313,28 @@ def bfv_golden(device, path: str = BFV_GOLDEN):
         res[f"step, {engine}"] = (p(d1, d2), g["out"])
         res[f"keyswitch32, {engine}"] = (pp.keyswitch32(p.ks, d1[1], p.evk),
                                          g["keyswitch"])
+    return res
+
+
+def bgv_golden(device, path: str = BGV_GOLDEN):
+    """The BGV golden file through the port on `device`: {name: (port
+    output, JAX output)} for the step on the "auto" and "kernel" routes
+    and the decryption of the JAX step output with its correction
+    factor."""
+    from phantom_tpu_torch import convert, make_context
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    g = np.load(path)
+    ctx = make_context(EncryptionParameters.create(
+        int(g["d1"].shape[-1]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), "bgv", int(g["t"])), device=device)
+    d1, d2, out, sk = (convert.residues(g[k]).to(device)
+                       for k in ("d1", "d2", "out", "sk"))
+    res = {"decrypt": (keys.decrypt(ctx, sk, out, int(g["cf"])),
+                       g["pt_out"])}
+    for route in ("auto", "kernel"):
+        p = convert.bgv_pipeline(ctx, g["rlk"], modup=route)
+        res[f"step, {route} route"] = (p(d1, d2), g["out"])
     return res
 
 
@@ -558,6 +630,24 @@ def call_bound(name: str, a: dict, out):
                + 2 * k_out * n * _reduce_ops(beta, _max(q_out) - 1,
                                              _max(evk)))
         return byt, ops
+    if name == "K4p":
+        delta, c2, evk, alpha = a["delta"], a["c2"], a["evk"], a["alpha"]
+        beta, k_out, n = delta.shape
+        kd = beta * alpha if a["k_data"] is None else a["k_data"]
+        # each digit's own rows: the passthrough, never read from delta
+        own = sum(max(0, min((d + 1) * alpha, kd, k_out) - d * alpha)
+                  for d in range(beta))
+        pairs = c2 if isinstance(c2, tuple) else (c2,)
+        conv = beta * k_out - own
+        byt = w * (conv * n + len(pairs) * own * n + evk.numel()
+                   + _n(out)) + _table_bytes(a["t"], a["rows"], k_out)
+        rows = a["rows"]
+        q_out = a["t"].q[:k_out] if rows is None else a["t"].q[rows.long()]
+        ops = (_ntt_ops(conv, n) + (8 * own * n if len(pairs) == 2 else 0)
+               + beta * k_out * n * 4
+               + 2 * k_out * n * _reduce_ops(beta, _max(q_out) - 1,
+                                             _max(evk)))
+        return byt, ops
     raise ValueError(name)
 
 
@@ -726,14 +816,14 @@ def _profile(run, steps: int, card: str, what: str) -> None:
 
 
 def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
-    """Phases 14-18: the BFV HPS step on both engines."""
+    """Phases 16-20: the BFV HPS step on both engines."""
     import torch
     from phantom_tpu_torch import make_context
     from phantom_tpu_torch.ops import bfv32, ntt_kernels, ntt_roll_kernels
     from phantom_tpu_torch.ops import pipeline32 as pp
     from phantom_tpu_torch.schemes import keys
 
-    # 14. golden
+    # 16. golden
     for name, (got, want) in bfv_golden(dev).items():
         if not np.array_equal(got.cpu().numpy().astype(np.uint32), want):
             raise RuntimeError(f"BFV golden: {name} differs from the JAX "
@@ -741,12 +831,12 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
         print(f"BFV golden: {name} bit-equal to the JAX package's output "
               f"{tuple(want.shape)}")
 
-    # 15. setup
+    # 17. setup
     t0 = time.time()
-    params = bfv_params(**BFV)
+    params = mod_t_params(**BFV)
     ctx = make_context(params)
     t_ctx = time.time() - t0
-    sk, rlk, d1, d2, m1, m2 = make_bfv_inputs(ctx, SEED, dev)
+    sk, rlk, d1, d2, m1, m2 = make_mod_t_inputs(ctx, SEED, dev)
     pipes = {e: bfv32.build_bfv32(ctx, rlk, engine=e) for e in ENGINES}
     torch.cuda.synchronize()
     print(f"BFV setup: N={params.n} L={params.size_q} alpha={params.size_p} "
@@ -755,7 +845,7 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
           f" rows); context (host tables of {ctx.ntt.num_limbs} moduli) "
           f"{t_ctx:.1f} s, keys and encryptions {time.time() - t0:.1f} s")
 
-    # 16. kernels under the probes, and K6 beside K2 / K1 on equal work
+    # 18. kernels under the probes, and K6 beside K2 / K1 on equal work
     for p in pipes.values():
         p(d1, d2, probes)
     _print_calls(probes, card, since)
@@ -798,7 +888,7 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
                   for k, v in times.items())
               + f"; bound {b_ms:.4f} ms by {b_by} [{card}]")
 
-    # 17. step: kernels = plain, engines equal, launches, decryption
+    # 19. step: kernels = plain, engines equal, launches, decryption
     outs = {}
     for e, p in pipes.items():
         outs[e] = _count(wrappers, f"BFV step, {e}", lambda: p(d1, d2),
@@ -827,7 +917,7 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
           f"{margin:.2f}, log2 2Nt = {need:.2f}, "
           f"{'inside' if inside else 'OUTSIDE'} the bound")
 
-    # 18. timing
+    # 20. timing
     def chain(route):
         p = pipes["mxu-pallas" if route == "plain path" else route]
         ops = pp.PLAIN if route == "plain path" else pp.KERNELS
@@ -890,6 +980,119 @@ def _bfv_stages(p, d1, d2, card: str) -> None:
           + f"; sum {sum(times.values()):.3f} ms; one D -> Rl round "
           f"{round_ms:.3f} ms, of it the K5 omega matmul {omega_ms:.3f} ms "
           f"[{card}]")
+
+
+def _bgv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
+    """Phases 21-25: the BGV multiply + relinearize + modulus switch."""
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import bgv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import keys
+
+    # 21. golden
+    for name, (got, want) in bgv_golden(dev).items():
+        if not np.array_equal(got.cpu().numpy().astype(np.uint32), want):
+            raise RuntimeError(f"BGV golden: {name} differs from the JAX "
+                               "output")
+        print(f"BGV golden: {name} bit-equal to the JAX package's output "
+              f"{tuple(want.shape)}")
+
+    # 22. setup
+    t0 = time.time()
+    params = mod_t_params(**BGV, scheme="bgv")
+    ctx = make_context(params)
+    t_ctx = time.time() - t0
+    sk, rlk, d1, d2, m1, m2 = make_mod_t_inputs(ctx, SEED, dev)
+    pipes = {r: bgv32.build_bgv32(ctx, rlk, modup=r)
+             for r in ("auto", "kernel")}
+    torch.cuda.synchronize()
+    t_ = params.plain_modulus
+    cf = pow(params.data_moduli[params.size_q - 1] % t_, -1, t_)
+    print(f"BGV setup: N={params.n} L={params.size_q} alpha={params.size_p} "
+          f"dnum={pipes['auto'].ks.beta} t={t_}, modup "
+          f"{pipes['auto'].ks.modup}; context {t_ctx:.1f} s, keys and "
+          f"encryptions {time.time() - t0:.1f} s")
+
+    # 23. kernels under the probes
+    for p in pipes.values():
+        p(d1, d2, probes)
+    _print_calls(probes, card, since)
+
+    # 24. step: kernels = plain, routes equal, launches, decryption
+    outs = {}
+    for r, p in pipes.items():
+        what = "BGV step" if r == "auto" else f"BGV step, {r} route"
+        outs[r] = _count(wrappers, what, lambda: p(d1, d2), launches)
+        if not torch.equal(outs[r], p(d1, d2, pp.PLAIN)):
+            raise RuntimeError(f"BGV step ({r}): kernel path differs from "
+                               "the plain path")
+    if not torch.equal(outs["auto"], outs["kernel"]):
+        raise RuntimeError("BGV step: the routes differ")
+    print(f"BGV step: kernel path bit-equal to the plain path on the auto "
+          f"(xla-split) and kernel routes, the routes bit-equal "
+          f"{tuple(outs['auto'].shape)}")
+    for name, d, m in (("d1", d1, m1), ("d2", d2, m2)):
+        if not np.array_equal(keys.decrypt(ctx, sk, d).cpu().numpy(), m % t_):
+            raise RuntimeError(f"BGV decrypt: {name} does not decrypt to its "
+                               "message")
+    got = keys.decrypt(ctx, sk, outs["auto"], cf).cpu().numpy()
+    right = int((got == negacyclic_product(m1, m2) % t_).sum())
+    if right != params.n:
+        raise RuntimeError(f"BGV decrypt: {params.n - right} coefficients of "
+                           "m1*m2 differ")
+    print(f"BGV decrypt: d1, d2 decrypt to m1, m2, and the step's output "
+          f"(correction factor {cf} = q_last^-1 mod t) to m1*m2 mod "
+          f"(X^N + 1, t) in all {params.n} coefficients")
+
+    # 25. timing, stages, profile
+    p = pipes["auto"]
+    q_pad = ctx.key_q[params.size_q - 1:params.size_q].view(1, 1, 1)
+
+    def chain(route):
+        ops = pp.PLAIN if route == "plain path" else pp.KERNELS
+
+        def run(steps):
+            d = d1
+            for _ in range(steps):
+                d = remix(p(d, d2, ops), q_pad)
+            return d
+        return run
+
+    finals = _chain_timing(("kernel path", "plain path", "plain path",
+                            "kernel path"), chain, CHAIN_BGV_STEPS, card,
+                           "BGV step")
+    if not torch.equal(finals["kernel path"], finals["plain path"]):
+        raise RuntimeError("BGV timing: chained outputs differ")
+    ks, ops = p.ks, pp.KERNELS
+    k = ks.size_ql
+    q = ks.mv_ql.q.long().view(-1, 1)
+    c2 = bgv32._tensor_2x2(q, d1, d2)[2].int()
+    s0, s1 = pp.modup_ip32(ks, c2, p.evk)
+    x_p = pp._inv(ks, torch.stack([s0[k:], s1[k:]]), ks.rows_p,
+                  ops).transpose(0, 1)
+    x3 = bgv32.bgv_mult_relin32(p, d1, d2)
+    stages = {
+        "tensor product": lambda: bgv32._tensor_2x2(q, d1, d2),
+        "modup + inner product (K1, K5 x2, K2, K9)": lambda: pp.modup_ip32(
+            ks, c2, p.evk),
+        "t-corrected moddown of both halves (K1, K5 x2, K2)":
+            lambda: pp.moddown32_pair(ks, s0, s1),
+        "the same as two moddown32 calls":
+            lambda: (pp.moddown32(ks, s0), pp.moddown32(ks, s1)),
+        "its delta over both halves (K5 x2, plain torch)":
+            lambda: pp._moddown_delta32(ks, x_p, ops),
+        "modulus switch (K1, K2)": lambda: bgv32.bgv_mod_switch32(p, x3),
+    }
+    times = {name: _time(f, REPS) for name, f in stages.items()}
+    print("BGV stages: " + ", ".join(f"{name} {ms:.3f} ms"
+                                     for name, ms in times.items())
+          + f" [{card}]")
+    d = [d1]
+
+    def run():
+        d[0] = remix(p(d[0], d2), q_pad)
+    _profile(run, PROFILE_STEPS, card, "BGV step")
 
 
 def main() -> int:
@@ -966,7 +1169,8 @@ def main() -> int:
                 moddown_kernels.moddown_rows, moddown_kernels.moddown_rescale,
                 modup_ip_kernels.modup_ip_coeff,
                 ntt_roll_kernels.ntt_forward_roll,
-                ntt_roll_kernels.ntt_inverse_roll]
+                ntt_roll_kernels.ntt_inverse_roll,
+                modup_ip_kernels.modup_ip_preconv]
     probes = _probes(pp, wrappers)
     since = {name: 0 for name, *_ in KERNELS}
     # the same relin key through each epilogue
@@ -1045,10 +1249,49 @@ def main() -> int:
     def prof_step():
         dd[0] = remix(pipe(dd[0], d2), q_pad)
     _profile(prof_step, PROFILE_STEPS, card, "headline step")
-    del sk, pipe, pipes, d1, d2, out, out_plain, finals, dd
+
+    # 8. the modup routes: K4p ("xla") and K4 at alpha 22 ("kernel")
+    rpipes = {r: pp.CKKSPipeline32(ctx, pipe.evk, modup=r).to(dev)
+              for r in ROUTES[1:]}
+    rpipes[pipe.ks.modup] = pipe
+    for r in ROUTES[1:]:
+        rpipes[r](d1, d2, probes)
+    _print_calls(probes, card, since)
+    for r in ROUTES[1:]:
+        got = _count(wrappers, f"headline step, {r} route",
+                     lambda: rpipes[r](d1, d2), launches)
+        if not (torch.equal(got, out)
+                and torch.equal(rpipes[r](d1, d2, pp.PLAIN), out)):
+            raise RuntimeError(f"step: the {r} route differs from the "
+                               "xla-split route or from its plain path")
+        dist = check_decrypt(ctx, sk, got, m1, m2, DELTA_BITS)
+        print(f"step, {r} route: kernel path bit-equal to its plain path "
+              f"and to the xla-split route {tuple(got.shape)}; decrypts to "
+              f"m1*m2 in all {params.n} coefficients, largest distance "
+              f"{dist:.3e}")
+
+    # 9. the routes in turns, chained
+    def route_chain(route):
+        def run(steps):
+            d = d1
+            for _ in range(steps):
+                d = remix(rpipes[route](d, d2), q_pad)
+            return d
+        return run
+
+    finals = _chain_timing(ROUTES + ROUTES[::-1], route_chain, CHAIN_STEPS,
+                           card, "headline step by modup route")
+    if not all(torch.equal(f, finals[ROUTES[0]]) for f in finals.values()):
+        raise RuntimeError("timing: chained outputs differ by modup route")
+    dd = [d1]
+
+    def prof_xla():
+        dd[0] = remix(rpipes["xla"](dd[0], d2), q_pad)
+    _profile(prof_xla, PROFILE_STEPS, card, "headline step, xla route")
+    del sk, pipe, pipes, rpipes, d1, d2, out, out_plain, finals, dd
     torch.cuda.empty_cache()
 
-    # 8. alpha = 8 setup
+    # 10. alpha = 8 setup
     t0 = time.time()
     params8 = chain_params(**ALPHA8)
     ctx8 = make_context(params8)
@@ -1066,7 +1309,7 @@ def main() -> int:
           f"{params8.size_qp} moduli) {t_ctx:.1f} s, keys (relin + "
           f"{len(STEPS)} Galois) and encryptions {time.time() - t0:.1f} s")
 
-    # 9. alpha = 8 kernels under the probes
+    # 11. alpha = 8 kernels under the probes
     rot = lambda ops: pp.rotate32(ks8, gal, e1, 1, ops)
     hoist = lambda ops: pp.hoisting_sum32(ks8, gal, e1, STEPS, ops)
     combo = lambda ops: pp.hoisted_linear_combo32(ks8, gal, e1,
@@ -1081,7 +1324,7 @@ def main() -> int:
         p(e1, e2, probes)
     _print_calls(probes, card, since)
 
-    # 10-12. each path: launch counts, kernels = plain, decryption
+    # 12-14. each path: launch counts, kernels = plain, decryption
     m1s = {0: n1, **{s: galois_coeffs(n1, galois.get_elt_from_step(
         s, params8.n)) for s in STEPS}}
     scale = 2.0 ** DELTA_BITS
@@ -1120,7 +1363,7 @@ def main() -> int:
           f"{tuple(out8.shape)}; decrypts to m1*m2 in all {params8.n} "
           f"coefficients, largest distance {dist:.3e}")
 
-    # 13. alpha = 8 timing
+    # 15. alpha = 8 timing
     q8 = ctx8.key_q[params8.size_q - 1:params8.size_q].view(1, 1, 1)
 
     def step8_chain(route):
@@ -1161,8 +1404,12 @@ def main() -> int:
     del out_split
     torch.cuda.empty_cache()
 
-    # 14-18. BFV
+    # 16-20. BFV
     _bfv_phases(card, probes, wrappers, since, launches, dev)
+    torch.cuda.empty_cache()
+
+    # 21-25. BGV
+    _bgv_phases(card, probes, wrappers, since, launches, dev)
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):

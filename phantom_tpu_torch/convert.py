@@ -3,9 +3,11 @@
 Takes numpy arrays only (call `np.asarray` on a JAX array first), so this
 module, like the rest of the port, never imports JAX.  Residues are below
 2^30, so u64 and u32 words both become int32 tensors with the same bits:
-`residues` carries ciphertexts (CKKS in NTT form, BFV in coefficient
-form), secret keys and plaintexts; the relin key becomes a level's evk
-(`relin_evk`) or a whole BFV step (`bfv_pipeline`).
+`residues` carries ciphertexts (CKKS and BGV in NTT form, BFV in
+coefficient form), secret keys and plaintexts; the relin key becomes a
+level's evk (`relin_evk`) or a whole BFV or BGV step (`bfv_pipeline`,
+`bgv_pipeline`).  A BGV ciphertext's correction factor is a host integer:
+the caller carries it beside the residues.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .ops.bfv32 import BFVPipeline32, build_bfv32
+from .ops.bgv32 import BGVPipeline32, build_bgv32
 from .ops.pipeline32 import DEFAULT_ENGINE, Galois32, convert_key32
 from .schemes.context import Context
 
@@ -49,3 +52,12 @@ def bfv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,
     this level on `engine`, on the context's device."""
     return build_bfv32(ctx, residues(rlk_data).to(ctx.key_q.device),
                        chain_index, engine, ctx.key_q.device)
+
+
+def bgv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,
+                 modup: str = "auto") -> BGVPipeline32:
+    """A BGV context's RelinKey.data (dnum, 2, K, N) -> the mult + relin +
+    modswitch step at this level on the `modup` route, on the context's
+    device."""
+    return build_bgv32(ctx, residues(rlk_data).to(ctx.key_q.device),
+                       chain_index, ctx.key_q.device, modup=modup)

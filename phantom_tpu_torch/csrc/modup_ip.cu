@@ -10,7 +10,11 @@
 // form (the TPU kernel's c2_ntt=None, BFV's relinearization), there is no
 // passthrough: every (d, j) pair converts and transforms, the digit's own
 // rows through the qhat diagonal the caller puts in mat, and launch A
-// stores every row.  The digit sum is exact: a 64-bit low word and a carry
+// stores every row.  With mat null, the preconv form (the TPU kernel's
+// preconv=True, the CKKS step's "xla" modup route): y is the (beta, k_out,
+// N) delta that K5 already converted per digit, and the prologue loads
+// delta[d, j] in place of the dot product; digit d's own rows of delta are
+// never read.  The digit sum is exact: a 64-bit low word and a carry
 // count per element, one 128-bit reduction at the end.
 //
 // The TPU kernel carries the digit sum in VMEM across its sequential grid
@@ -27,6 +31,11 @@
 // k_out = 51, k_data = 43) is traffic the TPU kernel does not have; with it
 // the kernel moves about 1.6 times its compulsory bytes (evk, y, the
 // passthrough rows, the output).  It is bound by device memory either way.
+// The preconv form at the CKKS headline (beta 2, k_out 65, alpha 22,
+// k_data 43) reads 87 delta rows (23 MB), the pair's 43 digit rows twice
+// (23 MB), the evk (68 MB) and the 65 twiddle rows with their Shoup words
+// (34 MB), and writes 34 MB; its scratch round trip (87 rows, 2 x 23 MB)
+// is the known cost over that.
 
 #include "ntt_core.cuh"
 
@@ -36,8 +45,9 @@ namespace {
 constexpr int kPer = kTile / kThreads;  // chunk words per thread
 
 struct ModupArgs {
-  const uint32_t* y;    // (beta * alpha, N) pre-scaled iNTT rows
-  const uint32_t* mat;  // (beta, k_out, alpha)
+  const uint32_t* y;    // (beta * alpha, N) pre-scaled iNTT rows, or with
+                        // mat null the (beta, k_out, N) converted delta
+  const uint32_t* mat;  // (beta, k_out, alpha), null in the preconv form
   const uint32_t* a;    // (beta * alpha, N) NTT-form passthrough rows
   const uint32_t* b;    // optional: the passthrough is a * b mod q
   const uint32_t* evk;  // (beta, 2, k_out, N)
@@ -51,6 +61,8 @@ struct ModupArgs {
 
   __device__ __forceinline__ uint32_t convert(int d, int j, int64_t gi,
                                               int n, const Barrett& bq) const {
+    if (mat == nullptr)  // preconv: converted already, lazy [0, 2 q_j)
+      return csub(y[(static_cast<int64_t>(d) * k_out + j) * n + gi], bq.q);
     return dot_mod(y + static_cast<int64_t>(d) * alpha * n + gi, n,
                    mat + (static_cast<int64_t>(d) * k_out + j) * alpha, alpha,
                    bq);
@@ -142,7 +154,8 @@ extern "C" {
 
 // K4.  out: (2, k_out, N); scratch: (beta, k_out, N), used when N > 4096;
 // y, a, b: (beta * alpha, N), b may be null, and a too (the coefficient
-// form); mat: (beta, k_out, alpha);
+// form); mat: (beta, k_out, alpha), or null for the preconv form, where y
+// is the (beta, k_out, N) delta;
 // evk: (beta, 2, k_out, N); q, w, ws: the whole base's forward tables; rows:
 // (k_out,) table row of each output row.
 int ptk_modup_ip(void* out, void* scratch, const void* y, const void* mat,

@@ -117,7 +117,15 @@ def bconv_exact32(x: torch.Tensor, c: BaseConvConsts32,
     """Value-exact conversion (reference bConv_HPS semantics).
     fold_matmul: the matmul's K5 (or its plain version)."""
     y = scale_by_qhat_inv32(x, c)
+    return exact_from_scaled32(y, floor_sum_div32(y, c), c, fold_matmul)
+
+
+def exact_from_scaled32(y: torch.Tensor, v: torch.Tensor,
+                        c: BaseConvConsts32,
+                        fold_matmul=bconv_kernels.fold_matmul) -> torch.Tensor:
+    """bconv_exact32 from the pre-scaled y = [x QhatInv] and its floor sum
+    v, which depend on the input base alone: two conversions of one x to
+    two output bases share them."""
     raw = matmul_reduce32(y, c, fold_matmul).long()
-    v = floor_sum_div32(y, c).long()
     q = _col(c.obase.q, raw)
-    return ((raw - v.unsqueeze(0) * _col(c.q_mod_p, raw)) % q).int()
+    return ((raw - v.long().unsqueeze(0) * _col(c.q_mod_p, raw)) % q).int()

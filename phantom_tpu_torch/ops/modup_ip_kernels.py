@@ -26,7 +26,14 @@ column pass with the conversion prologue into a (beta, k_out, N) scratch
 one block per (4096-word chunk, row j) that loops over the digits,
 finishes the transform in shared memory, multiplies by the evk chunk and
 keeps the exact digit sum in registers.  It is bound by device memory.
-The preconv variant of the TPU kernel is not ported.
+
+The preconv form (the TPU kernel with preconv=True, which the JAX package's
+CKKS step takes on its "xla" modup route) is `modup_ip_preconv`, again a
+wrapper of its own with its own launch count: the base conversion is done
+before the call (K5 per digit, pipeline32.modup_delta_xla32), so the kernel
+reads the converted (beta, k_out, N) delta in place of y and mats and only
+transforms and multiply-accumulates.  Inside digit d it passes a[j] (or
+a[j] b[j]) through as the NTT form does and never reads delta[d, j].
 """
 
 from __future__ import annotations
@@ -60,6 +67,15 @@ def _modup(y, mats, t: NTTTables32, rows):
     return ntt32.ntt_forward32(x, t, rows).long(), u32(q_rows).view(k_out, 1)
 
 
+def _in_digit(beta: int, alpha: int, k_data: int, k_out: int):
+    """(d, lo, hi) of each digit's own rows: d alpha <= j < min((d + 1)
+    alpha, k_data, k_out)."""
+    for d in range(beta):
+        lo, hi = d * alpha, min((d + 1) * alpha, k_data, k_out)
+        if hi > lo:
+            yield d, lo, hi
+
+
 def _digit_sum(tn, evk, q) -> torch.Tensor:
     acc = torch.zeros((2,) + tuple(tn.shape[1:]), dtype=torch.int64,
                       device=tn.device)
@@ -78,10 +94,30 @@ def modup_ip_plain(y, mats, c2, evk, t: NTTTables32, rows=None,
     beta, k_out, alpha = mats.shape
     tn, q = _modup(y, mats, t, rows)
     k_data = beta * alpha if k_data is None else k_data
-    for d in range(beta):
-        lo, hi = d * alpha, min((d + 1) * alpha, k_data, k_out)
-        if hi > lo:
-            tn[d, lo:hi] = _passthrough(c2, lo, hi, q[lo:hi])
+    for d, lo, hi in _in_digit(beta, alpha, k_data, k_out):
+        tn[d, lo:hi] = _passthrough(c2, lo, hi, q[lo:hi])
+    return _digit_sum(tn, evk, q)
+
+
+def modup_ip_preconv_plain(delta, c2, evk, t: NTTTables32, rows=None,
+                           k_data=None, alpha=None) -> torch.Tensor:
+    """The preconv form.  delta: (beta, k_out, N), the converted rows in
+    [0, 2 q_j), read only outside each digit's own rows; c2: (beta alpha, N)
+    or a pair of them; evk: (beta, 2, k_out, N); alpha: the digit width ->
+    (2, k_out, N) int32."""
+    if alpha is None:
+        raise ValueError("modup_ip_preconv: alpha (the digit width) is "
+                         "required")
+    beta, k_out, n = delta.shape
+    rows = resolve_rows(t, rows, k_out)
+    q = u32(t.q[rows.long()]).view(k_out, 1)
+    k_data = beta * alpha if k_data is None else k_data
+    x = delta.clone()
+    for d, lo, hi in _in_digit(beta, alpha, k_data, k_out):
+        x[d, lo:hi] = 0  # never read: the passthrough takes these rows
+    tn = ntt32.ntt_forward32(x, t, rows).long()
+    for d, lo, hi in _in_digit(beta, alpha, k_data, k_out):
+        tn[d, lo:hi] = _passthrough(c2, lo, hi, q[lo:hi])
     return _digit_sum(tn, evk, q)
 
 
@@ -93,12 +129,17 @@ def modup_ip_coeff_plain(y, mats, evk, t: NTTTables32,
     return _digit_sum(tn, evk, q)
 
 
-def _launch(y, mats, c2, evk, t: NTTTables32, rows, k_data):
-    """ptk_modup_ip; c2 None is the coefficient form."""
-    if mats.dim() != 3:
+def _launch(y, mats, c2, evk, t: NTTTables32, rows, k_data, alpha=None):
+    """ptk_modup_ip; c2 None is the coefficient form; mats None the preconv
+    form, where y is the (beta, k_out, N) delta and alpha is given."""
+    if mats is None:
+        beta, k_out = y.shape[:2]
+        _expect(y, (beta, k_out, y.shape[-1]), "delta")
+    elif mats.dim() != 3:
         raise ValueError(f"modup_ip: mats {tuple(mats.shape)} is not "
                          "(beta, k_out, alpha)")
-    beta, k_out, alpha = mats.shape
+    else:
+        beta, k_out, alpha = mats.shape
     k = beta * alpha
     n = y.shape[-1]
     logn = _logn(n)
@@ -107,19 +148,21 @@ def _launch(y, mats, c2, evk, t: NTTTables32, rows, k_data):
         raise ValueError(f"modup_ip: k_data={k_data} outside (0, {k}]")
     rows = resolve_rows(t, rows, k_out)
     a, b = c2 if isinstance(c2, tuple) else (c2, None)
-    _expect(y, (k, n), "y")
+    if mats is not None:
+        _expect(y, (k, n), "y")
     _expect(a, (k, n), "c2")
     _expect(b, (k, n), "c2 b")
     _expect(evk, (beta, 2, k_out, n), "evk")
-    opt = [x for x in (a, b) if x is not None]
-    _build.check_operands(y, mats, evk, rows, t.q, t.root_powers,
+    opt = [x for x in (mats, a, b) if x is not None]
+    _build.check_operands(y, evk, rows, t.q, t.root_powers,
                           t.root_powers_shoup, *opt)
     out = torch.empty((2, k_out, n), dtype=torch.int32, device=y.device)
     scratch = torch.empty((beta, k_out, n), dtype=torch.int32,
                           device=y.device)
     with torch.cuda.device(y.device):
         err = _build.library().ptk_modup_ip(
-            out.data_ptr(), scratch.data_ptr(), y.data_ptr(), mats.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), y.data_ptr(),
+            None if mats is None else mats.data_ptr(),
             None if a is None else a.data_ptr(),
             None if b is None else b.data_ptr(),
             evk.data_ptr(), beta, alpha, k_out, k_data, t.q.data_ptr(),
@@ -157,5 +200,24 @@ def modup_ip_coeff(y: torch.Tensor, mats: torch.Tensor, evk: torch.Tensor,
     return out
 
 
+def modup_ip_preconv(delta: torch.Tensor, c2, evk: torch.Tensor,
+                     t: NTTTables32, rows=None, k_data=None,
+                     alpha=None) -> torch.Tensor:
+    """K4's preconv form on CUDA tensors; the plain version on CPU tensors.
+    delta: (beta, k_out, N) converted rows in [0, 2 q_j) (a digit's own
+    rows are never read); c2 (or each of the pair): (beta alpha, N); evk:
+    (beta, 2, k_out, N); alpha: the digit width.  Returns (2, k_out, N)
+    int32 in [0, q)."""
+    if _build.is_plain(delta, "modup_ip_preconv"):
+        return modup_ip_preconv_plain(delta, c2, evk, t, rows, k_data, alpha)
+    if alpha is None or c2 is None:
+        raise ValueError("modup_ip_preconv: needs alpha and the "
+                         "passthrough c2")
+    out = _launch(delta, None, c2, evk, t, rows, k_data, alpha)
+    modup_ip_preconv.launches += 1
+    return out
+
+
 modup_ip.launches = 0
 modup_ip_coeff.launches = 0
+modup_ip_preconv.launches = 0

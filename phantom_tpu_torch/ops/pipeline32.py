@@ -18,20 +18,27 @@ the default engine: the QhatInv pre-scale in plain torch, then K4's
 coefficient form (modup + evk inner product, every row converted and
 transformed), then the moddown pair.
 
-The default engine's CKKS paths have two modup structures, chosen as the
-JAX package chooses them: by the special base's size alpha against
-KERNEL_BCONV_ALPHA_MAX = 8.
+The default engine's NTT-form paths take one of the JAX package's modup
+routes (its PHANTOM_MODUP_VARIANT), fixed when a KeySwitch32 is built
+(`modup`, MODUP_ROUTES): "auto" (the default) is "kernel" up to
+KERNEL_BCONV_ALPHA_MAX = 8 special primes and "xla-split" above.
 
-  alpha <= 8, the fused route:
+  "kernel", the fused route:
     modup + evk inner product       K1 iNTT (x n^-1 QhatInv), K4
     modup alone (hoisted rotations) K1, K3 with the digit rows passed
                                     through
-  alpha > 8, the xla-split route (the headline: N = 2^16, alpha = 22):
+  "xla-split" (the headline: N = 2^16, alpha = 22):
     modup                           K1, K5 per digit, K2 over the
                                     complement rows, the digit rows
                                     spliced back
     inner product                   K9
-  on both:
+  "xla": the CKKS step only; every other path takes "xla-split" there
+    modup + evk inner product       K1, K5 per digit into the (beta,
+                                    size_qlp, N) delta (modup_delta_xla32),
+                                    then K4's preconv form: the forward NTT
+                                    of the complement rows and the evk
+                                    product-sum, c2 in its digit rows
+  on all:
     moddown pair                    K1 over the P rows emitting the floor
                                     correction v, then K3: exact P -> Ql
                                     conversion, forward NTT, (x - .) P^-1
@@ -46,12 +53,20 @@ KERNEL_BCONV_ALPHA_MAX = 8.
 
 The CKKS step on the fused route never stores the tensor term c2 = d1[1]
 d2[1]: K1 computes it in its prologue (mul_by) and K4 again in its
-passthrough rows; the xla-split route computes it in plain torch.  The
+passthrough rows; the xla routes compute it in plain torch ("xla" passes
+the pair to K4p, which multiplies it again in its passthrough rows).  The
 terms c0 and c1 ride the moddown's epilogue (tensor_add) on both.
 Rotations permute NTT-form ciphertexts with a gather (the evaluation order
 out[k] = p(psi^(2 rev(k)+1)) turns sigma_g into an index permutation) and
 key-switch c1; the hoisted forms share one modup over all steps, and K9
 reads it through each step's permutation.
+
+A KeySwitch32 built on a BGV context carries the t-corrected moddown (the
+reference's bgv_moddown_kernel), unfused and for both halves at once: one
+K1 over their P rows without the moddown scale, the exact conversions
+P -> Ql and P -> {t} (one K5 each over both halves' columns, sharing the
+QhatInv scale and the floor sum), the t correction in plain torch, and
+one K2 with the (x_Ql - .) P^-1 epilogue.
 
 Every function takes `ops`, the kernels it calls: `KERNELS` (the default)
 dispatches each to its CUDA kernel or, for CPU tensors, its plain version;
@@ -72,15 +87,17 @@ from torch import nn
 from . import (bconv_kernels, ip_kernels, moddown_kernels, modup_ip_kernels,
                ntt_kernels, ntt_roll_kernels)
 from .bconv32 import (BaseConvConsts32, ModulusVec32, bconv_approx32,
-                      bconv_exact32, matmul_reduce32)
+                      bconv_exact32, exact_from_scaled32, floor_sum_div32,
+                      matmul_reduce32, scale_by_qhat_inv32)
 from .modmath32 import mul_mod_shoup32, u32
 from .ntt32 import u32_tensor
 from ..schemes import galois as gal
 from ..schemes.context import Context, qlp_rows, resolve_device
 
 # the JAX package's default: the fused modup (K4, K3 self rows) up to this
-# special-base size, the xla-split modup above it (KeySwitch32.fused_modup)
+# special-base size, the xla-split modup above it (KeySwitch32.modup)
 KERNEL_BCONV_ALPHA_MAX = 8
+MODUP_ROUTES = ("auto", "kernel", "xla", "xla-split")
 DEFAULT_ENGINE = "mxu-pallas"
 ROLL_ENGINE = "pallas-roll"
 ENGINES = (DEFAULT_ENGINE, ROLL_ENGINE)
@@ -98,6 +115,7 @@ class Kernels(NamedTuple):
     modup_ip_coeff: Callable     # K4, coefficient form
     ntt_forward_roll: Callable   # K6
     ntt_inverse_roll: Callable   # K6
+    modup_ip_preconv: Callable   # K4, preconv form
 
 
 KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
@@ -107,7 +125,8 @@ KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                   moddown_kernels.moddown_rescale,
                   modup_ip_kernels.modup_ip_coeff,
                   ntt_roll_kernels.ntt_forward_roll,
-                  ntt_roll_kernels.ntt_inverse_roll)
+                  ntt_roll_kernels.ntt_inverse_roll,
+                  modup_ip_kernels.modup_ip_preconv)
 PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.bconv_ntt_forward_plain,
                 bconv_kernels.fold_matmul_plain,
@@ -117,7 +136,8 @@ PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 moddown_kernels.moddown_rescale_plain,
                 modup_ip_kernels.modup_ip_coeff_plain,
                 ntt_kernels.ntt_forward_plain,
-                ntt_kernels.ntt_inverse_plain)
+                ntt_kernels.ntt_inverse_plain,
+                modup_ip_kernels.modup_ip_preconv_plain)
 
 
 def _rows(idx) -> torch.Tensor:
@@ -130,16 +150,19 @@ def _qcol(q: torch.Tensor) -> torch.Tensor:
 
 class KeySwitch32(nn.Module):
     """u32 tables for hybrid key switching at one level on one engine
-    (ENGINES): the QP NTT tables with the row indices of Ql, P, QlP and
-    the concatenated per-digit complement rows, the conversion constants,
-    the fused modup matrices (NTT and coefficient form) and the fused
-    scales.  Holds no key material."""
+    (ENGINES) and modup route (MODUP_ROUTES): the QP NTT tables with the
+    row indices of Ql, P, QlP and the concatenated per-digit complement
+    rows, the conversion constants, the fused modup matrices (NTT and
+    coefficient form) and the fused scales; on a BGV context also the
+    t-corrected moddown's tables.  Holds no key material."""
 
     def __init__(self, ctx: Context, chain_index: int = 1,
-                 engine: str = DEFAULT_ENGINE):
+                 engine: str = DEFAULT_ENGINE, modup: str = "auto"):
         super().__init__()
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r} not in {ENGINES}")
+        if modup not in MODUP_ROUTES:
+            raise ValueError(f"modup {modup!r} not in {MODUP_ROUTES}")
         self._engine = engine
         cd = ctx.get_context_data(chain_index)
         ks = cd.ks
@@ -150,6 +173,10 @@ class KeySwitch32(nn.Module):
         rows = qlp_rows(ctx, k)
         qp = ctx.params.coeff_modulus
         self.size_ql, self.size_p, self.beta = k, alpha, beta
+        if modup == "auto":
+            modup = ("kernel" if alpha <= KERNEL_BCONV_ALPHA_MAX
+                     else "xla-split")
+        self._modup = modup
         self.ntt = ctx.ntt
         self.mv_ql = ModulusVec32(cd.moduli)
         self.mv_qlp = ModulusVec32([qp[r] for r in rows])
@@ -204,21 +231,42 @@ class KeySwitch32(nn.Module):
         self.register_buffer("moddown_scale", u32_tensor(md))
         self.register_buffer("moddown_scale_shoup", u32_tensor(
             [(s << 32) // p for s, p in zip(md, special)]))
+        self.p_to_t = None
+        if ks.p_to_t is not None:  # BGV: the t-corrected moddown
+            self.p_to_t = BaseConvConsts32(ks.p_to_t)
+            self.register_buffer("phalf_mod_p", u32_tensor(ks.phalf_mod_p))
+            self.register_buffer("phalf_mod_q", u32_tensor(ks.phalf_mod_q))
+            self.register_buffer("bigp_mod_q", u32_tensor(ks.bigp_mod_q))
+            self.phalf_mod_t = ks.phalf_mod_t
+            self.neg_pinv_mod_t = ks.neg_pinv_mod_t
+            self.t = ctx.params.plain_modulus
 
     @property
     def engine(self) -> str:
         return self._engine
 
     @property
+    def modup(self) -> str:
+        """The modup route, "auto" resolved by alpha: "kernel", "xla" or
+        "xla-split"."""
+        return self._modup
+
+    @property
     def fused_modup(self) -> bool:
-        """The modup route, set by alpha alone: fused (K4, K3 self rows) up
-        to KERNEL_BCONV_ALPHA_MAX, xla-split above."""
-        return self.size_p <= KERNEL_BCONV_ALPHA_MAX
+        """True on the "kernel" route (K4, K3 self rows)."""
+        return self._modup == "kernel"
+
+    @property
+    def bgv(self) -> bool:
+        """True when built on a BGV context: the moddown is t-corrected."""
+        return self.p_to_t is not None
 
 
 def build_keyswitch32(ctx: Context, chain_index: int = 1, device=None,
-                      engine: str = DEFAULT_ENGINE) -> KeySwitch32:
-    return KeySwitch32(ctx, chain_index, engine).to(resolve_device(device))
+                      engine: str = DEFAULT_ENGINE,
+                      modup: str = "auto") -> KeySwitch32:
+    return KeySwitch32(ctx, chain_index, engine, modup).to(
+        resolve_device(device))
 
 
 def _default_engine_only(ks: KeySwitch32, what: str) -> None:
@@ -284,6 +332,21 @@ def modup_xla32(ks: KeySwitch32, y: torch.Tensor, c2_ntt: torch.Tensor,
     return torch.stack(out)
 
 
+def modup_delta_xla32(ks: KeySwitch32, y: torch.Tensor,
+                      ops: Kernels = KERNELS) -> torch.Tensor:
+    """y: the pre-scaled iNTT rows (size_ql, N) -> the converted (beta,
+    size_qlp, N) delta, K5 per digit, zeros at each digit's own rows: K4's
+    preconv input (which never reads those rows)."""
+    k, alpha = ks.size_ql, ks.size_p
+    out = []
+    for d in range(ks.beta):
+        lo, hi = d * alpha, min((d + 1) * alpha, k)
+        compl = matmul_reduce32(y[lo:hi], ks.digit_convs[d], ops.fold_matmul)
+        out.append(torch.cat([compl[:lo], compl.new_zeros(
+            (hi - lo,) + tuple(y.shape[1:])), compl[lo:]]))
+    return torch.stack(out)
+
+
 def _modup_inverse(ks: KeySwitch32, c2_ntt: torch.Tensor, ops: Kernels,
                    mul_by=None) -> torch.Tensor:
     """K1: the iNTT of the Ql rows scaled by n^-1 * QhatInv."""
@@ -294,8 +357,9 @@ def _modup_inverse(ks: KeySwitch32, c2_ntt: torch.Tensor, ops: Kernels,
 def modup_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
                      ops: Kernels = KERNELS) -> torch.Tensor:
     """(size_ql, N) NTT form -> the modup tensor (beta, size_qlp, N), NTT
-    form.  At alpha <= 8 one K3 converts and transforms every QlP row of
-    every digit, the digit's own rows passed through; above, modup_xla32."""
+    form.  On the "kernel" route one K3 converts and transforms every QlP
+    row of every digit, the digit's own rows passed through; else
+    modup_xla32."""
     _default_engine_only(ks, "modup_from_ntt32")
     y = _modup_inverse(ks, c2_ntt, ops)
     if not ks.fused_modup:
@@ -326,9 +390,9 @@ def _modup_ip_split(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
 
 def modup_ip32(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
                ops: Kernels = KERNELS):
-    """Modup and the evk inner product: (s0, s1), each (size_qlp, N).  At
-    alpha <= 8 one K4 launch after the modup iNTT (the modup tensor never
-    exists in memory); above, _modup_ip_split."""
+    """Modup and the evk inner product: (s0, s1), each (size_qlp, N).  On
+    the "kernel" route one K4 launch after the modup iNTT (the modup tensor
+    never exists in memory); else _modup_ip_split."""
     if not ks.fused_modup:
         return _modup_ip_split(ks, c2_ntt, evk, ops)
     _default_engine_only(ks, "modup_ip32")
@@ -367,12 +431,45 @@ def _moddown(ks: KeySwitch32, xs, tensor_add, ops: Kernels,
         epi_scale_shoup=ks.pinv_shoup, tensor_add=tensor_add)
 
 
+def _moddown_delta32(ks: KeySwitch32, x_p: torch.Tensor,
+                     ops: Kernels) -> torch.Tensor:
+    """BGV's delta over Ql from the coefficient-form P rows x_p (alpha,
+    ...): delta == x (mod P) and delta == 0 (mod t), the centered (P - 1)
+    / 2 shift around both exact conversions -> (size_ql, ...)."""
+    def col(v):
+        return u32(v).view((-1,) + (1,) * (x_p.dim() - 1))
+    t = ks.t
+    y = scale_by_qhat_inv32(((x_p.long() + col(ks.phalf_mod_p))
+                             % col(ks.p_to_q.ibase.q)).int(), ks.p_to_q)
+    v = floor_sum_div32(y, ks.p_to_q)
+    dt = exact_from_scaled32(y, v, ks.p_to_t, ops.fold_matmul).long()
+    u = (dt - ks.phalf_mod_t) % t * ks.neg_pinv_mod_t % t
+    dq = exact_from_scaled32(y, v, ks.p_to_q, ops.fold_matmul).long()
+    return ((dq - col(ks.phalf_mod_q) + u * col(ks.bigp_mod_q))
+            % col(ks.mv_ql.q)).int()
+
+
+def _moddown_bgv(ks: KeySwitch32, xs, ops: Kernels) -> torch.Tensor:
+    """BGV's moddown of G = len(xs) inputs (size_qlp, N) -> (G, size_ql,
+    N): one inverse NTT of their P rows, the t-corrected delta over all G N
+    columns at once, one forward NTT with the (x_Ql - .) P^-1 epilogue."""
+    k = ks.size_ql
+    x_p = _inv(ks, torch.stack([x[k:] for x in xs]), ks.rows_p, ops)
+    delta = _moddown_delta32(ks, x_p.transpose(0, 1), ops)
+    return _fwd(ks, delta.transpose(0, 1).contiguous(), ks.rows_ql, ops,
+                sub_from=torch.stack([x[:k] for x in xs]), epi_scale=ks.pinv,
+                epi_scale_shoup=ks.pinv_shoup)
+
+
 def moddown32(ks: KeySwitch32, x: torch.Tensor,
               ops: Kernels = KERNELS) -> torch.Tensor:
     """(x_Ql - delta(x_P)) * P^-1 over Ql, NTT form in and out:
-    (size_qlp, N) -> (size_ql, N).  On the roll engine unfused: the
-    inverse NTT of the P rows, the exact conversion delta (K5), the
-    forward NTT with the (x_Ql - .) P^-1 epilogue."""
+    (size_qlp, N) -> (size_ql, N).  Unfused on the roll engine and for
+    BGV: the inverse NTT of the P rows, the exact conversion delta (K5;
+    BGV's t-corrected _moddown_delta32), the forward NTT with the
+    (x_Ql - .) P^-1 epilogue."""
+    if ks.bgv:
+        return _moddown_bgv(ks, [x], ops)[0]
     if ks.engine == DEFAULT_ENGINE:
         return _moddown(ks, [x], None, ops)[0]
     k = ks.size_ql
@@ -384,14 +481,18 @@ def moddown32(ks: KeySwitch32, x: torch.Tensor,
 
 def moddown32_pair(ks: KeySwitch32, x0: torch.Tensor, x1: torch.Tensor,
                    tensor_add=None, ops: Kernels = KERNELS):
-    """moddown32 of both key-switch halves in one K1 and one K3 launch,
-    bit-identical to two moddown32 calls (which the roll engine makes).
-    tensor_add = (d1, d2) adds the relin tensor terms c0 and c1 in K3's
-    epilogue (default engine only)."""
-    if ks.engine != DEFAULT_ENGINE:
+    """moddown32 of both key-switch halves in one K1 and one K3 launch (for
+    BGV one K1, two K5 and one K2: _moddown_bgv), bit-identical to two
+    moddown32 calls (which the roll engine makes).  tensor_add = (d1, d2)
+    adds the relin tensor terms c0 and c1 in K3's epilogue (the default
+    engine's CKKS moddown only)."""
+    if ks.engine != DEFAULT_ENGINE or ks.bgv:
         if tensor_add is not None:
             raise ValueError("moddown32_pair: tensor_add needs the "
-                             f"{DEFAULT_ENGINE!r} engine")
+                             f"{DEFAULT_ENGINE!r} engine's CKKS moddown")
+        if ks.bgv:
+            out = _moddown_bgv(ks, [x0, x1], ops)
+            return out[0], out[1]
         return moddown32(ks, x0, ops), moddown32(ks, x1, ops)
     out = _moddown(ks, [x0, x1], tensor_add, ops)
     return out[0], out[1]
@@ -452,16 +553,17 @@ def keyswitch_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class CKKSPipeline32(nn.Module):
-    """The step's state at one level: key-switch tables, the relin evk
-    (beta, 2, size_qlp, N), the rescale constants and the epilogue, fixed
-    at construction: the moddown pair then rescale (the default, as in the
-    JAX package), K8 with `moddown_rows` = R output rows per block, or K7
-    with `merged_epilogue`.  The two options exclude each other.  Calling
-    it runs mult_relin_rescale32."""
+    """The step's state at one level: key-switch tables on a modup route
+    (`modup`, MODUP_ROUTES), the relin evk (beta, 2, size_qlp, N), the
+    rescale constants and the epilogue, fixed at construction: the moddown
+    pair then rescale (the default, as in the JAX package), K8 with
+    `moddown_rows` = R output rows per block, or K7 with `merged_epilogue`.
+    The two options exclude each other.  Calling it runs
+    mult_relin_rescale32."""
 
     def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
                  moddown_rows=None, merged_epilogue: bool = False,
-                 engine: str = DEFAULT_ENGINE):
+                 engine: str = DEFAULT_ENGINE, modup: str = "auto"):
         super().__init__()
         if engine != DEFAULT_ENGINE:
             raise ValueError(f"the CKKS step runs on the {DEFAULT_ENGINE!r} "
@@ -476,7 +578,7 @@ class CKKSPipeline32(nn.Module):
         self._moddown_rows = moddown_rows
         self._merged_epilogue = bool(merged_epilogue)
         rc = ctx.get_context_data(chain_index).rescale
-        self.ks = KeySwitch32(ctx, chain_index)
+        self.ks = KeySwitch32(ctx, chain_index, modup=modup)
         k = self.ks.size_ql
         self.register_buffer("evk", evk)
         self.register_buffer("rows_ql_next", _rows(range(k - 1)))
@@ -506,12 +608,14 @@ class CKKSPipeline32(nn.Module):
 def build_pipeline32(ctx: Context, rlk: torch.Tensor, chain_index: int = 1,
                      device=None, moddown_rows=None,
                      merged_epilogue: bool = False,
-                     engine: str = DEFAULT_ENGINE) -> CKKSPipeline32:
-    """rlk: the relin key (dnum, 2, K, N) over QP; the epilogue options as
-    CKKSPipeline32's; `engine` "mxu-pallas" only so far."""
+                     engine: str = DEFAULT_ENGINE,
+                     modup: str = "auto") -> CKKSPipeline32:
+    """rlk: the relin key (dnum, 2, K, N) over QP; the epilogue options and
+    the modup route as CKKSPipeline32's; `engine` "mxu-pallas" only so
+    far."""
     return CKKSPipeline32(ctx, convert_key32(ctx, rlk, chain_index),
                           chain_index, moddown_rows, merged_epilogue,
-                          engine).to(resolve_device(device))
+                          engine, modup).to(resolve_device(device))
 
 
 def _rescale(p: CKKSPipeline32, x: torch.Tensor,
@@ -534,13 +638,16 @@ def mult_relin_rescale32(p: CKKSPipeline32, d1: torch.Tensor,
     """d1, d2: (2, size_ql, N) int32 NTT form -> (2, size_ql - 1, N).
 
     Bit-identical to the JAX package's mult_relin_rescale32 (and so to
-    its u64 evaluator's multiply_and_relin + rescale_to_next) on either
-    route (at alpha <= 8 the K4 route, above it _mult_relin_rescale_split)
-    and through each epilogue (_relin_rescale).  With merged_epilogue the
-    result is a view: rows [0, size_ql - 1) of K7's output."""
+    its u64 evaluator's multiply_and_relin + rescale_to_next) on each
+    modup route (the K4 route, _mult_relin_rescale_split,
+    _mult_relin_rescale_preconv) and through each epilogue
+    (_relin_rescale).  With merged_epilogue the result is a view: rows
+    [0, size_ql - 1) of K7's output."""
     ks = p.ks
-    if not ks.fused_modup:
+    if ks.modup == "xla-split":
         return _mult_relin_rescale_split(p, d1, d2, ops)
+    if ks.modup == "xla":
+        return _mult_relin_rescale_preconv(p, d1, d2, ops)
     y = _modup_inverse(ks, d1[1], ops, mul_by=d2[1])
     s = ops.modup_ip(_pad_digit_rows(ks, y), ks.modup_mats,
                      (_pad_digit_rows(ks, d1[1]), _pad_digit_rows(ks, d2[1])),
@@ -557,6 +664,22 @@ def _mult_relin_rescale_split(p: CKKSPipeline32, d1: torch.Tensor,
     c2 = (d1[1].long() * d2[1].long() % _qcol(ks.mv_ql.q)).int()
     s0, s1 = _modup_ip_split(ks, c2, p.evk, ops)
     return _relin_rescale(p, s0, s1, d1, d2, ops)
+
+
+def _mult_relin_rescale_preconv(p: CKKSPipeline32, d1: torch.Tensor,
+                                d2: torch.Tensor,
+                                ops: Kernels = KERNELS) -> torch.Tensor:
+    """The step on the "xla" route at any alpha: c2 in plain torch, its
+    modup iNTT, the per-digit conversion into the delta
+    (modup_delta_xla32), then K4's preconv form with the pair (d1[1],
+    d2[1]) in its digit rows."""
+    ks = p.ks
+    c2 = (d1[1].long() * d2[1].long() % _qcol(ks.mv_ql.q)).int()
+    delta = modup_delta_xla32(ks, _modup_inverse(ks, c2, ops), ops)
+    s = ops.modup_ip_preconv(
+        delta, (_pad_digit_rows(ks, d1[1]), _pad_digit_rows(ks, d2[1])),
+        p.evk, ks.ntt, ks.rows_qlp, k_data=ks.size_ql, alpha=ks.size_p)
+    return _relin_rescale(p, s[0], s[1], d1, d2, ops)
 
 
 def _relin_rescale(p: CKKSPipeline32, s0, s1, d1, d2,

@@ -1,11 +1,12 @@
 """Context: the NTT tables and the per-level constants of the first
-levels (counterpart of phantom_tpu/schemes/context.py, CKKS and BFV HPS
-subsets).
+levels (counterpart of phantom_tpu/schemes/context.py, CKKS, BFV HPS and
+BGV subsets).
 
 Chain indexing matches the JAX package: index 0 is the key level (all of
 Q and P), index 1 the first data level (all of Q), and each next level
-drops one data prime.  Only the levels a CKKS mult+relin+rescale step
-from level 1 touches are built (0 to 2); the BFV step stays at level 1.
+drops one data prime.  Only the levels a CKKS mult+relin+rescale or a
+BGV mult+relin+modswitch step from level 1 touches are built (0 to 2); the
+BFV step stays at level 1.
 Level constants are Python integers and host `BaseConverter`s, as the JAX
 package's `_rescale_consts` / `_keyswitch_consts` / `_hps_mul_consts` and
 scaleround.make_plain_lift_consts compute them; Shoup words here are the
@@ -49,6 +50,13 @@ class KeySwitchConsts(NamedTuple):
     pinv_shoup: List[int]
     modup_scale: List[int]           # n^-1 * digit QhatInv per Ql row
     modup_scale_shoup: List[int]
+    # BGV's t-corrected moddown (the JAX package's bgv_extra), else None
+    p_to_t: object = None            # host BaseConverter, P -> {t}
+    phalf_mod_p: List[int] = None    # (P - 1) / 2 mod p_i
+    phalf_mod_q: List[int] = None    # (P - 1) / 2 mod q_i
+    phalf_mod_t: int = None          # (P - 1) / 2 mod t
+    neg_pinv_mod_t: int = None       # [-P^-1]_t
+    bigp_mod_q: List[int] = None     # P mod q_i
 
 
 class BFVConsts(NamedTuple):
@@ -67,6 +75,18 @@ class BFVConsts(NamedTuple):
     r_t: int                         # Ql mod t
 
 
+class BGVConsts(NamedTuple):
+    """A BGV level's decryption and modulus-switch constants (the JAX
+    package's BGVConsts): the exact centered conversion Ql -> {t} and the
+    mod-t-preserving division by q_last."""
+
+    q_to_t: object                   # host BaseConverter, Ql -> {t}, exact
+    qhalf_mod_q: List[int]           # (Ql - 1) / 2 mod q_i
+    qhalf_mod_t: int                 # (Ql - 1) / 2 mod t
+    neg_qlast_inv_mod_t: Optional[int]   # [-q_last^-1]_t (None at k = 1)
+    qlast_mod_qi: Optional[List[int]]    # (k-1,) q_last mod q_i
+
+
 @dataclass(frozen=True)
 class ContextData:
     chain_index: int
@@ -74,6 +94,7 @@ class ContextData:
     rescale: Optional[RescaleConsts]
     ks: Optional[KeySwitchConsts]
     bfv: Optional[BFVConsts] = None
+    bgv: Optional[BGVConsts] = None
 
     @property
     def size_ql(self) -> int:
@@ -94,7 +115,9 @@ def _rescale_consts(moduli) -> Optional[RescaleConsts]:
         half_mod_q=[half % q for q in rest])
 
 
-def _keyswitch_consts(data_moduli, special_moduli, n: int) -> KeySwitchConsts:
+def _keyswitch_consts(data_moduli, special_moduli, n: int,
+                      t: int = 0) -> KeySwitchConsts:
+    """t > 0 adds BGV's t-corrected moddown tables."""
     size_ql = len(data_moduli)
     alpha = len(special_moduli)
     beta = -(-size_ql // alpha)
@@ -114,13 +137,23 @@ def _keyswitch_consts(data_moduli, special_moduli, n: int) -> KeySwitchConsts:
     pinv = [host.numth.invert_mod(big_p % q, q) for q in data_moduli]
     shoup = lambda vs: [host.compute_shoup(v, q)
                         for v, q in zip(vs, data_moduli)]
+    bgv = {}
+    if t:
+        phalf = (big_p - 1) >> 1
+        bgv = dict(
+            p_to_t=host.BaseConverter(p_base, host.RNSBase([t])),
+            phalf_mod_p=[phalf % p for p in special_moduli],
+            phalf_mod_q=[phalf % q for q in data_moduli],
+            phalf_mod_t=phalf % t,
+            neg_pinv_mod_t=(t - host.numth.invert_mod(big_p % t, t)) % t,
+            bigp_mod_q=[big_p % q for q in data_moduli])
     return KeySwitchConsts(
         digit_convs=tuple(digit_convs),
         p_to_q=host.BaseConverter(p_base, host.RNSBase(list(data_moduli))),
         pinv_mod_q=pinv,
         pinv_shoup=shoup(pinv),
         modup_scale=modup_scale,
-        modup_scale_shoup=shoup(modup_scale))
+        modup_scale_shoup=shoup(modup_scale), **bgv)
 
 
 def _bfv_consts(data_moduli, rl_moduli, size_qp: int, t: int) -> BFVConsts:
@@ -140,6 +173,20 @@ def _bfv_consts(data_moduli, rl_moduli, size_qp: int, t: int) -> BFVConsts:
         r_t=ql_base.prod % t)
 
 
+def _bgv_consts(data_moduli, t: int) -> BGVConsts:
+    base = host.RNSBase(list(data_moduli))
+    half = (base.prod - 1) >> 1
+    qlast = data_moduli[-1]
+    last = len(data_moduli) >= 2
+    return BGVConsts(
+        q_to_t=host.BaseConverter(base, host.RNSBase([t])),
+        qhalf_mod_q=[half % q for q in data_moduli],
+        qhalf_mod_t=half % t,
+        neg_qlast_inv_mod_t=((t - host.numth.invert_mod(qlast % t, t)) % t
+                             if last else None),
+        qlast_mod_qi=[qlast % q for q in data_moduli[:-1]] if last else None)
+
+
 class Context(nn.Module):
     """Parameters, the NTT tables over all of QP (and Rl for BFV; buffers:
     `.to(device)` moves them) and chain levels 0 to LEVELS - 1.  Built on
@@ -150,6 +197,8 @@ class Context(nn.Module):
         self.params = params
         qp = list(params.coeff_modulus)
         bfv = params.scheme == "bfv"
+        bgv = params.scheme == "bgv"
+        t = params.plain_modulus
         self.rl_moduli = tuple(host.numth.get_primes_below(
             min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
         self.ntt = NTTTables32(host.make_rns_ntt_tables(
@@ -157,6 +206,8 @@ class Context(nn.Module):
         self.register_buffer("key_q", u32_tensor(qp))
         self.register_buffer("rows_qp", torch.arange(len(qp),
                                                      dtype=torch.int32))
+        if bgv:  # t mod each QP prime: BGV's t e noise
+            self.register_buffer("t_mod_q", u32_tensor([t % q for q in qp]))
         chain = [ContextData(0, tuple(qp), None, None)]
         data = list(params.data_moduli)
         for lvl in range(min(LEVELS, params.size_q + 1) - 1):
@@ -164,9 +215,11 @@ class Context(nn.Module):
             chain.append(ContextData(
                 chain_index=lvl + 1, moduli=tuple(ql),
                 rescale=_rescale_consts(ql),
-                ks=_keyswitch_consts(ql, params.special_moduli, params.n),
+                ks=_keyswitch_consts(ql, params.special_moduli, params.n,
+                                     t if bgv else 0),
                 bfv=_bfv_consts(ql, self.rl_moduli, len(qp),
-                                params.plain_modulus) if bfv else None))
+                                t) if bfv else None,
+                bgv=_bgv_consts(ql, t) if bgv else None))
         self.chain = tuple(chain)
 
     def get_context_data(self, chain_index: int) -> ContextData:

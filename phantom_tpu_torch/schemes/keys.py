@@ -1,13 +1,17 @@
-"""Key generation, symmetric encryption and decryption (CKKS and BFV).
+"""Key generation, symmetric encryption and decryption (CKKS, BFV, BGV).
 
-Counterpart of the CKKS and BFV paths of phantom_tpu/schemes/keys.py.
+Counterpart of the CKKS, BFV and BGV paths of phantom_tpu/schemes/keys.py.
 Keys live in NTT form over the full key base QP; the relin key holds dnum
 digit keys, each an encryption of zero with P * s^2 added on its own
 digit's rows, and a Galois key the same with P * sigma_elt(s) in place of
 P * s^2.  CKKS ciphertexts are in NTT form; BFV ones in coefficient form
 at the first data level, (c0, c1) = (-(a s + e) + round(Ql m / t), a),
 and BFV decryption is round(t [c0 + c1 s]_Ql / Ql) mod t, through
-ops/scaleround32.py with num = t, den = Ql and the output base {t}.
+ops/scaleround32.py with num = t, den = Ql and the output base {t}.  BGV
+multiplies every error by t (keys and encryptions), encrypts in NTT form
+at the first data level, (c0, c1) = (-(a s + t e) + m, a) with m centered
+mod t, and decrypts by the exact centered conversion of [c0 + c1 s]_Ql to
+{t}, divided by the ciphertext's correction factor.
 Randomness comes from an explicit `torch.Generator` (ops/sampling.py),
 so keys match the JAX package's in structure and distribution, not bits.
 Tensors are int32 residues on the generator's device; forward NTTs go
@@ -21,6 +25,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..ops import sampling as smp
+from ..ops.bconv32 import BaseConvConsts32, bconv_exact32
 from ..ops.modmath32 import u32
 from ..ops.ntt_kernels import ntt_forward, ntt_inverse
 from ..ops.scaleround32 import ExactScaleRound32, scale_and_round_exact32
@@ -38,14 +43,24 @@ def gen_secret_key(ctx: Context, gen: torch.Generator) -> torch.Tensor:
     return ntt_forward(s, ctx.ntt, ctx.rows_qp)
 
 
+def _error(ctx: Context, gen: torch.Generator, k: int) -> torch.Tensor:
+    """CBD noise over the first k primes of QP, coefficient form; times t
+    for BGV."""
+    q = ctx.key_q[:k]
+    e = smp.lift_signed(smp.sample_error_cbd(gen, ctx.params.n), q)
+    if ctx.params.scheme == "bgv":
+        e = (e.long() * u32(ctx.t_mod_q[:k]).view(-1, 1) % _qcol(q)).int()
+    return e
+
+
 def _encrypt_zero_symmetric_ntt(ctx: Context, sk: torch.Tensor,
                                 gen: torch.Generator):
-    """(c0, c1) = (-(a s + e), a) in NTT form at the key level."""
+    """(c0, c1) = (-(a s + e), a) in NTT form at the key level (t e for
+    BGV)."""
     n = ctx.params.n
     q = _qcol(ctx.key_q)
     a = smp.sample_uniform_rns(gen, n, ctx.key_q)
-    e = ntt_forward(smp.lift_signed(smp.sample_error_cbd(gen, n), ctx.key_q),
-                    ctx.ntt, ctx.rows_qp)
+    e = ntt_forward(_error(ctx, gen, len(ctx.key_q)), ctx.ntt, ctx.rows_qp)
     c0 = (-(a.long() * sk.long() + e.long())) % q
     return c0.int(), a
 
@@ -122,30 +137,73 @@ def _encrypt_bfv(ctx: Context, sk: torch.Tensor, m: torch.Tensor,
     return torch.stack([c0.int(), ntt_inverse(a, ctx.ntt, rows)])
 
 
+def _bgv_lift_plain_ntt(ctx: Context, m: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """BGV: m (N,) in [0, t) -> its centered lift over the first k data
+    primes ([t/2, t) -> q - (t - m)), NTT form (k, N)."""
+    t = ctx.params.plain_modulus
+    mc = torch.where(m >= (t + 1) >> 1, m - t, m)
+    return ntt_forward(smp.lift_signed(mc, ctx.key_q[:k]), ctx.ntt,
+                       ctx.rows_qp[:k])
+
+
 def encrypt_symmetric(ctx: Context, sk: torch.Tensor, plain: torch.Tensor,
                       gen: torch.Generator) -> torch.Tensor:
     """CKKS: plain (k, N) NTT form over the first k data primes -> (2, k,
     N), NTT form.  BFV: plain (N,), an integer polynomial taken mod t ->
-    (2, size_q, N) at the first data level, coefficient form."""
-    if ctx.params.scheme == "bfv":
+    (2, size_q, N) at the first data level, coefficient form.  BGV: the
+    same plain -> (2, size_q, N) at the first data level, NTT form, with
+    correction factor 1."""
+    scheme = ctx.params.scheme
+    if scheme == "bfv":
         return _encrypt_bfv(ctx, sk, plain, gen)
+    if scheme == "bgv":
+        k = ctx.get_context_data(1).size_ql
+        plain = _bgv_lift_plain_ntt(
+            ctx, plain.long() % ctx.params.plain_modulus, k)
     k, n = plain.shape
     qk = ctx.key_q[:k]
     q = _qcol(qk)
     a = smp.sample_uniform_rns(gen, n, qk)
-    e = ntt_forward(smp.lift_signed(smp.sample_error_cbd(gen, n), qk),
-                    ctx.ntt, ctx.ntt.all_rows()[:k])
+    e = ntt_forward(_error(ctx, gen, k), ctx.ntt, ctx.rows_qp[:k])
     c0 = (plain.long() - a.long() * sk[:k].long() - e.long()) % q
     return torch.stack([c0.int(), a])
 
 
-def decrypt(ctx: Context, sk: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+def decrypt(ctx: Context, sk: torch.Tensor, ct: torch.Tensor,
+            correction_factor: int = 1) -> torch.Tensor:
     """CKKS: (size, k, N) ciphertext -> [c0 + c1 s + c2 s^2 + ...]_Ql, the
     NTT-form plaintext (k, N).  BFV: a coefficient-form ciphertext -> the
-    message (N,) in [0, t)."""
+    message (N,) in [0, t).  BGV: an NTT-form ciphertext at any built level
+    and its correction factor -> the message (N,) in [0, t), int64."""
     if ctx.params.scheme == "bfv":
         return _decrypt_bfv(ctx, sk, ct)
+    if ctx.params.scheme == "bgv":
+        return _decrypt_bgv(ctx, sk, ct, correction_factor)
     return _dot_with_sk_powers(ctx, sk, ct)
+
+
+def _decrypt_bgv(ctx: Context, sk: torch.Tensor, ct: torch.Tensor,
+                 correction_factor: int) -> torch.Tensor:
+    """The exact centered conversion of x = [c0 + c1 s]_Ql to {t}: convert
+    x + (Ql - 1) / 2 exactly, subtract (Ql - 1) / 2 mod t, then multiply
+    by the correction factor's inverse mod t."""
+    k = ct.shape[1]
+    p = ctx.params
+    b = ctx.get_context_data(p.size_q - k + 1).bgv
+    t = p.plain_modulus
+    q = _qcol(ctx.key_q[:k])
+    x = ntt_inverse(_dot_with_sk_powers(ctx, sk, ct), ctx.ntt,
+                    ctx.rows_qp[:k])
+    shifted = (x.long() + torch.tensor(b.qhalf_mod_q, device=x.device).view(
+        -1, 1)) % q
+    conv = bconv_exact32(shifted.int(), BaseConvConsts32(b.q_to_t).to(
+        x.device))[0].long()
+    m = (conv - b.qhalf_mod_t) % t
+    f = correction_factor % t
+    if f != 1:
+        m = m * pow(f, -1, t) % t
+    return m
 
 
 def _decrypt_bfv(ctx: Context, sk: torch.Tensor,

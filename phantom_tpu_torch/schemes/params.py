@@ -1,9 +1,10 @@
 """Encryption parameters (counterpart of phantom_tpu/schemes/params.py).
 
-The port runs two schemes so far: CKKS and BFV (HPS multiplication).  A
-parameter set is a power-of-two degree n, the data primes, the special
-primes of hybrid key switching (alpha of them) and, for BFV, the plain
-modulus t, a prime == 1 mod 2n below every data prime (batching).
+The port runs the reference's three schemes: CKKS, BFV (HPS
+multiplication) and BGV.  A parameter set is a power-of-two degree n, the
+data primes, the special primes of hybrid key switching (alpha of them)
+and, for BFV and BGV, the plain modulus t, a prime == 1 mod 2n below every
+data prime (batching).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
-SCHEMES = ("ckks", "bfv")
+SCHEMES = ("ckks", "bfv", "bgv")
 
 
 @dataclass(frozen=True)
@@ -29,7 +30,7 @@ class EncryptionParameters:
             raise ValueError("need at least one data and one special prime")
         if self.scheme not in SCHEMES:
             raise ValueError(f"scheme {self.scheme!r} not in {SCHEMES}")
-        if self.scheme == "bfv":
+        if self.scheme in ("bfv", "bgv"):
             t = self.plain_modulus
             if t < 2 or (t - 1) % (2 * self.n):
                 raise ValueError("plain modulus must support batching "

@@ -44,6 +44,21 @@ bfv_step_n1024.npz: BFV at n = 1024, the same chain (five 28-bit data
   (X^n + 1, t)).  Stored: data_moduli, special_moduli (u64), t, sk, rlk,
   d1, d2, m1, m2 (int64), keyswitch, out, pt_out.
 
+bgv_step_n1024.npz: BGV at n = 1024, the same chain (five 28-bit data
+  primes, alpha = 2, a short last digit), t = PlainModulus.batching(n, 16),
+  built as tests/test_fastpath32.py's BGV fixture builds it: real JAX keys
+  (secret, public, relin) and two asymmetric encryptions of BatchEncoder
+  encodings of uniform slot vectors mod t (NTT form, chain index 1,
+  correction factor 1).  Outputs: out = bgv32.bgv_mult_relin_modswitch32
+  on the mxu-pallas engine's default dispatch (at alpha = 2 the K4
+  route), asserted equal to the xla-split route's and to the u64
+  evaluator's mod_switch_to_next(multiply_and_relin), whose correction
+  factor cf (= q_last^-1 mod t) is stored; pt_out, the JAX decryption of
+  that ciphertext (asserted equal to pt1 pt2 mod (X^n + 1, t), the
+  product of the encoded plaintext polynomials).  Stored: data_moduli,
+  special_moduli (u64), t, cf, sk, rlk, d1, d2 (2, 5, N), pt1, pt2
+  (int64), out (2, 4, N), pt_out.
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz):
 
@@ -63,11 +78,11 @@ import numpy as np  # noqa: E402
 
 from phantom_tpu.host import numth  # noqa: E402
 from phantom_tpu.host.modulus import PlainModulus  # noqa: E402
-from phantom_tpu.ops import bfv32  # noqa: E402
+from phantom_tpu.ops import bfv32, bgv32  # noqa: E402
 from phantom_tpu.ops import pipeline32 as pp  # noqa: E402
-from phantom_tpu.schemes import (CKKSEncoder, EncryptionParameters,  # noqa: E402
-                                 Plaintext, Scheme, evaluate, keys,
-                                 make_context)
+from phantom_tpu.schemes import (BatchEncoder, CKKSEncoder,  # noqa: E402
+                                 EncryptionParameters, Plaintext, Scheme,
+                                 evaluate, keys, make_context)
 
 DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port")
 N, K_DATA, ALPHA, SEED = 1024, 5, 2, 7
@@ -234,8 +249,54 @@ def bfv_step():
           out=out, pt_out=u32(pt_out))
 
 
+def bgv_step():
+    qs = numth.get_primes(2 * N, 28, K_DATA)
+    ps = numth.get_primes(2 * N, 29, ALPHA)
+    t = PlainModulus.batching(N, 16).value
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.BGV, N, qs + ps, plain_modulus=t, special_modulus_size=ALPHA))
+    k = jax.random.split(jax.random.PRNGKey(11), 5)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    enc = BatchEncoder(ctx)
+    rg = np.random.default_rng(5)
+    pt1, pt2 = (enc.encode(rg.integers(0, t, N, dtype=np.uint64))
+                for _ in range(2))
+    ct1 = keys.encrypt_asymmetric(ctx, pk, pt1, k[3])
+    ct2 = keys.encrypt_asymmetric(ctx, pk, pt2, k[4])
+    d1, d2 = u32(ct1.data), u32(ct2.data)
+    p = bgv32.build_bgv32(ctx, rlk, use_pallas="mxu-pallas")
+    out = np.asarray(bgv32.bgv_mult_relin_modswitch32(p, jnp.asarray(d1),
+                                                      jnp.asarray(d2)))
+    ref_ct = evaluate.mod_switch_to_next(
+        ctx, evaluate.multiply_and_relin(ctx, ct1, ct2, rlk))
+    np.testing.assert_array_equal(out, u32(ref_ct.data))
+    old = pp.MODUP_VARIANT
+    pp.MODUP_VARIANT = "xla-split"
+    try:
+        split = np.asarray(bgv32.bgv_mult_relin_modswitch32(
+            p, jnp.asarray(d1), jnp.asarray(d2)))
+    finally:
+        pp.MODUP_VARIANT = old
+    np.testing.assert_array_equal(split, out)
+    cf = int(ref_ct.correction_factor)
+    assert cf == pow(qs[-1] % t, -1, t)
+    p1, p2 = (np.asarray(x.data).reshape(N).astype(np.int64)
+              for x in (pt1, pt2))
+    pt_out = np.asarray(keys.decrypt(ctx, sk, ref_ct).data).reshape(N)
+    np.testing.assert_array_equal(pt_out, negacyclic_mod_t(p1, p2, t))
+    _save("bgv_step_n1024.npz",
+          data_moduli=np.array(qs, dtype=np.uint64),
+          special_moduli=np.array(ps, dtype=np.uint64),
+          t=np.array(t, dtype=np.uint64), cf=np.array(cf, dtype=np.uint64),
+          sk=u32(sk.data), rlk=u32(rlk.data), d1=d1, d2=d2, pt1=p1, pt2=p2,
+          out=out, pt_out=u32(pt_out))
+
+
 def main(names):
-    names = names or ["ckks_step", "rotate", "step_n128", "bfv_step"]
+    names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
+                      "bgv_step"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -247,6 +308,8 @@ def main(names):
         step_n128(5)
     if "bfv_step" in names:
         bfv_step()
+    if "bgv_step" in names:
+        bgv_step()
 
 
 if __name__ == "__main__":

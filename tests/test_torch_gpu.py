@@ -8,7 +8,8 @@ run these with
 
 Every kernel at several sizes, with every option of its wrapper; the
 tables are real NTT tables and the inputs seeded; bit-exact.  The BFV step
-on both engines against the plain path and the golden file.
+on both engines and the BGV step on each modup route against the plain
+path and the golden files.
 """
 
 import os
@@ -321,3 +322,61 @@ def test_bfv_step(dev, engine):
     assert np.array_equal(got.cpu().numpy().view(np.uint32), g["out"])
     ks = pp.keyswitch32(p.ks, d1[1], p.evk)
     assert np.array_equal(ks.cpu().numpy().view(np.uint32), g["keyswitch"])
+
+
+@pytest.mark.parametrize("self_mul", [False, True], ids=["pass", "self_mul"])
+@pytest.mark.parametrize("alpha,beta,k_data", [(2, 3, 5), (22, 2, 43)])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k4p_preconv(dev, logn, alpha, beta, k_data, self_mul):
+    """K4's preconv form at the CKKS headline's shape (beta 2, k_out 65,
+    alpha 22, a short last digit) and a small one, with garbage in the
+    digit-own delta rows, which the kernel must not read, and lazy
+    [0, 2q) delta rows elsewhere."""
+    n = 1 << logn
+    k_out = k_data + alpha
+    ctx = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, k_data),
+        numth.get_primes(2 * n, 29, alpha)), device=dev)
+    t = ctx.ntt
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + alpha + self_mul)
+    q = t.q.long().view(-1, 1)
+    k = alpha * beta
+
+    def res(shape, rows, lazy=1):
+        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                % (lazy * q[:rows])).int()
+
+    delta = torch.stack([res((k_out, n), k_out, 2) for _ in range(beta)])
+    ref = delta.clone()
+    for d in range(beta):
+        lo, hi = d * alpha, min((d + 1) * alpha, k_data)
+        delta[d, lo:hi] = torch.randint(-(1 << 31), 1 << 31, (hi - lo, n),
+                                        generator=gen, device=dev).int()
+    a = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    a[:k_data] = res((k_data, n), k_data)
+    c2 = (a, a.roll(1, 1).contiguous()) if self_mul else a
+    evk = torch.stack([torch.stack([res((k_out, n), k_out)
+                                    for _ in range(2)])
+                       for _ in range(beta)])
+    before = mk.modup_ip_preconv.launches
+    got = mk.modup_ip_preconv(delta, c2, evk, t, k_data=k_data, alpha=alpha)
+    assert mk.modup_ip_preconv.launches == before + 1
+    _same(got, mk.modup_ip_preconv_plain(ref, c2, evk, t, k_data=k_data,
+                                         alpha=alpha))
+
+
+@pytest.mark.parametrize("modup", ["auto", "xla-split"])
+def test_bgv_step(dev, modup):
+    """The BGV golden file's step on a modup route: the kernel path equals
+    the plain path and the JAX package's output."""
+    g = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                             "torch_port", "bgv_step_n1024.npz"))
+    ctx = make_context(EncryptionParameters.create(
+        g["d1"].shape[-1], g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), "bgv", int(g["t"])), device=dev)
+    p = convert.bgv_pipeline(ctx, g["rlk"], modup=modup)
+    d1, d2 = (convert.residues(g[k]).to(dev) for k in ("d1", "d2"))
+    got = p(d1, d2)
+    _same(got, p(d1, d2, pp.PLAIN))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), g["out"])

@@ -23,7 +23,8 @@ sys.modules["flax"] = None
 import chip_smoke
 import phantom_tpu_torch as pt
 from phantom_tpu_torch import convert, host
-from phantom_tpu_torch.ops import bfv32, ntt_roll_kernels, scaleround32
+from phantom_tpu_torch.ops import (bfv32, bgv32, modup_ip_kernels,
+                                   ntt_roll_kernels, scaleround32)
 from phantom_tpu_torch.schemes import keys
 n = 128
 params = pt.EncryptionParameters.create(
@@ -37,6 +38,11 @@ bfv = pt.make_context(pt.EncryptionParameters.create(
 assert bfv.ntt.root_powers.shape == (7 + 6, n), bfv.ntt.root_powers.shape
 assert bfv.get_context_data(1).bfv.rows_d == (0, 1, 2, 3, 4) + tuple(
     range(7, 13))
+bgv = pt.make_context(pt.EncryptionParameters.create(
+    n, params.data_moduli, params.special_moduli, "bgv",
+    host.modulus.PlainModulus.batching(n, 16)), device="cpu")
+assert bgv.get_context_data(2).bgv.qlast_mod_qi is not None
+assert pt.build_keyswitch32(bgv, device="cpu").bgv
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -99,6 +105,28 @@ def test_bfv_entry_points_need_cuda_or_cpu(monkeypatch):
     assert p.rows_d.device.type == "cpu" and p.ks.engine == "mxu-pallas"
 
 
+def test_bgv_entry_points_need_cuda_or_cpu(monkeypatch):
+    """build_bgv32 goes to the CUDA device by default and raises without
+    one unless given "cpu"."""
+    from phantom_tpu_torch import build_bgv32
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.host.modulus import PlainModulus
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 128
+    params = EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, 2), numth.get_primes(2 * n, 29, 1),
+        "bgv", PlainModulus.batching(n, 16))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        make_context(params)
+    ctx = make_context(params, device="cpu")
+    rlk = torch.zeros((2, 2, 3, n), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bgv32(ctx, rlk)
+    p = build_bgv32(ctx, rlk, device="cpu")
+    assert p.ks.bgv and p.ks.modup == "kernel"
+
+
 @pytest.fixture(scope="module")
 def meta_args():
     from phantom_tpu_torch.host import numth
@@ -116,7 +144,7 @@ def meta_args():
                                     "modup_ip", "inner_product",
                                     "moddown_rows", "moddown_rescale",
                                     "modup_ip_coeff", "ntt_forward_roll",
-                                    "ntt_inverse_roll"])
+                                    "ntt_inverse_roll", "modup_ip_preconv"])
 def test_meta_tensor_raises(meta_args, kernel):
     t, x = meta_args
 
@@ -147,6 +175,8 @@ def test_meta_tensor_raises(meta_args, kernel):
             x[:2], m(1, 3, 2), m(1, 2, 3, 1024), t),
         "ntt_forward_roll": lambda: ntt_roll_kernels.ntt_forward_roll(x, t),
         "ntt_inverse_roll": lambda: ntt_roll_kernels.ntt_inverse_roll(x, t),
+        "modup_ip_preconv": lambda: modup_ip_kernels.modup_ip_preconv(
+            m(1, 3, 1024), x[:2], m(1, 2, 3, 1024), t, alpha=2),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()

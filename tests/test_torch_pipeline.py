@@ -1,7 +1,8 @@
 """The port's CKKS mult+relin+rescale step against the JAX package:
-its tables against build_pipeline32's, its output on both modup routes
-and through each epilogue against JAX mult_relin_rescale32 on the
-xla-split structure (golden files at n = 128 and n = 1024, made by
+its tables against build_pipeline32's, the "xla" route's delta against
+JAX modup_delta_xla32, its output on each modup route ("kernel", "xla"
+through K4's preconv form, "xla-split") and through each epilogue against
+JAX mult_relin_rescale32 on the xla-split structure (golden files at n = 128 and n = 1024, made by
 tests/fixtures/gen_torch_port_fixtures.py with the Pallas kernels in
 interpret mode; the JAX package's composed and merged epilogues are
 bit-identical, tests/test_pipeline32.py), a real JAX key carried over by
@@ -96,6 +97,31 @@ def test_step_matches_jax(step):
         u32(tpp._mult_relin_rescale_split(tp, d1, d2)), g["out"])
 
 
+@pytest.mark.parametrize("modup", ["xla", "kernel"])
+def test_step_modup_routes_match_jax(step, modup):
+    """The step built on the "xla" route (K4's preconv form) and on the
+    "kernel" route equals the JAX xla-split output."""
+    _, tp, g, ctx = step
+    p = tpp.CKKSPipeline32(ctx, tp.evk, modup=modup)
+    assert p.ks.modup == modup and p.ks.fused_modup == (modup == "kernel")
+    d1, d2 = convert.residues(g["d1"]), convert.residues(g["d2"])
+    np.testing.assert_array_equal(u32(p(d1, d2)), g["out"])
+
+
+def test_modup_delta_matches_jax(step):
+    """modup_delta_xla32: the per-digit conversion with zeros at each
+    digit's own rows, as the JAX function lays it out."""
+    jp, tp, g, _ = step
+    ks = tp.ks
+    q = u32(ks.mv_ql.q).astype(np.uint64)[:, None]
+    rng = np.random.default_rng(3)
+    y = (rng.integers(0, 1 << 62, (ks.size_ql, g["d1"].shape[-1]),
+                      dtype=np.uint64) % q).astype(np.uint32)
+    want = np.asarray(jpp.modup_delta_xla32(jp.ks, jnp.asarray(y)))
+    got = tpp.modup_delta_xla32(ks, convert.residues(y))
+    np.testing.assert_array_equal(u32(got), want)
+
+
 @pytest.mark.parametrize("epilogue", list(EPILOGUES))
 def test_step_epilogues_match_jax(step, epilogue):
     """The step through K8 (R = 2 and 8: a masked tail row at k = 5, k <
@@ -114,6 +140,8 @@ def test_epilogue_options_exclude_each_other(step):
         tpp.CKKSPipeline32(ctx, tp.evk, moddown_rows=2, merged_epilogue=True)
     with pytest.raises(ValueError, match="outside"):
         tpp.CKKSPipeline32(ctx, tp.evk, moddown_rows=9)
+    with pytest.raises(ValueError, match="modup"):
+        tpp.CKKSPipeline32(ctx, tp.evk, modup="mega")
 
 
 @pytest.fixture(scope="module")
@@ -128,6 +156,18 @@ def golden():
 def test_golden(golden):
     g, ctx = golden
     p = tpp.CKKSPipeline32(ctx, convert.residues(g["evk"]))
+    got = p(convert.residues(g["d1"]), convert.residues(g["d2"]))
+    np.testing.assert_array_equal(u32(got), g["out"])
+
+
+@pytest.mark.parametrize("epilogue", ["pair", "K7"])
+@pytest.mark.parametrize("modup", ["xla", "kernel"])
+def test_golden_modup_routes(golden, modup, epilogue):
+    """The n = 1024 golden step (a short last digit) on the "xla" and
+    "kernel" routes, through the pair and K7."""
+    g, ctx = golden
+    p = tpp.CKKSPipeline32(ctx, convert.residues(g["evk"]), modup=modup,
+                           **EPILOGUES.get(epilogue, {}))
     got = p(convert.residues(g["d1"]), convert.residues(g["d2"]))
     np.testing.assert_array_equal(u32(got), g["out"])
 
