@@ -51,7 +51,9 @@ Phases, one line each or more; any failure exits non-zero:
                (as bench.py does), kernel path against plain path in turns,
                then the three epilogues in turns (pair, K8, K7, K7, K8,
                pair), timed with CUDA events; K8 alone at 1, 2, 4 and 8
-               rows per block
+               rows per block; K3 alone on the moddown pair's operands at
+               8, 4 and 2 blocks per row (in turns 8, 4, 2, 2, 4, 8),
+               each bit-equal to the default
   7. profile   torch.profiler over a few chained kernel-path steps: the
                device-busy time, the idle share and the top device kernels
   8. routes    the step on the "xla" route (K4p) and on the "kernel" route
@@ -121,6 +123,14 @@ Phases, one line each or more; any failure exits non-zero:
                each half by itself as two calls, one delta over both
                halves, the modulus switch); the profiler over a few
                chained steps
+ 26. anatomy  K3 on the headline moddown's shapes and K4 on the alpha-8
+               step's (seeded operands), on the library as built and on
+               timing probes built from copies of their sources that each
+               drop one part of the work (ANATOMY: the transform, all but
+               one prologue term, the crossing stages and cluster syncs,
+               the local passes, the twiddle fetches) or take the path the
+               wrappers do not pick here (the conversion's carry word), in
+               turns
 Then a {"kernels": [...]} line: per kernel its launches over the counted
 path runs (EXPECTED), its largest error against plain, and the summed time
 of the probed calls (phases 4, 8, 11, 18 and 23) through the kernel and
@@ -163,6 +173,7 @@ ENGINES = ("mxu-pallas", "pallas-roll")
 CHAIN_BFV_STEPS = 10
 CHAIN_BGV_STEPS = 10
 CLUSTERS = (8, 4, 2)  # K6's blocks per 2^16-word row, timed in turns
+K3_CLUSTERS = (8, 4, 2)  # K3's blocks per row, timed in turns (phase 6)
 STEPS = tuple(range(1, 8))
 DELTA_BITS = 22
 SEED = 2026
@@ -231,6 +242,34 @@ EXPECTED = {  # launches per path run
 }
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
+# Phase 26's timing probes of the one-pass core (csrc/ntt_cluster.cuh)
+# under K3 and K4, each built from a patched copy of the sources (the base
+# is the library as built).  The first five remove one part of the work, so
+# their results are wrong by design and only their times are read; the
+# last is the path the wrappers do not pick at these shapes, the
+# conversion's product-sum with a carry word.  name: [(file, old, new)]
+_TERMS = "const int terms = min(alpha"
+ANATOMY = {
+    "no transform": [
+        ("bconv_ntt.cu", "  cluster_ntt(s, cluster, G, rank, tb.w + trow, "
+         "tb.ws + trow, bq.q);", "  __syncthreads();"),
+        ("modup_ip.cu", "    cluster_ntt(s, cluster, G, rank, tb.w + trow, "
+         "tb.ws + trow, bq.q);", "    __syncthreads();")],
+    "one-term prologue": [
+        (f, _TERMS, "const int terms = 1 + 0 * min(alpha")
+        for f in ("bconv_ntt.cu", "modup_ip.cu")],
+    "no crossing stages or cluster syncs": [
+        ("ntt_cluster.cuh", "  if (G.logc > 0) {", "  if (G.logc > 9) {")],
+    "no local passes": [
+        ("ntt_cluster.cuh", "  for (int left = G.logs; left > 0;) {",
+         "  for (int left = 0; left > 0;) {")],
+    "twiddles from L1": [
+        ("ntt_cluster.cuh", "__ldg(w + (g1 << s) + b)", "__ldg(w + b)"),
+        ("ntt_cluster.cuh", "__ldg(ws + (g1 << s) + b)", "__ldg(ws + b)")],
+    "carry product-sum": [
+        ("bconv_ntt.cu", "    if (wide) {", "    if (false) {"),
+        ("modup_ip.cu", "    if (wide_conv) {", "    if (false) {")],
+}
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 132 * 64 * 1.98e9
 
@@ -568,8 +607,11 @@ def call_bound(name: str, a: dict, out):
         return byt, ops
     if name in ("K3", "K8"):
         y, mat = a["y"], a["mat"]
-        g_, alpha, n = y.shape
-        k_out = mat.shape[-2]  # K8's (k, alpha) serves both halves
+        # K3's y may be (k_in, N), its last group short; K8's is (2, alpha,
+        # N) with a (k, alpha) matrix serving both halves
+        g_, alpha, n = (mat.shape[0], mat.shape[2], y.shape[-1]) \
+            if name == "K3" else y.shape
+        k_out = mat.shape[-2]
         self_n = 0
         if name == "K3" and a["self_rows"] is not None:
             kd = g_ * alpha if a["k_data"] is None else a["k_data"]
@@ -612,12 +654,14 @@ def call_bound(name: str, a: dict, out):
         y, mats, c2, evk = a["y"], a["mats"], a.get("c2"), a["evk"]
         beta, k_out, alpha = mats.shape
         n = y.shape[-1]
-        # the coefficient form (K4c) passes no row through
-        kd = 0 if c2 is None else (beta * alpha if a["k_data"] is None
+        # the coefficient form (K4c) passes no row through; y holds the
+        # k_data data rows (or padding below beta alpha, never read)
+        kd = 0 if c2 is None else (y.shape[0] if a["k_data"] is None
                                    else a["k_data"])
+        y_rows = y.shape[0] if c2 is None else kd
         pairs = () if c2 is None else c2 if isinstance(c2, tuple) else (c2,)
         conv = beta * k_out - kd
-        byt = w * (y.numel() + mats.numel() + len(pairs) * kd * n
+        byt = w * (y_rows * n + mats.numel() + len(pairs) * kd * n
                    + evk.numel() + _n(out)) + _table_bytes(
                        a["t"], a["rows"], k_out)
         # T_d[j] < q_j: the digit sum's products are below max q times evk
@@ -633,11 +677,11 @@ def call_bound(name: str, a: dict, out):
     if name == "K4p":
         delta, c2, evk, alpha = a["delta"], a["c2"], a["evk"], a["alpha"]
         beta, k_out, n = delta.shape
-        kd = beta * alpha if a["k_data"] is None else a["k_data"]
+        pairs = c2 if isinstance(c2, tuple) else (c2,)
+        kd = pairs[0].shape[0] if a["k_data"] is None else a["k_data"]
         # each digit's own rows: the passthrough, never read from delta
         own = sum(max(0, min((d + 1) * alpha, kd, k_out) - d * alpha)
                   for d in range(beta))
-        pairs = c2 if isinstance(c2, tuple) else (c2,)
         conv = beta * k_out - own
         byt = w * (conv * n + len(pairs) * own * n + evk.numel()
                    + _n(out)) + _table_bytes(a["t"], a["rows"], k_out)
@@ -1095,6 +1139,112 @@ def _bgv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
     _profile(run, PROFILE_STEPS, card, "BGV step")
 
 
+def _probe_library(name: str, patches, tmp: str):
+    """Start the nvcc builds of a patched copy of K3 and K4's sources (and
+    ntt.cu, for ptk_error_string); returns (library path, processes)."""
+    import shutil
+    from phantom_tpu_torch import _build
+    d = os.path.join(tmp, name.replace(" ", "_"))
+    shutil.copytree(_build.CSRC, d)
+    for f, old, new in patches:
+        path = os.path.join(d, f)
+        with open(path) as fh:
+            src = fh.read()
+        if old not in src:
+            raise RuntimeError(f"anatomy probe {name!r}: {f} has no {old!r}")
+        with open(path, "w") as fh:
+            fh.write(src.replace(old, new))
+    objs, procs = [], []
+    for f in ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu"):
+        obj = os.path.join(d, f + ".o")
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c", "-o", obj,
+               os.path.join(d, f)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE,
+                                            text=True)))
+        objs.append(obj)
+    return os.path.join(d, "lib.so"), objs, procs
+
+
+def _anatomy(card: str, dev) -> None:
+    """Phase 26: K3 on the headline moddown's shapes and K4 on the alpha-8
+    step's, timed on the library as built and on each probe of ANATOMY
+    (seeded operands), in turns (base, probes, probes reversed, base)."""
+    import ctypes
+    import tempfile
+    import torch
+    from phantom_tpu_torch import _build, make_context
+    from phantom_tpu_torch.ops import modup_ip_kernels, ntt_kernels
+    libs = {}
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        started = {name: _probe_library(name, patches, tmp)
+                   for name, patches in ANATOMY.items()}
+        for name, (so, objs, procs) in started.items():
+            _build._run(procs)
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
+                   so, *objs]
+            _build._run([(cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))])
+            lib = ctypes.CDLL(so)
+            for fn in ("ptk_bconv_ntt_forward", "ptk_modup_ip",
+                       "ptk_error_string"):
+                getattr(lib, fn).argtypes, getattr(lib, fn).restype = \
+                    _build._SIGNATURES[fn]
+            libs[name] = lib
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+
+    def res(shape, q):
+        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                % q).int()
+
+    calls = {}
+    ctx = make_context(chain_params(**HEADLINE))
+    t, k, alpha, n = ctx.ntt, HEADLINE["limbs"], HEADLINE["alpha"], \
+        HEADLINE["n"]
+    q = t.q.long().view(-1, 1)
+    y = res((2, alpha, n), q[k:k + alpha].view(1, alpha, 1))
+    mat = res((2, k, alpha), q[:k].view(1, k, 1))
+    v = torch.randint(0, alpha, (2, n), generator=gen, device=dev).int()
+    vmul, sc = (res((k,), q[:k].view(k)) for _ in range(2))
+    scs = ((sc.long() << 32) // q[:k].view(k)).int()
+    sub, d1, d2 = (res((2, k, n), q[:k]) for _ in range(3))
+    rows = t.all_rows()[:k].contiguous()
+    calls[f"K3 moddown (2, {alpha}, N) -> (2, {k}, N)"] = \
+        lambda: ntt_kernels.bconv_ntt_forward(
+            y, mat, t, rows, v=v, vmul=vmul, sub_from=sub, epi_scale=sc,
+            epi_scale_shoup=scs, tensor_add=(d1, d2))
+    ctx8 = make_context(chain_params(**ALPHA8))
+    t8, k8, a8 = ctx8.ntt, ALPHA8["limbs"], ALPHA8["alpha"]
+    q8 = t8.q.long().view(-1, 1)
+    beta, k_out = -(-k8 // a8), k8 + a8
+    y8, pa, pb = (res((k8, n), q8[:k8]) for _ in range(3))
+    mats = res((beta, k_out, a8), q8[:k_out].view(1, k_out, 1))
+    evk = res((beta, 2, k_out, n), q8[:k_out].view(1, 1, k_out, 1))
+    calls[f"K4 alpha {a8} (beta {beta}, k_out {k_out})"] = \
+        lambda: modup_ip_kernels.modup_ip(y8, mats, (pa, pb), evk, t8,
+                                          k_data=k8)
+    base_lib = _build.library()
+    order = ["base", *ANATOMY, *reversed(ANATOMY), "base"]
+    times = {}
+    try:
+        for name in order:
+            lib = base_lib if name == "base" else libs[name]
+            _build.library = lambda lib=lib: lib
+            for what, fn in calls.items():
+                times.setdefault(what, {}).setdefault(name, []).append(
+                    _time(fn, REPS))
+    finally:
+        _build.library = lambda: base_lib
+    for what, by in times.items():
+        base = float(np.mean(by["base"]))
+        print(f"anatomy {what}: base {base:.4f} ms; " + "; ".join(
+            f"{name} {np.mean(ms):.4f} ms ({np.mean(ms) - base:+.4f})"
+            for name, ms in by.items() if name != "base") + f" [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1242,6 +1392,30 @@ def main() -> int:
                       REPS) for r in (1, 2, 4, 8)}
     print("timing K8 per call by rows per block: " + ", ".join(
         f"R={r} {ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
+    # K3 alone on the moddown's operands at each cluster size, in turns
+    k3_call = []
+
+    def keep_k3(*a, **kw):
+        k3_call.append((a, kw))
+        return ntt_kernels.bconv_ntt_forward(*a, **kw)
+
+    pipe(d1, d2, pp.KERNELS._replace(bconv_ntt_forward=keep_k3))
+    k3_args, k3_kw = k3_call[0]  # the moddown pair's call
+    ref = ntt_kernels.bconv_ntt_forward(*k3_args, **k3_kw)
+    times = {}
+    for c in K3_CLUSTERS + K3_CLUSTERS[::-1]:
+        def run(c=c):
+            return ntt_kernels.bconv_ntt_forward(*k3_args, **k3_kw, cluster=c)
+        if not torch.equal(run(), ref):
+            raise RuntimeError(f"K3 at cluster {c} differs from the default")
+        times.setdefault(c, []).append(_time(run, REPS))
+    print(f"timing K3 per call by blocks per row, moddown "
+          f"{tuple(k3_args[0].shape)} -> {tuple(ref.shape)} (bit-equal): "
+          + ", ".join(f"C={c} {np.mean(v):.4f} ms ("
+                      + ", ".join(f"{u:.4f}" for u in v) + ")"
+                      for c, v in times.items())
+          + f"; default C={ntt_kernels.default_cluster(params.n)} [{card}]")
+    del k3_call, k3_args, k3_kw, ref  # no operand outlives its phase
 
     # 7. profile: where one chained kernel-path step's device time goes
     dd = [d1]
@@ -1410,6 +1584,10 @@ def main() -> int:
 
     # 21-25. BGV
     _bgv_phases(card, probes, wrappers, since, launches, dev)
+    torch.cuda.empty_cache()
+
+    # 26. where K3's and K4's time goes
+    _anatomy(card, dev)
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):

@@ -44,13 +44,12 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P], _I),
     "ptk_ntt_inverse": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P], _I),
-    "ptk_bconv_ntt_forward": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
-                               _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                               _P], _I),
+    "ptk_bconv_ntt_forward": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                               _I, _I, _P], _I),
     "ptk_fold_matmul_smem": ([_I, _I], _I),
     "ptk_fold_matmul": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "ptk_modup_ip": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _I, _P], _I),
+    "ptk_modup_ip": ([_P] * 6 + [_I] * 4 + [_P] * 4 + [_I] * 3 + [_P], _I),
     "ptk_inner_product": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "ptk_moddown_rows": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P, _P], _I),

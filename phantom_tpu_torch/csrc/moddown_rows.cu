@@ -17,7 +17,7 @@
 //   launch A: one block per (tile, half, block of R rows): the conversion
 //     of the R rows into R tiles of dynamic shared memory (R x 16 KB), then
 //     their column stages (N > 4096), stored raw into out;
-//   launch B: K3's chunk pass (ntt_core.cuh:fwd_chunk_kernel) over every
+//   launch B: K2's chunk pass (ntt.cu:fwd_chunk_kernel) over every
 //     row, reading out back, with the epilogue.
 // The last block of rows masks the rows past k.  Like K3 it is bound by
 // device memory: y is read ceil(k / R) times (mostly from L2) instead of k
@@ -137,8 +137,7 @@ int ptk_moddown_rows(void* out, const void* y, const void* mat,
   if (err != cudaSuccess) return static_cast<int>(err);
   rows_col_kernel<<<dim3(G.n1, 2, (k + R - 1) / R), kThreads, smem, st>>>(
       a, tb, G, o);
-  fwd_chunk_kernel<RowLoad><<<dim3(G.n1, 2 * k), kThreads, 0, st>>>(
-      RowLoad{o}, tb, epi, G, o);
+  launch_forward_chunks(tb, epi, G, o, 2 * k, st);
   return static_cast<int>(cudaGetLastError());
 }
 

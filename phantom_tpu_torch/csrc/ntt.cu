@@ -103,7 +103,67 @@ __global__ void floor_div_kernel(const uint32_t* y, NttTables tb,
   }
 }
 
+// Forward column pass: the row as stored (lazy [0, 2q) tolerated), column
+// stages, raw store to out.
+__global__ void __launch_bounds__(kThreads)
+fwd_col_kernel(const uint32_t* x, NttTables tb, Geometry G, uint32_t* out) {
+  __shared__ uint32_t s[kTile];
+  const int tile = blockIdx.x, row = blockIdx.y;
+  const int limb = tb.rows[row % tb.L];
+  const uint32_t q = tb.q[limb];
+  const int64_t r0 = static_cast<int64_t>(row) * G.n;
+  for (int e = threadIdx.x; e < kTile; e += blockDim.x)
+    s[e] = csub(x[r0 + col_index(G, tile, e)], q);
+  __syncthreads();
+  const uint32_t* w = tb.w + static_cast<int64_t>(limb) * G.n;
+  const uint32_t* ws = tb.ws + static_cast<int64_t>(limb) * G.n;
+  for (int m = 1; m < G.n1; m <<= 1) col_stage<false>(s, G, m, w, ws, q);
+  for (int e = threadIdx.x; e < kTile; e += blockDim.x)
+    out[r0 + col_index(G, tile, e)] = s[e];
+}
+
+// Forward chunk pass: load (x when it is the only pass, else the column
+// pass's output in out), chunk stages, epilogue store.
+__global__ void __launch_bounds__(kThreads)
+fwd_chunk_kernel(const uint32_t* x, NttTables tb, FwdEpilogue epi,
+                 Geometry G, uint32_t* out) {
+  __shared__ uint32_t s[kTile];
+  const int tile = blockIdx.x, row = blockIdx.y;
+  const int j = row % tb.L, g = row / tb.L;
+  const int limb = tb.rows[j];
+  const Barrett bq = make_barrett(tb.q[limb]);
+  const bool single = G.n1 == 1;
+  uint32_t* o = out + static_cast<int64_t>(row) * G.n;
+  const int64_t base = static_cast<int64_t>(tile) * G.n2;
+  for (int e = threadIdx.x; e < G.n2; e += blockDim.x)
+    s[e] = single ? csub(x[static_cast<int64_t>(row) * G.n + base + e], bq.q)
+                  : o[base + e];
+  __syncthreads();
+  const uint32_t* w = tb.w + static_cast<int64_t>(limb) * G.n;
+  const uint32_t* ws = tb.ws + static_cast<int64_t>(limb) * G.n;
+  for (int m = G.n1; m < G.n; m <<= 1)
+    chunk_stage<false>(s, G, tile, m, w, ws, bq.q);
+  for (int e = threadIdx.x; e < G.n2; e += blockDim.x)
+    o[base + e] = epi.apply(s[e], row, j, g, tb.L, base + e, G.n, bq);
+}
+
 }  // namespace
+
+void launch_forward(const uint32_t* x, const NttTables& tb,
+                    const FwdEpilogue& epi, const Geometry& G, uint32_t* out,
+                    int nrows, cudaStream_t stream) {
+  const dim3 grid(G.n1, nrows);
+  if (G.n1 > 1) fwd_col_kernel<<<grid, kThreads, 0, stream>>>(x, tb, G, out);
+  fwd_chunk_kernel<<<grid, kThreads, 0, stream>>>(x, tb, epi, G, out);
+}
+
+void launch_forward_chunks(const NttTables& tb, const FwdEpilogue& epi,
+                           const Geometry& G, uint32_t* out, int nrows,
+                           cudaStream_t stream) {
+  fwd_chunk_kernel<<<dim3(G.n1, nrows), kThreads, 0, stream>>>(out, tb, epi,
+                                                               G, out);
+}
+
 }  // namespace ptk
 
 using namespace ptk;
@@ -131,8 +191,8 @@ int ptk_ntt_forward(void* out, const void* x, const void* q, const void* w,
                         static_cast<const uint32_t*>(escs),
                         static_cast<const uint32_t*>(d1),
                         static_cast<const uint32_t*>(d2)};
-  const RowLoad pro{static_cast<const uint32_t*>(x)};
-  launch_forward(pro, tb, epi, G, static_cast<uint32_t*>(out), nrows,
+  launch_forward(static_cast<const uint32_t*>(x), tb, epi, G,
+                 static_cast<uint32_t*>(out), nrows,
                  static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,7 @@
-// Negacyclic NTT machinery shared by the forward kernels (K2 in ntt.cu,
-// K3 in bconv_ntt.cu) and the inverse kernel (K1 in ntt.cu).
+// The two-pass negacyclic NTT machinery of the forward kernel (K2 in
+// ntt.cu, K8's chunk pass), the inverse kernel (K1 in ntt.cu) and K7; and
+// the forward epilogue that the one-pass core's kernels (ntt_cluster.cuh)
+// share.
 //
 // Order and tables are the library's: out[k] = p(psi^(2*rev(k)+1)), twiddle
 // tables in bit-reversed order, the stage with m groups reading entries
@@ -142,82 +144,17 @@ struct FwdEpilogue {
   }
 };
 
-// The plain prologue (K2's, and K8's chunk pass): the row as stored, lazy
-// [0, 2q) tolerated.
-struct RowLoad {
-  static constexpr bool kStoreSkipped = true;
-  const uint32_t* x;
-  __device__ __forceinline__ bool skip(int, int) const { return false; }
-  __device__ __forceinline__ uint32_t load(int row, int, int, int64_t gi,
-                                           int n, const Barrett& bq,
-                                           bool) const {
-    return csub(x[static_cast<int64_t>(row) * n + gi], bq.q);
-  }
-};
-
-// Forward column pass: prologue load, column stages, raw store to out.
-// Pro supplies skip(j, g) (row passes through untransformed),
-// load(row, j, g, gi, n, bq, skip) (the canonical input value) and
-// kStoreSkipped (false: a skipped row is not stored at all).
-template <class Pro>
-__global__ void __launch_bounds__(kThreads)
-fwd_col_kernel(Pro pro, NttTables tb, Geometry G, uint32_t* out) {
-  __shared__ uint32_t s[kTile];
-  const int tile = blockIdx.x, row = blockIdx.y;
-  const int j = row % tb.L, g = row / tb.L;
-  const bool skip = pro.skip(j, g);
-  if (skip && !Pro::kStoreSkipped) return;  // uniform over the block
-  const int limb = tb.rows[j];
-  const Barrett bq = make_barrett(tb.q[limb]);
-  uint32_t* o = out + static_cast<int64_t>(row) * G.n;
-  for (int e = threadIdx.x; e < kTile; e += blockDim.x)
-    s[e] = pro.load(row, j, g, col_index(G, tile, e), G.n, bq, skip);
-  __syncthreads();
-  if (!skip) {
-    const uint32_t* w = tb.w + static_cast<int64_t>(limb) * G.n;
-    const uint32_t* ws = tb.ws + static_cast<int64_t>(limb) * G.n;
-    for (int m = 1; m < G.n1; m <<= 1) col_stage<false>(s, G, m, w, ws, bq.q);
-  }
-  for (int e = threadIdx.x; e < kTile; e += blockDim.x)
-    o[col_index(G, tile, e)] = s[e];
-}
-
-// Forward chunk pass: load (prologue when it is the only pass, else the
-// column pass's output), chunk stages, epilogue store.
-template <class Pro>
-__global__ void __launch_bounds__(kThreads)
-fwd_chunk_kernel(Pro pro, NttTables tb, FwdEpilogue epi, Geometry G,
-                 uint32_t* out) {
-  __shared__ uint32_t s[kTile];
-  const int tile = blockIdx.x, row = blockIdx.y;
-  const int j = row % tb.L, g = row / tb.L;
-  const int limb = tb.rows[j];
-  const Barrett bq = make_barrett(tb.q[limb]);
-  const bool skip = pro.skip(j, g);
-  const bool single = G.n1 == 1;
-  uint32_t* o = out + static_cast<int64_t>(row) * G.n;
-  const int64_t base = static_cast<int64_t>(tile) * G.n2;
-  for (int e = threadIdx.x; e < G.n2; e += blockDim.x)
-    s[e] = single ? pro.load(row, j, g, base + e, G.n, bq, skip) : o[base + e];
-  __syncthreads();
-  if (!skip) {
-    const uint32_t* w = tb.w + static_cast<int64_t>(limb) * G.n;
-    const uint32_t* ws = tb.ws + static_cast<int64_t>(limb) * G.n;
-    for (int m = G.n1; m < G.n; m <<= 1)
-      chunk_stage<false>(s, G, tile, m, w, ws, bq.q);
-  }
-  for (int e = threadIdx.x; e < G.n2; e += blockDim.x)
-    o[base + e] = epi.apply(s[e], row, j, g, tb.L, base + e, G.n, bq);
-}
-
-template <class Pro>
-void launch_forward(const Pro& pro, const NttTables& tb,
+// K2's forward transform of the rows x (lazy [0, 2q)) into out with the
+// epilogue: the column pass when N > kTile, then the chunk pass.  Defined
+// in ntt.cu.
+void launch_forward(const uint32_t* x, const NttTables& tb,
                     const FwdEpilogue& epi, const Geometry& G, uint32_t* out,
-                    int nrows, cudaStream_t stream) {
-  const dim3 grid(G.n1, nrows);
-  if (G.n1 > 1)
-    fwd_col_kernel<Pro><<<grid, kThreads, 0, stream>>>(pro, tb, G, out);
-  fwd_chunk_kernel<Pro><<<grid, kThreads, 0, stream>>>(pro, tb, epi, G, out);
-}
+                    int nrows, cudaStream_t stream);
+
+// The chunk pass alone, in place, over rows whose column pass (or, for N <=
+// kTile, whose input) is already in out (K8's second launch).
+void launch_forward_chunks(const NttTables& tb, const FwdEpilogue& epi,
+                           const Geometry& G, uint32_t* out, int nrows,
+                           cudaStream_t stream);
 
 }  // namespace ptk

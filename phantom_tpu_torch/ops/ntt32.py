@@ -34,7 +34,8 @@ def u32_tensor(values) -> torch.Tensor:
 class NTTTables32(nn.Module):
     """u32 NTT tables of one base, as int32 buffers: q (L,), root_powers,
     inv_root_powers (L, N), their Shoup words floor(w * 2^32 / q) as int32
-    bit patterns, inv_degree (L,) and its Shoup word."""
+    bit patterns, inv_degree (L,) and its Shoup word; modulus_bits, the
+    bit length of the largest modulus."""
 
     def __init__(self, host_tables):
         """host_tables: a host RNSNTTTables (u64 numpy, q < 2^30)."""
@@ -43,6 +44,9 @@ class NTTTables32(nn.Module):
         if not (q < (1 << 30)).all():
             raise ValueError("32-bit NTT tables need q < 2^30")
         self.register_buffer("q", u32_tensor(q))
+        # every residue of the base is below 2^modulus_bits (a host int, so
+        # the kernels' wrappers read it without a device sync)
+        self.modulus_bits = int(q.max()).bit_length()
         for name in ("root_powers", "inv_root_powers"):
             self.register_buffer(name, u32_tensor(getattr(host_tables, name)))
             self.register_buffer(name + "_shoup", u32_tensor(

@@ -2,15 +2,19 @@
 
 Each wrapper takes the CUDA kernel for a CUDA tensor and the plain int64
 torch version beside it for a CPU tensor (any other device raises); it
-counts its launches in `<wrapper>.launches`.  All three kernels transform
-rows with radix-2 butterflies in shared memory, in two passes of 4096-word
-tiles for N > 4096 (csrc/ntt_core.cuh), and are bound by device memory:
-every pass reads and writes each row once.
+counts its launches in `<wrapper>.launches`.
 
   K1 ntt_inverse        csrc/ntt.cu        replaces ntt_mxu_pallas.py:
                                            ntt_inverse_mxu_pallas
   K2 ntt_forward        csrc/ntt.cu        ntt_forward_mxu_pallas
   K3 bconv_ntt_forward  csrc/bconv_ntt.cu  bconv_ntt_forward_mxu_pallas
+
+K1 and K2 transform rows with radix-2 butterflies in shared memory, in two
+passes of 4096-word tiles for N > 4096 (csrc/ntt_core.cuh), and are bound
+by device memory: every pass reads and writes each row once.  K3 holds
+each output row in a thread-block cluster for all log N stages, in
+radix-8 passes in registers (csrc/ntt_cluster.cuh): one launch, the row
+converted straight into shared memory and written once.
 
 Arguments follow the JAX kernels, with one addition: `rows`, the table row
 of each of the L limbs (default: all of `t`'s rows), so one `NTTTables32`
@@ -86,13 +90,14 @@ def bconv_ntt_forward_plain(y, mat, t: NTTTables32, rows=None, v=None,
                             sub_from=None, epi_scale=None,
                             epi_scale_shoup=None, tensor_add=None,
                             k_data=None):
-    g_, alpha, n = y.shape
-    k_out = mat.shape[1]
+    g_, k_out, alpha = mat.shape
+    n = y.shape[-1]
     rows = resolve_rows(t, rows, k_out)
     q_rows = t.q[rows.long()]
     q = u32(q_rows).view(k_out, 1)
-    x = torch.stack([fold_matmul_plain(y[g], mat[g], q_rows).long()
-                     for g in range(g_)])
+    yr = y.reshape(-1, n)  # group g's rows from g alpha, the last maybe short
+    x = torch.stack([fold_matmul_plain(yr[g * alpha:(g + 1) * alpha], mat[g],
+                                       q_rows).long() for g in range(g_)])
     if v is not None:
         x = (x - v.long().view(g_, 1, n) * u32(vmul).view(1, k_out, 1)) % q
     if post_sub is not None:
@@ -126,6 +131,26 @@ def _ptr(x: Optional[torch.Tensor]):
 def _expect(x: Optional[torch.Tensor], shape, what: str):
     if x is not None and tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(x.shape)} != {tuple(shape)}")
+
+
+# every modulus of the port is below 2^MODULUS_BITS, so is every word of a
+# conversion matrix
+MODULUS_BITS = 30
+
+
+def sum_fits_64(terms: int, t: NTTTables32) -> bool:
+    """Whether `terms` products of a residue of `t`'s base (below 2^b, b the
+    bit length of its largest modulus) and a matrix word (below 2^30) sum
+    below 2^64: K3's and K4's conversions then keep the sum in one 64-bit
+    word, else with a carry word."""
+    return terms << (t.modulus_bits + MODULUS_BITS) < 1 << 64
+
+
+def check_aligned(*tensors: Optional[torch.Tensor]) -> None:
+    """The kernels read and write these with 16-byte vectors."""
+    for x in tensors:
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError("kernel operand not 16-byte aligned")
 
 
 def _tables(t: NTTTables32, inverse: bool):
@@ -225,25 +250,61 @@ def ntt_inverse(x: torch.Tensor, t: NTTTables32, rows=None, scale=None,
     return out if v is None else (out, v)
 
 
+MAX_CLUSTER = 8          # the largest portable cluster
+CLUSTER_WORDS = 1 << 13  # the default share of a row per block
+MIN_SHARE = 1 << 10      # the smallest share the radix-8 core takes
+
+
+def default_cluster(n: int) -> int:
+    """Blocks per row of the cluster kernels (K3, K4, K6): one up to
+    CLUSTER_WORDS words, then shares of CLUSTER_WORDS, at most MAX_CLUSTER
+    blocks."""
+    return min(MAX_CLUSTER, max(1, n // CLUSTER_WORDS))
+
+
+def check_cluster(n: int, cluster: int) -> None:
+    if (cluster < 1 or cluster > MAX_CLUSTER or cluster & (cluster - 1)
+            or n // cluster < MIN_SHARE
+            or (n // cluster) * 33 // 32 * 4 > _build.SMEM_OPTIN):
+        raise ValueError(f"cluster={cluster} at N={n}: a power of two up to "
+                         f"{MAX_CLUSTER} whose share of at least {MIN_SHARE} "
+                         "words fits shared memory")
+
+
 def bconv_ntt_forward(y: torch.Tensor, mat: torch.Tensor, t: NTTTables32,
                       rows=None, v=None, vmul=None, post_sub=None,
                       self_rows=None, sub_from=None, epi_scale=None,
                       epi_scale_shoup=None, tensor_add=None,
-                      k_data=None) -> torch.Tensor:
-    """K3.  y: (G, alpha, N) in [0, q_in); mat: (G, k_out, alpha).  Row j
-    of group g: x = sum_i y[g, i] mat[g, j, i] mod q_j [- v[g] vmul[j]]
-    [- post_sub[j]], then NTT_j(x) and the K2 epilogue.  self_rows
-    (>= G alpha, N): output rows g alpha <= j < min((g+1) alpha, k_data)
-    take self_rows[j] untransformed (epilogue still applies)."""
+                      k_data=None, cluster=None) -> torch.Tensor:
+    """K3.  y: (G, alpha, N), or (k_in, N) with group g's rows from row g
+    alpha and a short last group ((G - 1) alpha < k_in <= G alpha), in [0,
+    2^b) for b the bit length of `t`'s largest modulus; mat: (G, k_out,
+    alpha), words below 2^30.  Row j of group g: x = sum_i y[g alpha + i]
+    mat[g, j, i] mod q_j [- v[g] vmul[j]] [- post_sub[j]], then NTT_j(x)
+    and the K2 epilogue.  self_rows (>= min(k_data, G alpha), N): output
+    rows g alpha <= j < min((g+1) alpha, k_data) take self_rows[j]
+    untransformed (epilogue still applies).  cluster: blocks per row on
+    the card (default default_cluster(N))."""
     if _build.is_plain(y, "bconv_ntt_forward"):
         return bconv_ntt_forward_plain(y, mat, t, rows, v, vmul, post_sub,
                                        self_rows, sub_from, epi_scale,
                                        epi_scale_shoup, tensor_add, k_data)
-    g_, alpha, n = y.shape
-    k_out = mat.shape[1]
+    if mat.dim() != 3:
+        raise ValueError(f"bconv_ntt_forward: mat {tuple(mat.shape)} is not "
+                         "(G, k_out, alpha)")
+    g_, k_out, alpha = mat.shape
+    n = y.shape[-1]
     logn = _logn(n)
+    if y.dim() == 3:
+        _expect(y, (g_, alpha, n), "y")
+    elif y.dim() != 2 or not (g_ - 1) * alpha < y.shape[0] <= g_ * alpha:
+        raise ValueError(f"bconv_ntt_forward: y {tuple(y.shape)} is neither "
+                         f"({g_}, {alpha}, N) nor ({g_} groups of {alpha} "
+                         "rows, N)")
+    k_in = y.numel() // n
+    c = default_cluster(n) if cluster is None else int(cluster)
+    check_cluster(n, c)
     rows = resolve_rows(t, rows, k_out)
-    _expect(mat, (g_, k_out, alpha), "mat")
     if v is not None:
         _expect(v, (g_, n), "v")
         _expect(vmul, (k_out,), "vmul")
@@ -263,12 +324,14 @@ def bconv_ntt_forward(y: torch.Tensor, mat: torch.Tensor, t: NTTTables32,
     _build.check_operands(y, mat, rows, *tabs, *opt,
                           *(e for e in epi if e is not None))
     out = torch.empty((g_, k_out, n), dtype=torch.int32, device=y.device)
+    check_aligned(out, y, v, self_rows, epi[0], epi[3], epi[4])
     with torch.cuda.device(y.device):
         err = _build.library().ptk_bconv_ntt_forward(
             out.data_ptr(), y.data_ptr(), mat.data_ptr(), g_, alpha, k_out,
-            *(a.data_ptr() for a in tabs), rows.data_ptr(), logn, _ptr(v),
-            _ptr(vmul), _ptr(post_sub), _ptr(self_rows), k_data,
-            *(_ptr(e) for e in epi), _build.stream(y))
+            k_in, *(a.data_ptr() for a in tabs), rows.data_ptr(), logn,
+            _ptr(v), _ptr(vmul), _ptr(post_sub), _ptr(self_rows), k_data,
+            *(_ptr(e) for e in epi), c, int(sum_fits_64(alpha, t)),
+            _build.stream(y))
     _build.check(err, "bconv_ntt_forward")
     bconv_ntt_forward.launches += 1
     return out

@@ -34,17 +34,9 @@ import torch
 
 from .. import _build
 from .ntt32 import NTTTables32, resolve_rows
-from .ntt_kernels import (_epilogue_args, _expect, _logn, _ptr, _tables,
-                          ntt_forward_plain, ntt_inverse_plain)
-
-MAX_CLUSTER = 8        # the largest portable cluster
-CTA_WORDS = 1 << 13    # the default share of a row per block
-
-
-def default_cluster(n: int) -> int:
-    """Blocks per row: one up to CTA_WORDS words, then shares of
-    CTA_WORDS, at most MAX_CLUSTER blocks."""
-    return min(MAX_CLUSTER, max(1, n // CTA_WORDS))
+from .ntt_kernels import (MAX_CLUSTER, _epilogue_args, _expect, _logn,
+                          _ptr, _tables, default_cluster, ntt_forward_plain,
+                          ntt_inverse_plain)
 
 
 def _cluster(n: int, cluster) -> int:

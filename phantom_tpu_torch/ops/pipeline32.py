@@ -302,15 +302,6 @@ def convert_key32(ctx: Context, key_data: torch.Tensor,
     return key_data[:beta].index_select(2, rows).contiguous()
 
 
-def _pad_digit_rows(ks: KeySwitch32, x: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the limb axis from size_ql to beta * alpha rows: a short
-    last digit's pad rows contribute nothing and are never digit rows."""
-    pad = ks.beta * ks.size_p - ks.size_ql
-    if pad == 0:
-        return x.contiguous()
-    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-
-
 def modup_xla32(ks: KeySwitch32, y: torch.Tensor, c2_ntt: torch.Tensor,
                 ops: Kernels = KERNELS) -> torch.Tensor:
     """y: the pre-scaled iNTT rows (size_ql, N); c2_ntt: the NTT-form input.
@@ -364,10 +355,9 @@ def modup_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
     y = _modup_inverse(ks, c2_ntt, ops)
     if not ks.fused_modup:
         return modup_xla32(ks, y, c2_ntt, ops)
-    yp = _pad_digit_rows(ks, y)
-    return ops.bconv_ntt_forward(
-        yp.view(ks.beta, ks.size_p, -1), ks.modup_mats, ks.ntt, ks.rows_qlp,
-        self_rows=_pad_digit_rows(ks, c2_ntt), k_data=ks.size_ql)
+    return ops.bconv_ntt_forward(y, ks.modup_mats, ks.ntt, ks.rows_qlp,
+                                 self_rows=c2_ntt.contiguous(),
+                                 k_data=ks.size_ql)
 
 
 def inner_product32(ks: KeySwitch32, t_modup: torch.Tensor,
@@ -397,9 +387,8 @@ def modup_ip32(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
         return _modup_ip_split(ks, c2_ntt, evk, ops)
     _default_engine_only(ks, "modup_ip32")
     y = _modup_inverse(ks, c2_ntt, ops)
-    s = ops.modup_ip(_pad_digit_rows(ks, y), ks.modup_mats,
-                     _pad_digit_rows(ks, c2_ntt), evk, ks.ntt, ks.rows_qlp,
-                     k_data=ks.size_ql)
+    s = ops.modup_ip(y, ks.modup_mats, c2_ntt.contiguous(), evk, ks.ntt,
+                     ks.rows_qlp, k_data=ks.size_ql)
     return s[0], s[1]
 
 
@@ -530,9 +519,8 @@ def keyswitch32(ks: KeySwitch32, c2_coeff: torch.Tensor, evk: torch.Tensor,
     the pre-scaled rows (the modup tensor never exists in memory), then
     the moddown pair (K1, K3); roll engine: modup32, K9, two moddown32."""
     if ks.engine == DEFAULT_ENGINE:
-        y = _pad_digit_rows(ks, _modup_coeff_prescale(ks, c2_coeff))
-        s = ops.modup_ip_coeff(y, ks.modup_mats_coeff, evk, ks.ntt,
-                               ks.rows_qlp)
+        s = ops.modup_ip_coeff(_modup_coeff_prescale(ks, c2_coeff),
+                               ks.modup_mats_coeff, evk, ks.ntt, ks.rows_qlp)
         s0, s1 = s[0], s[1]
     else:
         s0, s1 = inner_product32(ks, modup32(ks, c2_coeff, ops), evk, ops)
@@ -649,9 +637,9 @@ def mult_relin_rescale32(p: CKKSPipeline32, d1: torch.Tensor,
     if ks.modup == "xla":
         return _mult_relin_rescale_preconv(p, d1, d2, ops)
     y = _modup_inverse(ks, d1[1], ops, mul_by=d2[1])
-    s = ops.modup_ip(_pad_digit_rows(ks, y), ks.modup_mats,
-                     (_pad_digit_rows(ks, d1[1]), _pad_digit_rows(ks, d2[1])),
-                     p.evk, ks.ntt, ks.rows_qlp, k_data=ks.size_ql)
+    pair = (d1[1].contiguous(), d2[1].contiguous())
+    s = ops.modup_ip(y, ks.modup_mats, pair, p.evk, ks.ntt, ks.rows_qlp,
+                     k_data=ks.size_ql)
     return _relin_rescale(p, s[0], s[1], d1, d2, ops)
 
 
@@ -676,9 +664,9 @@ def _mult_relin_rescale_preconv(p: CKKSPipeline32, d1: torch.Tensor,
     ks = p.ks
     c2 = (d1[1].long() * d2[1].long() % _qcol(ks.mv_ql.q)).int()
     delta = modup_delta_xla32(ks, _modup_inverse(ks, c2, ops), ops)
-    s = ops.modup_ip_preconv(
-        delta, (_pad_digit_rows(ks, d1[1]), _pad_digit_rows(ks, d2[1])),
-        p.evk, ks.ntt, ks.rows_qlp, k_data=ks.size_ql, alpha=ks.size_p)
+    pair = (d1[1].contiguous(), d2[1].contiguous())
+    s = ops.modup_ip_preconv(delta, pair, p.evk, ks.ntt, ks.rows_qlp,
+                             k_data=ks.size_ql, alpha=ks.size_p)
     return _relin_rescale(p, s[0], s[1], d1, d2, ops)
 
 

@@ -2,8 +2,10 @@
 
 Counterpart of phantom_tpu/ops/sampling.py:36-72, with the same
 distributions but not the same bits (JAX draws from threefry):
-  - uniform: independent per limb, a 62-bit draw reduced mod q
-    (statistical distance < 2^-32 from uniform);
+  - uniform: independent per limb, two 62-bit draws (hi, lo) per residue
+    read as hi 2^62 + lo, a 124-bit integer, reduced mod q (statistical
+    distance < q / 2^124 < 2^-94 from uniform per residue; the reference
+    reduces 128 bits, phantom_tpu/ops/sampling.py:36-52);
   - ternary: one vector in {-1, 0, 1}, lifted to every limb;
   - error: centered binomial over 21 bit pairs (sigma = sqrt(42)/2 ~ 3.24),
     one vector lifted to every limb.
@@ -17,14 +19,21 @@ import torch
 from .modmath32 import u32
 
 CBD_BITS = 21
+DRAW_BITS = 62  # bits of one uniform draw, below int64's sign bit
 
 
 def sample_uniform_rns(gen: torch.Generator, n: int,
                        q: torch.Tensor) -> torch.Tensor:
-    """(L, N) int32, row l uniform in [0, q[l])."""
-    r = torch.randint(0, 1 << 62, (q.shape[0], n), generator=gen,
-                      device=gen.device)
-    return (r % u32(q).view(-1, 1)).int()
+    """(L, N) int32, row l uniform in [0, q[l]): (hi 2^62 + lo) mod q for
+    two draws hi, lo (hi's (L, N) first), as ((hi mod q) (2^62 mod q) + lo
+    mod q) mod q, whose int64 products stay below 2^60."""
+    shape = (q.shape[0], n)
+    hi = torch.randint(0, 1 << DRAW_BITS, shape, generator=gen,
+                       device=gen.device)
+    lo = torch.randint(0, 1 << DRAW_BITS, shape, generator=gen,
+                       device=gen.device)
+    qc = u32(q).view(-1, 1)
+    return (((hi % qc) * ((1 << DRAW_BITS) % qc) + lo % qc) % qc).int()
 
 
 def sample_ternary(gen: torch.Generator, n: int) -> torch.Tensor:

@@ -59,6 +59,26 @@ bgv_step_n1024.npz: BGV at n = 1024, the same chain (five 28-bit data
   special_moduli (u64), t, cf, sk, rlk, d1, d2 (2, 5, N), pt1, pt2
   (int64), out (2, 4, N), pt_out.
 
+bfv_live_n128.npz: what tests/test_torch_bfv.py compared with live jitted
+  JAX until it moved onto this file: BFV at n = 128, four 28-bit data
+  primes, two 29-bit special primes, t = PlainModulus.batching(128, 16);
+  from numpy.random.default_rng(4), a uniform relin key rlk (2, 2, K, N)
+  and uniform d1, d2 (2, 4, N), then the scale-and-round inputs x_d_to_rl
+  (D = Ql u Rl rows) and x_decrypt (Ql rows), each with an all-zero
+  column 0 and an all q - 1 column 1.  Outputs: out =
+  jit(bfv_mult_relin32) on build_bfv32's default engine; sr_d_to_rl and
+  sr_decrypt = jit(scale_and_round_exact32) to Rl and to {t}; rl_moduli
+  and the pipeline's tables (tab_<field>: mv_d_q, rl_half_mod_r,
+  rl_half_mod_q, evk, mv_qlp_q, the q_to_r and r_to_q converters' qhat_inv,
+  qhat_inv_shoup, qhat_mod_p, q_mod_p, and sr_to_r's ihat_inv,
+  ihat_inv_shoup, omega_mod_out, rho).
+
+ntt32_n128.npz: what tests/test_torch_ntt.py compared with live jitted
+  JAX: n = 128, three 28-bit primes and one 29-bit prime; for lazy in (0,
+  1), x_<lazy> (2, 4, N) in [0, q) and xi_<lazy> in [0, q) or [0, 2q) from
+  numpy.random.default_rng(31), fwd_<lazy> = jit(ntt32.ntt_forward32)(x)
+  and inv_<lazy> = jit(ntt32.ntt_inverse32)(xi).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz):
 
@@ -78,7 +98,11 @@ import numpy as np  # noqa: E402
 
 from phantom_tpu.host import numth  # noqa: E402
 from phantom_tpu.host.modulus import PlainModulus  # noqa: E402
-from phantom_tpu.ops import bfv32, bgv32  # noqa: E402
+from phantom_tpu.host.modulus import Modulus  # noqa: E402
+from phantom_tpu.host.ntt_tables import make_rns_ntt_tables  # noqa: E402
+from phantom_tpu.ops import bfv32, bgv32, scaleround32  # noqa: E402
+from phantom_tpu.ops import ntt as ntt64  # noqa: E402
+from phantom_tpu.ops import ntt32  # noqa: E402
 from phantom_tpu.ops import pipeline32 as pp  # noqa: E402
 from phantom_tpu.schemes import (BatchEncoder, CKKSEncoder,  # noqa: E402
                                  EncryptionParameters, Plaintext, Scheme,
@@ -294,9 +318,70 @@ def bgv_step():
           out=out, pt_out=u32(pt_out))
 
 
+def bfv_live(n=128):
+    qs = numth.get_primes(2 * n, 28, 4)
+    ps = numth.get_primes(2 * n, 29, 2)
+    t = PlainModulus.batching(n, 16).value
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.BFV, n, qs + ps, plain_modulus=t, special_modulus_size=2))
+    rng = np.random.default_rng(4)
+    rlk = np.stack([uniform(rng, qs + ps, (2,), n) for _ in range(2)])
+    d1, d2 = (uniform(rng, qs, (2,), n) for _ in range(2))
+    p = bfv32.build_bfv32(ctx, keys.RelinKey(data=jnp.asarray(
+        rlk.astype(np.uint64))))
+    out = np.asarray(jax.jit(bfv32.bfv_mult_relin32)(
+        p, jnp.asarray(d1), jnp.asarray(d2)))
+    rl = [int(v) for v in np.asarray(ctx.rl_ntt.q)]
+    big_ql = 1
+    for q in qs:
+        big_ql *= q
+    sr = {}
+    for table, ins, outs in (("d_to_rl", qs + rl, rl), ("decrypt", qs, [t])):
+        x = uniform(rng, ins, (), n)
+        x[:, 0] = 0
+        x[:, 1] = np.array(ins, dtype=np.uint32) - 1
+        c = scaleround32.make_exact_scale_round32(ins, t, big_ql, outs)
+        sr[f"x_{table}"] = x
+        sr[f"sr_{table}"] = np.asarray(jax.jit(
+            scaleround32.scale_and_round_exact32)(jnp.asarray(x), c))
+    tab = {"mv_d_q": p.mv_d.q, "rl_half_mod_r": p.rl_half_mod_r,
+           "rl_half_mod_q": p.rl_half_mod_q, "evk": p.evk,
+           "mv_qlp_q": p.ks.mv_qlp.q}
+    for name, conv in (("q_to_r", p.q_to_r), ("r_to_q", p.r_to_q)):
+        for f in ("qhat_inv", "qhat_inv_shoup", "qhat_mod_p", "q_mod_p"):
+            tab[f"{name}_{f}"] = getattr(conv, f)
+    for f in ("ihat_inv", "ihat_inv_shoup", "omega_mod_out", "rho"):
+        tab[f"sr_to_r_{f}"] = getattr(p.sr_to_r, f)
+    _save("bfv_live_n128.npz",
+          data_moduli=np.array(qs, dtype=np.uint64),
+          special_moduli=np.array(ps, dtype=np.uint64),
+          t=np.array(t, dtype=np.uint64), rlk=rlk, d1=d1, d2=d2, out=out,
+          rl_moduli=np.array(rl, dtype=np.uint64), **sr,
+          **{f"tab_{k}": np.asarray(v) for k, v in tab.items()})
+
+
+def ntt32_n128(n=128):
+    qs = numth.get_primes(2 * n, 28, 3) + numth.get_primes(2 * n, 29, 1)
+    j32 = ntt32.tables32_from_tables64(ntt64.tables_from_host(
+        make_rns_ntt_tables(n, [Modulus(q) for q in qs])))
+    q = np.array(qs, dtype=np.int64)[:, None]
+    rng = np.random.default_rng(31)
+    arrays = {}
+    for lazy in (0, 1):
+        x = (rng.integers(0, 1 << 40, (2, 4, n)) % q).astype(np.uint32)
+        xi = (rng.integers(0, 1 << 40, (2, 4, n)) % ((1 + lazy) * q)).astype(
+            np.uint32)
+        arrays[f"x_{lazy}"], arrays[f"xi_{lazy}"] = x, xi
+        arrays[f"fwd_{lazy}"] = np.asarray(jax.jit(ntt32.ntt_forward32)(
+            x, j32))
+        arrays[f"inv_{lazy}"] = np.asarray(jax.jit(ntt32.ntt_inverse32)(
+            xi, j32))
+    _save("ntt32_n128.npz", moduli=np.array(qs, dtype=np.uint64), **arrays)
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
-                      "bgv_step"]
+                      "bgv_step", "bfv_live", "ntt32_n128"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -310,6 +395,10 @@ def main(names):
         bfv_step()
     if "bgv_step" in names:
         bgv_step()
+    if "bfv_live" in names:
+        bfv_live()
+    if "ntt32_n128" in names:
+        ntt32_n128()
 
 
 if __name__ == "__main__":

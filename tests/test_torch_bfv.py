@@ -1,9 +1,10 @@
 """The port's BFV HPS multiply + relinearize step against the JAX package:
 its tables against bfv32.build_bfv32's, scale_and_round_exact32 against
 the JAX function, the step on both port engines against the JAX
-bfv_mult_relin32 live at n = 128 (four data primes, alpha = 2, as
-tests/test_fastpath32.py) and against the golden file at n = 1024 (five
-data primes, a short last digit; made by
+bfv_mult_relin32 at n = 128 (four data primes, alpha = 2, as
+tests/test_fastpath32.py; the JAX side's outputs in the golden file
+bfv_live_n128.npz, made with jax.jit) and against the golden file at n =
+1024 (five data primes, a short last digit; made by
 tests/fixtures/gen_torch_port_fixtures.py, with the JAX package's key
 switch and decryption), and the port's own keys and encryptions
 decrypting to m1 m2 mod (X^n + 1, t).  Bit-exact throughout; every kernel
@@ -11,19 +12,12 @@ runs its plain version on the CPU."""
 
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from phantom_tpu.host import numth as jnumth
 from phantom_tpu.host.modulus import PlainModulus as JaxPlainModulus
-from phantom_tpu.ops import bfv32 as jbfv
-from phantom_tpu.ops import scaleround32 as jsr
-from phantom_tpu.schemes import EncryptionParameters as JaxParams
-from phantom_tpu.schemes import Scheme, keys as jkeys
-from phantom_tpu.schemes import make_context as jax_context
 from phantom_tpu_torch import convert, make_context
 from phantom_tpu_torch.host import numth
 from phantom_tpu_torch.host.modulus import PlainModulus
@@ -33,8 +27,9 @@ from phantom_tpu_torch.ops import scaleround32 as tsr
 from phantom_tpu_torch.schemes import keys as tkeys
 from phantom_tpu_torch.schemes.params import EncryptionParameters
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port",
-                      "bfv_step_n1024.npz")
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port")
+GOLDEN = os.path.join(FIXTURES, "bfv_step_n1024.npz")
+LIVE = os.path.join(FIXTURES, "bfv_live_n128.npz")
 ENGINES = ["mxu-pallas", "pallas-roll"]
 CPU = "cpu"
 N = 128
@@ -42,12 +37,6 @@ N = 128
 
 def u32(t):
     return t.numpy().view(np.uint32)
-
-
-def _uniform(rng, moduli, lead, n):
-    q = np.array(moduli, dtype=np.uint64)[:, None]
-    return (rng.integers(0, 1 << 62, lead + (len(moduli), n),
-                         dtype=np.uint64) % q).astype(np.uint32)
 
 
 def negacyclic_mod_t(m1, m2, t):
@@ -59,25 +48,15 @@ def negacyclic_mod_t(m1, m2, t):
 @pytest.fixture(scope="module")
 def live():
     """n = 128, four data primes, two special, t 16-bit; a uniform relin
-    key and uniform d1, d2 from a seeded numpy generator; the JAX
-    pipeline (xla engine, jitted) and its output, the port's context."""
-    qs = jnumth.get_primes(2 * N, 28, 4)
-    ps = jnumth.get_primes(2 * N, 29, 2)
-    t = JaxPlainModulus.batching(N, 16).value
-    jctx = jax_context(JaxParams.create(Scheme.BFV, N, qs + ps,
-                                        plain_modulus=t,
-                                        special_modulus_size=2))
-    rng = np.random.default_rng(4)
-    rlk = np.stack([_uniform(rng, qs + ps, (2,), N) for _ in range(2)])
-    d1, d2 = (_uniform(rng, qs, (2,), N) for _ in range(2))
-    jp = jbfv.build_bfv32(jctx, jkeys.RelinKey(data=jnp.asarray(
-        rlk.astype(np.uint64))))
-    out = np.asarray(jax.jit(jbfv.bfv_mult_relin32)(
-        jp, jnp.asarray(d1), jnp.asarray(d2)))
-    tctx = make_context(EncryptionParameters.create(N, qs, ps, "bfv", t),
-                        device=CPU)
-    return dict(jctx=jctx, jp=jp, tctx=tctx, rlk=rlk, d1=d1, d2=d2, out=out,
-                qs=qs, t=t, rng=rng)
+    key and uniform d1, d2 from a seeded numpy generator, and the JAX
+    pipeline's (xla engine, jitted) tables and output (bfv_live_n128.npz);
+    the port's context."""
+    g = np.load(LIVE)
+    qs = g["data_moduli"].tolist()
+    tctx = make_context(EncryptionParameters.create(
+        N, qs, g["special_moduli"].tolist(), "bfv", int(g["t"])), device=CPU)
+    return dict(g=g, tctx=tctx, rlk=g["rlk"], d1=g["d1"], d2=g["d2"],
+                out=g["out"], qs=qs, t=int(g["t"]))
 
 
 def test_host_copies_match():
@@ -91,22 +70,22 @@ def test_host_copies_match():
 
 
 def test_tables_match_build_bfv32(live):
-    jp, tctx = live["jp"], live["tctx"]
+    g, tctx = live["g"], live["tctx"]
     tp = tbfv.build_bfv32(tctx, convert.residues(live["rlk"]), device=CPU)
-    assert list(tctx.rl_moduli) == [
-        int(v) for v in np.asarray(live["jctx"].rl_ntt.q)]
-    pairs = [(jp.mv_d.q, tp.mv_d.q), (jp.rl_half_mod_r, tp.rl_half_mod_r),
-             (jp.rl_half_mod_q, tp.rl_half_mod_q),
-             (jp.evk.reshape(tp.evk.shape), tp.evk),
-             (jp.ks.mv_qlp.q, tp.ks.ntt.q[tp.ks.rows_qlp.long()]),
-             (jp.mv_d.q, tp.ks.ntt.q[tp.rows_d.long()])]
-    for jc, tc in ((jp.q_to_r, tp.q_to_r), (jp.r_to_q, tp.r_to_q)):
-        pairs += [(getattr(jc, f), getattr(tc, f)) for f in (
+    assert list(tctx.rl_moduli) == g["rl_moduli"].tolist()
+    pairs = [("mv_d_q", tp.mv_d.q), ("rl_half_mod_r", tp.rl_half_mod_r),
+             ("rl_half_mod_q", tp.rl_half_mod_q), ("evk", tp.evk),
+             ("mv_qlp_q", tp.ks.ntt.q[tp.ks.rows_qlp.long()]),
+             ("mv_d_q", tp.ks.ntt.q[tp.rows_d.long()])]
+    for name, tc in (("q_to_r", tp.q_to_r), ("r_to_q", tp.r_to_q)):
+        pairs += [(f"{name}_{f}", getattr(tc, f)) for f in (
             "qhat_inv", "qhat_inv_shoup", "qhat_mod_p", "q_mod_p")]
     for f in ("ihat_inv", "ihat_inv_shoup", "omega_mod_out", "rho"):
-        pairs.append((getattr(jp.sr_to_r, f), getattr(tp.sr_to_r, f)))
-    for want, got in pairs:
-        np.testing.assert_array_equal(u32(got), np.asarray(want))
+        pairs.append((f"sr_to_r_{f}", getattr(tp.sr_to_r, f)))
+    for name, got in pairs:
+        want = g[f"tab_{name}"]
+        np.testing.assert_array_equal(u32(got), want.reshape(got.shape)
+                                      if name == "evk" else want)
 
 
 @pytest.mark.parametrize("table", ["d_to_rl", "decrypt"])
@@ -114,21 +93,17 @@ def test_scale_and_round_matches_jax(live, table):
     """round((t / Ql) x) from D = Ql u Rl to Rl, and decryption's
     round((t / Ql) x) from Ql to {t}, on uniform residues and on the
     rounding edges (all-zero and all q - 1 columns)."""
-    qs, t = live["qs"], live["t"]
+    g, qs, t = live["g"], live["qs"], live["t"]
     rl = list(live["tctx"].rl_moduli)
     big_ql = 1
     for q in qs:
         big_ql *= q
     ins, outs = (qs + rl, rl) if table == "d_to_rl" else (qs, [t])
-    x = _uniform(live["rng"], ins, (), N)
-    x[:, 0] = 0
-    x[:, 1] = np.array(ins, dtype=np.uint32) - 1
-    jc = jsr.make_exact_scale_round32(ins, t, big_ql, outs)
-    want = np.asarray(jax.jit(jsr.scale_and_round_exact32)(
-        jnp.asarray(x), jc))
+    x = g[f"x_{table}"]
+    assert (x[:, 0] == 0).all() and (x[:, 1] == np.array(ins) - 1).all()
     tc = tsr.make_exact_scale_round32(ins, t, big_ql, outs)
     got = tsr.scale_and_round_exact32(convert.residues(x), tc)
-    np.testing.assert_array_equal(u32(got), want)
+    np.testing.assert_array_equal(u32(got), g[f"sr_{table}"])
 
 
 @pytest.mark.parametrize("engine", ENGINES)

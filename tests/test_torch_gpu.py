@@ -94,8 +94,31 @@ def test_k1_inverse(dev, logn):
               nk.ntt_inverse_plain(x, t, rows, **kw))
 
 
-@pytest.mark.parametrize("logn", LOGNS)
-def test_k3_bconv_forward(dev, logn):
+K3_CASES = ([pytest.param(logn, None, "options", id=str(logn))
+             for logn in LOGNS]
+            + [pytest.param(16, c, "options", id=f"16-C{c}")
+               for c in (2, 4, 8)]
+            + [pytest.param(logn, None, case, id=f"{logn}-{case}")
+               for logn in (10, 16)
+               for case in ("alpha1", "unpadded", "extremes", "carry")])
+
+
+def _tables30(dev, n, k):
+    """NTT tables over k primes of 30 bits, the largest the port takes."""
+    from phantom_tpu_torch.host import make_rns_ntt_tables
+    from phantom_tpu_torch.ops.ntt32 import NTTTables32
+    return NTTTables32(make_rns_ntt_tables(
+        n, numth.get_primes(2 * n, 30, k))).to(dev)
+
+
+@pytest.mark.parametrize("logn,cluster,case", K3_CASES)
+def test_k3_bconv_forward(dev, logn, cluster, case):
+    """K3 on the cluster core: every option at each size and, at 2^16,
+    each cluster size; alpha 1 with post_sub and the moddown epilogue (the
+    rescale's shape); y unpadded with a short last group and self rows
+    (the fused modup); residues at q - 1 and matrix words at 2^30 - 1; and
+    alpha 24 over 30-bit primes, past the 64-bit sum, so the carry path
+    runs."""
     t, rows, q, res, sc, scs, gen = _setup(dev, logn)
     n = 1 << logn
     y = torch.randint(0, 1 << 29, (2, 3, n), generator=gen, device=dev).int()
@@ -108,9 +131,41 @@ def test_k3_bconv_forward(dev, logn):
                 tensor_add=(res((2, 4, n)), res((2, 4, n))))
     selfr = dict(self_rows=torch.randint(0, 268000000, (6, n), generator=gen,
                                          device=dev).int(), k_data=5)
-    for kw in (dict(), full, selfr):
-        _same(nk.bconv_ntt_forward(y, mat, t, rows, **kw),
-              nk.bconv_ntt_forward_plain(y, mat, t, rows, **kw))
+    calls = []
+    if case == "options":
+        calls = [(y, mat, t, rows, kw) for kw in (dict(), full, selfr)]
+    elif case == "alpha1":
+        y1 = y[:, :1].contiguous()
+        kw = dict(post_sub=full["post_sub"], sub_from=full["sub_from"],
+                  epi_scale=sc, epi_scale_shoup=scs)
+        calls = [(y1, mat[:, :, :1].contiguous(), t, rows, kw),
+                 (y1, mat[:, :, :1].contiguous(), t, rows, selfr)]
+    elif case == "unpadded":
+        calls = [(y.view(6, n)[:5].contiguous(), mat, t, rows, selfr),
+                 (y.view(6, n)[:4].contiguous(), mat, t, rows,
+                  dict(selfr, k_data=4))]
+    elif case == "extremes":
+        ym = y.clone()
+        ym[..., ::2] = (q.max() - 1).int()
+        mm = torch.full_like(mat, (1 << 30) - 1)
+        calls = [(ym, mm, t, rows, dict(full, sub_from=(q - 1).int().view(
+            1, 4, 1).expand(2, 4, n).contiguous()))]
+    else:  # carry
+        t30 = _tables30(dev, n, 4)
+        assert not nk.sum_fits_64(24, t30)
+        q30 = t30.q.long()
+        yc = (q30[0] - 1).repeat(2, 24, n).int()
+        yc[:, :, 1::3] = torch.randint(0, 1 << 30, (2, 24, n),
+                                       generator=gen, device=dev).int()[
+            :, :, 1::3] % (q30[0] - 1).int()
+        mc = torch.full((2, 4, 24), (1 << 30) - 1, dtype=torch.int32,
+                        device=dev)
+        calls = [(yc, mc, t30, None, dict())]
+    for yy, mm, tt, rr, kw in calls:
+        before = nk.bconv_ntt_forward.launches
+        got = nk.bconv_ntt_forward(yy, mm, tt, rr, cluster=cluster, **kw)
+        assert nk.bconv_ntt_forward.launches == before + 1
+        _same(got, nk.bconv_ntt_forward_plain(yy, mm, tt, rr, **kw))
 
 
 @pytest.mark.parametrize("k_in,k_out", [(22, 43), (21, 44), (3, 5), (63, 4),
@@ -129,11 +184,15 @@ def test_k5_fold_matmul(dev, logn, k_in, k_out):
 
 
 @pytest.mark.parametrize("self_mul", [False, True], ids=["pass", "self_mul"])
-@pytest.mark.parametrize("alpha,beta,k_data", [(2, 2, 4), (8, 6, 43)])
-@pytest.mark.parametrize("logn", [10, 16])
+@pytest.mark.parametrize("alpha,beta,k_data", [(2, 2, 4), (8, 6, 43),
+                                               (22, 2, 43)])
+@pytest.mark.parametrize("logn", [10, 16, 17])
 def test_k4_modup_ip(dev, logn, alpha, beta, k_data, self_mul):
     """K4 at the alpha = 8 slice's shapes (beta = 6, a short last digit of
-    3 rows, k_out = 51) and a small one, both passthrough variants."""
+    3 rows, k_out = 51), at alpha 22 (beta 2, a short last digit of 21
+    rows, k_out 65) and a small one, both passthrough variants; y and c2
+    unpadded (k_data rows) and zero-padded to beta alpha rows, residues at
+    q - 1 in some columns."""
     n = 1 << logn
     k_out = k_data + alpha
     ctx = make_context(EncryptionParameters.create(
@@ -146,23 +205,29 @@ def test_k4_modup_ip(dev, logn, alpha, beta, k_data, self_mul):
     k = alpha * beta
 
     def res(shape, rows):
-        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
-                % q[:rows]).int()
+        r = (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+             % q[:rows]).int()
+        r[..., :8] = (q[:rows] - 1).int()
+        return r
 
-    y = torch.zeros((k, n), dtype=torch.int32, device=dev)
-    y[:k_data] = res((k_data, n), k_data)
+    y = res((k_data, n), k_data)
     mats = torch.randint(0, 1 << 30, (beta, k_out, alpha), generator=gen,
                          device=dev).int()
-    a = torch.zeros_like(y)
-    a[:k_data] = res((k_data, n), k_data)
+    a = res((k_data, n), k_data)
     c2 = (a, a.roll(1, 1).contiguous()) if self_mul else a
     evk = torch.stack([torch.stack([res((k_out, n), k_out)
                                     for _ in range(2)])
                        for _ in range(beta)])
-    before = mk.modup_ip.launches
-    got = mk.modup_ip(y, mats, c2, evk, t, k_data=k_data)
-    assert mk.modup_ip.launches == before + 1
-    _same(got, mk.modup_ip_plain(y, mats, c2, evk, t, k_data=k_data))
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros((k - k_data, n))])
+
+    for yy, cc in ((y, c2), (padded(y), tuple(map(padded, c2))
+                             if self_mul else padded(c2))):
+        before = mk.modup_ip.launches
+        got = mk.modup_ip(yy, mats, cc, evk, t, k_data=k_data)
+        assert mk.modup_ip.launches == before + 1
+        _same(got, mk.modup_ip_plain(y, mats, c2, evk, t, k_data=k_data))
 
 
 @pytest.mark.parametrize("beta,k_out,perm", [(2, 65, False), (6, 51, False),
@@ -279,30 +344,43 @@ def test_k6_one_pass(dev, logn):
           nk.ntt_inverse_plain(x, t, rows, sc, scs))
 
 
-@pytest.mark.parametrize("alpha,beta,k_data", [(2, 3, 5), (22, 2, 43)])
+@pytest.mark.parametrize("alpha,beta,k_data", [(2, 3, 5), (22, 2, 43),
+                                               (1, 17, 17)])
 @pytest.mark.parametrize("logn", [10, 16])
 def test_k4_coeff(dev, logn, alpha, beta, k_data):
     """K4's coefficient form at the BFV headline's shape (beta 2, k_out 65,
-    alpha 22, a short last digit) and a small one."""
+    alpha 22, a short last digit), a small one, and beta 17 over 30-bit
+    primes with every transformed row and evk word at q - 1, whose digit
+    sums pass 2^64; y unpadded (k_data rows) and zero-padded."""
     n = 1 << logn
     k_out = k_data + alpha
-    ctx = make_context(EncryptionParameters.create(
-        n, numth.get_primes(2 * n, 28, k_data),
-        numth.get_primes(2 * n, 29, alpha)), device=dev)
-    q = ctx.ntt.q
     gen = torch.Generator(device=dev)
     gen.manual_seed(logn + alpha)
-    y = torch.randint(0, 1 << 28, (alpha * beta, n), generator=gen,
-                      device=dev).int()
-    y[k_data:] = 0
-    mats = torch.randint(0, 1 << 29, (beta, k_out, alpha), generator=gen,
-                         device=dev).int()
-    evk = (torch.randint(0, 1 << 62, (beta, 2, k_out, n), generator=gen,
-                         device=dev) % q.long().view(-1, 1)).int()
-    before = mk.modup_ip_coeff.launches
-    got = mk.modup_ip_coeff(y, mats, evk, ctx.ntt)
-    assert mk.modup_ip_coeff.launches == before + 1
-    _same(got, mk.modup_ip_coeff_plain(y, mats, evk, ctx.ntt))
+    if beta == 17:
+        t = _tables30(dev, n, k_out)
+        assert not nk.sum_fits_64(beta, t)
+        q = t.q.long()
+        y = torch.ones((k_data, n), dtype=torch.int32, device=dev)
+        mats = (q - 1).view(1, k_out, 1).expand(beta, k_out, 1).int()
+        evk = (q - 1).view(1, 1, k_out, 1).expand(beta, 2, k_out, n).int()
+        mats, evk = mats.contiguous(), evk.contiguous()
+    else:
+        t = make_context(EncryptionParameters.create(
+            n, numth.get_primes(2 * n, 28, k_data),
+            numth.get_primes(2 * n, 29, alpha)), device=dev).ntt
+        y = torch.randint(0, 1 << 28, (k_data, n), generator=gen,
+                          device=dev).int()
+        mats = torch.randint(0, 1 << 29, (beta, k_out, alpha), generator=gen,
+                             device=dev).int()
+        evk = (torch.randint(0, 1 << 62, (beta, 2, k_out, n), generator=gen,
+                             device=dev) % t.q.long().view(-1, 1)).int()
+    yp = torch.cat([y, y.new_zeros((alpha * beta - k_data, n))])
+    want = mk.modup_ip_coeff_plain(y, mats, evk, t)
+    for yy in (y, yp):
+        before = mk.modup_ip_coeff.launches
+        got = mk.modup_ip_coeff(yy, mats, evk, t)
+        assert mk.modup_ip_coeff.launches == before + 1
+        _same(got, want)
 
 
 @pytest.mark.parametrize("engine", ["mxu-pallas", "pallas-roll"])
@@ -330,8 +408,8 @@ def test_bfv_step(dev, engine):
 def test_k4p_preconv(dev, logn, alpha, beta, k_data, self_mul):
     """K4's preconv form at the CKKS headline's shape (beta 2, k_out 65,
     alpha 22, a short last digit) and a small one, with garbage in the
-    digit-own delta rows, which the kernel must not read, and lazy
-    [0, 2q) delta rows elsewhere."""
+    digit-own delta rows, which the kernel must not read, lazy [0, 2q)
+    delta rows elsewhere (some words at 2q - 1) and the pair unpadded."""
     n = 1 << logn
     k_out = k_data + alpha
     ctx = make_context(EncryptionParameters.create(
@@ -341,20 +419,19 @@ def test_k4p_preconv(dev, logn, alpha, beta, k_data, self_mul):
     gen = torch.Generator(device=dev)
     gen.manual_seed(logn + alpha + self_mul)
     q = t.q.long().view(-1, 1)
-    k = alpha * beta
 
     def res(shape, rows, lazy=1):
         return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
                 % (lazy * q[:rows])).int()
 
     delta = torch.stack([res((k_out, n), k_out, 2) for _ in range(beta)])
+    delta[..., :8] = (2 * q - 1).int()
     ref = delta.clone()
     for d in range(beta):
         lo, hi = d * alpha, min((d + 1) * alpha, k_data)
         delta[d, lo:hi] = torch.randint(-(1 << 31), 1 << 31, (hi - lo, n),
                                         generator=gen, device=dev).int()
-    a = torch.zeros((k, n), dtype=torch.int32, device=dev)
-    a[:k_data] = res((k_data, n), k_data)
+    a = res((k_data, n), k_data)
     c2 = (a, a.roll(1, 1).contiguous()) if self_mul else a
     evk = torch.stack([torch.stack([res((k_out, n), k_out)
                                     for _ in range(2)])

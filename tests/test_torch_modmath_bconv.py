@@ -140,3 +140,21 @@ def test_floor_sum_div_blocked_trailing_shape(conv):
     np.testing.assert_array_equal(u32(tbc.floor_sum_div32(t32(y), tc)),
                                   np.asarray(jbc.floor_sum_div32(
                                       jnp.asarray(y), jc)))
+
+
+@pytest.mark.parametrize("bits", [20, 28, 30])
+def test_uniform_sampler_exact(bits):
+    """sample_uniform_rns is (hi 2^62 + lo) mod q for the two draws hi, lo
+    that the same generator gives: held against exact Python integers."""
+    from phantom_tpu_torch.ops import sampling
+    qs = numth.get_primes(2048, bits, 3)
+    q = torch.tensor(qs, dtype=torch.int32)
+    gen = torch.Generator()
+    gen.manual_seed(bits)
+    got = sampling.sample_uniform_rns(gen, 64, q)
+    gen.manual_seed(bits)
+    hi = torch.randint(0, 1 << 62, (3, 64), generator=gen).tolist()
+    lo = torch.randint(0, 1 << 62, (3, 64), generator=gen).tolist()
+    want = [[(h * 2 ** 62 + l) % qs[r] for h, l in zip(hi[r], lo[r])]
+            for r in range(3)]
+    assert got.tolist() == want

@@ -1,9 +1,11 @@
-"""The port's plain NTTs against the JAX package's: ops/ntt32.py, and the
-K1 / K2 kernels (ntt_inverse_mxu_pallas / ntt_forward_mxu_pallas) run in
-Pallas interpret mode, for every option the port's wrappers take.  n = 128,
-L <= 4, inputs from numpy; bit-exact."""
+"""The port's plain NTTs against the JAX package's: ops/ntt32.py (the JAX
+side's jitted outputs in the golden file ntt32_n128.npz), and the K1 / K2
+kernels (ntt_inverse_mxu_pallas / ntt_forward_mxu_pallas) run in Pallas
+interpret mode, for every option the port's wrappers take.  n = 128, L <=
+4, inputs from numpy; bit-exact."""
 
-import jax
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,16 +84,18 @@ def test_host_copy_matches(n, bits, count):
 
 @pytest.mark.parametrize("lazy", [False, True])
 def test_plain_vs_ntt32(tabs, lazy):
-    """ntt32's forward takes [0, q) and its inverse [0, 2q)."""
-    j32, _, tt, q = tabs
-    x = _res(q, (2, 4, N))
-    np.testing.assert_array_equal(
-        u32(tntt32.ntt_forward32(t32(x), tt)),
-        np.asarray(jax.jit(jntt32.ntt_forward32)(x, j32)))
-    xi = _res(q, (2, 4, N), lazy)
-    np.testing.assert_array_equal(
-        u32(tntt32.ntt_inverse32(t32(xi), tt)),
-        np.asarray(jax.jit(jntt32.ntt_inverse32)(xi, j32)))
+    """ntt32's forward takes [0, q) and its inverse [0, 2q): the port
+    against the JAX functions' outputs on the same inputs (golden)."""
+    _, _, tt, q = tabs
+    g = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                             "torch_port", "ntt32_n128.npz"))
+    assert g["moduli"].tolist() == q[:, 0].tolist()
+    x, xi = g[f"x_{int(lazy)}"], g[f"xi_{int(lazy)}"]
+    assert (xi < (1 + lazy) * q.astype(np.int64)[None]).all()
+    np.testing.assert_array_equal(u32(tntt32.ntt_forward32(t32(x), tt)),
+                                  g[f"fwd_{int(lazy)}"])
+    np.testing.assert_array_equal(u32(tntt32.ntt_inverse32(t32(xi), tt)),
+                                  g[f"inv_{int(lazy)}"])
 
 
 @pytest.mark.parametrize("option", ["lazy", "epilogue", "tensor_add"])
