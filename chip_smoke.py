@@ -3,6 +3,8 @@
 multiply on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
+    python3 chip_smoke.py --calls  # only every kernel call of each path
+                                   # against its plain version, timed
 
 Four configurations, all N = 2^16 with 43 data primes of 28 bits from
 chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
@@ -29,10 +31,19 @@ chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
             (xla-split: K1, K5 x2, K2, K9) and on "kernel" (K1, K4), the
             t-corrected moddown of both halves unfused (K1, K5 to Ql and
             to {t}, K2), the modulus switch K1 and K2.
+K1 (csrc/ntt.cu) runs each row on the one-pass, cluster-resident radix-8
+core (csrc/ntt_cluster.cuh; Gentleman-Sande passes, then the crossing
+stages over distributed shared memory), its floor sum v a second launch
+of the same call; K3 and K4 run on the same core forward.  K5
+(csrc/bconv.cu) runs on the int8 tensor cores: four 8-bit digit planes of
+y and of the matrix, 16 plane products on mma.sync m16n8k32 into seven
+exact s32 diagonals, folded by Shoup products.
 Phases, one line each or more; any failure exits non-zero:
 
   1. device    card name and power limit, CUDA, nvcc, triton, device count
-  2. build     the kernels of phantom_tpu_torch/csrc, built from source
+  2. build     the kernels of phantom_tpu_torch/csrc, built from source;
+               K5's int8 tensor-core instructions (IMMA) counted in the
+               built library's SASS (cuobjdump)
   3. golden    the step (n = 1024, alpha = 2) through each epilogue on both
                routes, and the rotation golden file (rotation, key switch,
                both hoisted forms, moddown, the step through each
@@ -51,9 +62,10 @@ Phases, one line each or more; any failure exits non-zero:
                (as bench.py does), kernel path against plain path in turns,
                then the three epilogues in turns (pair, K8, K7, K7, K8,
                pair), timed with CUDA events; K8 alone at 1, 2, 4 and 8
-               rows per block; K3 alone on the moddown pair's operands at
-               8, 4 and 2 blocks per row (in turns 8, 4, 2, 2, 4, 8),
-               each bit-equal to the default
+               rows per block; K3 and K1 alone on the moddown pair's
+               operands ((2, 22, N) -> (2, 43, N), and the (2, 22, N)
+               inverse with its floor sum v) at 8, 4 and 2 blocks per row
+               (in turns 8, 4, 2, 2, 4, 8), each bit-equal to the default
   7. profile   torch.profiler over a few chained kernel-path steps: the
                device-busy time, the idle share and the top device kernels
   8. routes    the step on the "xla" route (K4p) and on the "kernel" route
@@ -123,28 +135,39 @@ Phases, one line each or more; any failure exits non-zero:
                each half by itself as two calls, one delta over both
                halves, the modulus switch); the profiler over a few
                chained steps
- 26. anatomy  K3 on the headline moddown's shapes and K4 on the alpha-8
+ 26. anatomy  K3 and K1 on the headline moddown's shapes (K1 also on the
+               modup's (43, N) with mul_by), K5 on the modup's digit (22,
+               N) -> 43 and BFV's (87, N) -> 44, and K4 on the alpha-8
                step's (seeded operands), on the library as built and on
                timing probes built from copies of their sources that each
                drop one part of the work (ANATOMY: the transform, all but
                one prologue term, the crossing stages and cluster syncs,
-               the local passes, the twiddle fetches) or take the path the
-               wrappers do not pick here (the conversion's carry word), in
-               turns
-Then a {"kernels": [...]} line: per kernel its launches over the counted
-path runs (EXPECTED), its largest error against plain, and the summed time
-of the probed calls (phases 4, 8, 11, 18 and 23) through the kernel and
-the plain version beside their bound.  The bound of
-a call is the larger of its bytes (each input, the NTT tables' rows
-included, read once, each output written once) at 3.35 TB/s and its 32-bit
-integer multiplies (a Shoup product 3, a Barrett product 8, a 32x32->64
-product 2, the floor-sum cascade 20 per word; a sum of products reduced
-once, by a 64-bit Barrett reduction 6 where the operands' range keeps it
-below 2^64, else by a 128-bit reduction 20) at 132 SMs x 64 lanes x
-1.98 GHz = 16.7 T/s.  No single PyTorch call computes
-a modular NTT or a modular product-sum, so library_ms is null.  Last
-comes {"ok": true, "device": ...}.  Without a CUDA device, or without the
-repo around it, it exits non-zero before printing any result.
+               the local passes, the twiddle fetches, K1's floor sum; K5's
+               plane products, fold, fold table, y planes, store) or take
+               the path the wrappers do not pick (K1 at two blocks per SM,
+               the conversion's carry word), in turns, each call's device
+               time (_device_ms)
+Each probed call (phases 4, 8, 11, 18 and 23) prints its event time with
+the host's launch overhead, as every run of this script has, and its
+device time alone (_device_ms: the calls enqueued while the device
+sleeps).  Then a {"kernels": [...]} line: per kernel its launches over
+the counted path runs (EXPECTED), its largest error against plain, and
+the summed event time of the probed calls through the kernel and the
+plain version beside their bound.  The bound of a call is the largest
+of its bytes (each input, the NTT tables' rows included, read once, each
+output written once) at 3.35 TB/s, its 32-bit integer multiplies (a Shoup
+product 3, a Barrett product 8, a 32x32->64 product 2, the floor-sum
+cascade 20 per word; a sum of products reduced once, by a 64-bit Barrett
+reduction 6 where the operands' range keeps it below 2^64, else by a
+128-bit reduction 20) at 132 SMs x 64 lanes x 1.98 GHz = 16.7 T/s, and
+its int8 tensor-core operations at 1,979 TOP/s (NVIDIA's H100 SXM data
+sheet, dense int8).  K5 runs on the tensor cores, so its work is priced
+as there: 16 plane products of 2 k_out k_in N operations each (the
+unpadded shape) and 7 Shoup products per output for the fold.  No single
+PyTorch call computes a modular NTT or a modular product-sum, so
+library_ms is null.  Last comes {"ok": true, "device": ...}.  Without a
+CUDA device, or without the repo around it, it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -173,7 +196,7 @@ ENGINES = ("mxu-pallas", "pallas-roll")
 CHAIN_BFV_STEPS = 10
 CHAIN_BGV_STEPS = 10
 CLUSTERS = (8, 4, 2)  # K6's blocks per 2^16-word row, timed in turns
-K3_CLUSTERS = (8, 4, 2)  # K3's blocks per row, timed in turns (phase 6)
+K3_CLUSTERS = (8, 4, 2)  # K3's and K1's blocks per row, in turns (phase 6)
 STEPS = tuple(range(1, 8))
 DELTA_BITS = 22
 SEED = 2026
@@ -243,18 +266,22 @@ EXPECTED = {  # launches per path run
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
 # Phase 26's timing probes of the one-pass core (csrc/ntt_cluster.cuh)
-# under K3 and K4, each built from a patched copy of the sources (the base
-# is the library as built).  The first five remove one part of the work, so
-# their results are wrong by design and only their times are read; the
-# last is the path the wrappers do not pick at these shapes, the
-# conversion's product-sum with a carry word.  name: [(file, old, new)]
+# under K3, K4 and K1, and of K5, each built from a patched copy of the
+# sources (the base is the library as built; every patch replaces each
+# occurrence, so the core's patches reach both directions).  Most remove
+# one part of the work, so their results are wrong by design and only
+# their times are read; two take a path the wrappers do not: K1 at two
+# blocks per SM, and the conversion's product-sum with a carry word.
+# name: [(file, old, new)]
 _TERMS = "const int terms = min(alpha"
 ANATOMY = {
     "no transform": [
         ("bconv_ntt.cu", "  cluster_ntt(s, cluster, G, rank, tb.w + trow, "
          "tb.ws + trow, bq.q);", "  __syncthreads();"),
         ("modup_ip.cu", "    cluster_ntt(s, cluster, G, rank, tb.w + trow, "
-         "tb.ws + trow, bq.q);", "    __syncthreads();")],
+         "tb.ws + trow, bq.q);", "    __syncthreads();"),
+        ("ntt.cu", "  cluster_intt(s, cluster, G, rank, tb.w + trow, "
+         "tb.ws + trow, q);", "  __syncthreads();")],
     "one-term prologue": [
         (f, _TERMS, "const int terms = 1 + 0 * min(alpha")
         for f in ("bconv_ntt.cu", "modup_ip.cu")],
@@ -262,16 +289,45 @@ ANATOMY = {
         ("ntt_cluster.cuh", "  if (G.logc > 0) {", "  if (G.logc > 9) {")],
     "no local passes": [
         ("ntt_cluster.cuh", "  for (int left = G.logs; left > 0;) {",
-         "  for (int left = 0; left > 0;) {")],
+         "  for (int left = 0; left > 0;) {"),
+        ("ntt_cluster.cuh", "  for (int ls = 0; ls < G.logs;) {",
+         "  for (int ls = G.logs; ls < G.logs;) {")],
     "twiddles from L1": [
         ("ntt_cluster.cuh", "__ldg(w + (g1 << s) + b)", "__ldg(w + b)"),
         ("ntt_cluster.cuh", "__ldg(ws + (g1 << s) + b)", "__ldg(ws + b)")],
+    "no floor sum": [
+        ("ntt.cu", "  if (e != cudaSuccess || v == nullptr) return "
+         "static_cast<int>(e);", "  return static_cast<int>(e);")],
+    "K1 at 2 blocks per SM": [
+        ("ntt.cu", "__launch_bounds__(kClusterThreads, 3)\n"
+         "inv_cluster_kernel(", "__launch_bounds__(kClusterThreads, 2)\n"
+         "inv_cluster_kernel(")],
+    # K5: the conditions depend on k_in at run time, so the compiler keeps
+    # the rest of the work
+    "no plane products": [
+        ("bconv.cu", "k0 < G.kq;", "k0 < G.kq * (k_in > 9999);")],
+    "no fold": [
+        ("bconv.cu", "            x = csub(x + mul_shoup_lazy(acc[d][e], "
+         "tj[1 + d], tj[8 + d], qj),\n                     q2);",
+         "            x += acc[d][e];")],
+    "no fold table": [
+        ("bconv.cu", "j < k_out; j += blockDim.x) {",
+         "j < k_out * (k_in > 9999); j += blockDim.x) {"),
+        ("bconv.cu", "e < 7 * k_out; e += blockDim.x) {",
+         "e < 7 * k_out * (k_in > 9999); e += blockDim.x) {")],
+    "no y planes": [
+        ("bconv.cu", "u < (kK5Cols / 4) * G.kq;",
+         "u < (kK5Cols / 4) * G.kq * (k_in > 9999);")],
+    "no store": [
+        ("bconv.cu", "      if (j < k_out && c < n) {",
+         "      if (j < k_out && c < n && k_in > 9999) {")],
     "carry product-sum": [
         ("bconv_ntt.cu", "    if (wide) {", "    if (false) {"),
         ("modup_ip.cu", "    if (wide_conv) {", "    if (false) {")],
 }
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 132 * 64 * 1.98e9
+INT8_TC_OPS_PER_S = 1979e12  # NVIDIA's H100 SXM data sheet, dense int8
 
 
 # ---------------------------------------------------------------------------
@@ -573,14 +629,21 @@ def _table_bytes(t, rows, num_l: int) -> int:
 
 
 def call_bound(name: str, a: dict, out):
-    """(bytes, 32-bit multiplies) of one call from its bound arguments."""
-    w = 4
-    if name == "K5":
+    """(bytes, 32-bit multiplies, int8 tensor-core operations) of one call
+    from its bound arguments."""
+    byt, ops = _call_work(name, a, out)
+    tc_ops = 0
+    if name == "K5":  # 16 plane products, 2 k_out k_in N operations each
         k_out, k_in = a["mat"].shape
-        n = a["y"].shape[1]
-        return (w * (_n(a["y"]) + _n(a["mat"]) + _n(out)),
-                k_out * n * (2 * k_in + _reduce_ops(k_in, _max(a["y"]),
-                                                    _max(a["mat"]))))
+        tc_ops = 16 * 2 * k_out * k_in * a["y"].shape[1]
+    return byt, ops, tc_ops
+
+
+def _call_work(name: str, a: dict, out):
+    """(bytes, 32-bit multiplies) of one call."""
+    w = 4
+    if name == "K5":  # the fold: 7 Shoup products per output
+        return (w * (_n(a["y"]) + _n(a["mat"]) + _n(out)), 7 * 3 * _n(out))
     if name in ("K1", "K2", "K6f", "K6i"):
         x = a["x"]
         n, num_l = x.shape[-1], x.shape[-2]
@@ -695,8 +758,9 @@ def call_bound(name: str, a: dict, out):
     raise ValueError(name)
 
 
-def bound_ms(byt: int, ops: int):
-    t_b, t_o = byt / HBM_BYTES_PER_S, ops / INT_MULS_PER_S
+def bound_ms(byt: int, ops: int, tc_ops: int = 0):
+    t_b = byt / HBM_BYTES_PER_S
+    t_o = max(ops / INT_MULS_PER_S, tc_ops / INT8_TC_OPS_PER_S)
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -712,6 +776,23 @@ def _cmd(args):
         return f"unavailable ({e})"
 
 
+def sass_count(lib: str, kernel: str, opcode: str) -> dict:
+    """{instruction: count} of the `opcode` instructions in `kernel`'s SASS
+    in the built library (cuobjdump -sass)."""
+    from phantom_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and f" {opcode}" in line:
+            ins = line.split("*/")[1].split()[0] if "*/" in line else opcode
+            counts[ins] = counts.get(ins, 0) + 1
+    return counts
+
+
 def _time(fn, reps: int) -> float:
     """Milliseconds per call, CUDA events around `reps` calls after one
     warm-up call."""
@@ -719,6 +800,30 @@ def _time(fn, reps: int) -> float:
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Milliseconds per call on the device alone: CUDA events around `reps`
+    calls (after a warm-up call) that the host enqueues while the device
+    sleeps, so that they run back to back and the host's launch overhead,
+    which bounds the event time of a small call, stays outside."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1000000)  # cycles: 2x enough
     start.record()
     for _ in range(reps):
         fn()
@@ -756,13 +861,61 @@ class _Probe:
                                f"{shape}: max_abs_err {err}")
         ba = self.sig.bind(*args, **kw)
         ba.apply_defaults()
-        byt, ops = call_bound(self.name, ba.arguments, out)
-        b_ms, b_by = bound_ms(byt, ops)
+        byt, ops, tc_ops = call_bound(self.name, ba.arguments, out)
+        b_ms, b_by = bound_ms(byt, ops, tc_ops)
         self.calls.append(dict(
             shape=shape, err=err, bound_ms=b_ms, bound_by=b_by, bytes=byt,
-            ops=ops, ms=_time(lambda: self.kernel(*args, **kw), self.reps),
+            ops=ops, tc_ops=tc_ops,
+            dev_ms=_device_ms(lambda: self.kernel(*args, **kw), self.reps),
+            ms=_time(lambda: self.kernel(*args, **kw), self.reps),
             plain_ms=_time(lambda: self.plain(*args, **kw), self.reps)))
         return out
+
+
+def kernel_wrappers():
+    """The wrappers of KERNELS, in its order."""
+    from phantom_tpu_torch.ops import bconv_kernels, ip_kernels
+    from phantom_tpu_torch.ops import moddown_kernels, modup_ip_kernels
+    from phantom_tpu_torch.ops import ntt_kernels, ntt_roll_kernels
+    mods = (ntt_kernels, bconv_kernels, modup_ip_kernels, ip_kernels,
+            moddown_kernels, ntt_roll_kernels)
+    return [next(getattr(m, attr) for m in mods if hasattr(m, attr))
+            for _, attr, *_ in KERNELS]
+
+
+def calls_only(card: str, dev) -> None:
+    """--calls: every kernel call of one headline step on each modup route,
+    one alpha-8 xla-split step, one BFV step on each engine and one BGV
+    step on each route, under the probes (phases 4, 8, 11, 18 and 23
+    without the rest).  It passes the wrappers only their common
+    arguments, so a copy of this file measures an earlier tree of the port
+    the same way."""
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import bfv32, bgv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    probes = _probes(pp, kernel_wrappers())
+    since = {name: 0 for name, *_ in KERNELS}
+    ctx = make_context(chain_params(**HEADLINE))
+    _, pipe, d1, d2, *_ = make_step_inputs(ctx, SEED, DELTA_BITS, dev)
+    pipe(d1, d2, probes)
+    for r in ROUTES[1:]:
+        pp.CKKSPipeline32(ctx, pipe.evk, modup=r).to(dev)(d1, d2, probes)
+    ctx8 = make_context(chain_params(**ALPHA8))
+    _, pipe8, e1, e2, *_ = make_step_inputs(ctx8, SEED, DELTA_BITS, dev)
+    pp._mult_relin_rescale_split(pipe8, e1, e2, probes)
+    del ctx, pipe, d1, d2, ctx8, pipe8, e1, e2
+    for scheme, cfg, build, kws in (
+            ("bfv", BFV, bfv32.build_bfv32,
+             [dict(engine=e) for e in ENGINES]),
+            ("bgv", BGV, bgv32.build_bgv32,
+             [dict(modup=r) for r in ("auto", "kernel")])):
+        torch.cuda.empty_cache()
+        c = make_context(mod_t_params(**cfg, scheme=scheme))
+        _, rlk, a, b, *_ = make_mod_t_inputs(c, SEED, dev)
+        for kw in kws:
+            build(c, rlk, **kw)(a, b, probes)
+    _print_calls(probes, card, since)
 
 
 def _probes(pp, wrappers):
@@ -773,11 +926,14 @@ def _probes(pp, wrappers):
 def _print_calls(probes, card, since):
     for (name, *_), probe in zip(KERNELS, probes):
         for c in probe.calls[since[name]:]:
+            tc = (f", {c['tc_ops'] / 1e9:.3f} G int8" if c["tc_ops"]
+                  else "")
             print(f"kernel {name} {c['shape']}: bit-equal to plain; "
-                  f"{c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms, bound "
+                  f"{c['ms']:.4f} ms (device {c['dev_ms']:.4f}) vs plain "
+                  f"{c['plain_ms']:.4f} ms, bound "
                   f"{c['bound_ms']:.4f} ms by {c['bound_by']} "
-                  f"({c['bytes'] / 1e6:.1f} MB, {c['ops'] / 1e9:.3f} G mul)"
-                  f" [{card}]")
+                  f"({c['bytes'] / 1e6:.1f} MB, {c['ops'] / 1e9:.3f} G mul"
+                  f"{tc}) [{card}]")
         since[name] = len(probe.calls)
 
 
@@ -916,8 +1072,7 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
         ba.apply_defaults()
         b_ms, b_by = bound_ms(*call_bound(bname, ba.arguments, ref))
         runs = [(f"K6 C={c}", lambda c=c: one_pass(x, t, rows, cluster=c))
-                for c in CLUSTERS] + [(f"{bname} two-pass",
-                                       lambda: two_pass(x, t, rows))]
+                for c in CLUSTERS] + [(bname, lambda: two_pass(x, t, rows))]
         for label, fn in runs:
             if not torch.equal(fn(), ref):
                 raise RuntimeError(f"{what}: {label} differs from {bname}")
@@ -926,7 +1081,7 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
             times.setdefault(label, []).append(_time(fn, REPS))
         runs_ms = {k: ", ".join(f"{u:.4f}" for u in v)
                    for k, v in times.items()}
-        print(f"K6 vs two-pass, {what} {tuple(x.shape)} (equal work, "
+        print(f"K6 vs {bname}, {what} {tuple(x.shape)} (equal work, "
               f"bit-equal): " + ", ".join(
                   f"{k} {np.mean(v):.4f} ms ({runs_ms[k]})"
                   for k, v in times.items())
@@ -1155,7 +1310,7 @@ def _probe_library(name: str, patches, tmp: str):
         with open(path, "w") as fh:
             fh.write(src.replace(old, new))
     objs, procs = [], []
-    for f in ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu"):
+    for f in ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu", "bconv.cu"):
         obj = os.path.join(d, f + ".o")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c", "-o", obj,
                os.path.join(d, f)]
@@ -1167,14 +1322,17 @@ def _probe_library(name: str, patches, tmp: str):
 
 
 def _anatomy(card: str, dev) -> None:
-    """Phase 26: K3 on the headline moddown's shapes and K4 on the alpha-8
-    step's, timed on the library as built and on each probe of ANATOMY
-    (seeded operands), in turns (base, probes, probes reversed, base)."""
+    """Phase 26: K3 and K1 on the headline moddown's shapes, K1 on the
+    modup's, K5 on the modup's digit and BFV's scale-and-round, and K4 on
+    the alpha-8 step's, timed (device time) on the library as built and on
+    each probe of ANATOMY (seeded operands), in turns (base, probes, probes
+    reversed, base)."""
     import ctypes
     import tempfile
     import torch
     from phantom_tpu_torch import _build, make_context
-    from phantom_tpu_torch.ops import modup_ip_kernels, ntt_kernels
+    from phantom_tpu_torch.ops import bconv_kernels, modup_ip_kernels
+    from phantom_tpu_torch.ops import ntt_kernels
     libs = {}
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -1189,7 +1347,8 @@ def _anatomy(card: str, dev) -> None:
                 text=True))])
             lib = ctypes.CDLL(so)
             for fn in ("ptk_bconv_ntt_forward", "ptk_modup_ip",
-                       "ptk_error_string"):
+                       "ptk_ntt_inverse", "ptk_fold_matmul",
+                       "ptk_fold_matmul_smem", "ptk_error_string"):
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = \
                     _build._SIGNATURES[fn]
             libs[name] = lib
@@ -1216,6 +1375,27 @@ def _anatomy(card: str, dev) -> None:
         lambda: ntt_kernels.bconv_ntt_forward(
             y, mat, t, rows, v=v, vmul=vmul, sub_from=sub, epi_scale=sc,
             epi_scale_shoup=scs, tensor_add=(d1, d2))
+    # K1: the moddown's inverse with v, the modup's with mul_by
+    qp, qk = q[k:k + alpha].view(alpha), q[:k].view(k)
+    psc, ksc = res((alpha,), qp), res((k,), qk)
+    psh, ksh = ((psc.long() << 32) // qp).int(), ((ksc.long() << 32) //
+                                                   qk).int()
+    uv = (((1 << 32) // qp).int(), ((1 << 32) % qp).int())
+    xp = res((2, alpha, n), q[k:k + alpha].view(1, alpha, 1))
+    xq, mq = (res((k, n), q[:k]) for _ in range(2))
+    prow = t.all_rows()[k:k + alpha].contiguous()
+    calls[f"K1 moddown (2, {alpha}, N) with v"] = \
+        lambda: ntt_kernels.ntt_inverse(xp, t, prow, psc, psh,
+                                        emit_floor_div=uv)
+    calls[f"K1 modup ({k}, N) with mul_by"] = \
+        lambda: ntt_kernels.ntt_inverse(xq, t, rows, ksc, ksh, mul_by=mq)
+    # K5: the headline modup's digit, (22, N) -> 43, and BFV's (87, N) -> 44
+    for k_in, k_out in ((alpha, k), (2 * k + 1, k + 1)):
+        y5 = res((k_in, n), q[:1])
+        m5 = res((k_out, k_in), q[:k_out])
+        calls[f"K5 ({k_in}, N) -> {k_out}"] = \
+            lambda y5=y5, m5=m5, k_out=k_out: bconv_kernels.fold_matmul(
+                y5, m5, t.q[:k_out])
     ctx8 = make_context(chain_params(**ALPHA8))
     t8, k8, a8 = ctx8.ntt, ALPHA8["limbs"], ALPHA8["alpha"]
     q8 = t8.q.long().view(-1, 1)
@@ -1235,7 +1415,7 @@ def _anatomy(card: str, dev) -> None:
             _build.library = lambda lib=lib: lib
             for what, fn in calls.items():
                 times.setdefault(what, {}).setdefault(name, []).append(
-                    _time(fn, REPS))
+                    _device_ms(fn, REPS))
     finally:
         _build.library = lambda: base_lib
     for what, by in times.items():
@@ -1251,9 +1431,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from phantom_tpu_torch import _build, make_context
-    from phantom_tpu_torch.ops import bconv_kernels, ip_kernels
-    from phantom_tpu_torch.ops import moddown_kernels, modup_ip_kernels
-    from phantom_tpu_torch.ops import ntt_kernels, ntt_roll_kernels
+    from phantom_tpu_torch.ops import moddown_kernels, ntt_kernels
     from phantom_tpu_torch.ops import pipeline32 as pp
     from phantom_tpu_torch.schemes import galois
     from phantom_tpu_torch.schemes.context import resolve_device
@@ -1278,6 +1456,14 @@ def main() -> int:
     path = _build.build()
     _build.library()
     print(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
+    if sys.argv[1:] == ["--calls"]:
+        calls_only(card, dev)
+        return 0
+    imma = sass_count(path, "fold_matmul_kernel", "IMMA")
+    if not imma:
+        raise RuntimeError("K5: no IMMA instruction in fold_matmul_kernel")
+    print(f"sass: K5 fold_matmul_kernel issues {sum(imma.values())} int8 "
+          f"tensor-core instructions ({', '.join(sorted(imma))})")
 
     # 3. golden files from the JAX package
     g = np.load(GOLDEN)
@@ -1313,14 +1499,7 @@ def main() -> int:
           f"dnum={pipe.ks.beta}, keys and encryptions in "
           f"{time.time() - t0:.1f} s")
 
-    wrappers = [ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
-                ntt_kernels.bconv_ntt_forward, bconv_kernels.fold_matmul,
-                modup_ip_kernels.modup_ip, ip_kernels.inner_product,
-                moddown_kernels.moddown_rows, moddown_kernels.moddown_rescale,
-                modup_ip_kernels.modup_ip_coeff,
-                ntt_roll_kernels.ntt_forward_roll,
-                ntt_roll_kernels.ntt_inverse_roll,
-                modup_ip_kernels.modup_ip_preconv]
+    wrappers = kernel_wrappers()
     probes = _probes(pp, wrappers)
     since = {name: 0 for name, *_ in KERNELS}
     # the same relin key through each epilogue
@@ -1392,30 +1571,44 @@ def main() -> int:
                       REPS) for r in (1, 2, 4, 8)}
     print("timing K8 per call by rows per block: " + ", ".join(
         f"R={r} {ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
-    # K3 alone on the moddown's operands at each cluster size, in turns
-    k3_call = []
+    # K3 and K1 alone on the moddown's operands at each cluster size, in
+    # turns
+    calls = {"K3": [], "K1": []}
 
-    def keep_k3(*a, **kw):
-        k3_call.append((a, kw))
-        return ntt_kernels.bconv_ntt_forward(*a, **kw)
+    def keep(name, fn):
+        def call(*a, **kw):
+            calls[name].append((a, kw))
+            return fn(*a, **kw)
+        return call
 
-    pipe(d1, d2, pp.KERNELS._replace(bconv_ntt_forward=keep_k3))
-    k3_args, k3_kw = k3_call[0]  # the moddown pair's call
-    ref = ntt_kernels.bconv_ntt_forward(*k3_args, **k3_kw)
-    times = {}
-    for c in K3_CLUSTERS + K3_CLUSTERS[::-1]:
-        def run(c=c):
-            return ntt_kernels.bconv_ntt_forward(*k3_args, **k3_kw, cluster=c)
-        if not torch.equal(run(), ref):
-            raise RuntimeError(f"K3 at cluster {c} differs from the default")
-        times.setdefault(c, []).append(_time(run, REPS))
-    print(f"timing K3 per call by blocks per row, moddown "
-          f"{tuple(k3_args[0].shape)} -> {tuple(ref.shape)} (bit-equal): "
-          + ", ".join(f"C={c} {np.mean(v):.4f} ms ("
-                      + ", ".join(f"{u:.4f}" for u in v) + ")"
-                      for c, v in times.items())
-          + f"; default C={ntt_kernels.default_cluster(params.n)} [{card}]")
-    del k3_call, k3_args, k3_kw, ref  # no operand outlives its phase
+    pipe(d1, d2, pp.KERNELS._replace(
+        bconv_ntt_forward=keep("K3", ntt_kernels.bconv_ntt_forward),
+        ntt_inverse=keep("K1", ntt_kernels.ntt_inverse)))
+    moddown = {"K3": calls["K3"][0],  # the moddown pair's calls
+               "K1": next(c for c in calls["K1"]
+                          if c[1].get("emit_floor_div") is not None)}
+    for name, fn in (("K3", ntt_kernels.bconv_ntt_forward),
+                     ("K1", ntt_kernels.ntt_inverse)):
+        args, kw = moddown[name]
+        ref = fn(*args, **kw)
+        times = {}
+        for c in K3_CLUSTERS + K3_CLUSTERS[::-1]:
+            def run(c=c):
+                return fn(*args, **kw, cluster=c)
+            if _max_err(run(), ref):
+                raise RuntimeError(f"{name} at cluster {c} differs from the "
+                                   "default")
+            times.setdefault(c, []).append(_time(run, REPS))
+        what = (f"{tuple(args[0].shape)} with v" if name == "K1" else
+                f"{tuple(args[0].shape)} -> {tuple(ref.shape)}")
+        print(f"timing {name} per call by blocks per row, moddown {what} "
+              "(bit-equal): "
+              + ", ".join(f"C={c} {np.mean(v):.4f} ms ("
+                          + ", ".join(f"{u:.4f}" for u in v) + ")"
+                          for c, v in times.items())
+              + f"; default C={ntt_kernels.default_cluster(params.n)} "
+              f"[{card}]")
+    del calls, moddown, args, kw, ref  # no operand outlives its phase
 
     # 7. profile: where one chained kernel-path step's device time goes
     dd = [d1]

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "ptk_ntt_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P], _I),
     "ptk_ntt_inverse": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P], _I),
+                         _P, _P, _P, _P, _P, _P, _I, _P], _I),
     "ptk_bconv_ntt_forward": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                                _I, _I, _P], _I),
@@ -160,3 +160,11 @@ def check_operands(*tensors: torch.Tensor) -> None:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous int32 "
                              f"tensors on {dev}")
+
+
+def check_aligned(*tensors) -> None:
+    """The kernels read and write these (None skipped) with 16-byte
+    vectors."""
+    for x in tensors:
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError("kernel operand not 16-byte aligned")

@@ -32,6 +32,12 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t x, uint32_t w,
   return csub(x * w - k * q, q);  // x*w - k*q lies in [0, 2q)
 }
 
+// x * w mod q in [0, 2q), the same product without the last subtraction.
+__device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t x, uint32_t w,
+                                                   uint32_t ws, uint32_t q) {
+  return x * w - __umulhi(x, ws) * q;
+}
+
 // Barrett constant floor((2^64 - 1) / q); for odd q it equals floor(2^64/q).
 struct Barrett {
   uint32_t q;

@@ -1,33 +1,40 @@
-// The one-pass, cluster-resident, radix-8 forward NTT core of K3
-// (bconv_ntt.cu) and K4 (modup_ip.cu).
+// The one-pass, cluster-resident, radix-8 NTT core: forward under K3
+// (bconv_ntt.cu) and K4 (modup_ip.cu), inverse under K1 (ntt.cu).
 //
-// Same transform as ntt_core.cuh: out[k] = p(psi^(2 rev(k) + 1)), Cooley-Tukey
-// stages m = 1 .. N/2 over the port's bit-reversed tables (the stage with m
-// groups reads entries [m, 2m)), one table row per output row (`rows`).
-// What differs is where the row lives and how the stages are grouped.
+// Same transforms as ntt_core.cuh: out[k] = p(psi^(2 rev(k) + 1)), forward
+// Cooley-Tukey stages m = 1 .. N/2 and inverse Gentleman-Sande stages m =
+// N/2 .. 1 over the port's bit-reversed tables (the stage with m groups
+// reads entries [m, 2m)), one table row per output row (`rows`).  What
+// differs is where the row lives and how the stages are grouped.
 //
 // A row of N = 2^logn words is held by a thread-block cluster of C = 2^logc
 // blocks (C <= 8, the portable limit), block r holding the contiguous share
 // [r S, (r + 1) S), S = N / C words, in dynamic shared memory.  The row is
 // read from device memory once (by the caller's prologue, which writes the
 // share) and written once (by the caller's epilogue, which reads it).
-//   crossing stages  the first logc stages pair words S or more apart, that
-//     is words at equal offsets in different shares.  They run as one
-//     radix-C step: a thread loads the C words at one offset from the C
-//     shares (cluster.map_shared_rank: distributed shared memory), runs
-//     the logc stages in registers and writes the words back; a
-//     cluster.sync() before (the prologue has filled every share) and one
-//     after (no block touches another's share again, so a block may exit
-//     or refill its share once it is past it).
+//   crossing stages  the stages that pair words S or more apart, that is
+//     words at equal offsets in different shares (the first logc stages
+//     forward, the last logc inverse).  They run as one radix-C step: a
+//     thread loads the C words at one offset from the C shares
+//     (cluster.map_shared_rank: distributed shared memory), runs the logc
+//     stages in registers and writes the words back; a cluster.sync()
+//     before (every share is ready) and one after (no block touches
+//     another's share again, so a block may exit or refill its share once
+//     it is past it).
 //   local stages  the other logs = logn - logc stages, in passes of three
-//     (radix 8, the last pass 1 or 2 stages when 3 does not divide logs):
-//     a thread loads the 8 words of one radix-8 unit, 2^ls apart, runs three
-//     stages on them in registers and stores them, then one
-//     __syncthreads() per pass.
+//     (radix 8, one pass 1 or 2 stages when 3 does not divide logs: the
+//     last, at the smallest strides, forward; the last, at the largest,
+//     inverse): a thread loads the 8 words of one radix-8 unit, 2^ls apart,
+//     runs three stages on them in registers and stores them, then one
+//     __syncthreads() per pass.  Forward passes fall in stride (ls = logs
+//     - 3, logs - 6, ..), inverse passes rise (ls = 0, 3, 6, ..); a pass
+//     touches the same units in both directions.
 // Each unit loads its 7 twiddles and their 7 Shoup words once (__ldg),
-// not once per butterfly.  Butterflies are Harvey's lazy form: words stay
-// in [0, 4q) between stages (q < 2^30, so 4q < 2^32), and the caller
-// canonicalises with `canon` before any epilogue.  Inputs in [0, 2q).
+// not once per butterfly.  Butterflies are Harvey's lazy forms, inputs in
+// [0, 2q): forward CT keeps words in [0, 4q) between stages (q < 2^30, so
+// 4q < 2^32) and the caller canonicalises with `canon` before any
+// epilogue; inverse GS keeps them in [0, 2q) and the caller's Shoup
+// product by the scale takes any 32-bit word.
 //
 // Shared memory is indexed l + (l >> 5) (one pad word per 32), and the
 // units of a pass with ls < 5 are spread over the warp's lanes so that the
@@ -76,11 +83,6 @@ inline int cluster_threads(int logs) {
   return t < kClusterThreads ? t : kClusterThreads;
 }
 
-__device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t x, uint32_t w,
-                                                   uint32_t ws, uint32_t q) {
-  return x * w - __umulhi(x, ws) * q;  // in [0, 2q) for any 32-bit x
-}
-
 // Harvey's lazy CT butterfly: u, v in [0, 4q) -> [0, 4q).
 __device__ __forceinline__ void ct_lazy(uint32_t& u, uint32_t& v, uint32_t w,
                                         uint32_t ws, uint32_t q,
@@ -91,16 +93,27 @@ __device__ __forceinline__ void ct_lazy(uint32_t& u, uint32_t& v, uint32_t w,
   v = x - t + q2;
 }
 
+// Harvey's lazy GS butterfly: u, v in [0, 2q) -> [0, 2q).
+__device__ __forceinline__ void gs_lazy(uint32_t& u, uint32_t& v, uint32_t w,
+                                        uint32_t ws, uint32_t q,
+                                        uint32_t q2) {
+  const uint32_t a = u + v;
+  const uint32_t d = u - v + q2;  // in (0, 4q)
+  u = a >= q2 ? a - q2 : a;
+  v = mul_shoup_lazy(d, w, ws, q);
+}
+
 // [0, 4q) -> [0, q)
 __device__ __forceinline__ uint32_t canon(uint32_t x, uint32_t q) {
   x = x >= 2 * q ? x - 2 * q : x;
   return x >= q ? x - q : x;
 }
 
-// R stages on 2^R words x[k] = row[base + k * stride] in registers; the
-// first stage's group is g1 = m + i (its twiddle index).  At sub-stage s
-// word k belongs to group (g1 << s) + (k >> (R - s)).
-template <int R>
+// R stages on 2^R words x[k] = row[base + k * stride] in registers.  The
+// stages are levels 0 .. R - 1 from the widest stride down, forward in
+// that order, inverse in reverse; at level s word k belongs to group
+// (g1 << s) + (k >> (R - s)) (its twiddle index), g1 the group at level 0.
+template <int R, bool kInverse>
 __device__ __forceinline__ void radix(uint32_t (&x)[1 << R],
                                       const uint32_t* __restrict__ w,
                                       const uint32_t* __restrict__ ws,
@@ -115,13 +128,17 @@ __device__ __forceinline__ void radix(uint32_t (&x)[1 << R],
     }
   const uint32_t q2 = 2 * q;
 #pragma unroll
-  for (int s = 0; s < R; ++s) {
+  for (int i = 0; i < R; ++i) {
+    const int s = kInverse ? R - 1 - i : i;
     const int half = 1 << (R - 1 - s);
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k) {
       if (k & half) continue;
       const int b = (1 << s) - 1 + (k >> (R - s));
-      ct_lazy(x[k], x[k + half], tw[b], tws[b], q, q2);
+      if (kInverse)
+        gs_lazy(x[k], x[k + half], tw[b], tws[b], q, q2);
+      else
+        ct_lazy(x[k], x[k + half], tw[b], tws[b], q, q2);
     }
   }
 }
@@ -144,14 +161,15 @@ __device__ __forceinline__ void unit_of(int u, int ls, int R, int& hi,
        ((u >> (5 + sp)) << (sp + 5 - ls));
 }
 
-template <int R>
+// A pass of R stages whose smallest stride is 2^ls.
+template <int R, bool kInverse>
 __device__ __forceinline__ void local_pass(uint32_t* s, const ClusterGeom& G,
                                            int rank, int ls,
                                            const uint32_t* __restrict__ w,
                                            const uint32_t* __restrict__ ws,
                                            uint32_t q) {
-  // m = N / 2^(ls + R) groups at the pass's first stage; the share's first
-  // group is rank << (logs - ls - R)
+  // m = N / 2^(ls + R) groups at the pass's widest stage; the share's
+  // first group is rank << (logs - ls - R)
   const int g0 = (1 << (G.logn - ls - R)) + (rank << (G.logs - ls - R));
   const int units = 1 << (G.logs - R);
   for (int u = threadIdx.x; u < units; u += blockDim.x) {
@@ -161,15 +179,15 @@ __device__ __forceinline__ void local_pass(uint32_t* s, const ClusterGeom& G,
     uint32_t x[1 << R];
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k) x[k] = s[pad(base + (k << ls))];
-    radix<R>(x, w, ws, g0 + hi, q);
+    radix<R, kInverse>(x, w, ws, g0 + hi, q);
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k) s[pad(base + (k << ls))] = x[k];
   }
 }
 
-// The first logc stages: radix C over the cluster's shares at equal
+// The logc crossing stages: radix C over the cluster's shares at equal
 // offsets; block `rank` serves offsets [rank S / C, (rank + 1) S / C).
-template <int LC>
+template <int LC, bool kInverse>
 __device__ __forceinline__ void crossing_pass(uint32_t* s,
                                               cg::cluster_group& cluster,
                                               const ClusterGeom& G, int rank,
@@ -186,14 +204,15 @@ __device__ __forceinline__ void crossing_pass(uint32_t* s,
     uint32_t x[1 << LC];
 #pragma unroll
     for (int k = 0; k < (1 << LC); ++k) x[k] = sh[k][p];
-    radix<LC>(x, w, ws, 1, q);
+    radix<LC, kInverse>(x, w, ws, 1, q);
 #pragma unroll
     for (int k = 0; k < (1 << LC); ++k) sh[k][p] = x[k];
   }
 }
 
-// All log N stages on the row whose share this block holds in s (written
-// by every thread of every block of the cluster before the call, [0, 2q)).
+// All log N forward stages on the row whose share this block holds in s
+// (written by every thread of every block of the cluster before the call,
+// [0, 2q)).
 // Returns with the share in [0, 4q) and the block synchronised; no block
 // touches another's share after the call.  Uniform over the cluster.
 __device__ __forceinline__ void cluster_ntt(uint32_t* s,
@@ -205,11 +224,11 @@ __device__ __forceinline__ void cluster_ntt(uint32_t* s,
   if (G.logc > 0) {
     cluster.sync();
     if (G.logc == 1)
-      crossing_pass<1>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<1, false>(s, cluster, G, rank, w, ws, q);
     else if (G.logc == 2)
-      crossing_pass<2>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<2, false>(s, cluster, G, rank, w, ws, q);
     else
-      crossing_pass<3>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<3, false>(s, cluster, G, rank, w, ws, q);
     cluster.sync();
   } else {
     __syncthreads();
@@ -218,12 +237,47 @@ __device__ __forceinline__ void cluster_ntt(uint32_t* s,
     const int r = left >= 3 ? 3 : left;
     left -= r;
     if (r == 3)
-      local_pass<3>(s, G, rank, left, w, ws, q);
+      local_pass<3, false>(s, G, rank, left, w, ws, q);
     else if (r == 2)
-      local_pass<2>(s, G, rank, left, w, ws, q);
+      local_pass<2, false>(s, G, rank, left, w, ws, q);
     else
-      local_pass<1>(s, G, rank, left, w, ws, q);
+      local_pass<1, false>(s, G, rank, left, w, ws, q);
     __syncthreads();
+  }
+}
+
+// The inverse of cluster_ntt on the row whose share this block holds in s
+// (written by every thread of the block before the call, [0, 2q)): the
+// local passes, strides rising, then the crossing stages.  Returns with
+// the share in [0, 2q) and the block synchronised; no block touches
+// another's share after the call.  Uniform over the cluster.
+__device__ __forceinline__ void cluster_intt(uint32_t* s,
+                                             cg::cluster_group& cluster,
+                                             const ClusterGeom& G, int rank,
+                                             const uint32_t* __restrict__ w,
+                                             const uint32_t* __restrict__ ws,
+                                             uint32_t q) {
+  __syncthreads();
+  for (int ls = 0; ls < G.logs;) {
+    const int r = G.logs - ls >= 3 ? 3 : G.logs - ls;
+    if (r == 3)
+      local_pass<3, true>(s, G, rank, ls, w, ws, q);
+    else if (r == 2)
+      local_pass<2, true>(s, G, rank, ls, w, ws, q);
+    else
+      local_pass<1, true>(s, G, rank, ls, w, ws, q);
+    ls += r;
+    __syncthreads();
+  }
+  if (G.logc > 0) {
+    cluster.sync();
+    if (G.logc == 1)
+      crossing_pass<1, true>(s, cluster, G, rank, w, ws, q);
+    else if (G.logc == 2)
+      crossing_pass<2, true>(s, cluster, G, rank, w, ws, q);
+    else
+      crossing_pass<3, true>(s, cluster, G, rank, w, ws, q);
+    cluster.sync();
   }
 }
 

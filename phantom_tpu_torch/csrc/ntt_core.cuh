@@ -1,7 +1,6 @@
 // The two-pass negacyclic NTT machinery of the forward kernel (K2 in
-// ntt.cu, K8's chunk pass), the inverse kernel (K1 in ntt.cu) and K7; and
-// the forward epilogue that the one-pass core's kernels (ntt_cluster.cuh)
-// share.
+// ntt.cu, K8's chunk pass) and K7 (forward and inverse); and the forward
+// epilogue that the one-pass core's kernels (ntt_cluster.cuh) share.
 //
 // Order and tables are the library's: out[k] = p(psi^(2*rev(k)+1)), twiddle
 // tables in bit-reversed order, the stage with m groups reading entries

@@ -8,12 +8,13 @@ every 2-D conversion.  On the main path it converts each modup digit to
 its complement base: (22, N) -> (43, N) and (21, N) -> (44, N) at the
 headline configuration.
 
-The CUDA kernel (csrc/bconv.cu) gives each thread one column: the block
-keeps its slice of y and the whole matrix in shared memory, and each
-output is one exact 128-bit dot product.  It reads y once and writes out
-once, so device memory bounds it at these shapes.  BFV's scale-and-round
-from D = Ql u Rl, (87, N) -> (44, N), stages 59,856 bytes, for which the
-launch opts into more than the default 48 KB of shared memory.
+The CUDA kernel (csrc/bconv.cu) runs on the int8 tensor cores: it splits
+y and mat into four 8-bit digit planes each (as the TPU kernel does for
+its MXU), multiplies the 16 plane pairs with mma.sync m16n8k32 into seven
+exact s32 diagonal sums, and folds them with Shoup products by 2^(8d) mod
+q.  Device memory bounds it: y is read once and out written once.  It
+takes k_in up to MAX_K_IN (shared memory; the s32 diagonals stay exact to
+k_in 8256) and N a multiple of 4, 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -38,6 +39,12 @@ def fold_matmul_plain(y: torch.Tensor, mat: torch.Tensor,
     return acc.int()
 
 
+# the largest k_in the kernel takes: a block holds the planes of 128
+# columns of y (4 k_in + 64 bytes each, k_in padded to 32) and of the
+# matrix in shared memory, 194 KB at k_in 256 and k_out 44
+MAX_K_IN = 256
+
+
 def fold_matmul(y: torch.Tensor, mat: torch.Tensor,
                 q: torch.Tensor) -> torch.Tensor:
     """K5 on a CUDA tensor; the plain version on a CPU tensor."""
@@ -48,12 +55,17 @@ def fold_matmul(y: torch.Tensor, mat: torch.Tensor,
     if mat.shape != (k_out, k_in) or q.shape != (k_out,):
         raise ValueError(f"fold_matmul: mat {tuple(mat.shape)}, "
                          f"q {tuple(q.shape)} against y {tuple(y.shape)}")
+    if not 1 <= k_in <= MAX_K_IN or n % 4:
+        raise ValueError(f"fold_matmul: k_in={k_in}, N={n}: the kernel "
+                         f"takes 1 <= k_in <= {MAX_K_IN} and N a multiple "
+                         "of 4")
     _build.check_operands(y, mat, q)
     lib = _build.library()
     if lib.ptk_fold_matmul_smem(k_in, k_out) > _build.SMEM_OPTIN:
         raise ValueError(f"fold_matmul: k_in={k_in}, k_out={k_out} exceed "
                          "a block's shared memory")
     out = torch.empty((k_out, n), dtype=torch.int32, device=y.device)
+    _build.check_aligned(y, out)
     with torch.cuda.device(y.device):
         err = lib.ptk_fold_matmul(out.data_ptr(), y.data_ptr(),
                                   mat.data_ptr(), q.data_ptr(), k_in, k_out,

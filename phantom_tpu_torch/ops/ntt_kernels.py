@@ -9,12 +9,15 @@ counts its launches in `<wrapper>.launches`.
   K2 ntt_forward        csrc/ntt.cu        ntt_forward_mxu_pallas
   K3 bconv_ntt_forward  csrc/bconv_ntt.cu  bconv_ntt_forward_mxu_pallas
 
-K1 and K2 transform rows with radix-2 butterflies in shared memory, in two
-passes of 4096-word tiles for N > 4096 (csrc/ntt_core.cuh), and are bound
-by device memory: every pass reads and writes each row once.  K3 holds
-each output row in a thread-block cluster for all log N stages, in
-radix-8 passes in registers (csrc/ntt_cluster.cuh): one launch, the row
-converted straight into shared memory and written once.
+K2 transforms rows with radix-2 butterflies in shared memory, in two
+passes of 4096-word tiles for N > 4096 (csrc/ntt_core.cuh), and is bound
+by device memory: every pass reads and writes each row once.  K1 and K3
+hold each row in a thread-block cluster for all log N stages, in radix-8
+passes in registers (csrc/ntt_cluster.cuh: Gentleman-Sande for K1, the
+local passes then the crossing stages; Cooley-Tukey for K3): one launch,
+the row read once (K3 converts it straight into shared memory) and
+written once.  K1's floor sum v, a sum over the rows of a group, is a
+second launch in the same call that reads the scaled rows back.
 
 Arguments follow the JAX kernels, with one addition: `rows`, the table row
 of each of the L limbs (default: all of `t`'s rows), so one `NTTTables32`
@@ -31,6 +34,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .._build import check_aligned
 from . import ntt32
 from .bconv32 import floor_sum_div_uv
 from .bconv_kernels import fold_matmul_plain
@@ -146,13 +150,6 @@ def sum_fits_64(terms: int, t: NTTTables32) -> bool:
     return terms << (t.modulus_bits + MODULUS_BITS) < 1 << 64
 
 
-def check_aligned(*tensors: Optional[torch.Tensor]) -> None:
-    """The kernels read and write these with 16-byte vectors."""
-    for x in tensors:
-        if x is not None and x.data_ptr() % 16:
-            raise ValueError("kernel operand not 16-byte aligned")
-
-
 def _tables(t: NTTTables32, inverse: bool):
     if inverse:
         return t.q, t.inv_root_powers, t.inv_root_powers_shoup
@@ -207,16 +204,21 @@ def ntt_forward(x: torch.Tensor, t: NTTTables32, rows=None, sub_from=None,
 
 
 def ntt_inverse(x: torch.Tensor, t: NTTTables32, rows=None, scale=None,
-                scale_shoup=None, mul_by=None, emit_floor_div=None):
+                scale_shoup=None, mul_by=None, emit_floor_div=None,
+                cluster=None):
     """K1.  x: (..., L, N) in [0, 2q) -> coefficients in [0, q), times
     `scale` per limb (default n^-1).  mul_by: transform x * mul_by.
     emit_floor_div = (U, V): also return v = floor(sum_l y_l / q_l) per
-    leading group, (G, N)."""
+    leading group, (G, N).  On the card each row is one cluster of the
+    radix-8 core (cluster: blocks per row, default default_cluster(N)),
+    and v a second launch of the same call."""
     if _build.is_plain(x, "ntt_inverse"):
         return ntt_inverse_plain(x, t, rows, scale, scale_shoup, mul_by,
                                  emit_floor_div)
     n, num_l = x.shape[-1], x.shape[-2]
     logn = _logn(n)
+    c = default_cluster(n) if cluster is None else int(cluster)
+    check_cluster(n, c)
     rows = resolve_rows(t, rows, num_l)
     if scale is None:
         scale = t.inv_degree[rows.long()]
@@ -239,12 +241,13 @@ def ntt_inverse(x: torch.Tensor, t: NTTTables32, rows=None, scale=None,
         v = torch.empty((nrows // num_l, n), dtype=torch.int32,
                         device=x.device)
     _build.check_operands(x, rows, *tabs, *extra)
+    check_aligned(x, mul_by, out, v)
     with torch.cuda.device(x.device):
         err = _build.library().ptk_ntt_inverse(
             out.data_ptr(), x.data_ptr(), *(a.data_ptr() for a in tabs),
             rows.data_ptr(), num_l, nrows, logn, _ptr(mul_by),
             scale.data_ptr(), scale_shoup.data_ptr(), _ptr(v), _ptr(u_c),
-            _ptr(v_c), _build.stream(x))
+            _ptr(v_c), c, _build.stream(x))
     _build.check(err, "ntt_inverse")
     ntt_inverse.launches += 1
     return out if v is None else (out, v)
@@ -256,7 +259,7 @@ MIN_SHARE = 1 << 10      # the smallest share the radix-8 core takes
 
 
 def default_cluster(n: int) -> int:
-    """Blocks per row of the cluster kernels (K3, K4, K6): one up to
+    """Blocks per row of the cluster kernels (K1, K3, K4, K6): one up to
     CLUSTER_WORDS words, then shares of CLUSTER_WORDS, at most MAX_CLUSTER
     blocks."""
     return min(MAX_CLUSTER, max(1, n // CLUSTER_WORDS))

@@ -81,17 +81,69 @@ def test_k2_forward(dev, logn):
           nk.ntt_forward_plain(x, t, rows, **kw))
 
 
-@pytest.mark.parametrize("logn", LOGNS)
-def test_k1_inverse(dev, logn):
-    t, rows, q, res, sc, scs, _ = _setup(dev, logn)
-    x = res((2, 4, 1 << logn), lazy=True)
+K1_CASES = ([pytest.param(logn, None, "options", id=str(logn))
+             for logn in range(10, 18)]
+            + [pytest.param(16, c, "options", id=f"16-C{c}")
+               for c in (1, 2, 4, 8)]
+            + [pytest.param(logn, None, case, id=f"{logn}-{case}")
+               for logn in (10, 16)
+               for case in ("two-rows", "repeated-rows", "extremes",
+                            "floor30")])
+
+
+@pytest.mark.parametrize("logn,cluster,case", K1_CASES)
+def test_k1_inverse(dev, logn, cluster, case):
+    """K1 on the cluster core: every option at each size, at the default
+    cluster size and, at 2^16, at each (C = 1: a 2^16-word share does not
+    fit a block's shared memory, so the wrapper refuses it); the rescale's
+    and mod switch's (2, 1, N); 87 rows whose table rows repeat (BFV's D
+    inverse); x and mul_by at 2q - 1; the floor sum over 22 rows of 30-bit
+    primes with y at q - 1, where the cascade's sums are largest."""
+    t, rows, q, res, sc, scs, gen = _setup(dev, logn)
+    n = 1 << logn
     u = ((1 << 32) // q).int()
     v = ((1 << 32) % q).int()
-    for kw in (dict(), dict(scale=sc, scale_shoup=scs,
-                            mul_by=res((2, 4, 1 << logn), lazy=True)),
-               dict(scale=sc, scale_shoup=scs, emit_floor_div=(u, v))):
-        _same(nk.ntt_inverse(x, t, rows, **kw),
-              nk.ntt_inverse_plain(x, t, rows, **kw))
+    if case == "options" and cluster == 1 and logn == 16:
+        with pytest.raises(ValueError):
+            nk.ntt_inverse(res((2, 4, n), lazy=True), t, rows, cluster=1)
+        return
+    calls = []
+    if case == "options":
+        x = res((2, 4, n), lazy=True)
+        calls = [(x, t, rows, kw) for kw in (
+            dict(), dict(scale=sc, scale_shoup=scs,
+                         mul_by=res((2, 4, n), lazy=True)),
+            dict(scale=sc, scale_shoup=scs, emit_floor_div=(u, v)))]
+    elif case == "two-rows":
+        x = res((2, 4, n), lazy=True)[:, 1:2].contiguous()
+        calls = [(x, t, rows[1:2], dict(scale=sc[1:2], scale_shoup=scs[1:2],
+                                        **kw))
+                 for kw in (dict(), dict(emit_floor_div=(u[1:2], v[1:2])))]
+    elif case == "repeated-rows":
+        r87 = torch.randint(0, t.q.shape[0], (87,), generator=gen,
+                            device=dev).int()
+        q87 = t.q[r87.long()].long().view(-1, 1)
+        x = (torch.randint(0, 1 << 62, (3, 87, n), generator=gen,
+                           device=dev) % (2 * q87)).int()
+        calls = [(x, t, r87, dict())]
+    elif case == "extremes":
+        x = (2 * q.view(-1, 1) - 1).int().expand(2, 4, n).contiguous()
+        calls = [(x, t, rows, dict(scale=sc, scale_shoup=scs,
+                                   mul_by=x.clone()))]
+    else:  # floor30
+        t30 = _tables30(dev, n, 22)
+        q30 = t30.q.long()
+        y = (q30.view(1, 22, 1) - 1).expand(2, 22, n).contiguous().int()
+        x = nk.ntt_forward_plain(y, t30)
+        fd = dict(emit_floor_div=(((1 << 32) // q30).int(),
+                                  ((1 << 32) % q30).int()))
+        assert torch.equal(nk.ntt_inverse_plain(x, t30, **fd)[0], y)
+        calls = [(x, t30, None, fd)]
+    for xx, tt, rr, kw in calls:
+        before = nk.ntt_inverse.launches
+        got = nk.ntt_inverse(xx, tt, rr, cluster=cluster, **kw)
+        assert nk.ntt_inverse.launches == before + 1
+        _same(got, nk.ntt_inverse_plain(xx, tt, rr, **kw))
 
 
 K3_CASES = ([pytest.param(logn, None, "options", id=str(logn))
@@ -168,19 +220,35 @@ def test_k3_bconv_forward(dev, logn, cluster, case):
         _same(got, nk.bconv_ntt_forward_plain(yy, mm, tt, rr, **kw))
 
 
-@pytest.mark.parametrize("k_in,k_out", [(22, 43), (21, 44), (3, 5), (63, 4),
-                                        (87, 44), (44, 43)])
+@pytest.mark.parametrize("k_in,k_out,case", [
+    (22, 43, "random"), (21, 44, "random"), (3, 5, "random"),
+    (63, 4, "random"), (87, 44, "random"), (44, 43, "random"),
+    (87, 44, "extremes"), (bk.MAX_K_IN, 44, "random"), (22, 1, "random")])
 @pytest.mark.parametrize("logn", [10, 16])
-def test_k5_fold_matmul(dev, logn, k_in, k_out):
+def test_k5_fold_matmul(dev, logn, k_in, k_out, case):
+    """K5 on the int8 tensor cores: the main path's shapes, y = mat =
+    2^30 - 1 (every plane full), the largest k_in the wrapper takes (one
+    more raises), one output row; the launch counter moves by one."""
     n = 1 << logn
     gen = torch.Generator(device=dev)
     gen.manual_seed(k_in)
     y = torch.randint(0, 1 << 30, (k_in, n), generator=gen, device=dev).int()
     mat = torch.randint(0, 1 << 30, (k_out, k_in), generator=gen,
                         device=dev).int()
+    if case == "extremes":
+        y.fill_((1 << 30) - 1)
+        mat.fill_((1 << 30) - 1)
     q = torch.tensor(numth.get_primes(2 * n, 29, k_out), dtype=torch.int32,
                      device=dev)
-    _same(bk.fold_matmul(y, mat, q), bk.fold_matmul_plain(y, mat, q))
+    before = bk.fold_matmul.launches
+    got = bk.fold_matmul(y, mat, q)
+    assert bk.fold_matmul.launches == before + 1
+    _same(got, bk.fold_matmul_plain(y, mat, q))
+    if k_in == bk.MAX_K_IN:
+        y1 = torch.zeros((k_in + 1, n), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError):
+            bk.fold_matmul(y1, torch.zeros((k_out, k_in + 1),
+                                           dtype=torch.int32, device=dev), q)
 
 
 @pytest.mark.parametrize("self_mul", [False, True], ids=["pass", "self_mul"])

@@ -158,3 +158,40 @@ def test_uniform_sampler_exact(bits):
     want = [[(h * 2 ** 62 + l) % qs[r] for h, l in zip(hi[r], lo[r])]
             for r in range(3)]
     assert got.tolist() == want
+
+
+def test_fold_matmul_digit_planes():
+    """K5's tensor-core arithmetic (csrc/bconv.cu) in numpy: y and mat split
+    into four 8-bit planes, the seven diagonal sums D_d = sum_{a+b=d} m_b
+    y_a stay below 2^31 (the s32 accumulators) with all-ones words at the
+    wrapper's largest k_in, and to k_in = 8256, not one row more; folded
+    with 2^(8d) mod q they equal fold_matmul_plain."""
+    from phantom_tpu_torch.ops import bconv_kernels as bk
+
+    def planes(x):
+        return [(x >> (8 * a)) & 0xFF for a in range(4)]
+
+    def diagonals(y, mat):  # float64 products of 8-bit planes are exact
+        yp, mp = planes(y), planes(mat)
+        d = np.zeros((7, mat.shape[0], y.shape[1]), dtype=np.int64)
+        for a in range(4):
+            for b in range(4):
+                d[a + b] += (mp[b].astype(np.float64)
+                             @ yp[a].astype(np.float64)).astype(np.int64)
+        return d
+
+    for k_in in (bk.MAX_K_IN, 8256, 8257):
+        ones = np.full((k_in, 1), 0xFFFFFFFF, dtype=np.int64)
+        assert (diagonals(ones, ones.T).max() < 1 << 31) == (k_in <= 8256)
+    k_in, k_out, n = 87, 44, 1024
+    y = RNG.integers(0, 1 << 30, (k_in, n), dtype=np.int64)
+    mat = RNG.integers(0, 1 << 30, (k_out, k_in), dtype=np.int64)
+    y[:, :2] = mat[:2] = (1 << 30) - 1
+    q = np.array(numth.get_primes(2 * n, 30, k_out), dtype=np.int64)[:, None]
+    out = np.zeros((k_out, n), dtype=np.int64)
+    for d, dd in enumerate(diagonals(y, mat)):
+        out = (out + dd % q * (pow(2, 8 * d) % q)) % q
+    np.testing.assert_array_equal(
+        out, bk.fold_matmul_plain(torch.from_numpy(y).int(),
+                                  torch.from_numpy(mat).int(),
+                                  torch.from_numpy(q[:, 0]).int()).numpy())
