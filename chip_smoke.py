@@ -34,7 +34,10 @@ chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
 K1 (csrc/ntt.cu) runs each row on the one-pass, cluster-resident radix-8
 core (csrc/ntt_cluster.cuh; Gentleman-Sande passes, then the crossing
 stages over distributed shared memory), its floor sum v a second launch
-of the same call; K3 and K4 run on the same core forward.  K5
+of the same call; K2, K3 and K4 run on the same core forward, one launch
+each, and K8 too, a cluster holding a share of several output rows at a
+time (csrc/moddown_rows.cu).  Only K7 (csrc/moddown_rescale.cu) still
+runs two-pass radix-2 transforms (csrc/ntt_core.cuh).  K5
 (csrc/bconv.cu) runs on the int8 tensor cores: four 8-bit digit planes of
 y and of the matrix, 16 plane products on mma.sync m16n8k32 into seven
 exact s32 diagonals, folded by Shoup products.
@@ -43,7 +46,10 @@ Phases, one line each or more; any failure exits non-zero:
   1. device    card name and power limit, CUDA, nvcc, triton, device count
   2. build     the kernels of phantom_tpu_torch/csrc, built from source;
                K5's int8 tensor-core instructions (IMMA) counted in the
-               built library's SASS (cuobjdump)
+               built library's SASS (cuobjdump); no kernel of the two-pass
+               K2 and K8 (fwd_col_kernel, fwd_chunk_kernel,
+               rows_col_kernel) left in its symbols, the core's kernels
+               there; registers and stack of the core's kernels
   3. golden    the step (n = 1024, alpha = 2) through each epilogue on both
                routes, and the rotation golden file (rotation, key switch,
                both hoisted forms, moddown, the step through each
@@ -61,11 +67,14 @@ Phases, one line each or more; any failure exits non-zero:
   6. timing    a chain of steps, each output re-padded into the next input
                (as bench.py does), kernel path against plain path in turns,
                then the three epilogues in turns (pair, K8, K7, K7, K8,
-               pair), timed with CUDA events; K8 alone at 1, 2, 4 and 8
-               rows per block; K3 and K1 alone on the moddown pair's
+               pair), timed with CUDA events; K8 alone at 1, 2, 4, 6 and
+               8 rows per cluster; K3 and K1 alone on the moddown pair's
                operands ((2, 22, N) -> (2, 43, N), and the (2, 22, N)
-               inverse with its floor sum v) at 8, 4 and 2 blocks per row
-               (in turns 8, 4, 2, 2, 4, 8), each bit-equal to the default
+               inverse with its floor sum v), K2 alone on the modup's
+               (87, N), on BFV's D forward shape (2, 2, 87, N) and BGV's
+               moddown shape (2, 43, N), and K8 alone on the moddown's
+               operands (R = 8) at 8, 4 and 2 blocks per row (in turns 8,
+               4, 2, 2, 4, 8), each bit-equal to the default
   7. profile   torch.profiler over a few chained kernel-path steps: the
                device-busy time, the idle share and the top device kernels
   8. routes    the step on the "xla" route (K4p) and on the "kernel" route
@@ -135,18 +144,20 @@ Phases, one line each or more; any failure exits non-zero:
                each half by itself as two calls, one delta over both
                halves, the modulus switch); the profiler over a few
                chained steps
- 26. anatomy  K3 and K1 on the headline moddown's shapes (K1 also on the
-               modup's (43, N) with mul_by), K5 on the modup's digit (22,
-               N) -> 43 and BFV's (87, N) -> 44, and K4 on the alpha-8
-               step's (seeded operands), on the library as built and on
-               timing probes built from copies of their sources that each
-               drop one part of the work (ANATOMY: the transform, all but
-               one prologue term, the crossing stages and cluster syncs,
-               the local passes, the twiddle fetches, K1's floor sum; K5's
-               plane products, fold, fold table, y planes, store) or take
-               the path the wrappers do not pick (K1 at two blocks per SM,
-               the conversion's carry word), in turns, each call's device
-               time (_device_ms)
+ 26. anatomy  K3, K8 (R = 8) and K1 on the headline moddown's shapes (K1
+               also on the modup's (43, N) with mul_by), K2 on the modup's
+               (87, N), K5 on the modup's digit (22, N) -> 43 and BFV's
+               (87, N) -> 44, and K4 on the alpha-8 step's (seeded
+               operands), on the library as built and on timing probes
+               built from copies of their sources that each drop one part
+               of the work (ANATOMY: the transform, all but one prologue
+               term, the crossing stages and cluster syncs, the local
+               passes, the twiddle fetches, K1's floor sum; K5's plane
+               products, fold, fold table, y planes, store) or take the
+               path the wrappers do not pick (K1 and K2 at two blocks per
+               SM, the conversion's carry word, K8 with one transform per
+               held row, K8 at 512 threads a block), in turns, each call's
+               device time (_device_ms)
 Each probed call (phases 4, 8, 11, 18 and 23) prints its event time with
 the host's launch overhead, as every run of this script has, and its
 device time alone (_device_ms: the calls enqueued while the device
@@ -196,7 +207,8 @@ ENGINES = ("mxu-pallas", "pallas-roll")
 CHAIN_BFV_STEPS = 10
 CHAIN_BGV_STEPS = 10
 CLUSTERS = (8, 4, 2)  # K6's blocks per 2^16-word row, timed in turns
-K3_CLUSTERS = (8, 4, 2)  # K3's and K1's blocks per row, in turns (phase 6)
+K8_ROWS = (1, 2, 4, 6, 8)  # K8's rows per cluster, timed (phase 6)
+K3_CLUSTERS = (8, 4, 2)  # K1-K3's and K8's blocks per row (phase 6)
 STEPS = tuple(range(1, 8))
 DELTA_BITS = 22
 SEED = 2026
@@ -266,25 +278,32 @@ EXPECTED = {  # launches per path run
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
 # Phase 26's timing probes of the one-pass core (csrc/ntt_cluster.cuh)
-# under K3, K4 and K1, and of K5, each built from a patched copy of the
+# under K3, K4, K8, K2 and K1, and of K5, each built from a patched copy of the
 # sources (the base is the library as built; every patch replaces each
 # occurrence, so the core's patches reach both directions).  Most remove
 # one part of the work, so their results are wrong by design and only
-# their times are read; two take a path the wrappers do not: K1 at two
-# blocks per SM, and the conversion's product-sum with a carry word.
+# their times are read; the others take a path the wrappers do not: K1
+# and K2 at two blocks per SM, the conversion's product-sum with a carry
+# word, K8 with one transform per held row in place of one over all of
+# them, and K8 at 512 threads a block where it holds up to 4 rows.
 # name: [(file, old, new)]
 _TERMS = "const int terms = min(alpha"
+_FWD = "  cluster_ntt(s, cluster, G, rank, tb.w + trow, tb.ws + trow, bq.q);"
+_HELD = ("    cluster_ntt_rows(s, cluster, G, rank,\n"
+         "                     HeldRows{rr, tb.w, tb.ws, G.logn, nh, words});")
 ANATOMY = {
     "no transform": [
-        ("bconv_ntt.cu", "  cluster_ntt(s, cluster, G, rank, tb.w + trow, "
-         "tb.ws + trow, bq.q);", "  __syncthreads();"),
-        ("modup_ip.cu", "    cluster_ntt(s, cluster, G, rank, tb.w + trow, "
-         "tb.ws + trow, bq.q);", "    __syncthreads();"),
+        ("bconv_ntt.cu", _FWD, "  __syncthreads();"),
+        ("modup_ip.cu", "  " + _FWD, "    __syncthreads();"),
         ("ntt.cu", "  cluster_intt(s, cluster, G, rank, tb.w + trow, "
-         "tb.ws + trow, q);", "  __syncthreads();")],
+         "tb.ws + trow, q);", "  __syncthreads();"),
+        ("ntt.cu", _FWD, "  __syncthreads();"),
+        ("moddown_rows.cu", _HELD, "    __syncthreads();")],
     "one-term prologue": [
         (f, _TERMS, "const int terms = 1 + 0 * min(alpha")
-        for f in ("bconv_ntt.cu", "modup_ip.cu")],
+        for f in ("bconv_ntt.cu", "modup_ip.cu")] + [
+        ("moddown_rows.cu", "for (int i = 0; i < a.alpha; ++i) {",
+         "for (int i = 0; i < 1 + 0 * a.alpha; ++i) {")],
     "no crossing stages or cluster syncs": [
         ("ntt_cluster.cuh", "  if (G.logc > 0) {", "  if (G.logc > 9) {")],
     "no local passes": [
@@ -302,6 +321,22 @@ ANATOMY = {
         ("ntt.cu", "__launch_bounds__(kClusterThreads, 3)\n"
          "inv_cluster_kernel(", "__launch_bounds__(kClusterThreads, 2)\n"
          "inv_cluster_kernel(")],
+    "K2 at 2 blocks per SM": [
+        ("ntt.cu", "__launch_bounds__(kClusterThreads, 3)\n"
+         "fwd_cluster_kernel(", "__launch_bounds__(kClusterThreads, 2)\n"
+         "fwd_cluster_kernel(")],
+    "K8 at 512 threads a block": [
+        ("moddown_rows.cu", "H <= kFewRows ? 1024 : kClusterThreads",
+         "kClusterThreads")],
+    "K8 one transform per held row": [
+        ("moddown_rows.cu", _HELD,
+         "    for (int r = 0; r < nh; ++r)\n"
+         "      cluster_ntt(s + r * words, cluster, G, rank,\n"
+         "                  tb.w + (static_cast<int64_t>(rr[r].limb) << "
+         "G.logn),\n"
+         "                  tb.ws + (static_cast<int64_t>(rr[r].limb) << "
+         "G.logn),\n"
+         "                  rr[r].q);")],
     # K5: the conditions depend on k_in at run time, so the compiler keeps
     # the rest of the work
     "no plane products": [
@@ -323,7 +358,8 @@ ANATOMY = {
          "      if (j < k_out && c < n && k_in > 9999) {")],
     "carry product-sum": [
         ("bconv_ntt.cu", "    if (wide) {", "    if (false) {"),
-        ("modup_ip.cu", "    if (wide_conv) {", "    if (false) {")],
+        ("modup_ip.cu", "    if (wide_conv) {", "    if (false) {"),
+        ("moddown_rows.cu", "  if (a.wide) {", "  if (false) {")],
 }
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 132 * 64 * 1.98e9
@@ -776,13 +812,48 @@ def _cmd(args):
         return f"unavailable ({e})"
 
 
+# the kernels of the two-pass K2 and K8, which the library must not hold,
+# and the one-pass core's kernels, which it must
+STALE_KERNELS = ("fwd_col_kernel", "fwd_chunk_kernel", "rows_col_kernel")
+CORE_KERNELS = ("fwd_cluster_kernel", "inv_cluster_kernel",
+                "bconv_ntt_kernel", "modup_ip_kernel", "moddown_rows_kernel")
+
+
+def _cuobjdump(lib: str, *args) -> str:
+    from phantom_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, *args, lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+
+
+def resource_usage(lib: str, kernels) -> dict:
+    """{kernel, or kernel<N> for a build templated on an int: its "REG:..
+    STACK:.. SHARED:.. LOCAL:.." line} from cuobjdump
+    --dump-resource-usage; raises for a kernel it does not list."""
+    import re
+    out, name = {}, None
+    for line in _cuobjdump(lib, "--dump-resource-usage").splitlines():
+        if "Function" in line:
+            name = next((k for k in kernels if k in line), None)
+            t = name and re.search(name + r"ILi(\d+)E", line)
+            if t:
+                name += f"<{t.group(1)}>"
+        elif name is not None and "REG:" in line:
+            out[name] = " ".join(w for w in line.split()
+                                 if w.split(":")[0] in ("REG", "STACK",
+                                                        "SHARED", "LOCAL"))
+            name = None
+    missing = [k for k in kernels
+               if not any(n.split("<")[0] == k for n in out)]
+    if missing:
+        raise RuntimeError(f"cuobjdump lists no resources of {missing}")
+    return out
+
+
 def sass_count(lib: str, kernel: str, opcode: str) -> dict:
     """{instruction: count} of the `opcode` instructions in `kernel`'s SASS
     in the built library (cuobjdump -sass)."""
-    from phantom_tpu_torch import _build
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
+    sass = _cuobjdump(lib, "-sass")
     counts, inside = {}, False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -884,10 +955,11 @@ def kernel_wrappers():
 
 
 def calls_only(card: str, dev) -> None:
-    """--calls: every kernel call of one headline step on each modup route,
-    one alpha-8 xla-split step, one BFV step on each engine and one BGV
-    step on each route, under the probes (phases 4, 8, 11, 18 and 23
-    without the rest).  It passes the wrappers only their common
+    """--calls: every kernel call of one headline step on each modup route
+    and through the K8 and K7 epilogues, one alpha-8 xla-split step and
+    one through each of those epilogues, one BFV step on each engine and
+    one BGV step on each route, under the probes (phases 4, 8, 11, 18 and
+    23 without the rest).  It passes the wrappers only their common
     arguments, so a copy of this file measures an earlier tree of the port
     the same way."""
     import torch
@@ -899,11 +971,14 @@ def calls_only(card: str, dev) -> None:
     ctx = make_context(chain_params(**HEADLINE))
     _, pipe, d1, d2, *_ = make_step_inputs(ctx, SEED, DELTA_BITS, dev)
     pipe(d1, d2, probes)
-    for r in ROUTES[1:]:
-        pp.CKKSPipeline32(ctx, pipe.evk, modup=r).to(dev)(d1, d2, probes)
+    epilogues = [kw for kw in EPILOGUES.values() if kw]
+    for kw in [dict(modup=r) for r in ROUTES[1:]] + epilogues:
+        pp.CKKSPipeline32(ctx, pipe.evk, **kw).to(dev)(d1, d2, probes)
     ctx8 = make_context(chain_params(**ALPHA8))
     _, pipe8, e1, e2, *_ = make_step_inputs(ctx8, SEED, DELTA_BITS, dev)
     pp._mult_relin_rescale_split(pipe8, e1, e2, probes)
+    for kw in epilogues:
+        pp.CKKSPipeline32(ctx8, pipe8.evk, **kw).to(dev)(e1, e2, probes)
     del ctx, pipe, d1, d2, ctx8, pipe8, e1, e2
     for scheme, cfg, build, kws in (
             ("bfv", BFV, bfv32.build_bfv32,
@@ -1294,9 +1369,13 @@ def _bgv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
     _profile(run, PROFILE_STEPS, card, "BGV step")
 
 
+_PROBED_SOURCES = ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu", "bconv.cu",
+                   "moddown_rows.cu")
+
+
 def _probe_library(name: str, patches, tmp: str):
-    """Start the nvcc builds of a patched copy of K3 and K4's sources (and
-    ntt.cu, for ptk_error_string); returns (library path, processes)."""
+    """Start the nvcc builds of a patched copy of the probed kernels'
+    sources; returns (library path, objects, processes)."""
     import shutil
     from phantom_tpu_torch import _build
     d = os.path.join(tmp, name.replace(" ", "_"))
@@ -1310,7 +1389,7 @@ def _probe_library(name: str, patches, tmp: str):
         with open(path, "w") as fh:
             fh.write(src.replace(old, new))
     objs, procs = [], []
-    for f in ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu", "bconv.cu"):
+    for f in _PROBED_SOURCES:
         obj = os.path.join(d, f + ".o")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c", "-o", obj,
                os.path.join(d, f)]
@@ -1322,17 +1401,18 @@ def _probe_library(name: str, patches, tmp: str):
 
 
 def _anatomy(card: str, dev) -> None:
-    """Phase 26: K3 and K1 on the headline moddown's shapes, K1 on the
-    modup's, K5 on the modup's digit and BFV's scale-and-round, and K4 on
-    the alpha-8 step's, timed (device time) on the library as built and on
-    each probe of ANATOMY (seeded operands), in turns (base, probes, probes
-    reversed, base)."""
+    """Phase 26: K3, K8 and K1 on the headline moddown's shapes, K1 and K2
+    on the modup's, K5 on the modup's digit and BFV's scale-and-round, and
+    K4 on the alpha-8 step's, timed (device time) on the library as built
+    and on each probe of ANATOMY (seeded operands), in turns (base,
+    probes, probes reversed, base)."""
     import ctypes
     import tempfile
     import torch
     from phantom_tpu_torch import _build, make_context
-    from phantom_tpu_torch.ops import bconv_kernels, modup_ip_kernels
-    from phantom_tpu_torch.ops import ntt_kernels
+    from phantom_tpu_torch.ops import bconv_kernels, moddown_kernels
+    from phantom_tpu_torch.ops import modup_ip_kernels, ntt_kernels
+    from phantom_tpu_torch.ops import pipeline32 as pp
     libs = {}
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -1347,7 +1427,8 @@ def _anatomy(card: str, dev) -> None:
                 text=True))])
             lib = ctypes.CDLL(so)
             for fn in ("ptk_bconv_ntt_forward", "ptk_modup_ip",
-                       "ptk_ntt_inverse", "ptk_fold_matmul",
+                       "ptk_ntt_inverse", "ptk_ntt_forward",
+                       "ptk_moddown_rows", "ptk_fold_matmul",
                        "ptk_fold_matmul_smem", "ptk_error_string"):
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = \
                     _build._SIGNATURES[fn]
@@ -1375,6 +1456,15 @@ def _anatomy(card: str, dev) -> None:
         lambda: ntt_kernels.bconv_ntt_forward(
             y, mat, t, rows, v=v, vmul=vmul, sub_from=sub, epi_scale=sc,
             epi_scale_shoup=scs, tensor_add=(d1, d2))
+    mat8 = mat[0].contiguous()
+    calls[f"K8 moddown (2, {alpha}, N) -> (2, {k}, N), R = 8"] = \
+        lambda: moddown_kernels.moddown_rows(
+            y, mat8, v, vmul, sub, (d1, d2), t, rows, sc, scs, 8)
+    # K2: the modup's complement rows of both digits, lazy [0, 2q)
+    rows_c = pp.build_keyswitch32(ctx, device=dev).rows_compl
+    xc = res((rows_c.numel(), n), 2 * q[rows_c.long()])
+    calls[f"K2 modup ({rows_c.numel()}, N)"] = \
+        lambda: ntt_kernels.ntt_forward(xc, t, rows_c)
     # K1: the moddown's inverse with v, the modup's with mul_by
     qp, qk = q[k:k + alpha].view(alpha), q[:k].view(k)
     psc, ksc = res((alpha,), qp), res((k,), qk)
@@ -1464,6 +1554,15 @@ def main() -> int:
         raise RuntimeError("K5: no IMMA instruction in fold_matmul_kernel")
     print(f"sass: K5 fold_matmul_kernel issues {sum(imma.values())} int8 "
           f"tensor-core instructions ({', '.join(sorted(imma))})")
+    syms = _cuobjdump(path, "-symbols")
+    stale = [k for k in STALE_KERNELS if k in syms]
+    missing = [k for k in CORE_KERNELS if k not in syms]
+    if stale or missing:
+        raise RuntimeError(f"build: two-pass kernels {stale} in the library, "
+                           f"core kernels {missing} not")
+    use = resource_usage(path, CORE_KERNELS)
+    print(f"symbols: none of {', '.join(STALE_KERNELS)}; resources: "
+          + "; ".join(f"{k} {v}" for k, v in use.items()))
 
     # 3. golden files from the JAX package
     g = np.load(GOLDEN)
@@ -1568,12 +1667,14 @@ def main() -> int:
 
     pipes["K8"](d1, d2, pp.KERNELS._replace(moddown_rows=keep_args))
     times = {r: _time(lambda: moddown_kernels.moddown_rows(*k8_args[:-1], r),
-                      REPS) for r in (1, 2, 4, 8)}
-    print("timing K8 per call by rows per block: " + ", ".join(
-        f"R={r} {ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
-    # K3 and K1 alone on the moddown's operands at each cluster size, in
-    # turns
-    calls = {"K3": [], "K1": []}
+                      REPS) for r in K8_ROWS}
+    c8 = ntt_kernels.default_cluster(params.n)
+    print("timing K8 per call by rows per cluster: " + ", ".join(
+        f"R={r} (held {moddown_kernels.held_rows(r, params.n, c8)}) "
+        f"{ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
+    # K3, K8 and K1 alone on the moddown's operands, K2 on the modup's, at
+    # each cluster size, in turns
+    calls = {"K3": [], "K1": [], "K2": []}
 
     def keep(name, fn):
         def call(*a, **kw):
@@ -1583,14 +1684,34 @@ def main() -> int:
 
     pipe(d1, d2, pp.KERNELS._replace(
         bconv_ntt_forward=keep("K3", ntt_kernels.bconv_ntt_forward),
-        ntt_inverse=keep("K1", ntt_kernels.ntt_inverse)))
-    moddown = {"K3": calls["K3"][0],  # the moddown pair's calls
-               "K1": next(c for c in calls["K1"]
-                          if c[1].get("emit_floor_div") is not None)}
-    for name, fn in (("K3", ntt_kernels.bconv_ntt_forward),
-                     ("K1", ntt_kernels.ntt_inverse)):
-        args, kw = moddown[name]
+        ntt_inverse=keep("K1", ntt_kernels.ntt_inverse),
+        ntt_forward=keep("K2", ntt_kernels.ntt_forward)))
+    k1_md = next(c for c in calls["K1"]
+                 if c[1].get("emit_floor_div") is not None)
+    # K2 also at BFV's D forward and BGV's moddown shapes (seeded, lazy
+    # [0, 2q), over the modup's complement rows and the first 43)
+    (_, t_, rows_c), _ = calls["K2"][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    rows_q = t_.all_rows()[:params.size_q].contiguous()
+    x_d, x_q = ((torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                 % (2 * t_.q[r.long()].long().view(-1, 1))).int()
+                for shape, r in (((2, 2, rows_c.numel(), params.n), rows_c),
+                                 ((2, params.size_q, params.n), rows_q)))
+    for name, fn, (args, kw), what in (
+            ("K3", ntt_kernels.bconv_ntt_forward, calls["K3"][0],
+             "moddown"),  # the moddown pair's calls
+            ("K8", moddown_kernels.moddown_rows, (k8_args, {}),
+             f"moddown, R = {k8_args[-1]},"),
+            ("K1", ntt_kernels.ntt_inverse, k1_md, "moddown"),
+            ("K2", ntt_kernels.ntt_forward, calls["K2"][0], "modup"),
+            ("K2", ntt_kernels.ntt_forward, ((x_d, t_, rows_c), {}),
+             "BFV's D forward shape"),
+            ("K2", ntt_kernels.ntt_forward, ((x_q, t_, rows_q), {}),
+             "BGV's moddown shape")):
         ref = fn(*args, **kw)
+        words = (ntt_kernels.K2_CLUSTER_WORDS if name == "K2"
+                 else ntt_kernels.CLUSTER_WORDS)
         times = {}
         for c in K3_CLUSTERS + K3_CLUSTERS[::-1]:
             def run(c=c):
@@ -1599,16 +1720,16 @@ def main() -> int:
                 raise RuntimeError(f"{name} at cluster {c} differs from the "
                                    "default")
             times.setdefault(c, []).append(_time(run, REPS))
-        what = (f"{tuple(args[0].shape)} with v" if name == "K1" else
-                f"{tuple(args[0].shape)} -> {tuple(ref.shape)}")
-        print(f"timing {name} per call by blocks per row, moddown {what} "
+        what += (f" {tuple(args[0].shape)} with v" if name == "K1" else
+                 f" {tuple(args[0].shape)} -> {tuple(ref.shape)}")
+        print(f"timing {name} per call by blocks per row, {what} "
               "(bit-equal): "
               + ", ".join(f"C={c} {np.mean(v):.4f} ms ("
                           + ", ".join(f"{u:.4f}" for u in v) + ")"
                           for c, v in times.items())
-              + f"; default C={ntt_kernels.default_cluster(params.n)} "
+              + f"; default C={ntt_kernels.default_cluster(params.n, words)} "
               f"[{card}]")
-    del calls, moddown, args, kw, ref  # no operand outlives its phase
+    del calls, k1_md, k8_args, args, kw, ref, x_d, x_q  # phase 6's alone
 
     # 7. profile: where one chained kernel-path step's device time goes
     dd = [d1]

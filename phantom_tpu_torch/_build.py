@@ -41,7 +41,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ptk_error_string": ([_I], ctypes.c_char_p),
     "ptk_ntt_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P], _I),
+                         _P, _P, _P, _P, _P, _I, _P], _I),
     "ptk_ntt_inverse": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _I, _P], _I),
     "ptk_bconv_ntt_forward": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -52,7 +52,7 @@ _SIGNATURES = {
     "ptk_modup_ip": ([_P] * 6 + [_I] * 4 + [_P] * 4 + [_I] * 3 + [_P], _I),
     "ptk_inner_product": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "ptk_moddown_rows": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
-                          _P, _P, _P, _P, _P, _P], _I),
+                          _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "ptk_moddown_rescale": ([_P] * 14 + [_I, _I, _I] + [_P] * 8
                             + [_I, _P], _I),
     "ptk_ntt_roll": ([_P] * 6 + [_I] * 4 + [_P] * 5 + [_I, _P], _I),

@@ -7,18 +7,27 @@
 // digit-plane matmuls on the MXU; here the butterflies use native
 // 32x32->64 Shoup products.
 //
-// K2 transforms a row as radix-2 butterflies in shared memory, in two
-// passes of 4096-word tiles (ntt_core.cuh), the row through device memory
-// in between.
+// Both run on the one-pass, cluster-resident radix-8 core
+// (ntt_cluster.cuh): one cluster of C blocks per row, one launch per call,
+// C the wrapper's default unless the caller picks one (K1 shares of 2^13
+// words, K2 of 2^14: ops/ntt_kernels.py).
 //
-// K1 runs on the one-pass, cluster-resident radix-8 core
-// (ntt_cluster.cuh, cluster_intt): one cluster of C blocks per row, C =
-// default_cluster(N) unless the caller picks one.  Each block reads its
-// share with 16-byte loads (times mul_by, both reduced first, when given),
-// the cluster runs the local Gentleman-Sande passes and the crossing
-// stages, and each block multiplies its share by the limb's scale
-// (n^-1 Qhat^-1, a Shoup product that takes the lazy [0, 2q) words) and
-// stores it with 16-byte stores.  The row never makes a round trip
+// K2 (cluster_ntt): each block reads its share of x ([0, 2q), which the
+// core takes as it is) with 16-byte loads, the cluster runs the crossing
+// stages and the local Cooley-Tukey passes, and each block brings its
+// share to [0, q), applies the epilogue (sub_from, epi_scale and the
+// tensor adds, apply_epilogue4) and stores it with 16-byte stores: the
+// row crosses device memory once each way.  Bound at the headline modup's
+// (87, N): x and out 22.8 MB each, 87 table rows with Shoup words 44.6 MB,
+// 0.027 ms at 3.35 TB/s.  K2 is held to three 512-thread blocks per SM
+// (`__launch_bounds__`), as K1 is, which beats two (chip_smoke.py phase
+// 26 times both).
+//
+// K1 (cluster_intt): each block reads its share with 16-byte loads (times
+// mul_by, both reduced first, when given), the cluster runs the local
+// Gentleman-Sande passes and the crossing stages, and each block
+// multiplies its share by the limb's scale (n^-1 Qhat^-1, a Shoup product
+// that takes the lazy [0, 2q) words) and stores it with 16-byte stores.  The row never makes a round trip
 // through device memory, and a two-row call (the rescale's and BGV's mod
 // switch's (2, 1, N)) is two clusters.  The kernel is held to 40
 // registers, three 512-thread blocks per SM, so that the moddown's and
@@ -38,7 +47,7 @@
 // scratch zeroed and a pass to finish v, and the cascade's work stays the
 // same; they were not built.
 //
-// Bound: device memory.  At the modup's (43, N) with mul_by, N = 2^16, a
+// K1's bound: device memory.  At the modup's (43, N) with mul_by, N = 2^16, a
 // call reads x and mul_by (22.5 MB) and 43 table rows with Shoup words
 // (22.5 MB) and writes 11.3 MB: 0.017 ms at 3.35 TB/s.  The transform's
 // instructions (ntt_cluster.cuh) stay within 2x of that; what the kernel
@@ -56,6 +65,37 @@ struct InvArgs {
   const uint32_t* scale;   // (L,) replaces n^-1
   const uint32_t* scale_shoup;
 };
+
+// K2: one cluster per row; block `rank` owns the row's share [rank S,
+// (rank + 1) S).
+__global__ void __launch_bounds__(kClusterThreads, 3)
+fwd_cluster_kernel(const uint32_t* x, NttTables tb, FwdEpilogue epi,
+                   ClusterGeom G, uint32_t* out) {
+  extern __shared__ uint32_t s[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x >> G.logc;
+  const int g = row / tb.L, j = row - g * tb.L;  // once per block
+  const int limb = tb.rows[j];
+  const Barrett bq = make_barrett(tb.q[limb]);
+  const int vecs = 1 << (G.logs - 2);
+  const int64_t share = static_cast<int64_t>(rank) << G.logs;
+  const int64_t base = (static_cast<int64_t>(row) << G.logn) + share;
+  for (int v = threadIdx.x; v < vecs; v += blockDim.x) {
+    const uint4 xv = ld4(x + base + 4 * v);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[pad(4 * v + c)] = lane4(xv, c);
+  }
+  const int64_t trow = static_cast<int64_t>(limb) << G.logn;
+  cluster_ntt(s, cluster, G, rank, tb.w + trow, tb.ws + trow, bq.q);
+  for (int v = threadIdx.x; v < vecs; v += blockDim.x) {
+    uint32_t y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = canon(s[pad(4 * v + c)], bq.q);
+    apply_epilogue4(epi, y, row, j, g, tb.L, share + 4 * v, 1 << G.logn, bq);
+    st4(out + base + 4 * v, y[0], y[1], y[2], y[3]);
+  }
+}
 
 // K1: one cluster per row; block `rank` owns the row's share [rank S,
 // (rank + 1) S).
@@ -185,67 +225,7 @@ floor_sum_kernel(const uint32_t* y, NttTables tb, const uint32_t* U,
   }
 }
 
-// Forward column pass: the row as stored (lazy [0, 2q) tolerated), column
-// stages, raw store to out.
-__global__ void __launch_bounds__(kThreads)
-fwd_col_kernel(const uint32_t* x, NttTables tb, Geometry G, uint32_t* out) {
-  __shared__ uint32_t s[kTile];
-  const int tile = blockIdx.x, row = blockIdx.y;
-  const int limb = tb.rows[row % tb.L];
-  const uint32_t q = tb.q[limb];
-  const int64_t r0 = static_cast<int64_t>(row) * G.n;
-  for (int e = threadIdx.x; e < kTile; e += blockDim.x)
-    s[e] = csub(x[r0 + col_index(G, tile, e)], q);
-  __syncthreads();
-  const uint32_t* w = tb.w + static_cast<int64_t>(limb) * G.n;
-  const uint32_t* ws = tb.ws + static_cast<int64_t>(limb) * G.n;
-  for (int m = 1; m < G.n1; m <<= 1) col_stage<false>(s, G, m, w, ws, q);
-  for (int e = threadIdx.x; e < kTile; e += blockDim.x)
-    out[r0 + col_index(G, tile, e)] = s[e];
-}
-
-// Forward chunk pass: load (x when it is the only pass, else the column
-// pass's output in out), chunk stages, epilogue store.
-__global__ void __launch_bounds__(kThreads)
-fwd_chunk_kernel(const uint32_t* x, NttTables tb, FwdEpilogue epi,
-                 Geometry G, uint32_t* out) {
-  __shared__ uint32_t s[kTile];
-  const int tile = blockIdx.x, row = blockIdx.y;
-  const int j = row % tb.L, g = row / tb.L;
-  const int limb = tb.rows[j];
-  const Barrett bq = make_barrett(tb.q[limb]);
-  const bool single = G.n1 == 1;
-  uint32_t* o = out + static_cast<int64_t>(row) * G.n;
-  const int64_t base = static_cast<int64_t>(tile) * G.n2;
-  for (int e = threadIdx.x; e < G.n2; e += blockDim.x)
-    s[e] = single ? csub(x[static_cast<int64_t>(row) * G.n + base + e], bq.q)
-                  : o[base + e];
-  __syncthreads();
-  const uint32_t* w = tb.w + static_cast<int64_t>(limb) * G.n;
-  const uint32_t* ws = tb.ws + static_cast<int64_t>(limb) * G.n;
-  for (int m = G.n1; m < G.n; m <<= 1)
-    chunk_stage<false>(s, G, tile, m, w, ws, bq.q);
-  for (int e = threadIdx.x; e < G.n2; e += blockDim.x)
-    o[base + e] = epi.apply(s[e], row, j, g, tb.L, base + e, G.n, bq);
-}
-
 }  // namespace
-
-void launch_forward(const uint32_t* x, const NttTables& tb,
-                    const FwdEpilogue& epi, const Geometry& G, uint32_t* out,
-                    int nrows, cudaStream_t stream) {
-  const dim3 grid(G.n1, nrows);
-  if (G.n1 > 1) fwd_col_kernel<<<grid, kThreads, 0, stream>>>(x, tb, G, out);
-  fwd_chunk_kernel<<<grid, kThreads, 0, stream>>>(x, tb, epi, G, out);
-}
-
-void launch_forward_chunks(const NttTables& tb, const FwdEpilogue& epi,
-                           const Geometry& G, uint32_t* out, int nrows,
-                           cudaStream_t stream) {
-  fwd_chunk_kernel<<<dim3(G.n1, nrows), kThreads, 0, stream>>>(out, tb, epi,
-                                                               G, out);
-}
-
 }  // namespace ptk
 
 using namespace ptk;
@@ -258,12 +238,14 @@ const char* ptk_error_string(int err) {
 
 // K2.  out, x: (nrows, N); q, w, ws: the whole base's tables; rows: (L,)
 // table row of each group row.  sub, esc, escs and d1, d2 may be null.
+// cluster: blocks per row, as for ptk_bconv_ntt_forward.
 int ptk_ntt_forward(void* out, const void* x, const void* q, const void* w,
                     const void* ws, const void* rows, int L, int nrows,
                     int logn, const void* sub, const void* esc,
                     const void* escs, const void* d1, const void* d2,
-                    void* stream) {
-  const Geometry G = make_geometry(logn);
+                    int cluster, void* stream) {
+  const int logc = log2_of(cluster);
+  const ClusterGeom G{logn, logc, logn - logc};
   const NttTables tb{static_cast<const uint32_t*>(q),
                      static_cast<const uint32_t*>(w),
                      static_cast<const uint32_t*>(ws),
@@ -273,10 +255,10 @@ int ptk_ntt_forward(void* out, const void* x, const void* q, const void* w,
                         static_cast<const uint32_t*>(escs),
                         static_cast<const uint32_t*>(d1),
                         static_cast<const uint32_t*>(d2)};
-  launch_forward(static_cast<const uint32_t*>(x), tb, epi, G,
-                 static_cast<uint32_t*>(out), nrows,
-                 static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_cluster(
+      fwd_cluster_kernel, nrows, logc, G.logs, 0,
+      static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(x), tb,
+      epi, G, static_cast<uint32_t*>(out)));
 }
 
 // K1.  winv, winvs: inverse twiddles; scale, scale_shoup: (L,); mul_by may

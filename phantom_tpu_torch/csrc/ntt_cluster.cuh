@@ -1,5 +1,6 @@
-// The one-pass, cluster-resident, radix-8 NTT core: forward under K3
-// (bconv_ntt.cu) and K4 (modup_ip.cu), inverse under K1 (ntt.cu).
+// The one-pass, cluster-resident, radix-8 NTT core: forward under K2
+// (ntt.cu), K3 (bconv_ntt.cu), K4 (modup_ip.cu) and K8 (moddown_rows.cu),
+// inverse under K1 (ntt.cu).
 //
 // Same transforms as ntt_core.cuh: out[k] = p(psi^(2 rev(k) + 1)), forward
 // Cooley-Tukey stages m = 1 .. N/2 and inverse Gentleman-Sande stages m =
@@ -35,6 +36,11 @@
 // 4q < 2^32) and the caller canonicalises with `canon` before any
 // epilogue; inverse GS keeps them in [0, 2q) and the caller's Shoup
 // product by the scale takes any 32-bit word.
+//
+// A cluster may hold several rows at once, a share of each per block (K8:
+// the rows of one block of output rows): each pass then spreads the units
+// of all of them over the block's threads between the same barriers
+// (cluster_ntt_rows), so the barriers do not multiply with the rows.
 //
 // Shared memory is indexed l + (l >> 5) (one pad word per 32), and the
 // units of a pass with ls < 5 are spread over the warp's lanes so that the
@@ -143,6 +149,21 @@ __device__ __forceinline__ void radix(uint32_t (&x)[1 << R],
   }
 }
 
+// The rows a cluster transforms at once, one share of each per block:
+// row i's share at s + i * words(), transformed with table row w(i),
+// ws(i) and modulus q(i).  One row is OneRow; K8 holds several
+// (moddown_rows.cu, HeldRows).
+struct OneRow {
+  const uint32_t* tw;
+  const uint32_t* tws;
+  uint32_t mod;
+  __device__ __forceinline__ int count() const { return 1; }
+  __device__ __forceinline__ int words() const { return 0; }
+  __device__ __forceinline__ const uint32_t* w(int) const { return tw; }
+  __device__ __forceinline__ const uint32_t* ws(int) const { return tws; }
+  __device__ __forceinline__ uint32_t q(int) const { return mod; }
+};
+
 // Unit u of a local pass of R stages whose last stage pairs words 2^ls
 // apart -> (hi, lo): the unit's words are (hi << (ls + R)) | lo | (k << ls).
 // For ls >= 5 consecutive units are consecutive words.  For ls < 5 the
@@ -161,74 +182,78 @@ __device__ __forceinline__ void unit_of(int u, int ls, int R, int& hi,
        ((u >> (5 + sp)) << (sp + 5 - ls));
 }
 
-// A pass of R stages whose smallest stride is 2^ls.
-template <int R, bool kInverse>
+// A pass of R stages whose smallest stride is 2^ls, over every row of
+// `rows` (a row's units are 2^(logs - R) consecutive values of t, whole
+// warps, so unit_of's lane spread holds per row).  For OneRow, count() is
+// the constant 1, so i folds to 0 and u to t: no index work is added.
+template <int R, bool kInverse, class Rows>
 __device__ __forceinline__ void local_pass(uint32_t* s, const ClusterGeom& G,
                                            int rank, int ls,
-                                           const uint32_t* __restrict__ w,
-                                           const uint32_t* __restrict__ ws,
-                                           uint32_t q) {
+                                           const Rows& rows) {
   // m = N / 2^(ls + R) groups at the pass's widest stage; the share's
   // first group is rank << (logs - ls - R)
   const int g0 = (1 << (G.logn - ls - R)) + (rank << (G.logs - ls - R));
-  const int units = 1 << (G.logs - R);
-  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+  const int lu = G.logs - R;  // 2^lu units per row
+  const int units = rows.count() << lu;
+  for (int t = threadIdx.x; t < units; t += blockDim.x) {
+    const int i = rows.count() == 1 ? 0 : t >> lu;
     int hi, lo;
-    unit_of(u, ls, R, hi, lo);
+    unit_of(t - (i << lu), ls, R, hi, lo);
+    uint32_t* si = s + i * rows.words();
     const int base = (hi << (ls + R)) | lo;
     uint32_t x[1 << R];
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) x[k] = s[pad(base + (k << ls))];
-    radix<R, kInverse>(x, w, ws, g0 + hi, q);
+    for (int k = 0; k < (1 << R); ++k) x[k] = si[pad(base + (k << ls))];
+    radix<R, kInverse>(x, rows.w(i), rows.ws(i), g0 + hi, rows.q(i));
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) s[pad(base + (k << ls))] = x[k];
+    for (int k = 0; k < (1 << R); ++k) si[pad(base + (k << ls))] = x[k];
   }
 }
 
 // The logc crossing stages: radix C over the cluster's shares at equal
-// offsets; block `rank` serves offsets [rank S / C, (rank + 1) S / C).
-template <int LC, bool kInverse>
+// offsets; block `rank` serves offsets [rank S / C, (rank + 1) S / C) of
+// every row of `rows`.
+template <int LC, bool kInverse, class Rows>
 __device__ __forceinline__ void crossing_pass(uint32_t* s,
                                               cg::cluster_group& cluster,
                                               const ClusterGeom& G, int rank,
-                                              const uint32_t* __restrict__ w,
-                                              const uint32_t* __restrict__ ws,
-                                              uint32_t q) {
+                                              const Rows& rows) {
   uint32_t* sh[1 << LC];
 #pragma unroll
   for (int k = 0; k < (1 << LC); ++k) sh[k] = cluster.map_shared_rank(s, k);
-  const int per = 1 << (G.logs - LC);
-  const int first = rank << (G.logs - LC);
+  const int lp = G.logs - LC;  // 2^lp offsets per row
+  const int per = rows.count() << lp;
+  const int first = rank << lp;
   for (int o = threadIdx.x; o < per; o += blockDim.x) {
-    const int p = pad(first + o);
+    const int i = rows.count() == 1 ? 0 : o >> lp;
+    const int p = i * rows.words() + pad(first + o - (i << lp));
     uint32_t x[1 << LC];
 #pragma unroll
     for (int k = 0; k < (1 << LC); ++k) x[k] = sh[k][p];
-    radix<LC, kInverse>(x, w, ws, 1, q);
+    radix<LC, kInverse>(x, rows.w(i), rows.ws(i), 1, rows.q(i));
 #pragma unroll
     for (int k = 0; k < (1 << LC); ++k) sh[k][p] = x[k];
   }
 }
 
-// All log N forward stages on the row whose share this block holds in s
+// All log N forward stages on the rows whose shares this block holds in s
 // (written by every thread of every block of the cluster before the call,
 // [0, 2q)).
-// Returns with the share in [0, 4q) and the block synchronised; no block
-// touches another's share after the call.  Uniform over the cluster.
-__device__ __forceinline__ void cluster_ntt(uint32_t* s,
-                                            cg::cluster_group& cluster,
-                                            const ClusterGeom& G, int rank,
-                                            const uint32_t* __restrict__ w,
-                                            const uint32_t* __restrict__ ws,
-                                            uint32_t q) {
+// Returns with the shares in [0, 4q) and the block synchronised; no block
+// touches another's shares after the call.  Uniform over the cluster.
+template <class Rows>
+__device__ __forceinline__ void cluster_ntt_rows(uint32_t* s,
+                                                 cg::cluster_group& cluster,
+                                                 const ClusterGeom& G,
+                                                 int rank, const Rows& rows) {
   if (G.logc > 0) {
     cluster.sync();
     if (G.logc == 1)
-      crossing_pass<1, false>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<1, false>(s, cluster, G, rank, rows);
     else if (G.logc == 2)
-      crossing_pass<2, false>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<2, false>(s, cluster, G, rank, rows);
     else
-      crossing_pass<3, false>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<3, false>(s, cluster, G, rank, rows);
     cluster.sync();
   } else {
     __syncthreads();
@@ -237,13 +262,23 @@ __device__ __forceinline__ void cluster_ntt(uint32_t* s,
     const int r = left >= 3 ? 3 : left;
     left -= r;
     if (r == 3)
-      local_pass<3, false>(s, G, rank, left, w, ws, q);
+      local_pass<3, false>(s, G, rank, left, rows);
     else if (r == 2)
-      local_pass<2, false>(s, G, rank, left, w, ws, q);
+      local_pass<2, false>(s, G, rank, left, rows);
     else
-      local_pass<1, false>(s, G, rank, left, w, ws, q);
+      local_pass<1, false>(s, G, rank, left, rows);
     __syncthreads();
   }
+}
+
+// cluster_ntt_rows on one row, table row w, ws, modulus q.
+__device__ __forceinline__ void cluster_ntt(uint32_t* s,
+                                            cg::cluster_group& cluster,
+                                            const ClusterGeom& G, int rank,
+                                            const uint32_t* __restrict__ w,
+                                            const uint32_t* __restrict__ ws,
+                                            uint32_t q) {
+  cluster_ntt_rows(s, cluster, G, rank, OneRow{w, ws, q});
 }
 
 // The inverse of cluster_ntt on the row whose share this block holds in s
@@ -257,26 +292,27 @@ __device__ __forceinline__ void cluster_intt(uint32_t* s,
                                              const uint32_t* __restrict__ w,
                                              const uint32_t* __restrict__ ws,
                                              uint32_t q) {
+  const OneRow row{w, ws, q};
   __syncthreads();
   for (int ls = 0; ls < G.logs;) {
     const int r = G.logs - ls >= 3 ? 3 : G.logs - ls;
     if (r == 3)
-      local_pass<3, true>(s, G, rank, ls, w, ws, q);
+      local_pass<3, true>(s, G, rank, ls, row);
     else if (r == 2)
-      local_pass<2, true>(s, G, rank, ls, w, ws, q);
+      local_pass<2, true>(s, G, rank, ls, row);
     else
-      local_pass<1, true>(s, G, rank, ls, w, ws, q);
+      local_pass<1, true>(s, G, rank, ls, row);
     ls += r;
     __syncthreads();
   }
   if (G.logc > 0) {
     cluster.sync();
     if (G.logc == 1)
-      crossing_pass<1, true>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<1, true>(s, cluster, G, rank, row);
     else if (G.logc == 2)
-      crossing_pass<2, true>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<2, true>(s, cluster, G, rank, row);
     else
-      crossing_pass<3, true>(s, cluster, G, rank, w, ws, q);
+      crossing_pass<3, true>(s, cluster, G, rank, row);
     cluster.sync();
   }
 }
@@ -333,8 +369,13 @@ __device__ __forceinline__ void apply_epilogue4(const FwdEpilogue& e,
 
 // Launch `kernel` over `clusters` clusters of 2^logc blocks each, with the
 // share's dynamic shared memory and `extra` words after it; returns the
-// first CUDA error.
-template <class Kernel, class... Args>
+// first CUDA error.  A block has cluster_threads(logs) threads, or with
+// kThreads that many, at most one per 4 words of the share.  With
+// kCheckFit, a configuration of which the card cannot hold one cluster
+// (cudaOccupancyMaxActiveClusters) is refused with
+// cudaErrorInvalidConfiguration before the launch.
+template <bool kCheckFit = false, int kThreads = 0, class Kernel,
+          class... Args>
 cudaError_t launch_cluster(Kernel kernel, int clusters, int logc, int logs,
                            int extra, cudaStream_t stream, Args... args) {
   const int smem =
@@ -349,11 +390,19 @@ cudaError_t launch_cluster(Kernel kernel, int clusters, int logc, int logs,
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters << logc);
-  cfg.blockDim = dim3(cluster_threads(logs));
+  const int most = (1 << logs) / 4;
+  cfg.blockDim = dim3(kThreads == 0 ? cluster_threads(logs)
+                      : kThreads < most ? kThreads : most);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  if (kCheckFit) {
+    int fit = 0;
+    e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (fit == 0) return cudaErrorInvalidConfiguration;
+  }
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

@@ -1,6 +1,7 @@
-// The two-pass negacyclic NTT machinery of the forward kernel (K2 in
-// ntt.cu, K8's chunk pass) and K7 (forward and inverse); and the forward
-// epilogue that the one-pass core's kernels (ntt_cluster.cuh) share.
+// The two-pass negacyclic NTT machinery of K7 (moddown_rescale.cu,
+// forward and inverse), the canonical butterflies that K6 (ntt_roll.cu)
+// shares, and the forward epilogue that the one-pass core's kernels
+// (ntt_cluster.cuh) share.
 //
 // Order and tables are the library's: out[k] = p(psi^(2*rev(k)+1)), twiddle
 // tables in bit-reversed order, the stage with m groups reading entries
@@ -142,18 +143,5 @@ struct FwdEpilogue {
     return x;
   }
 };
-
-// K2's forward transform of the rows x (lazy [0, 2q)) into out with the
-// epilogue: the column pass when N > kTile, then the chunk pass.  Defined
-// in ntt.cu.
-void launch_forward(const uint32_t* x, const NttTables& tb,
-                    const FwdEpilogue& epi, const Geometry& G, uint32_t* out,
-                    int nrows, cudaStream_t stream);
-
-// The chunk pass alone, in place, over rows whose column pass (or, for N <=
-// kTile, whose input) is already in out (K8's second launch).
-void launch_forward_chunks(const NttTables& tb, const FwdEpilogue& epi,
-                           const Geometry& G, uint32_t* out, int nrows,
-                           cudaStream_t stream);
 
 }  // namespace ptk

@@ -9,9 +9,11 @@ after K1 has transformed their P rows:
   K8 moddown_rows     csrc/moddown_rows.cu     replaces ntt_mxu_pallas.py:
                                                moddown_mxu_bconv_pallas
       m, as K3 computes it (bconv_ntt_forward with v, sub_from, epi_scale,
-      tensor_add), with one block serving R output rows so that each y
-      element is read once for all R.  The JAX package selects it with
-      PHANTOM_MODDOWN_R=R, the port with CKKSPipeline32(moddown_rows=R).
+      tensor_add), with one thread-block cluster serving R output rows so
+      that each y element is read once for all of them (per round of the
+      held_rows(R, N, C) rows that fit its shared memory).  The JAX package
+      selects it with PHANTOM_MODDOWN_R=R, the port with
+      CKKSPipeline32(moddown_rows=R).
   K7 moddown_rescale  csrc/moddown_rescale.cu  moddown_rescale_mxu_pallas
       m and the rescale in one call with one forward NTT per row, by
       linearity: rows [0, k-1) of the result are
@@ -20,6 +22,8 @@ after K1 has transformed their P rows:
       The JAX package selects it with PHANTOM_MERGED_EPILOGUE=1, the port
       with CKKSPipeline32(merged_epilogue=True).
 
+K8 runs on the one-pass, cluster-resident radix-8 core (csrc/
+ntt_cluster.cuh), K7 on two-pass radix-2 transforms (csrc/ntt_core.cuh).
 Both are bound by device memory (csrc/).  The plain twins are the composed
 functions: K8's is K3's plain version, K7's that and the rescale.  `rows`
 is the table row of each of the k Ql rows, as in ops/ntt_kernels.py.
@@ -32,10 +36,26 @@ import torch
 from .. import _build
 from .modmath32 import u32
 from .ntt32 import NTTTables32, resolve_rows
+from .._build import check_aligned
 from .ntt_kernels import (_epilogue_args, _expect, _logn, _ptr, _tables,
-                          bconv_ntt_forward_plain, ntt_inverse_plain)
+                          bconv_ntt_forward_plain, check_cluster,
+                          default_cluster, ntt_inverse_plain, share_bytes,
+                          sum_fits_64)
 
-MAX_ROWS = 8  # K8's rows per block: its R sums live in registers
+MAX_ROWS = 8  # K8's rows per cluster: a thread keeps their product-sums
+ROW_CONST_BYTES = 16  # K8's constants per row, after the held shares
+
+
+def held_rows(rows_per_block: int, n: int, cluster: int) -> int:
+    """The rows K8 holds per block at a time for R = rows_per_block: all R
+    when their shares of N / cluster words and MAX_ROWS rows' constants fit
+    a block's shared memory, else as few rounds as fit, balanced (R = 8 at
+    N = 2^16, cluster 8: 6 fit, two rounds of 4)."""
+    check_cluster(n, cluster)
+    fit = ((_build.SMEM_OPTIN - MAX_ROWS * ROW_CONST_BYTES)
+           // share_bytes(n // cluster))
+    rounds = -(-rows_per_block // min(rows_per_block, fit))
+    return -(-rows_per_block // rounds)
 
 
 def moddown_rows_plain(y, mat, v, vmul, sub_from, tensor_add,
@@ -53,10 +73,12 @@ def moddown_rows_plain(y, mat, v, vmul, sub_from, tensor_add,
 def moddown_rows(y: torch.Tensor, mat: torch.Tensor, v: torch.Tensor,
                  vmul: torch.Tensor, sub_from: torch.Tensor, tensor_add,
                  t: NTTTables32, rows, epi_scale: torch.Tensor,
-                 epi_scale_shoup: torch.Tensor,
-                 rows_per_block: int = 8) -> torch.Tensor:
+                 epi_scale_shoup: torch.Tensor, rows_per_block: int = 8,
+                 cluster=None) -> torch.Tensor:
     """K8 on CUDA tensors; the plain version on CPU tensors.  Arguments as
-    moddown_rows_plain's; rows_per_block: R in [1, MAX_ROWS]."""
+    moddown_rows_plain's; rows_per_block: R in [1, MAX_ROWS]; cluster:
+    blocks per row on the card (default default_cluster(N)).  Raises where
+    the card cannot hold one cluster of the launch."""
     if _build.is_plain(y, "moddown_rows"):
         return moddown_rows_plain(y, mat, v, vmul, sub_from, tensor_add, t,
                                   rows, epi_scale, epi_scale_shoup,
@@ -70,6 +92,8 @@ def moddown_rows(y: torch.Tensor, mat: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"moddown_rows: rows_per_block={rows_per_block} "
                          f"outside [1, {MAX_ROWS}]")
     logn = _logn(n)
+    c = default_cluster(n) if cluster is None else int(cluster)
+    held = held_rows(rows_per_block, n, c)
     rows = resolve_rows(t, rows, k)
     _expect(mat, (k, alpha), "mat")
     _expect(v, (2, n), "v")
@@ -82,12 +106,13 @@ def moddown_rows(y: torch.Tensor, mat: torch.Tensor, v: torch.Tensor,
     _build.check_operands(y, mat, v, vmul, rows, *tabs,
                           *(e for e in epi if e is not None))
     out = torch.empty((2, k, n), dtype=torch.int32, device=y.device)
+    check_aligned(out, y, v, epi[0], epi[3], epi[4])
     with torch.cuda.device(y.device):
         err = _build.library().ptk_moddown_rows(
             out.data_ptr(), y.data_ptr(), mat.data_ptr(), v.data_ptr(),
             vmul.data_ptr(), alpha, k, rows_per_block,
             *(a.data_ptr() for a in tabs), rows.data_ptr(), logn,
-            *(_ptr(e) for e in epi),
+            *(_ptr(e) for e in epi), c, held, int(sum_fits_64(alpha, t)),
             _build.stream(y))
     _build.check(err, "moddown_rows")
     moddown_rows.launches += 1

@@ -9,15 +9,13 @@ counts its launches in `<wrapper>.launches`.
   K2 ntt_forward        csrc/ntt.cu        ntt_forward_mxu_pallas
   K3 bconv_ntt_forward  csrc/bconv_ntt.cu  bconv_ntt_forward_mxu_pallas
 
-K2 transforms rows with radix-2 butterflies in shared memory, in two
-passes of 4096-word tiles for N > 4096 (csrc/ntt_core.cuh), and is bound
-by device memory: every pass reads and writes each row once.  K1 and K3
-hold each row in a thread-block cluster for all log N stages, in radix-8
-passes in registers (csrc/ntt_cluster.cuh: Gentleman-Sande for K1, the
-local passes then the crossing stages; Cooley-Tukey for K3): one launch,
-the row read once (K3 converts it straight into shared memory) and
-written once.  K1's floor sum v, a sum over the rows of a group, is a
-second launch in the same call that reads the scaled rows back.
+All three hold each row in a thread-block cluster for all log N stages,
+in radix-8 passes in registers (csrc/ntt_cluster.cuh: Gentleman-Sande
+for K1, the local passes then the crossing stages; Cooley-Tukey for K2
+and K3): one launch, the row read once (K3 converts it straight into
+shared memory) and written once.  K1's floor sum v, a sum over the rows
+of a group, is a second launch in the same call that reads the scaled
+rows back.
 
 Arguments follow the JAX kernels, with one addition: `rows`, the table row
 of each of the L limbs (default: all of `t`'s rows), so one `NTTTables32`
@@ -176,28 +174,34 @@ def _epilogue_args(sub_from, epi_scale, epi_scale_shoup, tensor_add,
 
 
 def ntt_forward(x: torch.Tensor, t: NTTTables32, rows=None, sub_from=None,
-                epi_scale=None, epi_scale_shoup=None,
-                tensor_add=None) -> torch.Tensor:
+                epi_scale=None, epi_scale_shoup=None, tensor_add=None,
+                cluster=None) -> torch.Tensor:
     """K2.  x: (..., L, N) in [0, 2q) -> NTT form in [0, q); with sub_from:
     (sub_from - NTT(x)) * epi_scale; with tensor_add = (d1, d2), each
     (2, L, N) and x of two groups: group 0 += d1[0] d2[0], group 1 +=
-    d1[0] d2[1] + d1[1] d2[0]."""
+    d1[0] d2[1] + d1[1] d2[0].  On the card each row is one cluster of the
+    radix-8 core (cluster: blocks per row, default default_cluster(N,
+    K2_CLUSTER_WORDS))."""
     if _build.is_plain(x, "ntt_forward"):
         return ntt_forward_plain(x, t, rows, sub_from, epi_scale,
                                  epi_scale_shoup, tensor_add)
     n, num_l = x.shape[-1], x.shape[-2]
     logn = _logn(n)
+    c = default_cluster(n, K2_CLUSTER_WORDS) if cluster is None else int(
+        cluster)
+    check_cluster(n, c)
     rows = resolve_rows(t, rows, num_l)
     epi = _epilogue_args(sub_from, epi_scale, epi_scale_shoup, tensor_add,
                          x.shape, num_l)
     tabs = _tables(t, inverse=False)
     _build.check_operands(x, rows, *tabs, *(e for e in epi if e is not None))
     out = torch.empty_like(x)
+    check_aligned(x, out, epi[0], epi[3], epi[4])
     with torch.cuda.device(x.device):
         err = _build.library().ptk_ntt_forward(
             out.data_ptr(), x.data_ptr(), *(a.data_ptr() for a in tabs),
             rows.data_ptr(), num_l, x.numel() // n, logn,
-            *(_ptr(e) for e in epi), _build.stream(x))
+            *(_ptr(e) for e in epi), c, _build.stream(x))
     _build.check(err, "ntt_forward")
     ntt_forward.launches += 1
     return out
@@ -255,20 +259,29 @@ def ntt_inverse(x: torch.Tensor, t: NTTTables32, rows=None, scale=None,
 
 MAX_CLUSTER = 8          # the largest portable cluster
 CLUSTER_WORDS = 1 << 13  # the default share of a row per block
+# K2's: with no prologue to spread, half the crossing traffic beats twice
+# the blocks (C = 4 at N = 2^16: 0.077 against 0.088 ms at (87, N), NVIDIA
+# H100 80GB HBM3, 700 W; chip_smoke.py phase 6)
+K2_CLUSTER_WORDS = 1 << 14
 MIN_SHARE = 1 << 10      # the smallest share the radix-8 core takes
 
 
-def default_cluster(n: int) -> int:
-    """Blocks per row of the cluster kernels (K1, K3, K4, K6): one up to
-    CLUSTER_WORDS words, then shares of CLUSTER_WORDS, at most MAX_CLUSTER
-    blocks."""
-    return min(MAX_CLUSTER, max(1, n // CLUSTER_WORDS))
+def default_cluster(n: int, words: int = CLUSTER_WORDS) -> int:
+    """Blocks per row of the cluster kernels (K1-K4, K6, K8): one up to
+    `words` words, then shares of `words`, at most MAX_CLUSTER blocks."""
+    return min(MAX_CLUSTER, max(1, n // words))
+
+
+def share_bytes(words: int) -> int:
+    """Shared memory of a share of `words` words on the core: one pad word
+    per 32 (csrc/ntt_cluster.cuh, cluster_smem_words)."""
+    return (words + words // 32) * 4
 
 
 def check_cluster(n: int, cluster: int) -> None:
     if (cluster < 1 or cluster > MAX_CLUSTER or cluster & (cluster - 1)
             or n // cluster < MIN_SHARE
-            or (n // cluster) * 33 // 32 * 4 > _build.SMEM_OPTIN):
+            or share_bytes(n // cluster) > _build.SMEM_OPTIN):
         raise ValueError(f"cluster={cluster} at N={n}: a power of two up to "
                          f"{MAX_CLUSTER} whose share of at least {MIN_SHARE} "
                          "words fits shared memory")

@@ -69,16 +69,77 @@ def _same(a, b):
         assert torch.equal(x, y), (x != y).nonzero()[:5].tolist()
 
 
-@pytest.mark.parametrize("logn", LOGNS)
-def test_k2_forward(dev, logn):
-    t, rows, q, res, sc, scs, _ = _setup(dev, logn)
-    x = res((2, 4, 1 << logn), lazy=True)
-    _same(nk.ntt_forward(x, t, rows), nk.ntt_forward_plain(x, t, rows))
-    kw = dict(sub_from=res((2, 4, 1 << logn)), epi_scale=sc,
-              epi_scale_shoup=scs,
-              tensor_add=(res((2, 4, 1 << logn)), res((2, 4, 1 << logn))))
-    _same(nk.ntt_forward(x, t, rows, **kw),
-          nk.ntt_forward_plain(x, t, rows, **kw))
+K2_CASES = ([pytest.param(logn, None, "options", id=str(logn))
+             for logn in LOGNS]
+            + [pytest.param(16, c, "options", id=f"16-C{c}")
+               for c in (1, 2, 4, 8)]
+            + [pytest.param(logn, None, case, id=f"{logn}-{case}")
+               for logn in (10, 16)
+               for case in ("two-rows", "repeated-rows", "extremes")])
+
+
+@pytest.mark.parametrize("logn,cluster,case", K2_CASES)
+def test_k2_forward(dev, logn, cluster, case):
+    """K2 on the cluster core: each size at the default cluster size and,
+    at 2^16, at each (C = 1 refused, as for K1); the (2, 1, N) rows of a
+    mod switch; BFV's D forward, (2, 2, 87, N) with repeated table rows;
+    x at 2q - 1 with every epilogue operand at q - 1.  Each with no
+    epilogue, with (sub_from - .) epi_scale, with the tensor adds and with
+    both.  A misaligned x is refused."""
+    t, rows, q, res, sc, scs, gen = _setup(dev, logn)
+    n = 1 << logn
+    if case == "options" and cluster == 1 and logn == 16:
+        with pytest.raises(ValueError):
+            nk.ntt_forward(res((2, 4, n), lazy=True), t, rows, cluster=1)
+        return
+
+    def epilogues(shape, r, qr, sub=None, d=None):
+        """No epilogue, each alone and both, on (2, L, N) operands over
+        table rows r with moduli qr."""
+        def rand():
+            return (torch.randint(0, 1 << 62, shape, generator=gen,
+                                  device=dev) % qr.view(-1, 1)).int()
+        s_ = rand() if sub is None else sub
+        ta = (rand(), rand()) if d is None else d
+        e = (torch.randint(0, 1 << 62, qr.shape, generator=gen, device=dev)
+             % (qr.long() - 1) + 1).int()
+        es = ((e.long() << 32) // qr.long()).int()
+        sub_kw = dict(sub_from=s_, epi_scale=e, epi_scale_shoup=es)
+        return [dict(), sub_kw, dict(tensor_add=ta),
+                dict(sub_kw, tensor_add=ta)]
+
+    calls = []
+    if case == "options":
+        x = res((2, 4, n), lazy=True)
+        calls = [(x, rows, kw) for kw in epilogues((2, 4, n), rows, q)]
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+        bad = buf[1:].view(x.shape)
+        bad.copy_(x)
+        with pytest.raises(ValueError, match="aligned"):
+            nk.ntt_forward(bad, t, rows, cluster=cluster)
+    elif case == "two-rows":
+        x = res((2, 4, n), lazy=True)[:, 1:2].contiguous()
+        calls = [(x, rows[1:2], kw)
+                 for kw in epilogues((2, 1, n), rows[1:2], q[1:2])]
+    elif case == "repeated-rows":
+        r87 = torch.randint(0, t.q.shape[0], (87,), generator=gen,
+                            device=dev).int()
+        q87 = t.q[r87.long()].long().view(-1, 1)
+        x = (torch.randint(0, 1 << 62, (2, 2, 87, n), generator=gen,
+                           device=dev) % (2 * q87)).int()
+        calls = [(x, r87, dict())] + [
+            (x[0].contiguous(), r87, kw)
+            for kw in epilogues((2, 87, n), r87, q87.view(-1))[1:]]
+    else:  # extremes
+        x = (2 * q.view(-1, 1) - 1).int().expand(2, 4, n).contiguous()
+        top = (q.view(-1, 1) - 1).int().expand(2, 4, n).contiguous()
+        calls = [(x, rows, kw) for kw in epilogues(
+            (2, 4, n), rows, q, sub=top, d=(top, top.clone()))]
+    for xx, rr, kw in calls:
+        before = nk.ntt_forward.launches
+        got = nk.ntt_forward(xx, t, rr, cluster=cluster, **kw)
+        assert nk.ntt_forward.launches == before + 1
+        _same(got, nk.ntt_forward_plain(xx, t, rr, **kw))
 
 
 K1_CASES = ([pytest.param(logn, None, "options", id=str(logn))
@@ -353,19 +414,71 @@ def _moddown_operands(dev, logn, k, alpha):
 MODDOWN_SHAPES = [(43, 22), (43, 8), (5, 2)]  # headline, alpha 8, small
 
 
-@pytest.mark.parametrize("rows_per_block", [8, 2, 1])
-@pytest.mark.parametrize("k,alpha", MODDOWN_SHAPES)
-@pytest.mark.parametrize("logn", [10, 16])
-def test_k8_moddown_rows(dev, logn, k, alpha, rows_per_block):
-    """K8 with and without the tensor adds; k % R != 0 masks a tail."""
-    _, args = _moddown_operands(dev, logn, k, alpha)
+def _k8(args, rows_per_block, cluster=None):
+    """K8 against its plain version, with and without the tensor adds."""
     before = mdk.moddown_rows.launches
-    got = mdk.moddown_rows(*args, rows_per_block)
+    got = mdk.moddown_rows(*args, rows_per_block, cluster)
     assert mdk.moddown_rows.launches == before + 1
     _same(got, mdk.moddown_rows_plain(*args, rows_per_block))
     bare = args[:5] + (None,) + args[6:]
-    _same(mdk.moddown_rows(*bare, rows_per_block),
+    _same(mdk.moddown_rows(*bare, rows_per_block, cluster),
           mdk.moddown_rows_plain(*bare, rows_per_block))
+
+
+@pytest.mark.parametrize("rows_per_block", [8, 7, 6, 5, 2, 1])
+@pytest.mark.parametrize("k,alpha", MODDOWN_SHAPES)
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k8_moddown_rows(dev, logn, k, alpha, rows_per_block):
+    """K8 with and without the tensor adds; k % R != 0 masks a tail; at
+    2^16 R = 7 and 8 run in two rounds (6 rows fit a block at C = 8)."""
+    _, args = _moddown_operands(dev, logn, k, alpha)
+    _k8(args, rows_per_block)
+
+
+@pytest.mark.parametrize("cluster", [8, 4, 2])
+@pytest.mark.parametrize("rows_per_block", [8, 5])
+def test_k8_clusters(dev, cluster, rows_per_block):
+    """K8 at the headline moddown's shape, N = 2^16, at 8, 4 and 2 blocks
+    per row: 6, 3 and 1 rows fit a block, so R = 5 and 8 run in one to
+    eight rounds."""
+    _, args = _moddown_operands(dev, 16, 43, 22)
+    held, fit = mdk.held_rows(rows_per_block, 1 << 16, cluster), {
+        8: 6, 4: 3, 2: 1}[cluster]
+    assert held <= fit and -(-rows_per_block // held) == -(
+        -rows_per_block // min(rows_per_block, fit))
+    _k8(args, rows_per_block, cluster)
+
+
+@pytest.mark.parametrize("rows_per_block", [4, 3, 1])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k8_carry(dev, logn, rows_per_block):
+    """K8 over 30-bit primes with alpha 24, past the 64-bit sum (the carry
+    path), y at q - 1 in two columns of three and every matrix word at
+    2^30 - 1."""
+    n = 1 << logn
+    k, alpha = 4, 24
+    t = _tables30(dev, n, k)
+    assert not nk.sum_fits_64(alpha, t)
+    q = t.q.long()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + rows_per_block)
+
+    def res(shape):
+        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                % q.view(-1, 1)).int()
+
+    y = (q[0] - 1).repeat(2, alpha, n).int()
+    y[:, :, 1::3] = torch.randint(0, 1 << 30, (2, alpha, n), generator=gen,
+                                  device=dev).int()[:, :, 1::3] % (
+                                      q[0] - 1).int()
+    mat = torch.full((k, alpha), (1 << 30) - 1, dtype=torch.int32,
+                     device=dev)
+    v = torch.randint(0, alpha + 1, (2, n), generator=gen, device=dev).int()
+    sc = (res((k, 1)).view(k).long() % (q - 1) + 1).int()
+    args = (y, mat, v, res((k, 1)).view(k), res((2, k, n)),
+            (res((2, k, n)), res((2, k, n))), t, None, sc,
+            ((sc.long() << 32) // q).int())
+    _k8(args, rows_per_block)
 
 
 @pytest.mark.parametrize("k,alpha", MODDOWN_SHAPES + [(2, 3)])

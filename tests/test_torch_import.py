@@ -180,3 +180,59 @@ def test_meta_tensor_raises(meta_args, kernel):
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()
+
+
+@pytest.mark.parametrize("n,cluster", [(1024, 3), (1024, 2), (1 << 16, 1),
+                                       (1 << 16, 16)],
+                         ids=["not-a-power-of-two", "share-below-1024",
+                              "share-past-shared-memory", "past-8"])
+@pytest.mark.parametrize("kernel", ["ntt_forward", "moddown_rows"])
+def test_cluster_refused(meta_args, monkeypatch, kernel, n, cluster):
+    """K2 and K8 on the card path (meta tensors: no data, no launch)
+    refuse a cluster size that is not a power of two up to 8 whose share
+    of N is at least 1024 words and fits a block's shared memory."""
+    from phantom_tpu_torch import _build
+    t, _ = meta_args
+    monkeypatch.setattr(_build, "is_plain", lambda x, name: False)
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("launched"))
+
+    def m(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    with pytest.raises(ValueError, match=f"cluster={cluster} at N={n}"):
+        if kernel == "ntt_forward":
+            ntt_kernels.ntt_forward(m(3, n), t, cluster=cluster)
+        else:
+            moddown_kernels.moddown_rows(
+                m(2, 2, n), m(3, 2), m(2, n), m(3), m(2, 3, n), None, t,
+                None, m(3), m(3), 8, cluster)
+
+
+@pytest.mark.parametrize("logn", range(10, 18))
+def test_k8_held_rows(logn):
+    """K8's rows held per block: at least one, their shares and MAX_ROWS
+    rows' constants within a block's shared memory, all R where they fit,
+    and as few rounds as fit; a cluster size the core refuses raises."""
+    from phantom_tpu_torch import _build
+    n = 1 << logn
+    for c in range(1, 9):
+        share = ntt_kernels.share_bytes(n // c)
+        try:
+            ntt_kernels.check_cluster(n, c)
+        except ValueError:
+            with pytest.raises(ValueError):
+                moddown_kernels.held_rows(8, n, c)
+            continue
+        room = _build.SMEM_OPTIN - moddown_kernels.MAX_ROWS * \
+            moddown_kernels.ROW_CONST_BYTES
+        for r in range(1, moddown_kernels.MAX_ROWS + 1):
+            held = moddown_kernels.held_rows(r, n, c)
+            assert 1 <= held <= r and held * share <= room
+            fit = room // share
+            if r <= fit:
+                assert held == r
+            assert -(-r // held) == -(-r // min(r, fit))
+    if logn == 16:
+        assert moddown_kernels.held_rows(8, n, 8) == 4
+        assert moddown_kernels.held_rows(6, n, 8) == 6
+        assert moddown_kernels.held_rows(8, n, 2) == 1
