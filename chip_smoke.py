@@ -32,12 +32,15 @@ chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
             t-corrected moddown of both halves unfused (K1, K5 to Ql and
             to {t}, K2), the modulus switch K1 and K2.
 K1 (csrc/ntt.cu) runs each row on the one-pass, cluster-resident radix-8
-core (csrc/ntt_cluster.cuh; Gentleman-Sande passes, then the crossing
-stages over distributed shared memory), its floor sum v a second launch
-of the same call; K2, K3 and K4 run on the same core forward, one launch
-each, and K8 too, a cluster holding a share of several output rows at a
-time (csrc/moddown_rows.cu).  Only K7 (csrc/moddown_rescale.cu) still
-runs two-pass radix-2 transforms (csrc/ntt_core.cuh).  K5
+core (csrc/ntt_cluster.cuh, the library's only NTT; Gentleman-Sande
+passes, then the crossing stages over distributed shared memory), its
+floor sum v a second launch of the same call; K2, K3 and K4 run on the
+same core forward, one launch each, and K8 too, a cluster holding a share
+of several output rows at a time (csrc/moddown_rows.cu); K6
+(csrc/ntt_roll.cu) runs K2's and K1's kernels; K7
+(csrc/moddown_rescale.cu) is two launches on the core, the last limb's
+forward and inverse transforms, then the other rows as a programmatic
+dependent launch that converts its rows while the first runs.  K5
 (csrc/bconv.cu) runs on the int8 tensor cores: four 8-bit digit planes of
 y and of the matrix, 16 plane products on mma.sync m16n8k32 into seven
 exact s32 diagonals, folded by Shoup products.
@@ -47,9 +50,10 @@ Phases, one line each or more; any failure exits non-zero:
   2. build     the kernels of phantom_tpu_torch/csrc, built from source;
                K5's int8 tensor-core instructions (IMMA) counted in the
                built library's SASS (cuobjdump); no kernel of the two-pass
-               K2 and K8 (fwd_col_kernel, fwd_chunk_kernel,
-               rows_col_kernel) left in its symbols, the core's kernels
-               there; registers and stack of the core's kernels
+               K2, K7 and K8 or of the radix-2 K6 (STALE_KERNELS) left in
+               its symbols, the core's kernels (CORE_KERNELS) there;
+               registers and stack of the core's kernels, and K7's
+               registers and spills (nvcc -Xptxas -v)
   3. golden    the step (n = 1024, alpha = 2) through each epilogue on both
                routes, and the rotation golden file (rotation, key switch,
                both hoisted forms, moddown, the step through each
@@ -72,11 +76,15 @@ Phases, one line each or more; any failure exits non-zero:
                operands ((2, 22, N) -> (2, 43, N), and the (2, 22, N)
                inverse with its floor sum v), K2 alone on the modup's
                (87, N), on BFV's D forward shape (2, 2, 87, N) and BGV's
-               moddown shape (2, 43, N), and K8 alone on the moddown's
-               operands (R = 8) at 8, 4 and 2 blocks per row (in turns 8,
-               4, 2, 2, 4, 8), each bit-equal to the default
-  7. profile   torch.profiler over a few chained kernel-path steps: the
-               device-busy time, the idle share and the top device kernels
+               moddown shape (2, 43, N), and K8 (R = 8) and K7 alone on the
+               moddown's operands at 8, 4 and 2 blocks per row (in turns
+               8, 4, 2, 2, 4, 8), each bit-equal to the default; K7 beside
+               the three calls of the pair that it replaces (K3's moddown,
+               the rescale's K1 and K3) on the same operands, device time,
+               in turns
+  7. profile   torch.profiler over a few chained kernel-path steps through
+               each epilogue (pair, K8, K7): the device-busy time, the
+               idle share and the top device kernels
   8. routes    the step on the "xla" route (K4p) and on the "kernel" route
                (K4 at alpha 22) with every kernel call bit-equal to its
                plain version and timed, then each route's launch counts,
@@ -112,8 +120,9 @@ Phases, one line each or more; any failure exits non-zero:
                a seeded generator
  18. BFV kernels  every kernel call of one step on each engine bit-equal to
                its plain version, and timed; K6 (at 8, 4 and 2 blocks per
-               row) beside K2 and K1 on the same operands: the D forward
-               (2, 2, 87, N) and the D inverse (3, 87, N)
+               row) beside K2 and K1 on the same operands, event and
+               device time: the D forward (2, 2, 87, N) and the D inverse
+               (3, 87, N)
  19. BFV step  kernel path = plain path on each engine, the engines equal,
                the launch counts; d1, d2 decrypt to m1, m2, and the step's
                output to m1 m2 mod (X^N + 1, t) in every coefficient where
@@ -144,20 +153,22 @@ Phases, one line each or more; any failure exits non-zero:
                each half by itself as two calls, one delta over both
                halves, the modulus switch); the profiler over a few
                chained steps
- 26. anatomy  K3, K8 (R = 8) and K1 on the headline moddown's shapes (K1
-               also on the modup's (43, N) with mul_by), K2 on the modup's
-               (87, N), K5 on the modup's digit (22, N) -> 43 and BFV's
+ 26. anatomy  K3, K8 (R = 8), K7 and K1 on the headline moddown's shapes
+               (K1 also on the modup's (43, N) with mul_by), K2 on the
+               modup's (87, N), K5 on the modup's digit (22, N) -> 43 and BFV's
                (87, N) -> 44, and K4 on the alpha-8 step's (seeded
                operands), on the library as built and on timing probes
                built from copies of their sources that each drop one part
                of the work (ANATOMY: the transform, all but one prologue
                term, the crossing stages and cluster syncs, the local
                passes, the twiddle fetches, K1's floor sum; K5's plane
-               products, fold, fold table, y planes, store) or take the
+               products, fold, fold table, y planes, store; K7's last-limb
+               launch, its other rows' launch, its transforms) or take the
                path the wrappers do not pick (K1 and K2 at two blocks per
                SM, the conversion's carry word, K8 with one transform per
-               held row, K8 at 512 threads a block), in turns, each call's
-               device time (_device_ms)
+               held row, K8 at 512 threads a block, K7 in plain stream
+               order without PDL), in turns, each call's device time
+               (_device_ms)
 Each probed call (phases 4, 8, 11, 18 and 23) prints its event time with
 the host's launch overhead, as every run of this script has, and its
 device time alone (_device_ms: the calls enqueued while the device
@@ -278,19 +289,21 @@ EXPECTED = {  # launches per path run
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
 # Phase 26's timing probes of the one-pass core (csrc/ntt_cluster.cuh)
-# under K3, K4, K8, K2 and K1, and of K5, each built from a patched copy of the
-# sources (the base is the library as built; every patch replaces each
-# occurrence, so the core's patches reach both directions).  Most remove
-# one part of the work, so their results are wrong by design and only
-# their times are read; the others take a path the wrappers do not: K1
-# and K2 at two blocks per SM, the conversion's product-sum with a carry
-# word, K8 with one transform per held row in place of one over all of
-# them, and K8 at 512 threads a block where it holds up to 4 rows.
+# under K3, K4, K7, K8, K2 and K1, and of K5, each built from a patched copy
+# of the sources (the base is the library as built; every patch replaces
+# each occurrence, so the core's patches reach both directions).  Most
+# remove one part of the work, so their results are wrong by design and
+# only their times are read; the others take a path the wrappers do not:
+# K1 and K2 at two blocks per SM, the conversion's product-sum with a
+# carry word, K8 with one transform per held row in place of one over all
+# of them, K8 at 512 threads a block where it holds up to 4 rows, and K7's
+# second launch in plain stream order (without PDL).
 # name: [(file, old, new)]
 _TERMS = "const int terms = min(alpha"
 _FWD = "  cluster_ntt(s, cluster, G, rank, tb.w + trow, tb.ws + trow, bq.q);"
 _HELD = ("    cluster_ntt_rows(s, cluster, G, rank,\n"
          "                     HeldRows{rr, tb.w, tb.ws, G.logn, nh, words});")
+_K7B = "launch_cluster<false, 0, true>("  # K7's second launch, under PDL
 ANATOMY = {
     "no transform": [
         ("bconv_ntt.cu", _FWD, "  __syncthreads();"),
@@ -301,7 +314,7 @@ ANATOMY = {
         ("moddown_rows.cu", _HELD, "    __syncthreads();")],
     "one-term prologue": [
         (f, _TERMS, "const int terms = 1 + 0 * min(alpha")
-        for f in ("bconv_ntt.cu", "modup_ip.cu")] + [
+        for f in ("bconv_args.cuh", "modup_ip.cu")] + [
         ("moddown_rows.cu", "for (int i = 0; i < a.alpha; ++i) {",
          "for (int i = 0; i < 1 + 0 * a.alpha; ++i) {")],
     "no crossing stages or cluster syncs": [
@@ -337,6 +350,18 @@ ANATOMY = {
          "                  tb.ws + (static_cast<int64_t>(rr[r].limb) << "
          "G.logn),\n"
          "                  rr[r].q);")],
+    "K7 without PDL": [("moddown_rescale.cu", _K7B, "launch_cluster(")],
+    "K7 launch A alone": [
+        ("moddown_rescale.cu", "  if (e == cudaSuccess)\n    e = " + _K7B,
+         "  if (false)\n    e = " + _K7B)],
+    "K7 launch B alone": [
+        ("moddown_rescale.cu", "cudaError_t e = launch_cluster(",
+         "cudaError_t e = cudaSuccess;\n  if (false) e = launch_cluster(")],
+    "K7 no transform": [
+        ("moddown_rescale.cu", "  cluster_ntt(s, cluster, G, rank, tb.w + "
+         "trow, tb.ws + trow, q);", "  __syncthreads();"),
+        ("moddown_rescale.cu", "  cluster_intt(s, cluster, G, rank, a.winv "
+         "+ trow, a.winvs + trow, q);", "  __syncthreads();")],
     # K5: the conditions depend on k_in at run time, so the compiler keeps
     # the rest of the work
     "no plane products": [
@@ -357,7 +382,7 @@ ANATOMY = {
         ("bconv.cu", "      if (j < k_out && c < n) {",
          "      if (j < k_out && c < n && k_in > 9999) {")],
     "carry product-sum": [
-        ("bconv_ntt.cu", "    if (wide) {", "    if (false) {"),
+        ("bconv_args.cuh", "    if (wide) {", "    if (false) {"),
         ("modup_ip.cu", "    if (wide_conv) {", "    if (false) {"),
         ("moddown_rows.cu", "  if (a.wide) {", "  if (false) {")],
 }
@@ -812,11 +837,16 @@ def _cmd(args):
         return f"unavailable ({e})"
 
 
-# the kernels of the two-pass K2 and K8, which the library must not hold,
-# and the one-pass core's kernels, which it must
-STALE_KERNELS = ("fwd_col_kernel", "fwd_chunk_kernel", "rows_col_kernel")
+# the kernels of the two-pass K2, K7 and K8 and of the radix-2 K6, which
+# the library must not hold, and the one-pass core's kernels, which it must
+STALE_KERNELS = ("fwd_col_kernel", "fwd_chunk_kernel", "rows_col_kernel",
+                 "last_col_kernel", "last_chunk_kernel",
+                 "last_inv_col_kernel", "rest_col_kernel",
+                 "rest_chunk_kernel", "ntt_roll_kernel")
 CORE_KERNELS = ("fwd_cluster_kernel", "inv_cluster_kernel",
-                "bconv_ntt_kernel", "modup_ip_kernel", "moddown_rows_kernel")
+                "bconv_ntt_kernel", "modup_ip_kernel", "moddown_rows_kernel",
+                "rescale_last_kernel", "rescale_rest_kernel")
+K7_KERNELS = CORE_KERNELS[-2:]
 
 
 def _cuobjdump(lib: str, *args) -> str:
@@ -847,6 +877,38 @@ def resource_usage(lib: str, kernels) -> dict:
                if not any(n.split("<")[0] == k for n in out)]
     if missing:
         raise RuntimeError(f"cuobjdump lists no resources of {missing}")
+    return out
+
+
+def start_ptxas_report(src: str, obj: str):
+    """Start nvcc -Xptxas -v on one source of csrc/ (its kernels' registers
+    and spills; the library's build does not print them)."""
+    from phantom_tpu_torch import _build
+    return subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         obj, os.path.join(_build.CSRC, src)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_report(proc, kernels) -> dict:
+    """{kernel: "Used N registers; S bytes stack frame, X bytes spill
+    stores, Y bytes spill loads"} from start_ptxas_report's process."""
+    err = proc.communicate(timeout=300)[1]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{err}")
+    out, name, spills = {}, None, ""
+    for line in err.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in kernels if k in line), None)
+        elif name is not None and "spill stores" in line:
+            spills = line.strip()
+        elif name is not None and "registers" in line:
+            used = line.split(":", 1)[1].split(",")[0].strip()
+            out[name] = f"{used}; {spills}"
+            name = None
+    missing = [k for k in kernels if k not in out]
+    if missing:
+        raise RuntimeError(f"ptxas reports nothing of {missing}")
     return out
 
 
@@ -1090,6 +1152,40 @@ def _profile(run, steps: int, card: str, what: str) -> None:
               f"{e.key[:90]}")
 
 
+def _k7_vs_pair(calls, card: str) -> None:
+    """Phase 6: K7 beside the three calls of the pair that it replaces on
+    the same step's operands (K3's moddown, the rescale's K1 on the last
+    limb and its K3), device time, in turns (K7, pair, pair, K7)."""
+    from phantom_tpu_torch.ops import moddown_kernels, ntt_kernels
+    (a7, kw7), = calls["K7"]
+    k1_rs = next(c for c in calls["K1"] if c[0][0].shape[-2] == 1)
+    runs = {"K7": [(moddown_kernels.moddown_rescale, a7, kw7)],
+            "pair": [(ntt_kernels.bconv_ntt_forward, *calls["K3"][0]),
+                     (ntt_kernels.ntt_inverse, *k1_rs),
+                     (ntt_kernels.bconv_ntt_forward, *calls["K3"][1])]}
+    times = {}
+    for label in ("K7", "pair", "pair", "K7"):
+        for i, (fn, a, kw) in enumerate(runs[label]):
+            times.setdefault((label, i), []).append(
+                _device_ms(lambda: fn(*a, **kw), REPS))
+    ba = inspect.signature(moddown_kernels.moddown_rescale_plain).bind(
+        *a7, **kw7)
+    ba.apply_defaults()
+    b_ms, b_by = bound_ms(*call_bound(
+        "K7", ba.arguments, moddown_kernels.moddown_rescale(*a7, **kw7)))
+    ms = {key: float(np.mean(v)) for key, v in times.items()}
+    runs_ms = {key: ", ".join(f"{u:.4f}" for u in v)
+               for key, v in times.items()}
+    names = ("K3 moddown", "K1 rescale", "K3 rescale")
+    print(f"K7 vs the pair's three calls on the same operands (device "
+          f"time): K7 {tuple(a7[0].shape)} -> (2, {a7[1].shape[0]}, N) "
+          f"{ms['K7', 0]:.4f} ms ({runs_ms['K7', 0]}); "
+          + " + ".join(f"{nm} {ms['pair', i]:.4f} ({runs_ms['pair', i]})"
+                       for i, nm in enumerate(names))
+          + f" = {sum(ms['pair', i] for i in range(3)):.4f} ms; K7 bound "
+          f"{b_ms:.4f} ms by {b_by} [{card}]")
+
+
 def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
     """Phases 16-20: the BFV HPS step on both engines."""
     import torch
@@ -1135,30 +1231,32 @@ def _bfv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
     pipes["pallas-roll"](d1, d2, pp.KERNELS._replace(
         ntt_forward_roll=keep("fwd", ntt_roll_kernels.ntt_forward_roll),
         ntt_inverse_roll=keep("inv", ntt_roll_kernels.ntt_inverse_roll)))
-    for what, two_pass, one_pass, bname in (
+    for what, core, k6, bname in (
             ("D forward", ntt_kernels.ntt_forward,
              ntt_roll_kernels.ntt_forward_roll, "K2"),
             ("D inverse", ntt_kernels.ntt_inverse,
              ntt_roll_kernels.ntt_inverse_roll, "K1")):
         (x, t, rows), _ = seen["fwd" if bname == "K2" else "inv"]
-        ref = two_pass(x, t, rows)
-        ba = inspect.signature(getattr(pp.PLAIN, two_pass.__name__)).bind(
+        ref = core(x, t, rows)
+        ba = inspect.signature(getattr(pp.PLAIN, core.__name__)).bind(
             x, t, rows)
         ba.apply_defaults()
         b_ms, b_by = bound_ms(*call_bound(bname, ba.arguments, ref))
-        runs = [(f"K6 C={c}", lambda c=c: one_pass(x, t, rows, cluster=c))
-                for c in CLUSTERS] + [(bname, lambda: two_pass(x, t, rows))]
+        runs = [(f"K6 C={c}", lambda c=c: k6(x, t, rows, cluster=c))
+                for c in CLUSTERS] + [(bname, lambda: core(x, t, rows))]
         for label, fn in runs:
             if not torch.equal(fn(), ref):
                 raise RuntimeError(f"{what}: {label} differs from {bname}")
-        times = {}
+        times, dev_times = {}, {}
         for label, fn in runs + runs[::-1]:
             times.setdefault(label, []).append(_time(fn, REPS))
+            dev_times.setdefault(label, []).append(_device_ms(fn, REPS))
         runs_ms = {k: ", ".join(f"{u:.4f}" for u in v)
                    for k, v in times.items()}
         print(f"K6 vs {bname}, {what} {tuple(x.shape)} (equal work, "
               f"bit-equal): " + ", ".join(
-                  f"{k} {np.mean(v):.4f} ms ({runs_ms[k]})"
+                  f"{k} {np.mean(v):.4f} ms ({runs_ms[k]}; device "
+                  f"{np.mean(dev_times[k]):.4f})"
                   for k, v in times.items())
               + f"; bound {b_ms:.4f} ms by {b_by} [{card}]")
 
@@ -1370,7 +1468,7 @@ def _bgv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
 
 
 _PROBED_SOURCES = ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu", "bconv.cu",
-                   "moddown_rows.cu")
+                   "moddown_rows.cu", "moddown_rescale.cu")
 
 
 def _probe_library(name: str, patches, tmp: str):
@@ -1401,11 +1499,11 @@ def _probe_library(name: str, patches, tmp: str):
 
 
 def _anatomy(card: str, dev) -> None:
-    """Phase 26: K3, K8 and K1 on the headline moddown's shapes, K1 and K2
-    on the modup's, K5 on the modup's digit and BFV's scale-and-round, and
-    K4 on the alpha-8 step's, timed (device time) on the library as built
-    and on each probe of ANATOMY (seeded operands), in turns (base,
-    probes, probes reversed, base)."""
+    """Phase 26: K3, K8, K7 and K1 on the headline moddown's shapes, K1
+    and K2 on the modup's, K5 on the modup's digit and BFV's
+    scale-and-round, and K4 on the alpha-8 step's, timed (device time) on
+    the library as built and on each probe of ANATOMY (seeded operands),
+    in turns (base, probes, probes reversed, base)."""
     import ctypes
     import tempfile
     import torch
@@ -1428,8 +1526,9 @@ def _anatomy(card: str, dev) -> None:
             lib = ctypes.CDLL(so)
             for fn in ("ptk_bconv_ntt_forward", "ptk_modup_ip",
                        "ptk_ntt_inverse", "ptk_ntt_forward",
-                       "ptk_moddown_rows", "ptk_fold_matmul",
-                       "ptk_fold_matmul_smem", "ptk_error_string"):
+                       "ptk_moddown_rows", "ptk_moddown_rescale",
+                       "ptk_fold_matmul", "ptk_fold_matmul_smem",
+                       "ptk_error_string"):
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = \
                     _build._SIGNATURES[fn]
             libs[name] = lib
@@ -1460,6 +1559,14 @@ def _anatomy(card: str, dev) -> None:
     calls[f"K8 moddown (2, {alpha}, N) -> (2, {k}, N), R = 8"] = \
         lambda: moddown_kernels.moddown_rows(
             y, mat8, v, vmul, sub, (d1, d2), t, rows, sc, scs, 8)
+    # K7: the rescale's constants seeded too (only times are read)
+    half = int(q[k - 1]) // 2
+    hmq, qi = (res((k - 1,), q[:k - 1].view(k - 1)) for _ in range(2))
+    qis = ((qi.long() << 32) // q[:k - 1].view(k - 1)).int()
+    calls[f"K7 merged epilogue (2, {alpha}, N) -> (2, {k}, N)"] = \
+        lambda: moddown_kernels.moddown_rescale(
+            y, mat8, v, vmul, sub, (d1, d2), t, rows, sc, scs, half, hmq, qi,
+            qis)
     # K2: the modup's complement rows of both digits, lazy [0, 2q)
     rows_c = pp.build_keyswitch32(ctx, device=dev).rows_compl
     xc = res((rows_c.numel(), n), 2 * q[rows_c.long()])
@@ -1543,10 +1650,15 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
+    calls = sys.argv[1:] == ["--calls"]
+    if not calls:  # K7's registers and spills, beside the library's build
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        ptxas = start_ptxas_report("moddown_rescale.cu", os.path.join(
+            _build.BUILD_DIR, "moddown_rescale_ptxas.o"))
     path = _build.build()
     _build.library()
     print(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
-    if sys.argv[1:] == ["--calls"]:
+    if calls:
         calls_only(card, dev)
         return 0
     imma = sass_count(path, "fold_matmul_kernel", "IMMA")
@@ -1563,6 +1675,8 @@ def main() -> int:
     use = resource_usage(path, CORE_KERNELS)
     print(f"symbols: none of {', '.join(STALE_KERNELS)}; resources: "
           + "; ".join(f"{k} {v}" for k, v in use.items()))
+    print("ptxas: " + "; ".join(f"{k} {v}" for k, v in ptxas_report(
+        ptxas, K7_KERNELS).items()))
 
     # 3. golden files from the JAX package
     g = np.load(GOLDEN)
@@ -1672,9 +1786,9 @@ def main() -> int:
     print("timing K8 per call by rows per cluster: " + ", ".join(
         f"R={r} (held {moddown_kernels.held_rows(r, params.n, c8)}) "
         f"{ms:.4f} ms" for r, ms in times.items()) + f" [{card}]")
-    # K3, K8 and K1 alone on the moddown's operands, K2 on the modup's, at
-    # each cluster size, in turns
-    calls = {"K3": [], "K1": [], "K2": []}
+    # K3, K8, K7 and K1 alone on the moddown's operands, K2 on the modup's,
+    # at each cluster size, in turns
+    calls = {"K3": [], "K1": [], "K2": [], "K7": []}
 
     def keep(name, fn):
         def call(*a, **kw):
@@ -1686,6 +1800,9 @@ def main() -> int:
         bconv_ntt_forward=keep("K3", ntt_kernels.bconv_ntt_forward),
         ntt_inverse=keep("K1", ntt_kernels.ntt_inverse),
         ntt_forward=keep("K2", ntt_kernels.ntt_forward)))
+    pipes["K7"](d1, d2, pp.KERNELS._replace(moddown_rescale=keep(
+        "K7", moddown_kernels.moddown_rescale)))
+    _k7_vs_pair(calls, card)
     k1_md = next(c for c in calls["K1"]
                  if c[1].get("emit_floor_div") is not None)
     # K2 also at BFV's D forward and BGV's moddown shapes (seeded, lazy
@@ -1703,6 +1820,8 @@ def main() -> int:
              "moddown"),  # the moddown pair's calls
             ("K8", moddown_kernels.moddown_rows, (k8_args, {}),
              f"moddown, R = {k8_args[-1]},"),
+            ("K7", moddown_kernels.moddown_rescale, calls["K7"][0],
+             "merged epilogue"),
             ("K1", ntt_kernels.ntt_inverse, k1_md, "moddown"),
             ("K2", ntt_kernels.ntt_forward, calls["K2"][0], "modup"),
             ("K2", ntt_kernels.ntt_forward, ((x_d, t_, rows_c), {}),
@@ -1731,12 +1850,15 @@ def main() -> int:
               f"[{card}]")
     del calls, k1_md, k8_args, args, kw, ref, x_d, x_q  # phase 6's alone
 
-    # 7. profile: where one chained kernel-path step's device time goes
-    dd = [d1]
+    # 7. profile: where one chained kernel-path step's device time goes,
+    # through each epilogue
+    for name in pipes:
+        dd = [d1]
 
-    def prof_step():
-        dd[0] = remix(pipe(dd[0], d2), q_pad)
-    _profile(prof_step, PROFILE_STEPS, card, "headline step")
+        def prof_step(name=name):
+            dd[0] = remix(pipes[name](dd[0], d2), q_pad)
+        _profile(prof_step, PROFILE_STEPS, card, "headline step" if
+                 name == "pair" else f"headline step, {name} epilogue")
 
     # 8. the modup routes: K4p ("xla") and K4 at alpha 22 ("kernel")
     rpipes = {r: pp.CKKSPipeline32(ctx, pipe.evk, modup=r).to(dev)
@@ -1900,7 +2022,7 @@ def main() -> int:
     _bgv_phases(card, probes, wrappers, since, launches, dev)
     torch.cuda.empty_cache()
 
-    # 26. where K3's and K4's time goes
+    # 26. where the kernels' time goes
     _anatomy(card, dev)
 
     rows = []

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "ptk_moddown_rows": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "ptk_moddown_rescale": ([_P] * 14 + [_I, _I, _I] + [_P] * 8
-                            + [_I, _P], _I),
+                            + [_I, _I, _I, _P], _I),
     "ptk_ntt_roll": ([_P] * 6 + [_I] * 4 + [_P] * 5 + [_I, _P], _I),
 }
 

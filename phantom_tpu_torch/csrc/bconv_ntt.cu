@@ -15,10 +15,7 @@
 // L1), the cluster runs all log N stages on it, and each block applies the
 // epilogue to its share and stores it with 16-byte stores.  The converted
 // row never reaches device memory and no pass writes it in between.  The
-// product-sum is one 64-bit sum when the wrapper finds, from the moduli,
-// that alpha products stay below 2^64 (`wide`: at the main path's 29-bit
-// special and 28-bit data primes 22 products stay below 2^62), else a
-// 64-bit low word and a carry count reduced once in 128 bits.
+// conversion (BconvArgs, bconv_args.cuh) is shared with K7.
 //
 // Bound, at the headline moddown ((2, 22, N) -> (2, 43, N), N = 2^16):
 // device memory moves y 11.5 MB, sub 22.5, d1 and d2 45, out 22.5 and the
@@ -29,72 +26,10 @@
 // version it replaces (column pass, a row round trip through device
 // memory, chunk pass) has its times in PERF.md.
 
-#include "ntt_cluster.cuh"
+#include "bconv_args.cuh"
 
 namespace ptk {
 namespace {
-
-struct BconvArgs {
-  const uint32_t* y;    // k_in rows of N; group g's start at row g alpha
-  const uint32_t* mat;  // (G, k_out, alpha)
-  int alpha, k_out, k_in;
-  const uint32_t* v;          // optional (G, N)
-  const uint32_t* vmul;       // (k_out,)
-  const uint32_t* post;       // optional (k_out,)
-  const uint32_t* self_rows;  // optional (>= k_data, N)
-  int k_data;
-  int wide;  // alpha products of the operands stay below 2^64
-
-  __device__ __forceinline__ bool skip(int j, int g) const {
-    if (self_rows == nullptr) return false;
-    const int hi = min((g + 1) * alpha, k_data);
-    return j >= g * alpha && j < hi;
-  }
-
-  // the converted words at row positions gi .. gi + 3, in [0, q)
-  __device__ __forceinline__ void convert4(uint32_t (&x)[4], int j, int g,
-                                           int64_t gi, int n,
-                                           const Barrett& bq) const {
-    const int terms = min(alpha, k_in - g * alpha);
-    const uint32_t* yg = y + static_cast<int64_t>(g) * alpha * n + gi;
-    const uint32_t* m = mat + (static_cast<int64_t>(g) * k_out + j) * alpha;
-    if (wide) {
-      uint64_t acc[4] = {0, 0, 0, 0};
-      for (int i = 0; i < terms; ++i) {
-        const uint32_t mi = __ldg(m + i);
-        const uint4 yv = ld4(yg + static_cast<int64_t>(i) * n);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[c] += static_cast<uint64_t>(lane4(yv, c)) * mi;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = reduce64(acc[c], bq);
-    } else {
-      uint64_t lo[4] = {0, 0, 0, 0};
-      uint32_t hi[4] = {0, 0, 0, 0};
-      for (int i = 0; i < terms; ++i) {
-        const uint32_t mi = __ldg(m + i);
-        const uint4 yv = ld4(yg + static_cast<int64_t>(i) * n);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) mac(lo[c], hi[c], lane4(yv, c), mi);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = reduce128(hi[c], lo[c], bq);
-    }
-    if (v != nullptr) {
-      const uint4 vv = ld4(v + static_cast<int64_t>(g) * n + gi);
-      const uint32_t vm = __ldg(vmul + j);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        x[c] = sub_mod(x[c], mul_mod(lane4(vv, c), vm, bq), bq.q);
-    }
-    if (post != nullptr) {
-      const uint32_t p = __ldg(post + j);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = sub_mod(x[c], p, bq.q);
-    }
-  }
-};
 
 // One cluster per output row (g, j); block `rank` owns the row's share
 // [rank S, (rank + 1) S).

@@ -92,19 +92,4 @@ __device__ __forceinline__ void mac(uint64_t& lo, uint32_t& hi, uint32_t t,
   hi += lo < p;
 }
 
-// sum_i a[i * stride] * m[i] over k terms, exact in 128 bits (each product
-// is below 2^60, so 2^64 sums cannot overflow the high word), mod q.
-__device__ __forceinline__ uint32_t dot_mod(const uint32_t* a,
-                                            int64_t stride,
-                                            const uint32_t* m, int k,
-                                            const Barrett& b) {
-  uint64_t lo = 0, hi = 0;
-  for (int i = 0; i < k; ++i) {
-    const uint64_t p = static_cast<uint64_t>(a[i * stride]) * m[i];
-    lo += p;
-    hi += lo < p;
-  }
-  return reduce128(hi, lo, b);
-}
-
 }  // namespace ptk

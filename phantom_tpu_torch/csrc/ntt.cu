@@ -10,7 +10,8 @@
 // Both run on the one-pass, cluster-resident radix-8 core
 // (ntt_cluster.cuh): one cluster of C blocks per row, one launch per call,
 // C the wrapper's default unless the caller picks one (K1 shares of 2^13
-// words, K2 of 2^14: ops/ntt_kernels.py).
+// words, K2 of 2^14: ops/ntt_kernels.py).  K6 (ntt_roll.cu) runs the same
+// two kernels through ptk_ntt_forward and ptk_ntt_inverse.
 //
 // K2 (cluster_ntt): each block reads its share of x ([0, 2q), which the
 // core takes as it is) with 16-byte loads, the cluster runs the crossing

@@ -1,12 +1,14 @@
-// The one-pass, cluster-resident, radix-8 NTT core: forward under K2
-// (ntt.cu), K3 (bconv_ntt.cu), K4 (modup_ip.cu) and K8 (moddown_rows.cu),
-// inverse under K1 (ntt.cu).
+// The one-pass, cluster-resident, radix-8 NTT core, the library's only
+// NTT: forward under K2 (ntt.cu), K3 (bconv_ntt.cu), K4 (modup_ip.cu), K6's
+// forward (ntt_roll.cu, through K2), K7 (moddown_rescale.cu) and K8
+// (moddown_rows.cu), inverse under K1 (ntt.cu), K6's inverse (through K1)
+// and K7's last limb.
 //
-// Same transforms as ntt_core.cuh: out[k] = p(psi^(2 rev(k) + 1)), forward
-// Cooley-Tukey stages m = 1 .. N/2 and inverse Gentleman-Sande stages m =
-// N/2 .. 1 over the port's bit-reversed tables (the stage with m groups
-// reads entries [m, 2m)), one table row per output row (`rows`).  What
-// differs is where the row lives and how the stages are grouped.
+// The negacyclic transforms of the port's tables: out[k] = p(psi^(2 rev(k)
+// + 1)), forward Cooley-Tukey stages m = 1 .. N/2 and inverse
+// Gentleman-Sande stages m = N/2 .. 1 over bit-reversed twiddle tables (the
+// stage with m groups reads entries [m, 2m); phantom_tpu/host/
+// ntt_tables.py), one table row per output row (`rows`).
 //
 // A row of N = 2^logn words is held by a thread-block cluster of C = 2^logc
 // blocks (C <= 8, the portable limit), block r holding the contiguous share
@@ -62,13 +64,34 @@
 
 #include <cooperative_groups.h>
 
-#include "ntt_core.cuh"
+#include "modarith.cuh"
 
 namespace ptk {
 
 namespace cg = cooperative_groups;
 
 constexpr int kClusterThreads = 512;  // threads per block (S >= 2048)
+
+// NTT tables over a whole base, (Lt,) moduli and (Lt, N) twiddles with
+// their Shoup words; row j of a group of L rows transforms with table row
+// rows[j].
+struct NttTables {
+  const uint32_t* q;
+  const uint32_t* w;
+  const uint32_t* ws;
+  const int32_t* rows;
+  int L;
+};
+
+// Forward epilogue (apply_epilogue4): (sub - x) esc, then the tensor-term
+// add (add_tensor4).  Null pointers switch a step off.
+struct FwdEpilogue {
+  const uint32_t* sub;  // (rows, N), row by row of the output
+  const uint32_t* esc;  // (L,) and its Shoup words
+  const uint32_t* escs;
+  const uint32_t* d1;   // (2, L, N) each
+  const uint32_t* d2;
+};
 
 struct ClusterGeom {
   int logn, logc, logs;  // N = 2^logn, C = 2^logc, S = 2^logs
@@ -330,7 +353,36 @@ __device__ __forceinline__ uint32_t lane4(const uint4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// FwdEpilogue::apply on the four words x[0..3] at row positions gi ..
+// x[0..3] += c_g at row positions gi .. gi + 3 of Ql row j (gi a multiple
+// of 4; 16-byte loads): c_0 = d1[0] d2[0], c_1 = d1[0] d2[1] + d1[1] d2[0]
+// (the relinearization's tensor terms); nothing when e.d1 is null.
+__device__ __forceinline__ void add_tensor4(const FwdEpilogue& e,
+                                            uint32_t (&x)[4], int j, int g,
+                                            int L, int64_t gi, int n,
+                                            const Barrett& bq) {
+  if (e.d1 == nullptr) return;
+  const uint32_t q = bq.q;
+  const int64_t o0 = static_cast<int64_t>(j) * n + gi;
+  const int64_t o1 = static_cast<int64_t>(L + j) * n + gi;
+  const uint4 a0 = ld4(e.d1 + o0), b0 = ld4(e.d2 + o0);
+  if (g == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      x[c] = add_mod(x[c], mul_mod(lane4(a0, c), lane4(b0, c), bq), q);
+  } else {
+    const uint4 a1 = ld4(e.d1 + o1), b1 = ld4(e.d2 + o1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      x[c] = add_mod(
+          x[c],
+          reduce64(static_cast<uint64_t>(lane4(a0, c)) * lane4(b1, c) +
+                       static_cast<uint64_t>(lane4(a1, c)) * lane4(b0, c),
+                   bq),
+          q);
+  }
+}
+
+// The forward epilogue on the four words x[0..3] at row positions gi ..
 // gi + 3 (gi a multiple of 4), with 16-byte loads of sub, d1 and d2.
 __device__ __forceinline__ void apply_epilogue4(const FwdEpilogue& e,
                                                 uint32_t (&x)[4], int row,
@@ -345,26 +397,7 @@ __device__ __forceinline__ void apply_epilogue4(const FwdEpilogue& e,
     for (int c = 0; c < 4; ++c)
       x[c] = mul_shoup(sub_mod(lane4(sv, c), x[c], q), w, ws, q);
   }
-  if (e.d1 != nullptr) {
-    const int64_t o0 = static_cast<int64_t>(j) * n + gi;
-    const int64_t o1 = static_cast<int64_t>(L + j) * n + gi;
-    const uint4 a0 = ld4(e.d1 + o0), b0 = ld4(e.d2 + o0);
-    if (g == 0) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        x[c] = add_mod(x[c], mul_mod(lane4(a0, c), lane4(b0, c), bq), q);
-    } else {
-      const uint4 a1 = ld4(e.d1 + o1), b1 = ld4(e.d2 + o1);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        x[c] = add_mod(
-            x[c],
-            reduce64(static_cast<uint64_t>(lane4(a0, c)) * lane4(b1, c) +
-                         static_cast<uint64_t>(lane4(a1, c)) * lane4(b0, c),
-                     bq),
-            q);
-    }
-  }
+  add_tensor4(e, x, j, g, L, gi, n, bq);
 }
 
 // Launch `kernel` over `clusters` clusters of 2^logc blocks each, with the
@@ -373,9 +406,13 @@ __device__ __forceinline__ void apply_epilogue4(const FwdEpilogue& e,
 // kThreads that many, at most one per 4 words of the share.  With
 // kCheckFit, a configuration of which the card cannot hold one cluster
 // (cudaOccupancyMaxActiveClusters) is refused with
-// cudaErrorInvalidConfiguration before the launch.
-template <bool kCheckFit = false, int kThreads = 0, class Kernel,
-          class... Args>
+// cudaErrorInvalidConfiguration before the launch.  With kDependent, a
+// programmatic dependent launch: its blocks may start once every block of
+// the kernel before it on the stream has run
+// griddepcontrol.launch_dependents, and must run griddepcontrol.wait
+// before they read what that kernel writes.
+template <bool kCheckFit = false, int kThreads = 0, bool kDependent = false,
+          class Kernel, class... Args>
 cudaError_t launch_cluster(Kernel kernel, int clusters, int logc, int logs,
                            int extra, cudaStream_t stream, Args... args) {
   const int smem =
@@ -383,11 +420,13 @@ cudaError_t launch_cluster(Kernel kernel, int clusters, int logc, int logs,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1 << logc;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1 << logc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters << logc);
   const int most = (1 << logs) / 4;
@@ -395,8 +434,8 @@ cudaError_t launch_cluster(Kernel kernel, int clusters, int logc, int logs,
                       : kThreads < most ? kThreads : most);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kDependent ? 2 : 1;
   if (kCheckFit) {
     int fit = 0;
     e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);

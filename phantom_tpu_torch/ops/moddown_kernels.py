@@ -19,14 +19,20 @@ after K1 has transformed their P rows:
       linearity: rows [0, k-1) of the result are
       (s_j P^-1 + c_g - NTT_j(delta_j P^-1 + xl - half_j)) q_last^-1 with
       xl = iNTT(m[g, k-1]) + half mod q_last, row k-1 is m[g, k-1] itself.
-      The JAX package selects it with PHANTOM_MERGED_EPILOGUE=1, the port
-      with CKKSPipeline32(merged_epilogue=True).
+      The TPU kernel's first program computes xl for every later one; here
+      two launches, the last limb's (2 clusters) and the other rows'
+      (2 (k-1) clusters, a programmatic dependent launch that converts its
+      rows while the first runs and waits only before it reads xl).  The
+      JAX package selects it with PHANTOM_MERGED_EPILOGUE=1, the port with
+      CKKSPipeline32(merged_epilogue=True).
 
-K8 runs on the one-pass, cluster-resident radix-8 core (csrc/
-ntt_cluster.cuh), K7 on two-pass radix-2 transforms (csrc/ntt_core.cuh).
-Both are bound by device memory (csrc/).  The plain twins are the composed
-functions: K8's is K3's plain version, K7's that and the rescale.  `rows`
-is the table row of each of the k Ql rows, as in ops/ntt_kernels.py.
+Both run on the one-pass, cluster-resident radix-8 core (csrc/
+ntt_cluster.cuh) with `cluster` blocks per row (default
+default_cluster(N)): K8 one cluster per block of R output rows, K7 one
+per row.  Both are bound by device memory (csrc/).  The plain twins are
+the composed functions: K8's is K3's plain version, K7's that and the
+rescale.  `rows` is the table row of each of the k Ql rows, as in
+ops/ntt_kernels.py.
 """
 
 from __future__ import annotations
@@ -145,9 +151,11 @@ def moddown_rescale(y: torch.Tensor, mat: torch.Tensor, v: torch.Tensor,
                     t: NTTTables32, rows, pinv: torch.Tensor,
                     pinv_shoup: torch.Tensor, half: int,
                     half_mod_q: torch.Tensor, qlast_inv: torch.Tensor,
-                    qlast_inv_shoup: torch.Tensor) -> torch.Tensor:
+                    qlast_inv_shoup: torch.Tensor,
+                    cluster=None) -> torch.Tensor:
     """K7 on CUDA tensors; the plain version on CPU tensors.  Arguments as
-    moddown_rescale_plain's (tensor_add is required, k >= 2)."""
+    moddown_rescale_plain's (tensor_add is required, k >= 2); cluster:
+    blocks per row on the card (default default_cluster(N))."""
     if _build.is_plain(y, "moddown_rescale"):
         return moddown_rescale_plain(y, mat, v, vmul, sub_from, tensor_add,
                                      t, rows, pinv, pinv_shoup, half,
@@ -158,6 +166,8 @@ def moddown_rescale(y: torch.Tensor, mat: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"moddown_rescale: y {tuple(y.shape)}, mat "
                          f"{tuple(mat.shape)}: needs (2, alpha, N), k >= 2")
     logn = _logn(n)
+    c = default_cluster(n) if cluster is None else int(cluster)
+    check_cluster(n, c)
     rows = resolve_rows(t, rows, k)
     d1, d2 = tensor_add
     _expect(mat, (k, alpha), "mat")
@@ -178,12 +188,14 @@ def moddown_rescale(y: torch.Tensor, mat: torch.Tensor, v: torch.Tensor,
     _build.check_operands(*operands, rows, *fwd, *inv)
     out = torch.empty((2, k, n), dtype=torch.int32, device=y.device)
     scratch = torch.empty((2, n), dtype=torch.int32, device=y.device)
+    check_aligned(out, scratch, y, v, sub_from, d1, d2)
     with torch.cuda.device(y.device):
         err = _build.library().ptk_moddown_rescale(
             out.data_ptr(), scratch.data_ptr(),
             *(a.data_ptr() for a in operands),
             int(half), alpha, k, *(a.data_ptr() for a in fwd + inv),
-            rows.data_ptr(), logn, _build.stream(y))
+            rows.data_ptr(), logn, c, int(sum_fits_64(alpha, t)),
+            _build.stream(y))
     _build.check(err, "moddown_rescale")
     moddown_rescale.launches += 1
     return out

@@ -267,7 +267,7 @@ MIN_SHARE = 1 << 10      # the smallest share the radix-8 core takes
 
 
 def default_cluster(n: int, words: int = CLUSTER_WORDS) -> int:
-    """Blocks per row of the cluster kernels (K1-K4, K6, K8): one up to
+    """Blocks per row of the cluster kernels (K1-K4, K6-K8): one up to
     `words` words, then shares of `words`, at most MAX_CLUSTER blocks."""
     return min(MAX_CLUSTER, max(1, n // words))
 

@@ -18,14 +18,13 @@ ntt_forward_plain and ntt_inverse_plain, which compute the same function.
 The TPU kernel's roll/select form and its cols_a/blk_b stage tables are
 Mosaic workarounds and have no counterpart.
 
-The CUDA kernel (csrc/ntt_roll.cu) is one launch per call with each row
-resident on the chip for all log2 N stages: the row is read once and
-written once.  A row of up to 2^13 words (32 KB) sits in one block's
-shared memory; a longer one in the distributed shared memory of a
-thread-block cluster of `cluster` blocks (2^16 words: 8 x 32 KB by
-default), whose stages with a butterfly distance of a block's share or
-more exchange through the cluster.  Twiddles are read from device memory
-(mostly L2).  It is bound by device memory.
+On the card (csrc/ntt_roll.cu) the forward runs K2's kernel (the moddown
+epilogue, no tensor adds) and the inverse K1's (a per-limb scale, no
+mul_by, no floor sum): one launch per call on the one-pass,
+cluster-resident radix-8 core (csrc/ntt_cluster.cuh), each row held by a
+cluster of `cluster` blocks for all log2 N stages, read once and written
+once; the default cluster is K2's (shares of 2^14 words) forward and K1's
+(2^13) inverse.  Bound by device memory.
 """
 
 from __future__ import annotations
@@ -33,19 +32,12 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._build import check_aligned
 from .ntt32 import NTTTables32, resolve_rows
-from .ntt_kernels import (MAX_CLUSTER, _epilogue_args, _expect, _logn,
-                          _ptr, _tables, default_cluster, ntt_forward_plain,
+from .ntt_kernels import (CLUSTER_WORDS, K2_CLUSTER_WORDS, _epilogue_args,
+                          _expect, _logn, _ptr, _tables, check_cluster,
+                          default_cluster, ntt_forward_plain,
                           ntt_inverse_plain)
-
-
-def _cluster(n: int, cluster) -> int:
-    c = default_cluster(n) if cluster is None else int(cluster)
-    if (c < 1 or c > MAX_CLUSTER or c & (c - 1)
-            or n // c * 4 > _build.SMEM_OPTIN):
-        raise ValueError(f"K6: cluster={c} at N={n}: a power of two up to "
-                         f"{MAX_CLUSTER} whose share fits shared memory")
-    return c
 
 
 def _launch(x, t: NTTTables32, rows, inverse: bool, cluster, sub_from=None,
@@ -53,7 +45,9 @@ def _launch(x, t: NTTTables32, rows, inverse: bool, cluster, sub_from=None,
             scale_shoup=None) -> torch.Tensor:
     n, num_l = x.shape[-1], x.shape[-2]
     logn = _logn(n)
-    c = _cluster(n, cluster)
+    words = CLUSTER_WORDS if inverse else K2_CLUSTER_WORDS
+    c = default_cluster(n, words) if cluster is None else int(cluster)
+    check_cluster(n, c)
     rows = resolve_rows(t, rows, num_l)
     epi = _epilogue_args(sub_from, epi_scale, epi_scale_shoup, None, x.shape,
                          num_l)[:3]
@@ -69,6 +63,7 @@ def _launch(x, t: NTTTables32, rows, inverse: bool, cluster, sub_from=None,
     opt = [a for a in (*epi, scale, scale_shoup) if a is not None]
     _build.check_operands(x, rows, *tabs, *opt)
     out = torch.empty_like(x)
+    check_aligned(x, out, epi[0])
     with torch.cuda.device(x.device):
         err = _build.library().ptk_ntt_roll(
             out.data_ptr(), x.data_ptr(), *(a.data_ptr() for a in tabs),
@@ -85,7 +80,7 @@ def ntt_forward_roll(x: torch.Tensor, t: NTTTables32, rows=None,
     """K6 forward on a CUDA tensor; ntt_forward_plain on a CPU tensor.
     x: (..., L, N) in [0, 2q) -> NTT form in [0, q); with sub_from (x's
     shape): (sub_from - NTT(x)) * epi_scale.  cluster: blocks per row
-    (default default_cluster(N))."""
+    (default default_cluster(N, K2_CLUSTER_WORDS), as K2's)."""
     if _build.is_plain(x, "ntt_forward_roll"):
         return ntt_forward_plain(x, t, rows, sub_from, epi_scale,
                                  epi_scale_shoup)
@@ -99,7 +94,8 @@ def ntt_inverse_roll(x: torch.Tensor, t: NTTTables32, rows=None, scale=None,
                      scale_shoup=None, cluster=None) -> torch.Tensor:
     """K6 inverse on a CUDA tensor; ntt_inverse_plain on a CPU tensor.
     x: (..., L, N) in [0, 2q) -> coefficients in [0, q) times `scale` per
-    limb (default n^-1)."""
+    limb (default n^-1).  cluster: blocks per row (default
+    default_cluster(N), as K1's)."""
     if _build.is_plain(x, "ntt_inverse_roll"):
         return ntt_inverse_plain(x, t, rows, scale, scale_shoup)
     out = _launch(x, t, rows, True, cluster, scale=scale,

@@ -481,16 +481,82 @@ def test_k8_carry(dev, logn, rows_per_block):
     _k8(args, rows_per_block)
 
 
+def _k7_args(dev, logn, k, alpha):
+    """K7's operands: the moddown's and the pipeline's rescale constants."""
+    pipe, args = _moddown_operands(dev, logn, k, alpha)
+    return args + (pipe.half, pipe.half_mod_q, pipe.qlast_inv,
+                   pipe.qlast_inv_shoup)
+
+
+def _k7(args, cluster=None):
+    """K7 against its plain version: one launch per call."""
+    before = mdk.moddown_rescale.launches
+    got = mdk.moddown_rescale(*args, cluster=cluster)
+    assert mdk.moddown_rescale.launches == before + 1
+    _same(got, mdk.moddown_rescale_plain(*args))
+
+
 @pytest.mark.parametrize("k,alpha", MODDOWN_SHAPES + [(2, 3)])
 @pytest.mark.parametrize("logn", [10, 16])
 def test_k7_moddown_rescale(dev, logn, k, alpha):
-    pipe, args = _moddown_operands(dev, logn, k, alpha)
-    args += (pipe.half, pipe.half_mod_q, pipe.qlast_inv,
-             pipe.qlast_inv_shoup)
+    """K7, the last limb's launch and the other rows' under PDL, at the
+    headline and alpha-8 shapes, a small one and k = 2 (one other row per
+    half); a misaligned y is refused before any launch."""
+    args = _k7_args(dev, logn, k, alpha)
+    _k7(args)
+    y = args[0]
+    bad = torch.empty(y.numel() + 1, dtype=torch.int32, device=dev)[1:]
+    bad = bad.view(y.shape)
+    bad.copy_(y)
     before = mdk.moddown_rescale.launches
-    got = mdk.moddown_rescale(*args)
-    assert mdk.moddown_rescale.launches == before + 1
-    _same(got, mdk.moddown_rescale_plain(*args))
+    with pytest.raises(ValueError, match="aligned"):
+        mdk.moddown_rescale(bad, *args[1:])
+    assert mdk.moddown_rescale.launches == before
+
+
+@pytest.mark.parametrize("cluster", [8, 4, 2])
+def test_k7_clusters(dev, cluster):
+    """K7 at the headline shape, N = 2^16, at 8, 4 and 2 blocks per row."""
+    _k7(_k7_args(dev, 16, 43, 22), cluster)
+
+
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k7_carry(dev, logn):
+    """K7 over 30-bit primes with alpha 24, past the 64-bit sum (the carry
+    path), y at q - 1 in two columns of three and every matrix word at
+    2^30 - 1; the rescale's constants from the primes."""
+    n = 1 << logn
+    k, alpha = 4, 24
+    t = _tables30(dev, n, k)
+    assert not nk.sum_fits_64(alpha, t)
+    q = t.q.long()
+    qs = [int(x) for x in t.q.tolist()]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + 7)
+
+    def res(shape):
+        return (torch.randint(0, 1 << 62, shape, generator=gen, device=dev)
+                % q.view(-1, 1)).int()
+
+    def shoup(w, mods):
+        return ((w.long() << 32) // mods).int()
+
+    y = (q[0] - 1).repeat(2, alpha, n).int()
+    y[:, :, 1::3] = torch.randint(0, 1 << 30, (2, alpha, n), generator=gen,
+                                  device=dev).int()[:, :, 1::3] % (
+                                      q[0] - 1).int()
+    mat = torch.full((k, alpha), (1 << 30) - 1, dtype=torch.int32,
+                     device=dev)
+    v = torch.randint(0, alpha + 1, (2, n), generator=gen, device=dev).int()
+    pinv = (res((k, 1)).view(k).long() % (q - 1) + 1).int()
+    half = qs[-1] // 2
+    hmq = torch.tensor([half % m for m in qs[:-1]], device=dev).int()
+    qinv = torch.tensor([pow(qs[-1], -1, m) for m in qs[:-1]],
+                        device=dev).int()
+    args = (y, mat, v, res((k, 1)).view(k), res((2, k, n)),
+            (res((2, k, n)), res((2, k, n))), t, None, pinv,
+            shoup(pinv, q), half, hmq, qinv, shoup(qinv, q[:-1]))
+    _k7(args)
 
 
 def test_launch_counts(dev):
@@ -502,9 +568,11 @@ def test_launch_counts(dev):
 
 @pytest.mark.parametrize("logn", [10, 12, 13, 14, 15, 16])
 def test_k6_one_pass(dev, logn):
-    """K6 against its plain twins: one block per row up to 2^13 words, a
-    cluster above (every cluster size whose share fits), the fused
-    epilogue and the scaled inverse, lazy [0, 2q) inputs."""
+    """K6 (K2's and K1's kernels) against its plain twins at the default
+    cluster size and every size whose share of 512 words or more fits a
+    block: the core refuses shares below 1024 words (logn 10 at 2 blocks,
+    12 at 8), the wrapper raises before any launch; the fused epilogue and
+    the scaled inverse; lazy [0, 2q) inputs."""
     n = 1 << logn
     t, rows, q, res, sc, scs, _ = _setup(dev, logn)
     x = res((2, 4, n), lazy=True)
@@ -512,11 +580,20 @@ def test_k6_one_pass(dev, logn):
                       if n // c * 4 <= 232448 and n // c >= 512]
     for c in sizes:
         before = rk.ntt_forward_roll.launches
+        if c is not None and n // c < nk.MIN_SHARE:
+            with pytest.raises(ValueError, match=f"cluster={c} at N={n}"):
+                rk.ntt_forward_roll(x, t, rows, cluster=c)
+            with pytest.raises(ValueError, match=f"cluster={c} at N={n}"):
+                rk.ntt_inverse_roll(x, t, rows, cluster=c)
+            assert rk.ntt_forward_roll.launches == before
+            continue
         _same(rk.ntt_forward_roll(x, t, rows, cluster=c),
               nk.ntt_forward_plain(x, t, rows))
         assert rk.ntt_forward_roll.launches == before + 1
+        before = rk.ntt_inverse_roll.launches
         _same(rk.ntt_inverse_roll(x, t, rows, cluster=c),
               nk.ntt_inverse_plain(x, t, rows))
+        assert rk.ntt_inverse_roll.launches == before + 1
     sub = res((2, 4, n))
     kw = dict(sub_from=sub, epi_scale=sc, epi_scale_shoup=scs)
     _same(rk.ntt_forward_roll(x, t, rows, **kw),

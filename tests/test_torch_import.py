@@ -186,11 +186,14 @@ def test_meta_tensor_raises(meta_args, kernel):
                                        (1 << 16, 16)],
                          ids=["not-a-power-of-two", "share-below-1024",
                               "share-past-shared-memory", "past-8"])
-@pytest.mark.parametrize("kernel", ["ntt_forward", "moddown_rows"])
+@pytest.mark.parametrize("kernel", ["ntt_forward", "moddown_rows",
+                                    "moddown_rescale", "ntt_forward_roll",
+                                    "ntt_inverse_roll"])
 def test_cluster_refused(meta_args, monkeypatch, kernel, n, cluster):
-    """K2 and K8 on the card path (meta tensors: no data, no launch)
-    refuse a cluster size that is not a power of two up to 8 whose share
-    of N is at least 1024 words and fits a block's shared memory."""
+    """K2, K6 (both directions), K7 and K8 on the card path (meta tensors:
+    no data, no launch) refuse a cluster size that is not a power of two up
+    to 8 whose share of N is at least 1024 words and fits a block's shared
+    memory."""
     from phantom_tpu_torch import _build
     t, _ = meta_args
     monkeypatch.setattr(_build, "is_plain", lambda x, name: False)
@@ -202,10 +205,17 @@ def test_cluster_refused(meta_args, monkeypatch, kernel, n, cluster):
     with pytest.raises(ValueError, match=f"cluster={cluster} at N={n}"):
         if kernel == "ntt_forward":
             ntt_kernels.ntt_forward(m(3, n), t, cluster=cluster)
-        else:
+        elif kernel == "moddown_rows":
             moddown_kernels.moddown_rows(
                 m(2, 2, n), m(3, 2), m(2, n), m(3), m(2, 3, n), None, t,
                 None, m(3), m(3), 8, cluster)
+        elif kernel == "moddown_rescale":
+            moddown_kernels.moddown_rescale(
+                m(2, 2, n), m(3, 2), m(2, n), m(3), m(2, 3, n),
+                (m(2, 3, n), m(2, 3, n)), t, None, m(3), m(3), 1, m(2),
+                m(2), m(2), cluster=cluster)
+        else:
+            getattr(ntt_roll_kernels, kernel)(m(3, n), t, cluster=cluster)
 
 
 @pytest.mark.parametrize("logn", range(10, 18))
