@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply and BGV
-multiply on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply, BGV
+multiply and its Fast32 evaluator on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
@@ -169,6 +169,35 @@ Phases, one line each or more; any failure exits non-zero:
                held row, K8 at 512 threads a block, K7 in plain stream
                order without PDL), in turns, each call's device time
                (_device_ms)
+ 27. Fast32 golden  the Fast32 golden files (n = 1024, FAST32_CASES:
+               keygen fed the JAX samples, encode, encrypt_asymmetric,
+               every verb, decrypt and decode, for the three schemes, down
+               to chain index 3) through the kernels, bit-equal to the JAX
+               package's outputs
+ 28. Fast32 CKKS  at the headline configuration: keys (Galois for steps
+               0..7) from a seeded generator, two slot vectors uniform in
+               the unit disc encoded at scale q_last and encrypted with
+               the public key, then multiply + relin and rescale, modswitch,
+               add, sub, add_plain, multiply_plain, square + relin,
+               hoisted_linear_combo with encode_extended weights, two more
+               multiplies, at chain index 7 a plain product and a
+               rotation, decrypt, decode: within 1e-2 of numpy's float64
+               evaluation (the largest error printed; also a fresh
+               encryption's and its rotation's at scale q_last, not gated)
+ 29. Fast32 BGV  at the BGV configuration: batch-encoded slots encrypted
+               with the public key, two multiply + relin each followed by
+               a modswitch, multiply_plain, add with balanced correction
+               factors, a rotation, decrypt, decode: exact in every slot
+ 30. Fast32 BFV  at the BFV configuration: encrypt_asymmetric, add,
+               multiply_plain, a rotation in coefficient form (K4c), a
+               modswitch, decrypt, decode: exact in every slot; multiply +
+               relin bit-equal to bfv_mult_relin32, its right slots counted
+               (outside HPS's bound, not gated)
+In phases 28-30 every verb runs through the kernels under the launch
+counts (EXPECTED), then through the plain versions on the same inputs
+(the generator's state replayed) and is held bit-equal, then is timed
+(CUDA events); each level's first use (Fast32.prebuild) is timed, and
+the peak memory of each circuit printed.
 Each probed call (phases 4, 8, 11, 18 and 23) prints its event time with
 the host's launch overhead, as every run of this script has, and its
 device time alone (_device_ms: the calls enqueued while the device
@@ -221,6 +250,7 @@ CLUSTERS = (8, 4, 2)  # K6's blocks per 2^16-word row, timed in turns
 K8_ROWS = (1, 2, 4, 6, 8)  # K8's rows per cluster, timed (phase 6)
 K3_CLUSTERS = (8, 4, 2)  # K1-K3's and K8's blocks per row (phase 6)
 STEPS = tuple(range(1, 8))
+STEPS_HOIST = tuple(range(8))  # Fast32's CKKS circuit: Galois keys, combo
 DELTA_BITS = 22
 SEED = 2026
 CHAIN_STEPS = 20
@@ -285,6 +315,49 @@ EXPECTED = {  # launches per path run
     # halves' moddown K1, K5 to Ql and to {t}, K2; the mod switch K1, K2
     "BGV step": _launches(K1=3, K2=3, K5=4, K9=1),
     "BGV step, kernel route": _launches(K1=3, K2=2, K4=1, K5=2),
+    # Fast32 at the headline configuration, "auto" = xla-split, beta = 2 at
+    # every level the circuits visit; a verb without a kernel (add, sub,
+    # negate, CKKS's plain ops, modswitch and decrypt, BFV's modswitch)
+    "Fast32, no kernel": _launches(),
+    # keygen: one K2 over the dnum encryptions of zero of each key
+    "Fast32 gen_secret_key": _launches(K2=1),
+    "Fast32 gen_public_key": _launches(K2=1),
+    "Fast32 gen_relin_key": _launches(K2=1),
+    "Fast32 create_galois_keys, 8 elements": _launches(K2=8),
+    "Fast32 create_galois_keys, 1 element": _launches(K2=1),
+    "Fast32 CKKS encode": _launches(K2=1),
+    "Fast32 CKKS encode_extended": _launches(K2=1),
+    "Fast32 CKKS decode": _launches(K1=1),
+    # u over QlP (K2), e0 and e1 (one K2), the moddown pair (K1, K3)
+    "Fast32 CKKS encrypt_asymmetric": _launches(K1=1, K2=2, K3=1),
+    # the modup (K1, K5 per digit, K2), K9, the moddown pair with the
+    # tensor terms in K3's epilogue (K1, K3)
+    "Fast32 CKKS multiply_and_relin": _launches(K1=2, K2=1, K3=1, K5=2,
+                                                K9=1),
+    "Fast32 CKKS rescale_to_next": _launches(K1=1, K3=1),
+    "Fast32 CKKS rotate": _launches(K1=2, K2=1, K3=1, K5=2, K9=1),
+    "Fast32 CKKS hoisted_linear_combo, steps 0..7": _launches(
+        K1=2, K2=1, K3=1, K5=2, K9=7),
+    "Fast32 BGV encode": _launches(K1=1),
+    "Fast32 BGV decode": _launches(K2=1),
+    # u, e0 and e1, the plaintext's lift (K2 x3); the t-corrected moddown
+    # of both halves (K1, K5 to Ql and to {t}, K2)
+    "Fast32 BGV encrypt_asymmetric": _launches(K1=1, K2=4, K5=2),
+    # the modup (K1, K5 x2, K2), K9, the t-corrected moddown pair
+    "Fast32 BGV multiply_and_relin": _launches(K1=2, K2=2, K5=4, K9=1),
+    "Fast32 BGV rotate": _launches(K1=2, K2=2, K5=4, K9=1),
+    "Fast32 BGV mod_switch_to_next": _launches(K1=1, K2=1),
+    "Fast32 BGV multiply_plain": _launches(K2=1),
+    "Fast32 BGV decrypt": _launches(K1=1, K5=1),
+    "Fast32 BFV encode": _launches(K1=1),
+    "Fast32 BFV decode": _launches(K2=1),
+    # u (K2), the inverse of u pk (K1), the exact moddown conversion of
+    # both halves' P rows (K5)
+    "Fast32 BFV encrypt_asymmetric": _launches(K1=1, K2=1, K5=1),
+    "Fast32 BFV multiply_plain": _launches(K1=1, K2=1),
+    # K4c, the moddown pair (K1, K3), the switched pair's inverse (K1)
+    "Fast32 BFV rotate": _launches(K1=2, K3=1, K4c=1),
+    "Fast32 BFV decrypt": _launches(K1=1, K2=1, K5=1),
 }
 EPILOGUES = {  # the CKKS step's epilogues, by the kernel each adds
     "pair": {}, "K8": {"moddown_rows": 8}, "K7": {"merged_epilogue": True}}
@@ -504,7 +577,8 @@ def encode_coeffs(ctx, m: np.ndarray, delta_bits: int, rows=None):
     e = torch.as_tensor(m.astype(np.int64) << delta_bits,
                         device=ctx.key_q.device)
     return ntt_kernels.ntt_forward(
-        sampling.lift_signed(e, ctx.ntt.q[rows.long()]), ctx.ntt, rows)
+        sampling.lift_signed_to_rns32(e, ctx.ntt.q[rows.long()]), ctx.ntt,
+        rows)
 
 
 def negacyclic_product(m1: np.ndarray, m2: np.ndarray) -> np.ndarray:
@@ -655,6 +729,209 @@ def rotate_golden(device, path: str = ROTATE_GOLDEN):
         pipe = pp.build_pipeline32(ctx, rlk, device=device, **kw)
         out["step" if name == "pair" else f"step_{name}"] = (
             pipe(d1, t["d2"]), g["step"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fast32: the golden files and the circuits
+# ---------------------------------------------------------------------------
+
+# tests/fixtures/torch_port/fast32_<case>.npz and each case's scheme
+FAST32_CASES = {"ckks_chain": "ckks", "bgv_chain": "bgv",
+                "encrypt_ckks": "ckks", "encrypt_bfv": "bfv",
+                "encrypt_bgv": "bgv", "combo": "ckks", "verbs_ckks": "ckks",
+                "verbs_bfv": "bfv", "verbs_bgv": "bgv",
+                "keygen_ckks": "ckks", "keygen_bgv": "bgv"}
+
+
+def fast32_case(case: str, device, engine: str = "mxu-pallas"):
+    """A Fast32 golden file on `device`: (the file, its context, its keys
+    carried over by convert.py (sk, pk, rlk, glk, None where absent), a
+    Fast32 with its rlk and glk on `engine`)."""
+    from types import SimpleNamespace
+    from phantom_tpu_torch import Fast32, convert, make_context
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    g = np.load(os.path.join(FIXTURES, f"fast32_{case}.npz"))
+    ctx = make_context(EncryptionParameters.create(
+        int(g["sk"].shape[-1]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), FAST32_CASES[case], int(g["t"])),
+        device=device)
+    got = {name: f(ctx, SimpleNamespace(data=g[name])) if name in g
+           else None for name, f in (("sk", convert.secret_key),
+                                     ("pk", convert.public_key),
+                                     ("rlk", convert.relin_key))}
+    got["glk"] = convert.galois_key_set(ctx, SimpleNamespace(
+        data=g["glk"], elts=g["elts"].tolist())) if "glk" in g else None
+    return g, ctx, got, Fast32(ctx, rlk=got["rlk"], glk=got["glk"],
+                               engine=engine)
+
+
+def fast32_ct(ctx, g, name: str):
+    """The golden file's ciphertext `name` as the port's, metadata and
+    all."""
+    from types import SimpleNamespace
+    from phantom_tpu_torch import convert
+    meta = g[name + "__meta"].tolist()
+    return convert.ciphertext(ctx, SimpleNamespace(
+        data=g[name], chain_index=meta[0], is_ntt_form=meta[1],
+        scale=float(g[name + "__scale"]), correction_factor=meta[2],
+        noise_scale_deg=meta[3]))
+
+
+def fast32_pt(ctx, g, name: str):
+    from types import SimpleNamespace
+    from phantom_tpu_torch import convert
+    meta = g[name + "__meta"].tolist()
+    return convert.plaintext(ctx, SimpleNamespace(
+        data=g[name], chain_index=meta[0], is_ntt_form=meta[1],
+        scale=float(g[name + "__scale"])))
+
+
+def _samples(g, name: str, device):
+    import torch
+    return (torch.from_numpy(g[name + "_u"]).to(device),
+            torch.from_numpy(g[name + "_e"]).to(device))
+
+
+def fast32_golden(device, cases=tuple(FAST32_CASES), ops=None):
+    """The Fast32 golden files through the port on `device`: {"<case>:
+    <name>": (port output, JAX output)}, numpy arrays (residues as uint32,
+    decoded slots as they are); each ciphertext's and plaintext's metadata
+    is checked against the file's on the way (RuntimeError)."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, CKKSEncoder, encode_extended
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import galois, keys
+    ops = pp.KERNELS if ops is None else ops
+    out = {}
+
+    def res(x):
+        return x.cpu().numpy().view(np.uint32)
+
+    def cmp(case, g, name, c):
+        meta = g[name + "__meta"].tolist()
+        have = [c.chain_index, int(c.is_ntt_form)]
+        if len(meta) > 2:
+            have += [c.correction_factor, c.noise_scale_deg]
+        if have != meta or c.scale != float(g[name + "__scale"]):
+            raise RuntimeError(f"Fast32 golden {case}: {name} metadata "
+                               f"{have}, scale {c.scale} != {meta}, "
+                               f"{float(g[name + '__scale'])}")
+        out[f"{case}: {name}"] = (res(c.data), g[name])
+
+    for case in cases:
+        g, ctx, k, ev = fast32_case(case, device)
+        scheme = FAST32_CASES[case]
+        if case.startswith("keygen"):
+            t = {n: torch.from_numpy(g[n].view(np.int32) if g[n].dtype ==
+                                     np.uint32 else g[n]).to(device)
+                 for n in ("s_tern", "pk_a", "pk_e", "rlk_a", "rlk_e",
+                           "glk_a", "glk_e")}
+            sk = keys.gen_secret_core32(ctx, t["s_tern"], ops)
+            q = ctx.key_q.long().view(-1, 1)
+            gen = {"sk": sk, "pk": torch.stack(keys.encrypt_zero_sym_core32(
+                       ctx, sk, t["pk_a"], t["pk_e"], ops)),
+                   "rlk": keys.gen_kswitch_core32(
+                       ctx, sk, (sk.long() * sk.long() % q).int(),
+                       t["rlk_a"], t["rlk_e"], ops)}
+            gen["glk"] = torch.stack([keys.gen_kswitch_core32(
+                ctx, sk, sk[:, torch.from_numpy(galois.make_ntt_perm(
+                    e, ctx.params.n)).to(device)], t["glk_a"][i],
+                t["glk_e"][i], ops) for i, e in enumerate(g["elts"].tolist())])
+            for name, x in gen.items():
+                out[f"{case}: {name}"] = (res(x), g[name])
+            continue
+        sk, pk = k["sk"], k["pk"]
+        if scheme == "ckks":
+            enc = CKKSEncoder(ctx)
+        else:
+            enc = BatchEncoder(ctx)
+
+        def encrypt(pt, samples):
+            ci = pt.chain_index if scheme == "ckks" else 1
+            return keys.encrypt_asymmetric_core(
+                ctx, ev.keyswitch_at(ci), pk, pt, *samples, ops=ops)
+
+        def decode(name, pt):
+            got = enc.decode(pt, ops)
+            out[f"{case}: {name}"] = (got, g[name])
+
+        if case == "ckks_chain":
+            pt = enc.encode(g["z"], 2.0 ** 28, ops=ops)
+            cmp(case, g, "pt", pt)
+            c = encrypt(pt, _samples(g, "enc", device))
+            cmp(case, g, "ct", c)
+            for name in ("m1", "r1", "m2", "r2"):
+                c = (ev.multiply_and_relin(c, c, ops) if name[0] == "m"
+                     else ev.rescale_to_next(c, ops))
+                cmp(case, g, name, c)
+            c = ev.rotate(c, 1, ops)
+            cmp(case, g, "rot", c)
+            dec = ev.decrypt(sk, c, ops)
+            cmp(case, g, "dec", dec)
+            decode("decoded", dec)
+        elif case == "bgv_chain":
+            pa, pb = (enc.encode(g[v], ops) for v in ("a", "b"))
+            cmp(case, g, "pa", pa)
+            cmp(case, g, "pb", pb)
+            ca = encrypt(pa, _samples(g, "enca", device))
+            cb = encrypt(pb, _samples(g, "encb", device))
+            cmp(case, g, "ca", ca)
+            cmp(case, g, "cb", cb)
+            ms_a = ev.mod_switch_to_next(ca, ops)
+            big_a = ev.mod_switch_to_next(ev.multiply_and_relin(ca, cb, ops),
+                                          ops)
+            big_b = ev.multiply_and_relin(ms_a, ev.mod_switch_to_next(cb, ops),
+                                          ops)
+            s = ev.add(big_a, big_b)
+            s3 = ev.mod_switch_to_next(s, ops)
+            for name, c in (("ms_a", ms_a), ("A", big_a), ("B", big_b),
+                            ("s", s), ("s3", s3)):
+                cmp(case, g, name, c)
+            dec = ev.decrypt(sk, s3, ops)
+            cmp(case, g, "dec", dec)
+            decode("slots", dec)
+        elif case.startswith("encrypt"):
+            pt = (enc.encode(g["vals"], 2.0 ** 24, ops=ops) if scheme == "ckks"
+                  else enc.encode(g["vals"], ops))
+            cmp(case, g, "pt", pt)
+            c = encrypt(pt, _samples(g, "enc", device))
+            cmp(case, g, "ct", c)
+            dec = ev.decrypt(sk, c, ops)
+            cmp(case, g, "dec", dec)
+            decode("decoded", dec)
+        elif case == "combo":
+            c = fast32_ct(ctx, g, "ct")
+            scale = c.scale
+            pts = [encode_extended(enc, w, scale, c.chain_index, ops)
+                   for w in g["weights"]]
+            out[f"{case}: pts"] = (res(torch.stack(pts)), g["pts"])
+            cmp(case, g, "combo", ev.hoisted_linear_combo(c, [0, 1, 2], pts,
+                                                          scale, ops))
+            cmp(case, g, "hoist", ev.hoisting(c, [1, 2], ops))
+            cmp(case, g, "galois", ev.apply_galois(c, int(g["elts"][1]), ops))
+        else:  # verbs
+            c, c2 = fast32_ct(ctx, g, "c"), fast32_ct(ctx, g, "c2")
+            pt2 = fast32_pt(ctx, g, "pt2")
+            c3 = ev.multiply(c, c2, ops)
+            mr = ev.multiply_and_relin(c, c2, ops)
+            verbs = dict(
+                add=ev.add(c, c2), sub=ev.sub(c, c2), negate=ev.negate(c),
+                add_plain=ev.add_plain(c, pt2, ops),
+                sub_plain=ev.sub_plain(c, pt2, ops),
+                multiply_plain=ev.multiply_plain(c, pt2, ops),
+                mod_switch=ev.mod_switch_to_next(c, ops), multiply=c3,
+                relinearize=ev.relinearize(c3, ops), multiply_and_relin=mr,
+                square_and_relin=ev.square_and_relin(c, ops),
+                rotate=ev.rotate(c, 1, ops))
+            if scheme == "ckks":
+                verbs["rescale"] = ev.rescale_to_next(mr, ops)
+            if scheme == "bgv":
+                verbs["add_plain_ms"] = ev.add_plain(verbs["mod_switch"], pt2,
+                                                     ops)
+            for name, x in verbs.items():
+                cmp(case, g, name, x)
+            cmp(case, g, "dec", ev.decrypt(sk, mr, ops))
     return out
 
 
@@ -1467,6 +1744,367 @@ def _bgv_phases(card: str, probes, wrappers, since, launches, dev) -> None:
     _profile(run, PROFILE_STEPS, card, "BGV step")
 
 
+def _same(a, b) -> bool:
+    """Kernel path against plain path: tensors, numpy arrays, ciphertexts
+    and plaintexts (their metadata too) and keys.GaloisKeys."""
+    import torch
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    meta = [f for f in ("chain_index", "is_ntt_form", "scale",
+                        "correction_factor", "noise_scale_deg", "elts")
+            if hasattr(a, f)]
+    return torch.equal(a.data, b.data) and all(
+        getattr(a, f) == getattr(b, f) for f in meta)
+
+
+class _Circuit:
+    """Runs a circuit's verbs one at a time: each through the kernels
+    with every launch count set to 0 just before and read just after
+    (_count against EXPECTED[key]), then through the plain versions on the
+    same inputs (a generator's state replayed) and held bit-equal, then
+    timed on the kernel path (CUDA events, _time); and each level's
+    first-use build (Fast32.prebuild), timed."""
+
+    def __init__(self, what, ev, wrappers, launches, card, gen=None):
+        self.what, self.ev, self.wrappers = what, ev, wrappers
+        self.launches, self.card, self.gen = launches, card, gen
+        self.times, self.builds = [], []
+
+    def level(self, ci: int) -> None:
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.ev.prebuild(ci)
+        torch.cuda.synchronize()
+        self.builds.append((ci, (time.perf_counter() - t0) * 1e3))
+
+    def __call__(self, name: str, key: str, fn, draws: bool = False,
+                 reps: int = REPS):
+        from phantom_tpu_torch.ops import pipeline32 as pp
+        gen = self.gen if draws else None
+        state = gen.get_state() if gen is not None else None
+        out = _count(self.wrappers, key, lambda: fn(pp.KERNELS),
+                     self.launches)
+        if gen is not None:
+            after = gen.get_state()
+            gen.set_state(state)
+        ref = fn(pp.PLAIN)
+        if gen is not None:
+            gen.set_state(after)
+        if not _same(out, ref):
+            raise RuntimeError(f"{self.what} {name}: the kernel path differs "
+                               "from the plain path")
+        self.times.append((name, _time(lambda: fn(pp.KERNELS), reps)))
+        return out
+
+    def report(self) -> None:
+        import torch
+        print(f"{self.what}: every verb bit-equal to its plain path; "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in self.times)
+              + f" [{self.card}]")
+        print(f"{self.what}: first-use build per chain index: "
+              + ", ".join(f"{ci}: {ms:.1f} ms" for ci, ms in self.builds)
+              + f"; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{self.card}]")
+
+
+def unit_disc(rng, size: int) -> np.ndarray:
+    """Complex values uniform in the unit disc."""
+    return np.sqrt(rng.random(size)) * np.exp(2j * np.pi * rng.random(size))
+
+
+def rotate_rows(v: np.ndarray, step: int) -> np.ndarray:
+    """The batch encoder's slots rotated by `step`: each row of N/2 slots
+    rolled left."""
+    h = v.shape[0] // 2
+    return np.concatenate([np.roll(v[:h], -step), np.roll(v[h:], -step)])
+
+
+def _fast32_keys(c: _Circuit, elts_what: str, steps):
+    """Secret, public, relin and Galois keys for `steps` through Fast32,
+    each kernel path against its plain path."""
+    ev = c.ev
+    sk = c("gen_secret_key", "Fast32 gen_secret_key",
+           lambda ops: ev.gen_secret_key(c.gen, ops), True, 1)
+    pk = c("gen_public_key", "Fast32 gen_public_key",
+           lambda ops: ev.gen_public_key(sk, c.gen, ops), True, 1)
+    rlk = c("gen_relin_key", "Fast32 gen_relin_key",
+            lambda ops: ev.gen_relin_key(sk, c.gen, ops), True, 1)
+    glk = c("create_galois_keys", f"Fast32 create_galois_keys, {elts_what}",
+            lambda ops: ev.create_galois_keys(sk, c.gen, steps, ops=ops),
+            True, 1)
+    return sk, pk, rlk, glk
+
+
+def fast32_ckks_circuit(params, card, wrappers, launches, dev):
+    """Phase 28: keys, encode, encrypt_asymmetric, then multiply + relin,
+    rescale, modswitch, add, sub, add_plain, multiply_plain, square +
+    relin, hoisted_linear_combo over steps 0..7 with encode_extended
+    weights, two more multiplies, at chain index 7 a plain product and a
+    rotation (at scale q_last^2: a rotation at scale q_last alone leaves up
+    to about 8e-3 of the moddown's bias in a slot at N = 2^16), decrypt
+    and decode against numpy's float64 evaluation of the same circuit
+    (1e-2).  Returns the largest error."""
+    import torch
+    from phantom_tpu_torch import (CKKSEncoder, Fast32, encode_extended,
+                                   make_context)
+    t0 = time.time()
+    ctx = make_context(params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    c = _Circuit("Fast32 CKKS", Fast32(ctx), wrappers, launches, card, gen)
+    sk, pk, rlk, glk = _fast32_keys(c, "8 elements", STEPS_HOIST)
+    ev = c.ev = Fast32(ctx, rlk=rlk, glk=glk)
+    print(f"Fast32 CKKS setup: N={params.n} L={params.size_q} "
+          f"alpha={params.size_p}, modup {ev.keyswitch_at(1).modup}; context "
+          f"and keys (steps {STEPS_HOIST[0]}..{STEPS_HOIST[-1]}) "
+          f"{time.time() - t0:.1f} s")
+    enc = CKKSEncoder(ctx)
+    rng = np.random.default_rng(SEED)
+    z1, z2 = unit_disc(rng, enc.slots), unit_disc(rng, enc.slots)
+    w1, w2 = 0.5 * unit_disc(rng, enc.slots), 0.25 * unit_disc(rng, enc.slots)
+    wc = [unit_disc(rng, enc.slots) / len(STEPS_HOIST) for _ in STEPS_HOIST]
+    w3 = unit_disc(rng, enc.slots)
+    qs = params.data_moduli
+
+    def qlast(ci):
+        return float(qs[params.size_q - ci])
+
+    none = "Fast32, no kernel"
+    c.level(1)
+    pt1 = c("encode", "Fast32 CKKS encode",
+            lambda ops: enc.encode(z1, qlast(1), ops=ops))
+    c1 = c("encrypt_asymmetric", "Fast32 CKKS encrypt_asymmetric",
+           lambda ops: ev.encrypt_asymmetric(pk, pt1, gen, ops), True)
+    c2 = ev.encrypt_asymmetric(pk, enc.encode(z2, qlast(1)), gen)
+    fresh1, fresh2 = c1, c2
+    v = c("multiply_and_relin @1", "Fast32 CKKS multiply_and_relin",
+          lambda ops: ev.multiply_and_relin(c1, c2, ops))
+    v = c("rescale_to_next @1", "Fast32 CKKS rescale_to_next",
+          lambda ops: ev.rescale_to_next(v, ops))
+    c.level(2)
+    c1 = c("mod_switch_to_next @1", none,
+           lambda ops: ev.mod_switch_to_next(c1, ops))
+    v = c("add @2", none, lambda ops: ev.add(v, c1))
+    c2 = ev.mod_switch_to_next(c2)
+    v = c("sub @2", none, lambda ops: ev.sub(v, c2))
+    p = enc.encode(w1, v.scale, 2)
+    v = c("add_plain @2", none, lambda ops: ev.add_plain(v, p, ops))
+    p = enc.encode(w2, qlast(2), 2)
+    v = c("multiply_plain @2", none, lambda ops: ev.multiply_plain(v, p, ops))
+    v = ev.rescale_to_next(v)
+    c.level(3)
+    v = c("square_and_relin @3", "Fast32 CKKS multiply_and_relin",
+          lambda ops: ev.square_and_relin(v, ops))
+    v = ev.rescale_to_next(v)
+    c.level(4)
+    pts = [c(f"encode_extended @4 (step {s})", "Fast32 CKKS encode_extended",
+             lambda ops: encode_extended(enc, w, qlast(4), 4, ops), reps=1)
+           for s, w in zip(STEPS_HOIST, wc)]
+    v = c("hoisted_linear_combo @4", "Fast32 CKKS hoisted_linear_combo, "
+          "steps 0..7", lambda ops: ev.hoisted_linear_combo(
+              v, STEPS_HOIST, pts, qlast(4), ops))
+    v = ev.rescale_to_next(v)
+    for _ in range(3):
+        c1 = ev.mod_switch_to_next(c1)
+    c.level(5)
+    v = c("multiply_and_relin @5", "Fast32 CKKS multiply_and_relin",
+          lambda ops: ev.multiply_and_relin(v, c1, ops))
+    v = ev.rescale_to_next(v)
+    c.level(6)
+    v = c("multiply_and_relin @6", "Fast32 CKKS multiply_and_relin",
+          lambda ops: ev.multiply_and_relin(v, v, ops))
+    v = ev.rescale_to_next(v)
+    c.level(7)
+    p = enc.encode(w3, qlast(7), 7)
+    v = c("multiply_plain @7", none, lambda ops: ev.multiply_plain(v, p, ops))
+    v = c("rotate @7", "Fast32 CKKS rotate", lambda ops: ev.rotate(v, 1, ops))
+    pt = c("decrypt @7", none, lambda ops: ev.decrypt(sk, v, ops))
+    got = c("decode @7", "Fast32 CKKS decode",
+            lambda ops: enc.decode(pt, ops), reps=1)
+    want = (z1 * z2 + z1 - z2 + w1) * w2
+    want = want * want
+    want = sum(w * np.roll(want, -s) for s, w in zip(STEPS_HOIST, wc))
+    want = want * z1
+    want = np.roll(want * want * w3, -1)
+    err = float(np.abs(got - want).max())
+    c.report()
+    print(f"Fast32 CKKS circuit: chain index {v.chain_index}, scale "
+          f"2^{np.log2(v.scale):.3f}; decoded slots within {err:.3e} of "
+          f"numpy's float64 evaluation (bound 1e-2)")
+    # the reference's moddown floors, so an encryption of zero and a key
+    # switch leave a bias of -1/2 (1 + s) per coefficient, whose embedding
+    # peaks at the slots nearest zeta^(+-1): read at scale q_last
+    fresh = float(np.abs(enc.decode(ev.decrypt(sk, fresh1)) - z1).max())
+    rot = float(np.abs(enc.decode(ev.decrypt(sk, ev.rotate(fresh1, 1)))
+                       - np.roll(z1, -1)).max())
+    print(f"Fast32 CKKS at scale 2^{np.log2(fresh1.scale):.3f}: a fresh "
+          f"encryption decodes within {fresh:.3e} of its slots, its rotation "
+          f"within {rot:.3e} (the floored moddown's bias; not gated)")
+    c6 = ev.mod_switch_to_next(c1)
+    for ci, d1, d2 in ((1, fresh1, fresh2), (c6.chain_index, c6, c6)):
+        ms = _device_ms(lambda: ev.rescale_to_next(ev.multiply_and_relin(
+            d1, d2)), REPS)
+        print(f"Fast32 CKKS multiply_and_relin + rescale_to_next at chain "
+              f"index {ci}: {ms:.4f} ms device time [{card}]")
+    _profile(lambda: ev.rescale_to_next(ev.multiply_and_relin(
+        fresh1, fresh2)), PROFILE_STEPS, card,
+        "Fast32 CKKS multiply_and_relin + rescale_to_next at chain index 1")
+    if not err <= 1e-2:
+        raise RuntimeError(f"Fast32 CKKS circuit: error {err} > 1e-2")
+    return err
+
+
+def fast32_bgv_circuit(params, card, wrappers, launches, dev):
+    """Phase 29: encode, encrypt_asymmetric, two multiply + relin each
+    followed by a modswitch, multiply_plain, add (balancing the correction
+    factors), a rotation, decrypt and decode: exact in every slot."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, Fast32, make_context
+    t0 = time.time()
+    ctx = make_context(params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    c = _Circuit("Fast32 BGV", Fast32(ctx), wrappers, launches, card, gen)
+    sk, pk, rlk, glk = _fast32_keys(c, "1 element", [1])
+    ev = c.ev = Fast32(ctx, rlk=rlk, glk=glk)
+    t = params.plain_modulus
+    print(f"Fast32 BGV setup: N={params.n} L={params.size_q} "
+          f"alpha={params.size_p} t={t}, modup {ev.keyswitch_at(1).modup}; "
+          f"context and keys {time.time() - t0:.1f} s")
+    be = BatchEncoder(ctx)
+    rng = np.random.default_rng(SEED)
+    a, b, m = (rng.integers(0, t, params.n) for _ in range(3))
+    c.level(1)
+    pa = c("encode", "Fast32 BGV encode", lambda ops: be.encode(a, ops))
+    ca = c("encrypt_asymmetric", "Fast32 BGV encrypt_asymmetric",
+           lambda ops: ev.encrypt_asymmetric(pk, pa, gen, ops), True)
+    cb = ev.encrypt_asymmetric(pk, be.encode(b), gen)
+    x = c("multiply_and_relin @1", "Fast32 BGV multiply_and_relin",
+          lambda ops: ev.multiply_and_relin(ca, cb, ops))
+    x = c("mod_switch_to_next @1", "Fast32 BGV mod_switch_to_next",
+          lambda ops: ev.mod_switch_to_next(x, ops))
+    c.level(2)
+    cb = ev.mod_switch_to_next(cb)
+    x = c("multiply_and_relin @2", "Fast32 BGV multiply_and_relin",
+          lambda ops: ev.multiply_and_relin(x, cb, ops))
+    x = c("mod_switch_to_next @2", "Fast32 BGV mod_switch_to_next",
+          lambda ops: ev.mod_switch_to_next(x, ops))
+    c.level(3)
+    pm = be.encode(m)
+    x = c("multiply_plain @3", "Fast32 BGV multiply_plain",
+          lambda ops: ev.multiply_plain(x, pm, ops))
+    ca = ev.mod_switch_to_next(ev.mod_switch_to_next(ca))
+    if ca.correction_factor == x.correction_factor:
+        raise RuntimeError("Fast32 BGV: the add needs unequal factors")
+    x = c("add @3 (balanced)", "Fast32, no kernel", lambda ops: ev.add(x, ca))
+    x = c("rotate @3", "Fast32 BGV rotate", lambda ops: ev.rotate(x, 1, ops))
+    pt = c("decrypt @3", "Fast32 BGV decrypt",
+           lambda ops: ev.decrypt(sk, x, ops))
+    got = c("decode @3", "Fast32 BGV decode", lambda ops: be.decode(pt, ops))
+    c.report()
+    ao, bo, mo = (v.astype(object) for v in (a, b, m))
+    want = rotate_rows((ao * bo * bo * mo + ao) % t, 1)
+    right = int((got.astype(object) == want).sum())
+    print(f"Fast32 BGV circuit: chain index {x.chain_index}, correction "
+          f"factor {x.correction_factor}; (a b^2 m + a) rotated by 1 in "
+          f"{right} of {params.n} slots")
+    if right != params.n:
+        raise RuntimeError(f"Fast32 BGV circuit: {params.n - right} slots "
+                           "differ")
+
+
+def fast32_bfv_circuit(params, card, wrappers, launches, dev):
+    """Phase 30: encode, encrypt_asymmetric, add, multiply_plain, a
+    rotation in coefficient form (K4c), a modswitch, decrypt and decode:
+    exact in every slot; multiply_and_relin bit-equal to the ops-level
+    bfv_mult_relin32 on the same inputs, its right slots counted (HPS's
+    bound does not hold here)."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, Fast32, make_context
+    from phantom_tpu_torch.ops import bfv32
+    t0 = time.time()
+    ctx = make_context(params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    c = _Circuit("Fast32 BFV", Fast32(ctx), wrappers, launches, card, gen)
+    sk, pk, rlk, glk = _fast32_keys(c, "1 element", [1])
+    ev = c.ev = Fast32(ctx, rlk=rlk, glk=glk)
+    t = params.plain_modulus
+    print(f"Fast32 BFV setup: N={params.n} L={params.size_q} "
+          f"alpha={params.size_p} t={t}, engine {ev.engine}; context and "
+          f"keys {time.time() - t0:.1f} s")
+    be = BatchEncoder(ctx)
+    rng = np.random.default_rng(SEED)
+    a, b, m = (rng.integers(0, t, params.n) for _ in range(3))
+    none = "Fast32, no kernel"
+    c.level(1)
+    pa = c("encode", "Fast32 BFV encode", lambda ops: be.encode(a, ops))
+    ca = c("encrypt_asymmetric", "Fast32 BFV encrypt_asymmetric",
+           lambda ops: ev.encrypt_asymmetric(pk, pa, gen, ops), True)
+    cb = ev.encrypt_asymmetric(pk, be.encode(b), gen)
+    x = c("add", none, lambda ops: ev.add(ca, cb))
+    pm = be.encode(m)
+    x = c("multiply_plain", "Fast32 BFV multiply_plain",
+          lambda ops: ev.multiply_plain(x, pm, ops))
+    x = c("rotate (coefficient form)", "Fast32 BFV rotate",
+          lambda ops: ev.rotate(x, 1, ops))
+    x = c("mod_switch_to_next", none,
+          lambda ops: ev.mod_switch_to_next(x, ops))
+    pt = c("decrypt @2", "Fast32 BFV decrypt",
+           lambda ops: ev.decrypt(sk, x, ops))
+    got = c("decode @2", "Fast32 BFV decode", lambda ops: be.decode(pt, ops))
+    mr = c("multiply_and_relin", "BFV step, mxu-pallas",
+           lambda ops: ev.multiply_and_relin(ca, cb, ops))
+    c.report()
+    ao, bo, mo = (v.astype(object) for v in (a, b, m))
+    want = rotate_rows((ao + bo) * mo % t, 1)
+    right = int((got.astype(object) == want).sum())
+    print(f"Fast32 BFV circuit: chain index {x.chain_index}; ((a + b) m) "
+          f"rotated by 1 in {right} of {params.n} slots")
+    if right != params.n:
+        raise RuntimeError(f"Fast32 BFV circuit: {params.n - right} slots "
+                           "differ")
+    if not torch.equal(mr.data, bfv32.bfv_mult_relin32(
+            ev._bfv_at(1), ca.data, cb.data)):
+        raise RuntimeError("Fast32 BFV multiply_and_relin differs from "
+                           "bfv_mult_relin32")
+    prod = be.decode(ev.decrypt(sk, mr)).astype(object)
+    right = int((prod == ao * bo % t).sum())
+    print(f"Fast32 BFV multiply_and_relin: bit-equal to bfv_mult_relin32 on "
+          f"the same inputs; decrypts to a b in {right} of {params.n} slots "
+          f"(HPS's bound: log2 Rl/Ql {hps_bound(ctx)[0]:.2f} against log2 "
+          f"2Nt {hps_bound(ctx)[1]:.2f}; not gated)")
+
+
+def _fast32_phases(card: str, wrappers, launches, dev) -> None:
+    """Phases 27-30: the Fast32 golden files through the kernels, then the
+    CKKS, BGV and BFV circuits at full width, each circuit's state
+    released before the next."""
+    import torch
+    for name, (got, want) in fast32_golden(dev).items():
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"Fast32 golden: {name} differs from the JAX "
+                               "output")
+    print(f"Fast32 golden: {len(FAST32_CASES)} files, every verb through "
+          "the kernels bit-equal to the JAX package's output")
+    fast32_ckks_circuit(chain_params(**HEADLINE), card, wrappers, launches,
+                        dev)
+    torch.cuda.empty_cache()
+    fast32_bgv_circuit(mod_t_params(**BGV, scheme="bgv"), card, wrappers,
+                       launches, dev)
+    torch.cuda.empty_cache()
+    fast32_bfv_circuit(mod_t_params(**BFV, scheme="bfv"), card, wrappers,
+                       launches, dev)
+    torch.cuda.empty_cache()
+
+
 _PROBED_SOURCES = ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu", "bconv.cu",
                    "moddown_rows.cu", "moddown_rescale.cu")
 
@@ -2024,6 +2662,10 @@ def main() -> int:
 
     # 26. where the kernels' time goes
     _anatomy(card, dev)
+    torch.cuda.empty_cache()
+
+    # 27-30. Fast32
+    _fast32_phases(card, wrappers, launches, dev)
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):

@@ -1,24 +1,33 @@
 """phantom_tpu_torch — the PyTorch/CUDA port of phantom_tpu.
 
 A second package beside the JAX one, which stays the reference the port
-is tested against.  So far it carries CKKS hybrid key switching: the
-multiply + relinearize + rescale step on the three modup routes and with
-its three epilogues, rotations and hoisted rotations (ops/pipeline32.py);
-the BFV HPS multiply + relinearize step on two engines (ops/bfv32.py);
-the BGV multiply + relinearize + modulus-switch step with the
-t-corrected moddown (ops/bgv32.py); hand-written CUDA kernels for Hopper
-(sm_90a) for its NTTs (two-pass, and one-pass in a thread-block
-cluster), base conversions, the fused modup + key inner product (NTT,
-coefficient and pre-converted form), the key inner product and the
-moddown epilogues (csrc/); keygen (relin and Galois keys), symmetric
-encryption and decryption for the three schemes.  It imports torch and numpy
-and never JAX, and keeps its own copy of the host math (host/).  Its
-entry points build on the CUDA device unless given device="cpu".
+is tested against.  Its user-facing evaluator is `Fast32` (fast32.py):
+CKKS, BFV (HPS) and BGV over every level of the modulus chain, with
+keygen (secret, public, relin and Galois keys), public-key and symmetric
+encryption, the plain ops, multiply and relinearize, square, rescale and
+modulus switch, rotations in NTT and coefficient form, both hoisted forms
+and decryption; `BatchEncoder` and `CKKSEncoder` carry values in and
+out.  Below it, the ops: hybrid key switching, the CKKS multiply +
+relinearize + rescale step on three modup routes and with three
+epilogues, rotations and hoisted rotations (ops/pipeline32.py), the BFV
+HPS step on two engines (ops/bfv32.py) and the BGV multiply +
+relinearize + modulus switch (ops/bgv32.py).  They run on hand-written
+CUDA kernels for Hopper (sm_90a, csrc/): the NTTs, all on one one-pass
+radix-8 core that holds each row in a thread-block cluster, the base
+conversions (on the int8 tensor cores), the fused modup + key inner
+product (NTT, coefficient and pre-converted form), the key inner product
+and the moddown epilogues.  It imports torch and numpy and never JAX,
+and keeps its own copy of the host math (host/).  Its entry points run
+on the CUDA device unless the context was built with device="cpu", where
+each kernel wrapper takes its plain torch version.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from .schemes.context import Context, make_context  # noqa: F401
+from .schemes.ciphertext import Ciphertext, Plaintext  # noqa: F401
+from .schemes.batch_encoder import BatchEncoder  # noqa: F401
+from .schemes.ckks_encoder import CKKSEncoder, encode_extended  # noqa: F401
 from .schemes.keys import create_galois_keys  # noqa: F401
 from .schemes.params import EncryptionParameters  # noqa: F401
 from .ops.bfv32 import (BFVPipeline32, bfv_mult_relin32,  # noqa: F401
@@ -31,3 +40,4 @@ from .ops.pipeline32 import (CKKSPipeline32, Galois32,  # noqa: F401
                              hoisting_sum32, keyswitch32,
                              keyswitch_from_ntt32, mult_relin_rescale32,
                              rotate32)
+from .fast32 import Ct32, Fast32  # noqa: F401

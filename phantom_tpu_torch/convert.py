@@ -8,6 +8,13 @@ coefficient form), secret keys and plaintexts; the relin key becomes a
 level's evk (`relin_evk`) or a whole BFV or BGV step (`bfv_pipeline`,
 `bgv_pipeline`).  A BGV ciphertext's correction factor is a host integer:
 the caller carries it beside the residues.
+
+The JAX package's key, plaintext and ciphertext objects (any object with
+their fields: the module reads `.data` through `np.asarray`, and never
+imports JAX) carry across whole, onto the context's device: `secret_key`,
+`public_key` and `relin_key` to tensors, `galois_key_set` to
+keys.GaloisKeys, `plaintext` and `ciphertext` (a Ciphertext or a Fast32
+Ct32) to the port's, with all their metadata.
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ import torch
 from .ops.bfv32 import BFVPipeline32, build_bfv32
 from .ops.bgv32 import BGVPipeline32, build_bgv32
 from .ops.pipeline32 import DEFAULT_ENGINE, Galois32, convert_key32
+from .schemes.ciphertext import Ciphertext, Plaintext
 from .schemes.context import Context
+from .schemes.keys import GaloisKeys
 
 
 def residues(a: np.ndarray) -> torch.Tensor:
@@ -61,3 +70,41 @@ def bgv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,
     device."""
     return build_bgv32(ctx, residues(rlk_data).to(ctx.key_q.device),
                        chain_index, ctx.key_q.device, modup=modup)
+
+
+def _on(ctx: Context, obj) -> torch.Tensor:
+    return residues(np.asarray(obj.data)).to(ctx.key_q.device)
+
+
+def secret_key(ctx: Context, sk) -> torch.Tensor:
+    """SecretKey -> (K, N)."""
+    return _on(ctx, sk)
+
+
+def public_key(ctx: Context, pk) -> torch.Tensor:
+    """PublicKey -> (2, K, N)."""
+    return _on(ctx, pk)
+
+
+def relin_key(ctx: Context, rlk) -> torch.Tensor:
+    """RelinKey -> (dnum, 2, K, N)."""
+    return _on(ctx, rlk)
+
+
+def galois_key_set(ctx: Context, glk) -> GaloisKeys:
+    """GaloisKeys -> keys.GaloisKeys (data (n_elts, dnum, 2, K, N),
+    elts)."""
+    return GaloisKeys(_on(ctx, glk), tuple(int(e) for e in glk.elts))
+
+
+def plaintext(ctx: Context, pt) -> Plaintext:
+    return Plaintext(data=_on(ctx, pt), chain_index=int(pt.chain_index),
+                     is_ntt_form=bool(pt.is_ntt_form), scale=float(pt.scale))
+
+
+def ciphertext(ctx: Context, ct) -> Ciphertext:
+    """A Ciphertext or a Fast32 Ct32 (u64 or u32 residues)."""
+    return Ciphertext(data=_on(ctx, ct), chain_index=int(ct.chain_index),
+                      is_ntt_form=bool(ct.is_ntt_form), scale=float(ct.scale),
+                      correction_factor=int(ct.correction_factor),
+                      noise_scale_deg=int(ct.noise_scale_deg))

@@ -40,16 +40,17 @@ class BFVPipeline32(nn.Module):
     pipeline's engine, the relin evk (beta, 2, size_qlp, N), the D rows of
     the context's NTT tables, the Ql -> Rl lift, the D -> Rl
     scale-and-round, the Rl -> Ql conversion and the centering constants.
-    Calling it runs bfv_mult_relin32."""
+    `ks`: the level's KeySwitch32 to share, else one is built.  Calling it
+    runs bfv_mult_relin32."""
 
     def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
-                 engine: str = DEFAULT_ENGINE):
+                 engine: str = DEFAULT_ENGINE, ks: KeySwitch32 = None):
         super().__init__()
         cd = ctx.get_context_data(chain_index)
         b = cd.bfv
         if b is None:
             raise ValueError("BFVPipeline32 needs a BFV context")
-        self.ks = KeySwitch32(ctx, chain_index, engine)
+        self.ks = KeySwitch32(ctx, chain_index, engine) if ks is None else ks
         self.register_buffer("evk", evk)
         self.register_buffer("rows_d", _rows(b.rows_d))
         self.mv_d = ModulusVec32(list(cd.moduli) + list(b.rl))

@@ -29,19 +29,21 @@ from torch import nn
 
 from .ntt32 import u32_tensor
 from .pipeline32 import (DEFAULT_ENGINE, KERNELS, Kernels, KeySwitch32,
-                         _fwd, _inv, _qcol, _rows, convert_key32,
-                         keyswitch_from_ntt32)
+                         _fwd, _inv, _qcol, _rows, _tensor_2x2,
+                         convert_key32, keyswitch_from_ntt32)
 from ..schemes.context import Context, resolve_device
 
 
 class BGVPipeline32(nn.Module):
     """The step's state at one level: the key-switch tables with BGV's
     t-correction on a modup route, the relin evk (beta, 2, size_qlp, N)
-    and the modulus switch's constants.  Calling it runs
-    bgv_mult_relin_modswitch32."""
+    and the modulus switch's constants.  `ks`: the level's KeySwitch32 to
+    share, else one is built; evk may be None where only the modulus switch
+    runs.  Calling it runs bgv_mult_relin_modswitch32."""
 
     def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
-                 engine: str = DEFAULT_ENGINE, modup: str = "auto"):
+                 engine: str = DEFAULT_ENGINE, modup: str = "auto",
+                 ks: KeySwitch32 = None):
         super().__init__()
         cd = ctx.get_context_data(chain_index)
         if cd.bgv is None:
@@ -51,7 +53,8 @@ class BGVPipeline32(nn.Module):
                              f"engine only so far, not {engine!r}")
         if cd.bgv.qlast_mod_qi is None:
             raise ValueError("the modulus switch needs two data primes")
-        self.ks = KeySwitch32(ctx, chain_index, engine, modup)
+        self.ks = KeySwitch32(ctx, chain_index, engine, modup) if ks is None \
+            else ks
         k = self.ks.size_ql
         rc = cd.rescale
         self.t = ctx.params.plain_modulus
@@ -90,14 +93,6 @@ def bgv_mult_relin32(p: BGVPipeline32, d1: torch.Tensor, d2: torch.Tensor,
     c0, c1, c2 = _tensor_2x2(q, d1, d2)
     sw = keyswitch_from_ntt32(ks, c2.int(), p.evk, ops)
     return torch.stack([(c0 + sw[0]) % q, (c1 + sw[1]) % q]).int()
-
-
-def _tensor_2x2(q: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor):
-    """(d1[0] d2[0], d1[0] d2[1] + d1[1] d2[0], d1[1] d2[1]) mod q, int64;
-    q: (size_ql, 1)."""
-    a, b = d1.long(), d2.long()
-    return (a[0] * b[0] % q, (a[0] * b[1] + a[1] * b[0]) % q,
-            a[1] * b[1] % q)
 
 
 def bgv_mod_switch32(p: BGVPipeline32, x: torch.Tensor,

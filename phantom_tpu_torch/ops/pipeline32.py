@@ -487,6 +487,20 @@ def moddown32_pair(ks: KeySwitch32, x0: torch.Tensor, x1: torch.Tensor,
     return out[0], out[1]
 
 
+def moddown_coeff32(ks: KeySwitch32, x: torch.Tensor,
+                    ops: Kernels = KERNELS) -> torch.Tensor:
+    """(x_Ql - delta(x_P)) * P^-1 in coefficient form: (..., size_qlp, N)
+    -> (..., size_ql, N), with delta the exact conversion (K5; BGV's
+    t-corrected _moddown_delta32) over every leading group at once."""
+    k = ks.size_ql
+    x_p = x[..., k:, :].movedim(-2, 0)
+    delta = (_moddown_delta32(ks, x_p, ops) if ks.bgv else
+             bconv_exact32(x_p, ks.p_to_q, ops.fold_matmul)).movedim(0, -2)
+    q = _qcol(ks.mv_ql.q)
+    return mul_mod_shoup32((x[..., :k, :].long() - delta) % q,
+                           _qcol(ks.pinv), _qcol(ks.pinv_shoup), q).int()
+
+
 def _modup_coeff_prescale(ks: KeySwitch32, c2_coeff: torch.Tensor):
     """x_j QhatInv_j over the Ql rows, each by its digit's QhatInv."""
     q = _qcol(ks.mv_ql.q)
@@ -546,12 +560,14 @@ class CKKSPipeline32(nn.Module):
     rescale constants and the epilogue, fixed at construction: the moddown
     pair then rescale (the default, as in the JAX package), K8 with
     `moddown_rows` = R output rows per block, or K7 with `merged_epilogue`.
-    The two options exclude each other.  Calling it runs
-    mult_relin_rescale32."""
+    The two options exclude each other.  `ks`: the level's KeySwitch32 to
+    share (Fast32's), else one is built; evk may be None where only the
+    rescale runs.  Calling it runs mult_relin_rescale32."""
 
     def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
                  moddown_rows=None, merged_epilogue: bool = False,
-                 engine: str = DEFAULT_ENGINE, modup: str = "auto"):
+                 engine: str = DEFAULT_ENGINE, modup: str = "auto",
+                 ks: KeySwitch32 = None):
         super().__init__()
         if engine != DEFAULT_ENGINE:
             raise ValueError(f"the CKKS step runs on the {DEFAULT_ENGINE!r} "
@@ -566,7 +582,11 @@ class CKKSPipeline32(nn.Module):
         self._moddown_rows = moddown_rows
         self._merged_epilogue = bool(merged_epilogue)
         rc = ctx.get_context_data(chain_index).rescale
-        self.ks = KeySwitch32(ctx, chain_index, modup=modup)
+        if rc is None:
+            raise ValueError(f"chain index {chain_index} has no prime to "
+                             "rescale by")
+        self.ks = KeySwitch32(ctx, chain_index, modup=modup) if ks is None \
+            else ks
         k = self.ks.size_ql
         self.register_buffer("evk", evk)
         self.register_buffer("rows_ql_next", _rows(range(k - 1)))
@@ -643,6 +663,21 @@ def mult_relin_rescale32(p: CKKSPipeline32, d1: torch.Tensor,
     return _relin_rescale(p, s[0], s[1], d1, d2, ops)
 
 
+def _tensor_2x2(q: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor):
+    """(d1[0] d2[0], d1[0] d2[1] + d1[1] d2[0], d1[1] d2[1]) mod q, int64;
+    q: (size_ql, 1)."""
+    a, b = d1.long(), d2.long()
+    return (a[0] * b[0] % q, (a[0] * b[1] + a[1] * b[0]) % q,
+            a[1] * b[1] % q)
+
+
+def _tensor_square_2x2(q: torch.Tensor, d: torch.Tensor):
+    """_tensor_2x2(q, d, d) with the cross term computed once: (d0^2,
+    2 d0 d1, d1^2) mod q, int64."""
+    a = d.long()
+    return a[0] * a[0] % q, 2 * (a[0] * a[1] % q) % q, a[1] * a[1] % q
+
+
 def _mult_relin_rescale_split(p: CKKSPipeline32, d1: torch.Tensor,
                               d2: torch.Tensor,
                               ops: Kernels = KERNELS) -> torch.Tensor:
@@ -693,8 +728,9 @@ def _relin_rescale(p: CKKSPipeline32, s0, s1, d1, d2,
 
 class Galois32(nn.Module):
     """Rotation state at one level: the Galois elements, their NTT-form
-    gather indices `perms` (n_elts, N) int32 and keys `evks` (n_elts,
-    beta, 2, size_qlp, N)."""
+    gather indices `perms` (n_elts, N) int32, their coefficient-form
+    gathers `coeff_src` (n_elts, N) int32 with the sign flips `coeff_neg`
+    (n_elts, N) bool, and keys `evks` (n_elts, beta, 2, size_qlp, N)."""
 
     def __init__(self, ctx: Context, data: torch.Tensor,
                  elts: Sequence[int], chain_index: int = 1):
@@ -704,6 +740,11 @@ class Galois32(nn.Module):
         self.elts = tuple(int(e) for e in elts)
         self.register_buffer("perms", torch.from_numpy(np.stack(
             [gal.make_ntt_perm(e, n) for e in self.elts]).astype(np.int32)))
+        coeff = [gal.make_coeff_perm(e, n) for e in self.elts]
+        self.register_buffer("coeff_src", torch.from_numpy(np.stack(
+            [c[0] for c in coeff]).astype(np.int32)))
+        self.register_buffer("coeff_neg", torch.from_numpy(np.stack(
+            [c[1] for c in coeff])))
         self.register_buffer("evks", torch.stack(
             [convert_key32(ctx, k, chain_index) for k in data]))
 
@@ -736,12 +777,36 @@ def apply_galois32(ks: KeySwitch32, g: Galois32, d: torch.Tensor, elt: int,
     return torch.stack([((c0p.long() + sw[0]) % q).int(), sw[1]])
 
 
+def apply_galois_coeff32(ks: KeySwitch32, g: Galois32, d: torch.Tensor,
+                         elt: int, ops: Kernels = KERNELS) -> torch.Tensor:
+    """sigma_elt of a coefficient-form (2, size_ql, N) ciphertext (BFV):
+    the signed gather of both halves, c1 key-switched in coefficient form
+    (keyswitch32: K4c on the default engine) and brought back by the
+    inverse NTT."""
+    kidx = g.key_index(elt)
+    src, neg = g.coeff_src[kidx], g.coeff_neg[kidx]
+    q = _qcol(ks.mv_ql.q)
+
+    def perm(x):
+        x = x[:, src].long()
+        return torch.where(neg, (q - x) % q, x)
+
+    c0p = perm(d[0])
+    sw = _inv(ks, keyswitch32(ks, perm(d[1]).int(), g.evks[kidx], ops),
+              ks.rows_ql, ops)
+    return torch.stack([((c0p + sw[0]) % q).int(), sw[1]])
+
+
 def rotate32(ks: KeySwitch32, g: Galois32, d: torch.Tensor, step: int,
-             ops: Kernels = KERNELS) -> torch.Tensor:
+             ops: Kernels = KERNELS, is_ntt_form: bool = True
+             ) -> torch.Tensor:
     """Slot rotation by `step` (one hop; a step without its own key is the
-    caller's to decompose), NTT form."""
-    return apply_galois32(ks, g, d, gal.get_elt_from_step(step, d.shape[-1]),
-                          ops)
+    caller's to decompose), NTT form or, with is_ntt_form=False,
+    coefficient form."""
+    elt = gal.get_elt_from_step(step, d.shape[-1])
+    if is_ntt_form:
+        return apply_galois32(ks, g, d, elt, ops)
+    return apply_galois_coeff32(ks, g, d, elt, ops)
 
 
 def hoisted_linear_combo32(ks: KeySwitch32, g: Galois32, d: torch.Tensor,

@@ -1,16 +1,17 @@
-"""Context: the NTT tables and the per-level constants of the first
-levels (counterpart of phantom_tpu/schemes/context.py, CKKS, BFV HPS and
-BGV subsets).
+"""Context: the NTT tables and the per-level constants of the whole
+modulus chain (counterpart of phantom_tpu/schemes/context.py, CKKS, BFV
+HPS and BGV subsets).
 
 Chain indexing matches the JAX package: index 0 is the key level (all of
-Q and P), index 1 the first data level (all of Q), and each next level
-drops one data prime.  Only the levels a CKKS mult+relin+rescale or a
-BGV mult+relin+modswitch step from level 1 touches are built (0 to 2); the
-BFV step stays at level 1.
-Level constants are Python integers and host `BaseConverter`s, as the JAX
-package's `_rescale_consts` / `_keyswitch_consts` / `_hps_mul_consts` and
-scaleround.make_plain_lift_consts compute them; Shoup words here are the
-host's 64-bit ones, floor(w * 2^64 / q).
+Q and P), index 1 the first data level (all of Q, `first_data_index`), and
+each next level drops one data prime, down to index size_q with one.
+Every level exists from the start, but its constants (rescale, key
+switch, BFV, BGV) are built on first use and cached: the NTT tables over
+QP u Rl are the only eager work, and a level that is never visited costs
+nothing.  Level constants are Python integers and host `BaseConverter`s,
+as the JAX package's `_rescale_consts` / `_keyswitch_consts` /
+`_hps_mul_consts` and scaleround.make_plain_lift_consts compute them;
+Shoup words here are the host's 64-bit ones, floor(w * 2^64 / q).
 
 BFV's auxiliary base Rl (size_q + 1 primes == 1 mod 2N below min(QP), as
 the JAX package picks them) has no table of its own: `ntt` is ONE
@@ -19,11 +20,13 @@ is table rows `BFVConsts.rows_d` of it, so the kernels, which take
 (tables, rows), transform D, Ql and QlP rows alike.  The Rl primes are
 below min(QP), 27 or 28 bits at N = 2^16; every kernel keeps its lazy
 values below 4q < 2^32 for any q < 2^30, so they need nothing else.
+BFV and BGV contexts also hold `plain_ntt`, the tables mod t of the batch
+encoder's slot map.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from functools import cached_property
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -32,8 +35,6 @@ from torch import nn
 from .. import host
 from ..ops.ntt32 import NTTTables32, u32_tensor
 from .params import EncryptionParameters
-
-LEVELS = 3  # chain indices 0 (key level), 1 (step input), 2 (step output)
 
 
 class RescaleConsts(NamedTuple):
@@ -87,18 +88,51 @@ class BGVConsts(NamedTuple):
     qlast_mod_qi: Optional[List[int]]    # (k-1,) q_last mod q_i
 
 
-@dataclass(frozen=True)
 class ContextData:
-    chain_index: int
-    moduli: Tuple[int, ...]
-    rescale: Optional[RescaleConsts]
-    ks: Optional[KeySwitchConsts]
-    bfv: Optional[BFVConsts] = None
-    bgv: Optional[BGVConsts] = None
+    """One level of the chain: its moduli, and its constants, each built
+    on first use (None where the level or the scheme has none)."""
+
+    def __init__(self, params: EncryptionParameters, chain_index: int,
+                 moduli, rl_moduli=()):
+        self.chain_index = chain_index
+        self.moduli = tuple(moduli)
+        self._params = params
+        self._rl_moduli = tuple(rl_moduli)
 
     @property
     def size_ql(self) -> int:
         return len(self.moduli)
+
+    @property
+    def _data(self) -> bool:
+        return self.chain_index > 0
+
+    @cached_property
+    def rescale(self) -> Optional[RescaleConsts]:
+        return _rescale_consts(self.moduli) if self._data else None
+
+    @cached_property
+    def ks(self) -> Optional[KeySwitchConsts]:
+        p = self._params
+        if not self._data:
+            return None
+        return _keyswitch_consts(self.moduli, p.special_moduli, p.n,
+                                 p.plain_modulus if p.scheme == "bgv" else 0)
+
+    @cached_property
+    def bfv(self) -> Optional[BFVConsts]:
+        p = self._params
+        if not self._data or p.scheme != "bfv":
+            return None
+        return _bfv_consts(self.moduli, self._rl_moduli, p.size_qp,
+                           p.plain_modulus)
+
+    @cached_property
+    def bgv(self) -> Optional[BGVConsts]:
+        p = self._params
+        if not self._data or p.scheme != "bgv":
+            return None
+        return _bgv_consts(self.moduli, p.plain_modulus)
 
 
 def _rescale_consts(moduli) -> Optional[RescaleConsts]:
@@ -188,9 +222,10 @@ def _bgv_consts(data_moduli, t: int) -> BGVConsts:
 
 
 class Context(nn.Module):
-    """Parameters, the NTT tables over all of QP (and Rl for BFV; buffers:
-    `.to(device)` moves them) and chain levels 0 to LEVELS - 1.  Built on
-    the CPU; `make_context` places it."""
+    """Parameters, the NTT tables over all of QP (and Rl for BFV; the
+    tables mod t for BFV and BGV; buffers: `.to(device)` moves them) and
+    chain levels 0 to size_q.  Built on the CPU; `make_context` places
+    it."""
 
     def __init__(self, params: EncryptionParameters):
         super().__init__()
@@ -203,29 +238,32 @@ class Context(nn.Module):
             min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
         self.ntt = NTTTables32(host.make_rns_ntt_tables(
             params.n, qp + list(self.rl_moduli)))
+        self.plain_ntt = NTTTables32(host.make_rns_ntt_tables(
+            params.n, [t])) if bfv or bgv else None
         self.register_buffer("key_q", u32_tensor(qp))
         self.register_buffer("rows_qp", torch.arange(len(qp),
                                                      dtype=torch.int32))
-        if bgv:  # t mod each QP prime: BGV's t e noise
+        if bgv:  # t mod each QP prime and its Shoup word: BGV's t e noise
             self.register_buffer("t_mod_q", u32_tensor([t % q for q in qp]))
-        chain = [ContextData(0, tuple(qp), None, None)]
-        data = list(params.data_moduli)
-        for lvl in range(min(LEVELS, params.size_q + 1) - 1):
-            ql = data[:len(data) - lvl]
-            chain.append(ContextData(
-                chain_index=lvl + 1, moduli=tuple(ql),
-                rescale=_rescale_consts(ql),
-                ks=_keyswitch_consts(ql, params.special_moduli, params.n,
-                                     t if bgv else 0),
-                bfv=_bfv_consts(ql, self.rl_moduli, len(qp),
-                                t) if bfv else None,
-                bgv=_bgv_consts(ql, t) if bgv else None))
-        self.chain = tuple(chain)
+            self.register_buffer("t_mod_q_shoup", u32_tensor(
+                [(t % q << 32) // q for q in qp]))
+        data = params.data_moduli
+        self.chain = (ContextData(params, 0, qp),) + tuple(
+            ContextData(params, ci, data[:params.size_q + 1 - ci],
+                        self.rl_moduli)
+            for ci in range(1, params.size_q + 1))
+
+    @property
+    def first_data_index(self) -> int:
+        return 1
+
+    def data_level_count(self) -> int:
+        return len(self.chain) - 1
 
     def get_context_data(self, chain_index: int) -> ContextData:
-        if chain_index >= len(self.chain):
-            raise ValueError(f"chain index {chain_index} was not built "
-                             f"({len(self.chain)} levels)")
+        if not 0 <= chain_index < len(self.chain):
+            raise ValueError(f"chain index {chain_index} outside the chain "
+                             f"(0 to {len(self.chain) - 1})")
         return self.chain[chain_index]
 
 

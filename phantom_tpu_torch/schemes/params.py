@@ -1,10 +1,12 @@
 """Encryption parameters (counterpart of phantom_tpu/schemes/params.py).
 
-The port runs the reference's three schemes: CKKS, BFV (HPS
-multiplication) and BGV.  A parameter set is a power-of-two degree n, the
-data primes, the special primes of hybrid key switching (alpha of them)
-and, for BFV and BGV, the plain modulus t, a prime == 1 mod 2n below every
-data prime (batching).
+The port runs the reference's three schemes: CKKS, BFV and BGV.  A
+parameter set is a power-of-two degree n, the data primes, the special
+primes of hybrid key switching (alpha of them) and, for BFV and BGV, the
+plain modulus t, a prime == 1 mod 2n below every data prime (batching).
+`mul_tech` names BFV's multiplication technique as the JAX package's
+MulTech does (MUL_TECHS; the port runs "hps"), and `galois_elts` the
+Galois elements whose keys create_galois_keys makes by default.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 SCHEMES = ("ckks", "bfv", "bgv")
+# the JAX package's MulTech: BEHZ, HPS, HPS_OVERQ, HPS_OVERQ_LEVELED
+MUL_TECHS = ("behz", "hps", "hps_overq", "hps_overq_leveled")
 
 
 @dataclass(frozen=True)
@@ -22,6 +26,8 @@ class EncryptionParameters:
     special_moduli: Tuple[int, ...]
     scheme: str = "ckks"
     plain_modulus: int = 0
+    mul_tech: str = "hps"
+    galois_elts: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.n < 2 or self.n & (self.n - 1):
@@ -40,15 +46,20 @@ class EncryptionParameters:
                                  "prime")
         elif self.plain_modulus:
             raise ValueError("CKKS takes no plain modulus")
+        if self.mul_tech not in MUL_TECHS:
+            raise ValueError(f"mul_tech {self.mul_tech!r} not in {MUL_TECHS}")
 
     @staticmethod
     def create(n: int, data_moduli: Sequence[int],
                special_moduli: Sequence[int], scheme: str = "ckks",
-               plain_modulus: int = 0) -> "EncryptionParameters":
+               plain_modulus: int = 0, *, mul_tech: str = "hps",
+               galois_elts: Sequence[int] = ()) -> "EncryptionParameters":
         return EncryptionParameters(
             n=int(n), data_moduli=tuple(int(q) for q in data_moduli),
             special_moduli=tuple(int(p) for p in special_moduli),
-            scheme=scheme, plain_modulus=int(plain_modulus))
+            scheme=scheme, plain_modulus=int(plain_modulus),
+            mul_tech=mul_tech,
+            galois_elts=tuple(int(e) for e in galois_elts))
 
     @property
     def coeff_modulus(self) -> Tuple[int, ...]:

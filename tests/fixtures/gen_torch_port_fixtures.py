@@ -79,6 +79,34 @@ ntt32_n128.npz: what tests/test_torch_ntt.py compared with live jitted
   numpy.random.default_rng(31), fwd_<lazy> = jit(ntt32.ntt_forward32)(x)
   and inv_<lazy> = jit(ntt32.ntt_inverse32)(xi).
 
+fast32_<case>.npz: the JAX package's Fast32 verbs at n = 1024 (the card's
+  NTT core takes N >= 2^10, so these files also run through the kernels),
+  case for case after tests/test_fast32.py, on its primes (28-bit data
+  primes, 29-bit special primes) and PRNG keys, with JAX keys, samples
+  and outputs.  Ciphertexts are stored as <name> (u32 residues),
+  <name>__meta (chain index, NTT form, correction factor, noise scale
+  degree) and <name>__scale; plaintexts as <name>, <name>__meta (chain
+  index, NTT form) and <name>__scale.  The draws the JAX samplers made are
+  stored beside the outputs, so the port's cores take the same samples:
+  enc_u (N,) ternary, enc_e (2, N) CBD for an asymmetric encryption
+  (split(key, 3)); s_tern, and a (uniform (K, N)) and e (CBD (N,)) for
+  each encryption of zero of the public, relin and Galois keys.  Cases:
+  ckks_chain (five data primes, alpha 2, slots half the JAX test's at
+  scale 2^28: encrypt, square + relin + rescale twice, rotate by 1 at
+  chain index 3, decrypt and decode),
+  bgv_chain (four data primes, alpha 1: multiply + relin then modswitch,
+  the two modswitched inputs multiplied, their sum with balanced
+  correction factors, a modswitch to chain index 3, decrypt and decode),
+  encrypt_{ckks,bfv,bgv} (three data primes, alpha 1: encode, encrypt,
+  decrypt, decode), combo (four data primes, alpha 2:
+  hoisted_linear_combo over steps (0, 1, 2) with encode_extended weights,
+  hoisting over (1, 2), apply_galois of step 2's element), verbs_{ckks,
+  bfv,bgv} (three data primes, alpha 1: add, sub, negate, the plain ops,
+  modswitch, multiply, relinearize, multiply + relin, square + relin,
+  rotate, decrypt; CKKS also rescale; BGV also add_plain after a
+  modswitch) and keygen_{ckks,bgv} (four data primes, alpha 2: secret,
+  public, relin and Galois keys for steps (1, 2)).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz):
 
@@ -100,13 +128,16 @@ from phantom_tpu.host import numth  # noqa: E402
 from phantom_tpu.host.modulus import PlainModulus  # noqa: E402
 from phantom_tpu.host.modulus import Modulus  # noqa: E402
 from phantom_tpu.host.ntt_tables import make_rns_ntt_tables  # noqa: E402
+from phantom_tpu import Fast32  # noqa: E402
 from phantom_tpu.ops import bfv32, bgv32, scaleround32  # noqa: E402
+from phantom_tpu.ops import sampling as jsmp  # noqa: E402
 from phantom_tpu.ops import ntt as ntt64  # noqa: E402
 from phantom_tpu.ops import ntt32  # noqa: E402
 from phantom_tpu.ops import pipeline32 as pp  # noqa: E402
 from phantom_tpu.schemes import (BatchEncoder, CKKSEncoder,  # noqa: E402
                                  EncryptionParameters, Plaintext, Scheme,
                                  evaluate, keys, make_context)
+from phantom_tpu.schemes.ckks_encoder import encode_extended  # noqa: E402
 
 DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port")
 N, K_DATA, ALPHA, SEED = 1024, 5, 2, 7
@@ -379,9 +410,276 @@ def ntt32_n128(n=128):
     _save("ntt32_n128.npz", moduli=np.array(qs, dtype=np.uint64), **arrays)
 
 
+# ---------------------------------------------------------------------------
+# Fast32
+# ---------------------------------------------------------------------------
+
+F32_N = 1024
+SCHEMES = {"ckks": Scheme.CKKS, "bfv": Scheme.BFV, "bgv": Scheme.BGV}
+
+
+def _f32_ctx(scheme, k, alpha, t_bits=16):
+    qs = numth.get_primes(2 * F32_N, 28, k)
+    ps = numth.get_primes(2 * F32_N, 29, alpha)
+    extra = {}
+    if scheme != "ckks":
+        extra["plain_modulus"] = PlainModulus.batching(F32_N, t_bits).value
+    ctx = make_context(EncryptionParameters.create(
+        SCHEMES[scheme], F32_N, qs + ps, special_modulus_size=alpha, **extra))
+    out = dict(data_moduli=np.array(qs, dtype=np.uint64),
+               special_moduli=np.array(ps, dtype=np.uint64),
+               t=np.array(extra.get("plain_modulus", 0), dtype=np.uint64))
+    return ctx, out
+
+
+def _ct(out, name, c):
+    out[name] = u32(c.data)
+    out[name + "__meta"] = np.array([c.chain_index, int(c.is_ntt_form),
+                                     int(c.correction_factor),
+                                     int(c.noise_scale_deg)], dtype=np.int64)
+    out[name + "__scale"] = np.array(c.scale, dtype=np.float64)
+
+
+def _pt(out, name, p):
+    out[name] = u32(p.data)
+    out[name + "__meta"] = np.array([p.chain_index, int(p.is_ntt_form)],
+                                    dtype=np.int64)
+    out[name + "__scale"] = np.array(p.scale, dtype=np.float64)
+
+
+def _enc_samples(out, name, rng):
+    """keys.encrypt_zero_asymmetric's draws from `rng`."""
+    k_u, k_e0, k_e1 = jax.random.split(rng, 3)
+    out[name + "_u"] = np.asarray(jsmp.sample_ternary_vec(k_u, F32_N))
+    out[name + "_e"] = np.stack([np.asarray(jsmp.sample_error_cbd(k, F32_N))
+                                 for k in (k_e0, k_e1)])
+
+
+def _zero_samples(ctx, rng):
+    """keys._encrypt_zero_symmetric_ntt's draws: (a (K, N), e (N,))."""
+    k_a, k_e = jax.random.split(rng)
+    return (u32(jsmp.sample_uniform_rns(k_a, F32_N, ctx.key_mv)),
+            np.asarray(jsmp.sample_error_cbd(k_e, F32_N)))
+
+
+def _kswitch_samples(ctx, rng):
+    dnum = -(-ctx.params.size_q // ctx.params.size_p)
+    draws = [_zero_samples(ctx, k) for k in jax.random.split(rng, dnum)]
+    return np.stack([a for a, _ in draws]), np.stack([e for _, e in draws])
+
+
+def _keys(out, ctx, sk=None, pk=None, rlk=None, glk=None):
+    for name, key in (("sk", sk), ("pk", pk), ("rlk", rlk), ("glk", glk)):
+        if key is not None:
+            out[name] = u32(key.data)
+    if glk is not None:
+        out["elts"] = np.array(glk.elts, dtype=np.int64)
+
+
+def f32_ckks_chain():
+    ctx, out = _f32_ctx("ckks", 5, 2)
+    k = jax.random.split(jax.random.PRNGKey(41), 5)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    glk = keys.create_galois_keys(ctx, sk, k[3], steps=[1])
+    enc = CKKSEncoder(ctx)
+    # at n = 1024 the JAX test's scale of 2^26 leaves noise past 1e-2 on z^4
+    # (the rescales take it down to 2^20): half its slots at 2^28
+    z = 0.5 * np.random.default_rng(0).standard_normal(enc.slots)
+    pt = enc.encode(z, 2.0 ** 28)
+    ev = Fast32(ctx, rlk=rlk, glk=glk)
+    c = ev.encrypt_asymmetric(pk, pt, k[4])
+    _enc_samples(out, "enc", k[4])
+    _keys(out, ctx, sk, pk, rlk, glk)
+    _pt(out, "pt", pt)
+    _ct(out, "ct", c)
+    m1 = ev.multiply_and_relin(c, c)
+    r1 = ev.rescale_to_next(m1)
+    m2 = ev.multiply_and_relin(r1, r1)
+    r2 = ev.rescale_to_next(m2)
+    rot = ev.rotate(r2, 1)
+    for name, x in (("m1", m1), ("r1", r1), ("m2", m2), ("r2", r2),
+                    ("rot", rot)):
+        _ct(out, name, x)
+    dec = ev.decrypt(sk, rot)
+    _pt(out, "dec", dec)
+    out["z"] = z
+    out["decoded"] = enc.decode(dec)
+    assert rot.chain_index == 3
+    np.testing.assert_allclose(out["decoded"].real, np.roll(z ** 4, -1),
+                               atol=1e-2)
+    _save("fast32_ckks_chain.npz", **out)
+
+
+def f32_bgv_chain():
+    ctx, out = _f32_ctx("bgv", 4, 1)
+    t = ctx.params.plain_modulus
+    k = jax.random.split(jax.random.PRNGKey(43), 5)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    enc = BatchEncoder(ctx)
+    rg = np.random.default_rng(6)
+    a = rg.integers(0, t, F32_N, dtype=np.uint64)
+    b = rg.integers(0, t, F32_N, dtype=np.uint64)
+    ev = Fast32(ctx, rlk=rlk)
+    pa, pb = enc.encode(a), enc.encode(b)
+    ca = ev.encrypt_asymmetric(pk, pa, k[3])
+    cb = ev.encrypt_asymmetric(pk, pb, k[4])
+    _enc_samples(out, "enca", k[3])
+    _enc_samples(out, "encb", k[4])
+    _keys(out, ctx, sk, pk, rlk)
+    out["a"], out["b"] = a, b
+    _pt(out, "pa", pa)
+    _pt(out, "pb", pb)
+    _ct(out, "ca", ca)
+    _ct(out, "cb", cb)
+    ms_a = ev.mod_switch_to_next(ca)
+    big_a = ev.mod_switch_to_next(ev.multiply_and_relin(ca, cb))
+    big_b = ev.multiply_and_relin(ms_a, ev.mod_switch_to_next(cb))
+    s = ev.add(big_a, big_b)
+    s3 = ev.mod_switch_to_next(s)
+    for name, x in (("ms_a", ms_a), ("A", big_a), ("B", big_b), ("s", s),
+                    ("s3", s3)):
+        _ct(out, name, x)
+    dec = ev.decrypt(sk, s3)
+    _pt(out, "dec", dec)
+    out["slots"] = enc.decode(dec)
+    assert s3.chain_index == 3
+    expect = (2 * a.astype(object) * b.astype(object)) % t
+    np.testing.assert_array_equal(out["slots"].astype(object), expect)
+    _save("fast32_bgv_chain.npz", **out)
+
+
+def _encode(ctx, scheme, rng, scale=2.0 ** 24):
+    """(encoder, values, plaintext) as tests/test_fast32.py makes them."""
+    if scheme == "ckks":
+        enc = CKKSEncoder(ctx)
+        vals = rng.standard_normal(enc.slots)
+        return enc, vals, enc.encode(vals, scale)
+    enc = BatchEncoder(ctx)
+    vals = rng.integers(0, ctx.params.plain_modulus, F32_N, dtype=np.uint64)
+    return enc, vals, enc.encode(vals)
+
+
+def f32_encrypt(scheme):
+    ctx, out = _f32_ctx(scheme, 3, 1)
+    k = jax.random.split(jax.random.PRNGKey(61), 4)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    enc, vals, pt = _encode(ctx, scheme, np.random.default_rng(2))
+    ev = Fast32(ctx)
+    c = ev.encrypt_asymmetric(pk, pt, k[2])
+    ref = keys.encrypt_asymmetric(ctx, pk, pt, k[2])
+    np.testing.assert_array_equal(u32(c.data), u32(ref.data))
+    _enc_samples(out, "enc", k[2])
+    _keys(out, ctx, sk, pk)
+    out["vals"] = vals
+    _pt(out, "pt", pt)
+    _ct(out, "ct", c)
+    dec = ev.decrypt(sk, c)
+    _pt(out, "dec", dec)
+    out["decoded"] = enc.decode(dec)
+    _save(f"fast32_encrypt_{scheme}.npz", **out)
+
+
+def f32_combo():
+    ctx, out = _f32_ctx("ckks", 4, 2)
+    k = jax.random.split(jax.random.PRNGKey(71), 5)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    glk = keys.create_galois_keys(ctx, sk, k[2], steps=[1, 2])
+    enc = CKKSEncoder(ctx)
+    scale = 2.0 ** 22
+    rg = np.random.default_rng(3)
+    z = rg.standard_normal(enc.slots)
+    ct = keys.encrypt_asymmetric(ctx, pk, enc.encode(z, scale), k[3])
+    steps = [0, 1, 2]
+    weights = np.stack([rg.standard_normal(enc.slots) for _ in steps])
+    pts = [encode_extended(enc, w, scale, ct.chain_index) for w in weights]
+    ev = Fast32(ctx, glk=glk)
+    c = ev.from_ciphertext(ct)
+    _keys(out, ctx, sk, pk, glk=glk)
+    _ct(out, "ct", c)
+    out["weights"] = weights
+    out["pts"] = np.stack([u32(p) for p in pts])
+    _ct(out, "combo", ev.hoisted_linear_combo(c, steps, pts, scale))
+    _ct(out, "hoist", ev.hoisting(c, [1, 2]))
+    _ct(out, "galois", ev.apply_galois(c, glk.elts[1]))
+    _save("fast32_combo.npz", **out)
+
+
+def f32_verbs(scheme):
+    ctx, out = _f32_ctx(scheme, 3, 1)
+    k = jax.random.split(jax.random.PRNGKey(73), 6)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    glk = keys.create_galois_keys(ctx, sk, k[3], steps=[1])
+    rng = np.random.default_rng(4)
+    _, _, pt = _encode(ctx, scheme, rng)
+    _, _, pt2 = _encode(ctx, scheme, rng)
+    ev = Fast32(ctx, rlk=rlk, glk=glk)
+    c = ev.encrypt_asymmetric(pk, pt, k[4])
+    c2 = ev.encrypt_asymmetric(pk, pt2, k[5])
+    _keys(out, ctx, sk, pk, rlk, glk)
+    _pt(out, "pt2", pt2)
+    _ct(out, "c", c)
+    _ct(out, "c2", c2)
+    c3 = ev.multiply(c, c2)
+    mr = ev.multiply_and_relin(c, c2)
+    res = dict(add=ev.add(c, c2), sub=ev.sub(c, c2), negate=ev.negate(c),
+               add_plain=ev.add_plain(c, pt2), sub_plain=ev.sub_plain(c, pt2),
+               multiply_plain=ev.multiply_plain(c, pt2),
+               mod_switch=ev.mod_switch_to_next(c), multiply=c3,
+               relinearize=ev.relinearize(c3), multiply_and_relin=mr,
+               square_and_relin=ev.square_and_relin(c),
+               rotate=ev.rotate(c, 1))
+    if scheme == "ckks":
+        res["rescale"] = ev.rescale_to_next(mr)
+    if scheme == "bgv":
+        res["add_plain_ms"] = ev.add_plain(res["mod_switch"], pt2)
+    for name, x in res.items():
+        _ct(out, name, x)
+    _pt(out, "dec", ev.decrypt(sk, mr))
+    _save(f"fast32_verbs_{scheme}.npz", **out)
+
+
+def f32_keygen(scheme):
+    ctx, out = _f32_ctx(scheme, 4, 2, t_bits=17)
+    k = jax.random.split(jax.random.PRNGKey(77), 4)
+    ev = Fast32(ctx)
+    sk = ev.gen_secret_key(k[0])
+    pk = ev.gen_public_key(sk, k[1])
+    rlk = ev.gen_relin_key(sk, k[2])
+    glk = ev.create_galois_keys(sk, k[3], steps=[1, 2])
+    _keys(out, ctx, sk, pk, rlk, glk)
+    out["s_tern"] = np.asarray(jsmp.sample_ternary_vec(k[0], F32_N))
+    out["pk_a"], out["pk_e"] = _zero_samples(ctx, k[1])
+    out["rlk_a"], out["rlk_e"] = _kswitch_samples(ctx, k[2])
+    rng, draws = k[3], []
+    for _ in glk.elts:
+        rng, sub = jax.random.split(rng)
+        draws.append(_kswitch_samples(ctx, sub))
+    out["glk_a"] = np.stack([a for a, _ in draws])
+    out["glk_e"] = np.stack([e for _, e in draws])
+    _save(f"fast32_keygen_{scheme}.npz", **out)
+
+
+FAST32 = {"fast32_ckks_chain": f32_ckks_chain,
+          "fast32_bgv_chain": f32_bgv_chain,
+          "fast32_combo": f32_combo,
+          **{f"fast32_encrypt_{s}": (lambda s=s: f32_encrypt(s))
+             for s in SCHEMES},
+          **{f"fast32_verbs_{s}": (lambda s=s: f32_verbs(s)) for s in SCHEMES},
+          **{f"fast32_keygen_{s}": (lambda s=s: f32_keygen(s))
+             for s in ("ckks", "bgv")}}
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
-                      "bgv_step", "bfv_live", "ntt32_n128"]
+                      "bgv_step", "bfv_live", "ntt32_n128", "fast32"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -399,6 +697,9 @@ def main(names):
         bfv_live()
     if "ntt32_n128" in names:
         ntt32_n128()
+    for name, make in FAST32.items():
+        if name in names or "fast32" in names:
+            make()
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from phantom_tpu_torch import make_context
 from phantom_tpu_torch.host import numth
 from phantom_tpu_torch.ops import bconv_kernels as bk
@@ -715,3 +716,98 @@ def test_bgv_step(dev, modup):
     got = p(d1, d2)
     _same(got, p(d1, d2, pp.PLAIN))
     assert np.array_equal(got.cpu().numpy().view(np.uint32), g["out"])
+
+
+@pytest.mark.parametrize("case", ["ckks_chain", "bgv_chain", "encrypt_bfv",
+                                  "combo", "verbs_ckks", "verbs_bfv",
+                                  "verbs_bgv", "keygen_bgv"])
+def test_fast32_golden(dev, case):
+    """A Fast32 golden file (n = 1024) through the kernels and through the
+    plain versions, both bit-equal to the JAX package's outputs."""
+    got = chip_smoke.fast32_golden(dev, (case,))
+    plain = chip_smoke.fast32_golden(dev, (case,), pp.PLAIN)
+    for name, (x, want) in got.items():
+        assert np.array_equal(x, want), name
+        assert np.array_equal(plain[name][0], want), name
+
+
+@pytest.mark.parametrize("scheme", ["ckks", "bgv", "bfv"])
+def test_fast32_full_width_level(dev, scheme):
+    """At N = 2^16, 43 data primes, alpha 22, chain index 1: keygen,
+    encode, encrypt_asymmetric and every verb that runs a kernel, through
+    the kernels bit-equal to the plain path (the generator's state
+    replayed for the draws)."""
+    from phantom_tpu_torch import BatchEncoder, CKKSEncoder, Fast32
+    params = (chip_smoke.chain_params(**chip_smoke.HEADLINE)
+              if scheme == "ckks" else
+              chip_smoke.mod_t_params(**chip_smoke.BFV, scheme=scheme))
+    ctx = make_context(params, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def both(fn, draws=False):
+        state = gen.get_state()
+        out = fn(pp.KERNELS)
+        after = gen.get_state()
+        if draws:
+            gen.set_state(state)
+        ref = fn(pp.PLAIN)
+        gen.set_state(after)
+        assert chip_smoke._same(out, ref)
+        return out
+
+    ev = Fast32(ctx)
+    sk = both(lambda ops: ev.gen_secret_key(gen, ops), True)
+    pk = both(lambda ops: ev.gen_public_key(sk, gen, ops), True)
+    rlk = both(lambda ops: ev.gen_relin_key(sk, gen, ops), True)
+    glk = both(lambda ops: ev.create_galois_keys(sk, gen, [1], ops=ops),
+               True)
+    ev = Fast32(ctx, rlk=rlk, glk=glk)
+    rng = np.random.default_rng(7)
+    if scheme == "ckks":
+        enc = CKKSEncoder(ctx)
+        z = chip_smoke.unit_disc(rng, enc.slots)
+        pt = both(lambda ops: enc.encode(z, 2.0 ** 28, ops=ops))
+    else:
+        enc = BatchEncoder(ctx)
+        vals = rng.integers(0, params.plain_modulus, params.n)
+        pt = both(lambda ops: enc.encode(vals, ops))
+    c = both(lambda ops: ev.encrypt_asymmetric(pk, pt, gen, ops), True)
+    verbs = [lambda ops: ev.multiply_and_relin(c, c, ops),
+             lambda ops: ev.square_and_relin(c, ops),
+             lambda ops: ev.rotate(c, 1, ops),
+             lambda ops: ev.mod_switch_to_next(c, ops),
+             lambda ops: ev.relinearize(ev.multiply(c, c, ops), ops),
+             lambda ops: ev.decrypt(sk, c, ops)]
+    if scheme != "ckks":
+        verbs.append(lambda ops: ev.multiply_plain(c, pt, ops))
+    else:
+        verbs.append(lambda ops: ev.rescale_to_next(c, ops))
+    for fn in verbs:
+        both(fn)
+    both(lambda ops: enc.decode(ev.decrypt(sk, c, ops), ops))
+
+
+@pytest.mark.parametrize("logn", [10, 16])
+def test_fast32_coeff_rotation_k4c(dev, logn):
+    """A BFV rotation in coefficient form launches K4c once and equals the
+    plain path."""
+    from phantom_tpu_torch import Ciphertext, Fast32
+    from phantom_tpu_torch.host.modulus import PlainModulus
+    n = 1 << logn
+    ctx = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, 5), numth.get_primes(2 * n, 29, 2),
+        "bfv", PlainModulus.batching(n, 20)), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn)
+    ev = Fast32(ctx)
+    sk = ev.gen_secret_key(gen)
+    ev = Fast32(ctx, glk=ev.create_galois_keys(sk, gen, [1, -3]))
+    q = ctx.key_q[:5].long().view(-1, 1)
+    c = Ciphertext((torch.randint(0, 1 << 62, (2, 5, n), generator=gen,
+                                  device=dev) % q).int())
+    for step in (1, -3):
+        before = mk.modup_ip_coeff.launches
+        got = ev.rotate(c, step)
+        assert mk.modup_ip_coeff.launches == before + 1
+        _same(got.data, ev.rotate(c, step, pp.PLAIN).data)

@@ -31,7 +31,7 @@ params = pt.EncryptionParameters.create(
     n, host.numth.get_primes(2 * n, 28, 5), host.numth.get_primes(2 * n, 29, 2))
 ctx = pt.make_context(params, device="cpu")
 assert ctx.ntt.root_powers.shape == (7, n), ctx.ntt.root_powers.shape
-assert len(ctx.chain) == 3
+assert len(ctx.chain) == 6 and ctx.first_data_index == 1
 bfv = pt.make_context(pt.EncryptionParameters.create(
     n, params.data_moduli, params.special_moduli, "bfv",
     host.modulus.PlainModulus.batching(n, 16)), device="cpu")
@@ -43,6 +43,19 @@ bgv = pt.make_context(pt.EncryptionParameters.create(
     host.modulus.PlainModulus.batching(n, 16)), device="cpu")
 assert bgv.get_context_data(2).bgv.qlast_mod_qi is not None
 assert pt.build_keyswitch32(bgv, device="cpu").bgv
+from phantom_tpu_torch import fast32
+from phantom_tpu_torch.schemes import batch_encoder, ciphertext, ckks_encoder
+import numpy as np
+import torch
+gen = torch.Generator()
+ev = pt.Fast32(ctx)
+sk = ev.gen_secret_key(gen)
+enc = pt.CKKSEncoder(ctx)
+c = ev.encrypt_asymmetric(ev.gen_public_key(sk, gen), enc.encode(
+    np.full(enc.slots, 0.5), 2.0 ** 20), gen)
+assert np.abs(enc.decode(ev.decrypt(sk, c)) - 0.5).max() < 1e-3
+assert pt.BatchEncoder(bgv).decode(pt.BatchEncoder(bgv).encode([5])).tolist(
+    )[:2] == [5, 0]
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -125,6 +138,54 @@ def test_bgv_entry_points_need_cuda_or_cpu(monkeypatch):
         build_bgv32(ctx, rlk)
     p = build_bgv32(ctx, rlk, device="cpu")
     assert p.ks.bgv and p.ks.modup == "kernel"
+
+
+def test_fast32_entry_points_need_cuda_or_cpu(monkeypatch):
+    """Fast32, the encoders and encrypt_asymmetric run on the context's
+    device: without a CUDA device a context builds only with device="cpu",
+    where they run; on a device without kernels (meta) they raise rather
+    than fall back to the CPU."""
+    from phantom_tpu_torch import BatchEncoder, CKKSEncoder, Fast32
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.host.modulus import PlainModulus
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 1024
+    qs, ps = numth.get_primes(2 * n, 28, 3), numth.get_primes(2 * n, 29, 1)
+    params = EncryptionParameters.create(n, qs, ps, "bgv",
+                                         PlainModulus.batching(n, 16))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        make_context(params)
+    ctx = make_context(params, device="cpu")
+    gen = torch.Generator()
+    ev = Fast32(ctx)
+    sk = ev.gen_secret_key(gen)
+    pk = ev.gen_public_key(sk, gen)
+    pt = BatchEncoder(ctx).encode([1, 2, 3])
+    for c in (ev.encrypt_asymmetric(pk, pt, gen),
+              keys.encrypt_asymmetric(ctx, pk, pt, gen)):
+        assert c.data.device.type == "cpu" and c.chain_index == 1
+    meta = make_context(params, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        BatchEncoder(meta).encode([1, 2, 3])
+    ckks = make_context(EncryptionParameters.create(n, qs, ps),
+                        device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        CKKSEncoder(ckks).encode([0.5], 2.0 ** 20)
+    ev = Fast32(meta, rlk=torch.empty((3, 2, 4, n), dtype=torch.int32,
+                                      device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        keys.encrypt_asymmetric_core(
+            meta, ev.keyswitch_at(1), torch.empty(
+                (2, 4, n), dtype=torch.int32, device="meta"),
+            pt.replace(data=pt.data.to("meta")),
+            torch.zeros(n, dtype=torch.int64, device="meta"),
+            torch.zeros((2, n), dtype=torch.int64, device="meta"))
+    ct = Ciphertext(torch.empty((2, 3, n), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ev.multiply_and_relin(ct, ct)
 
 
 @pytest.fixture(scope="module")
