@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply, BGV
-multiply and its Fast32 evaluator on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply (by each
+of the four techniques), BGV multiply and its Fast32 evaluator on one
+NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
@@ -24,7 +25,9 @@ chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
             has 87 rows: the HPS multiply + relinearize step in coefficient
             form on the default engine (K5 x10, K2, K1 x3, K4's coefficient
             form, K3) and on "pallas-roll" (K6 for every transform, K5 x14,
-            K9);
+            K9); with the fused lift (one K3 at alpha 43 for the four lifts
+            and K2); BEHZ over Bsk (44 more primes of 29 bits), HPSoverQ,
+            and leveled without and with a level drop, on both engines;
   BGV       `bench.py --scheme bgv` at its defaults: alpha 22, t the 20-bit
             batching prime: the multiply + relinearize + modulus-switch
             step in NTT form, its key switch on the "auto" route
@@ -188,11 +191,34 @@ Phases, one line each or more; any failure exits non-zero:
                with the public key, two multiply + relin each followed by
                a modswitch, multiply_plain, add with balanced correction
                factors, a rotation, decrypt, decode: exact in every slot
- 30. Fast32 BFV  at the BFV configuration: encrypt_asymmetric, add,
-               multiply_plain, a rotation in coefficient form (K4c), a
-               modswitch, decrypt, decode: exact in every slot; multiply +
-               relin bit-equal to bfv_mult_relin32, its right slots counted
-               (outside HPS's bound, not gated)
+ 30. Fast32 BFV  at the BFV configuration, with mul_tech "hps", "behz"
+               and "hps_overq": encrypt_asymmetric, add, multiply_plain, a
+               rotation in coefficient form (K4c), a modswitch, decrypt,
+               decode: exact in every slot; multiply + relin bit-equal to
+               the technique's ops-level function, its right slots
+               counted and gated where multech_bound holds (BEHZ and
+               HPSoverQ; HPS's bound does not hold here)
+ 31. BFV techniques golden  bfv_multech_n1024.npz (n = 1024, alpha = 2):
+               BEHZ, HPSoverQ, leveled at the model's drop and at
+               force_lvl=1, multiply and multiply + relin on both engines,
+               the fused lift, the decryptions and the noise budgets
+               through the kernels, bit-equal to the JAX package's outputs
+ 32. BFV techniques  at the BFV configuration (a "behz" context, the keys
+               and encryptions of phase 17): every kernel call of BEHZ,
+               HPSoverQ, leveled at noise_scale_deg 1 (no drop) and 4 (a
+               drop of 3) on both engines and of the fused lift (K3 at
+               alpha 43, k_out 87, the carry path) bit-equal to its plain
+               version, and timed; each kernel path = its plain path, the
+               engines equal, the fused lift = the xla lift, the launch
+               counts; per technique the decryption to m1 m2 mod (X^N + 1,
+               t) (leveled with a drop over its level's Ql), the count of
+               right coefficients, the noise budget and multech_bound's
+               margin, gated where the bound holds
+ 33. BFV techniques timing  chained steps in turns (hps, behz, overq,
+               leveled with a drop, then back) with peak memory; leveled
+               without a drop chained = HPSoverQ; the fused lift against
+               the xla lift chained in turns and the lift + forward NTT
+               alone, device time; the profiler over each technique
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -237,6 +263,7 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
 GOLDEN = os.path.join(FIXTURES, "ckks_step_n1024.npz")
 ROTATE_GOLDEN = os.path.join(FIXTURES, "rotate_n1024.npz")
 BFV_GOLDEN = os.path.join(FIXTURES, "bfv_step_n1024.npz")
+BFV_MULTECH_GOLDEN = os.path.join(FIXTURES, "bfv_multech_n1024.npz")
 BGV_GOLDEN = os.path.join(FIXTURES, "bgv_step_n1024.npz")
 HEADLINE = dict(n=1 << 16, limbs=43, alpha=22, bits=28)
 ALPHA8 = dict(n=1 << 16, limbs=43, alpha=8, bits=28)
@@ -311,6 +338,25 @@ EXPECTED = {  # launches per path run
     # D inverse, 2 moddown inverses, the switched pair; K5 also converts
     # each digit (2) and each moddown (2)
     "BFV step, pallas-roll": _launches(K5=14, K9=1, K6f=4, K6i=4),
+    # lift="kernel": one K3 in place of the four lifts (K5 each) and K2
+    "BFV step, fused lift": _launches(K1=3, K3=2, K4c=1, K5=6),
+    # SmMRq per poly (K5 Ql -> Bsk, 4), K2 over Ql and over Bsk, K1 over
+    # each; per output poly the fast floor (K5) and Shenoy-Kumaresan (K5
+    # B -> Ql, K5 B -> {m_sk}); the relinearization as HPS's
+    "BFV BEHZ step, mxu-pallas": _launches(K1=4, K2=2, K3=1, K4c=1, K5=13),
+    "BFV BEHZ step, pallas-roll": _launches(K5=17, K9=1, K6f=5, K6i=5),
+    # d1's lifts (2), d2's round to Rl and conversion to Ql (4), the final
+    # rounds (3); the leveled technique without a drop runs the same calls
+    "BFV HPSoverQ step, mxu-pallas": _launches(K1=3, K2=1, K3=1, K4c=1,
+                                               K5=9),
+    "BFV HPSoverQ step, pallas-roll": _launches(K5=13, K9=1, K6f=4, K6i=4),
+    "BFV leveled step, mxu-pallas": _launches(K1=3, K2=1, K3=1, K4c=1, K5=9),
+    "BFV leveled step, pallas-roll": _launches(K5=13, K9=1, K6f=4, K6i=4),
+    # with a drop also d1's round to Ql (2) and the expansion back to Q (3)
+    "BFV leveled step with a drop, mxu-pallas": _launches(
+        K1=3, K2=1, K3=1, K4c=1, K5=14),
+    "BFV leveled step with a drop, pallas-roll": _launches(
+        K5=18, K9=1, K6f=4, K6i=4),
     # "auto" = xla-split at alpha 22: the modup (K1, K5 x2, K2), K9; both
     # halves' moddown K1, K5 to Ql and to {t}, K2; the mod switch K1, K2
     "BGV step": _launches(K1=3, K2=3, K5=4, K9=1),
@@ -480,15 +526,17 @@ def chain_params(n: int, limbs: int, alpha: int, bits: int = 28):
 
 
 def mod_t_params(n: int, limbs: int, alpha: int, bits: int = 28,
-               t_bits: int = 20, scheme: str = "bfv"):
+                 t_bits: int = 20, scheme: str = "bfv", mul_tech: str = "hps"):
     """chain_params' primes with the plain modulus, the largest t_bits-bit
-    prime == 1 mod 2n (bench.py --scheme bfv, and bgv)."""
+    prime == 1 mod 2n (bench.py --scheme bfv, and bgv; BFV multiplies by
+    `mul_tech`)."""
     from phantom_tpu_torch import EncryptionParameters
     from phantom_tpu_torch.host.modulus import PlainModulus
     p = chain_params(n, limbs, alpha, bits)
     return EncryptionParameters.create(n, p.data_moduli, p.special_moduli,
                                        scheme,
-                                       PlainModulus.batching(n, t_bits))
+                                       PlainModulus.batching(n, t_bits),
+                                       mul_tech=mul_tech)
 
 
 def make_mod_t_inputs(ctx, seed: int, device):
@@ -522,6 +570,46 @@ def hps_bound(ctx):
     return margin, need, margin > need
 
 
+def multech_bound(ctx, tech: str, lvl: int = 0):
+    """(margin, need, inside, what): the bound under which a BFV product of
+    two fresh ciphertexts at chain index 1 decrypts to m1 m2, as this code
+    reckons it for each technique (log2 of each side):
+      hps      hps_bound: Rl/Ql > 2 N t;
+      behz     SmMRq lifts each operand to its representative below
+               Q (1/2 + (k + 1) / 2^32) in size, so a product coefficient
+               is below N Q^2 / 2 (two cross terms) and y = floor(t x / Q)
+               (the fast floor: minus less than k) below N t Q / 2 + k;
+               Shenoy-Kumaresan takes y mod B plus g B (0 <= g < k) and
+               reads g - floor(y / B) centered mod m_sk, exact when
+               N t Q / B + k + 1 < m_sk / 2;
+      overq, leveled   the product over D wraps by multiples of Ql Rl,
+               which round(t/Rl .) maps to multiples of t Ql, 0 mod Ql; the
+               rounding of w = round(Rl x2 / Q) adds at most N t Ql / Rl
+               (x1 < Ql, two cross terms), below Delta/2 = Ql / 2t when
+               Rl > 2 N t^2, at level 1 + lvl (a leveled product with a
+               drop carries the dropped level's Delta, so it decrypts over
+               that level's Ql)."""
+    import math
+    p = ctx.params
+    n, t = p.n, p.plain_modulus
+    if tech == "hps":
+        margin, need, _ = hps_bound(ctx)
+        return margin, need, margin > need, "log2 Rl/Ql against 2Nt"
+    if tech == "behz":
+        cd = ctx.get_context_data(1)
+        k = cd.size_ql
+        big_b = math.prod(cd.behz.bsk[:-1])
+        margin = math.log2(cd.behz.bsk[-1] / 2)
+        need = math.log2(n * t * cd.bfv.big_ql / big_b + k + 1)
+        return (margin, need, margin > need,
+                "log2 m_sk/2 against NtQ/B + k + 1")
+    rl = ctx.get_context_data(1 + lvl).bfv.rl
+    margin = sum(math.log2(r) for r in rl)
+    need = math.log2(2 * n * t * t)
+    return (margin, need, margin > need,
+            f"log2 Rl against 2Nt^2 at level {1 + lvl}")
+
+
 def bfv_golden(device, path: str = BFV_GOLDEN):
     """The BFV golden file through the port on `device`: {name: (port
     output, JAX output)} for the step and the key switch of d1[1] on each
@@ -542,6 +630,74 @@ def bfv_golden(device, path: str = BFV_GOLDEN):
         res[f"step, {engine}"] = (p(d1, d2), g["out"])
         res[f"keyswitch32, {engine}"] = (pp.keyswitch32(p.ks, d1[1], p.evk),
                                          g["keyswitch"])
+    return res
+
+
+# the golden file's techniques: BEHZ, HPSoverQ, leveled at the noise
+# model's drop (0 there) and with force_lvl=1
+GOLDEN_TECHS = ("behz", "overq", "lev0", "lev1")
+
+
+def bfv_multech_golden(device, engines=ENGINES, ops=None):
+    """bfv_multech_n1024.npz through the port on `device`: {name: (port,
+    JAX)} as numpy arrays: the Bsk base; each technique's multiply and
+    multiply + relinearize on each engine (the pipelines through
+    convert.py); the fused lift of (d1, d2); the port's decryption of each
+    JAX output; each invariant_noise_budget."""
+    import torch
+    from phantom_tpu_torch import convert, make_context
+    from phantom_tpu_torch.ops import bfv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ops = pp.KERNELS if ops is None else ops
+    g = np.load(BFV_MULTECH_GOLDEN)
+    # the BEHZ context holds Bsk; every technique's pipeline runs on it
+    ctx = make_context(EncryptionParameters.create(
+        int(g["d1"].shape[-1]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), "bfv", int(g["t"]), mul_tech="behz"),
+        device=device)
+
+    def on(name):
+        return convert.residues(g[name]).to(device)
+
+    def u32(x):
+        return x.cpu().numpy().astype(np.uint32)
+
+    sk, d1, d2 = on("sk"), on("d1"), on("d2")
+    res = {"Bsk": (np.array(ctx.bsk_moduli, dtype=np.uint64),
+                   g["bsk_moduli"])}
+    for e in engines:
+        pipes = {
+            "behz": (convert.bfv_behz_pipeline(ctx, g["rlk"], engine=e),
+                     bfv32.bfv_mult_behz32, bfv32.bfv_mult_relin_behz32),
+            "overq": (convert.bfv_pipeline(ctx, g["rlk"], engine=e),
+                      bfv32.bfv_mult_hps_overq32,
+                      bfv32.bfv_mult_relin_overq32)}
+        for tech in ("lev0", "lev1"):
+            pipes[tech] = (convert.bfv_leveled_pipeline(
+                ctx, g["rlk"], engine=e, force_lvl=None if tech == "lev0"
+                else 1), bfv32.bfv_mult_leveled32,
+                bfv32.bfv_mult_relin_leveled32)
+        for tech, (p, mul, relin) in pipes.items():
+            res[f"{tech} multiply, {e}"] = (u32(mul(p, d1, d2, ops)),
+                                            g[f"mul_{tech}"])
+            res[f"{tech} multiply + relin, {e}"] = (
+                u32(relin(p, d1, d2, ops)), g[f"relin_{tech}"])
+    pf = convert.bfv_pipeline(ctx, g["rlk"], lift="kernel")
+    res["fused lift"] = (u32(bfv32._lift_ntt_fused(
+        pf, torch.cat([d1, d2]), ops)), g["lift"])
+    res["d1 noise budget"] = (np.array(keys.invariant_noise_budget(
+        ctx, sk, Ciphertext(d1), ops)), g["budget_d1"])
+    for tech in GOLDEN_TECHS:
+        for kind in ("mul", "relin"):
+            res[f"{tech} decrypt of {kind}"] = (u32(keys.decrypt(
+                ctx, sk, on(f"{kind}_{tech}"), ops=ops)),
+                g[f"pt_{kind}_{tech}"])
+        res[f"{tech} noise budget"] = (np.array(keys.invariant_noise_budget(
+            ctx, sk, Ciphertext(on(f"relin_{tech}")), ops)),
+            g[f"budget_{tech}"])
     return res
 
 
@@ -1605,7 +1761,7 @@ def _bfv_stages(p, d1, d2, card: str) -> None:
 
     lifted = lift()
     ab = pp._fwd(ks, lifted, p.rows_d, ops)
-    tp = bfv32._tensor_2x2(p, ab)
+    tp = bfv32._tensor_2x2(p.mv_d, ab)
     prod = pp._inv(ks, tp, p.rows_d, ops)
     d3 = torch.stack([bfv32._scale_and_round_hps32(p, x) for x in prod])
     sr = p.sr_to_r
@@ -1613,7 +1769,7 @@ def _bfv_stages(p, d1, d2, card: str) -> None:
     stages = {
         "lift (K5 x4)": lift,
         "D forward": lambda: pp._fwd(ks, lifted, p.rows_d, ops),
-        "tensor product": lambda: bfv32._tensor_2x2(p, ab),
+        "tensor product": lambda: bfv32._tensor_2x2(p.mv_d, ab),
         "D inverse": lambda: pp._inv(ks, tp, p.rows_d, ops),
         "scale-and-round x3 (K5 x6)": lambda: [
             bfv32._scale_and_round_hps32(p, x) for x in prod],
@@ -2019,25 +2175,39 @@ def fast32_bgv_circuit(params, card, wrappers, launches, dev):
                            "differ")
 
 
+# the Fast32 BFV circuit's techniques: mul_tech -> (the multiply +
+# relin's EXPECTED label, its ops-level function's name, multech_bound's
+# name)
+FAST32_BFV_TECHS = {
+    "hps": ("BFV step, mxu-pallas", "bfv_mult_relin32", "hps"),
+    "behz": ("BFV BEHZ step, mxu-pallas", "bfv_mult_relin_behz32", "behz"),
+    "hps_overq": ("BFV HPSoverQ step, mxu-pallas", "bfv_mult_relin_overq32",
+                  "overq")}
+
+
 def fast32_bfv_circuit(params, card, wrappers, launches, dev):
     """Phase 30: encode, encrypt_asymmetric, add, multiply_plain, a
     rotation in coefficient form (K4c), a modswitch, decrypt and decode:
-    exact in every slot; multiply_and_relin bit-equal to the ops-level
-    bfv_mult_relin32 on the same inputs, its right slots counted (HPS's
-    bound does not hold here)."""
+    exact in every slot; multiply_and_relin by the context's mul_tech
+    (FAST32_BFV_TECHS) bit-equal to the ops-level function on the same
+    inputs, its right slots counted, and gated where multech_bound
+    holds (HPS's does not hold here)."""
     import torch
     from phantom_tpu_torch import BatchEncoder, Fast32, make_context
     from phantom_tpu_torch.ops import bfv32
+    mt = params.mul_tech
+    key, fn_name, bound_name = FAST32_BFV_TECHS[mt]
+    what = f"Fast32 BFV ({mt})"
     t0 = time.time()
     ctx = make_context(params)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
-    c = _Circuit("Fast32 BFV", Fast32(ctx), wrappers, launches, card, gen)
+    c = _Circuit(what, Fast32(ctx), wrappers, launches, card, gen)
     sk, pk, rlk, glk = _fast32_keys(c, "1 element", [1])
     ev = c.ev = Fast32(ctx, rlk=rlk, glk=glk)
     t = params.plain_modulus
-    print(f"Fast32 BFV setup: N={params.n} L={params.size_q} "
+    print(f"{what} setup: N={params.n} L={params.size_q} "
           f"alpha={params.size_p} t={t}, engine {ev.engine}; context and "
           f"keys {time.time() - t0:.1f} s")
     be = BatchEncoder(ctx)
@@ -2060,27 +2230,31 @@ def fast32_bfv_circuit(params, card, wrappers, launches, dev):
     pt = c("decrypt @2", "Fast32 BFV decrypt",
            lambda ops: ev.decrypt(sk, x, ops))
     got = c("decode @2", "Fast32 BFV decode", lambda ops: be.decode(pt, ops))
-    mr = c("multiply_and_relin", "BFV step, mxu-pallas",
+    mr = c("multiply_and_relin", key,
            lambda ops: ev.multiply_and_relin(ca, cb, ops))
     c.report()
     ao, bo, mo = (v.astype(object) for v in (a, b, m))
     want = rotate_rows((ao + bo) * mo % t, 1)
     right = int((got.astype(object) == want).sum())
-    print(f"Fast32 BFV circuit: chain index {x.chain_index}; ((a + b) m) "
+    print(f"{what} circuit: chain index {x.chain_index}; ((a + b) m) "
           f"rotated by 1 in {right} of {params.n} slots")
     if right != params.n:
-        raise RuntimeError(f"Fast32 BFV circuit: {params.n - right} slots "
+        raise RuntimeError(f"{what} circuit: {params.n - right} slots "
                            "differ")
-    if not torch.equal(mr.data, bfv32.bfv_mult_relin32(
+    if not torch.equal(mr.data, getattr(bfv32, fn_name)(
             ev._bfv_at(1), ca.data, cb.data)):
-        raise RuntimeError("Fast32 BFV multiply_and_relin differs from "
-                           "bfv_mult_relin32")
+        raise RuntimeError(f"{what} multiply_and_relin differs from "
+                           f"{fn_name}")
     prod = be.decode(ev.decrypt(sk, mr)).astype(object)
     right = int((prod == ao * bo % t).sum())
-    print(f"Fast32 BFV multiply_and_relin: bit-equal to bfv_mult_relin32 on "
-          f"the same inputs; decrypts to a b in {right} of {params.n} slots "
-          f"(HPS's bound: log2 Rl/Ql {hps_bound(ctx)[0]:.2f} against log2 "
-          f"2Nt {hps_bound(ctx)[1]:.2f}; not gated)")
+    margin, need, inside, bound = multech_bound(ctx, bound_name)
+    print(f"{what} multiply_and_relin: bit-equal to {fn_name} on the same "
+          f"inputs; decrypts to a b in {right} of {params.n} slots (bound "
+          f"{bound}: {margin:.2f} against {need:.2f}, "
+          f"{'inside: gated' if inside else 'OUTSIDE: not gated'})")
+    if inside and right != params.n:
+        raise RuntimeError(f"{what} multiply_and_relin: {params.n - right} "
+                           "slots differ inside the bound")
 
 
 def _fast32_phases(card: str, wrappers, launches, dev) -> None:
@@ -2100,9 +2274,181 @@ def _fast32_phases(card: str, wrappers, launches, dev) -> None:
     fast32_bgv_circuit(mod_t_params(**BGV, scheme="bgv"), card, wrappers,
                        launches, dev)
     torch.cuda.empty_cache()
-    fast32_bfv_circuit(mod_t_params(**BFV, scheme="bfv"), card, wrappers,
-                       launches, dev)
-    torch.cuda.empty_cache()
+    for mt in FAST32_BFV_TECHS:
+        fast32_bfv_circuit(mod_t_params(**BFV, scheme="bfv", mul_tech=mt),
+                           card, wrappers, launches, dev)
+        torch.cuda.empty_cache()
+
+
+# phases 32-33: each technique's EXPECTED label, and its noise_scale_deg
+# for the leveled drop (find_levels_to_drop gives 3 at the BFV
+# configuration for degree 4, 0 for degree 1)
+MULTECH_LABELS = {"hps": "BFV step", "behz": "BFV BEHZ step",
+                  "overq": "BFV HPSoverQ step", "leveled": "BFV leveled step",
+                  "leveled, drop": "BFV leveled step with a drop"}
+LEVELED_DROP_DEG = 4
+
+
+def _multech_pipes(ctx, evk, dev):
+    """{(technique, engine): (pipeline, multiply + relin, level drop)} at
+    chain index 1, one KeySwitch32 per engine shared by every technique,
+    and the HPS pipeline with lift="kernel"."""
+    from phantom_tpu_torch.ops import bfv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    drop = bfv32.levels_to_drop(ctx, LEVELED_DROP_DEG)
+    pipes = {}
+    for e in ENGINES:
+        ks = pp.KeySwitch32(ctx, 1, e).to(dev)
+        hps = bfv32.BFVPipeline32(ctx, evk, 1, e, ks=ks).to(dev)
+        pipes["hps", e] = (hps, bfv32.bfv_mult_relin32, 0)
+        pipes["behz", e] = (bfv32.BFVBehz32(ctx, evk, 1, e, ks=ks).to(dev),
+                            bfv32.bfv_mult_relin_behz32, 0)
+        pipes["overq", e] = (hps, bfv32.bfv_mult_relin_overq32, 0)
+        for tech, lvl in (("leveled", bfv32.levels_to_drop(ctx, 1)),
+                          ("leveled, drop", drop)):
+            pipes[tech, e] = (bfv32.BFVLeveled32(ctx, evk, lvl, e,
+                                                 ks=ks).to(dev),
+                              bfv32.bfv_mult_relin_leveled32, lvl)
+    fused = bfv32.BFVPipeline32(ctx, evk, 1, ENGINES[0],
+                                ks=pipes["hps", ENGINES[0]][0].ks,
+                                lift="kernel").to(dev)
+    return pipes, fused
+
+
+def _bfv_multech_phases(card, probes, wrappers, since, launches, dev):
+    """Phases 31-33: BFV's BEHZ, HPSoverQ and leveled multiplications and
+    the fused lift: the golden file, every kernel call at the BFV
+    configuration, the steps' checks and decryptions, the timing."""
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import bfv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+
+    # 31. golden
+    res = bfv_multech_golden(dev)
+    for name, (got, want) in res.items():
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"BFV techniques golden: {name} differs from "
+                               "the JAX output")
+    print(f"BFV techniques golden: {len(res)} outputs (BEHZ, HPSoverQ, "
+          "leveled at the model's drop and at force_lvl=1, multiply and "
+          "multiply + relin on both engines; the fused lift; decryptions "
+          "and noise budgets) bit-equal to the JAX package's")
+
+    # 32. at the BFV configuration
+    t0 = time.time()
+    params = mod_t_params(**BFV, mul_tech="behz")
+    ctx = make_context(params)
+    t_ctx = time.time() - t0
+    sk, rlk, d1, d2, m1, m2 = make_mod_t_inputs(ctx, SEED, dev)
+    evk = pp.convert_key32(ctx, rlk)
+    pipes, fused = _multech_pipes(ctx, evk, dev)
+    drop = pipes["leveled, drop", ENGINES[0]][2]
+    if not drop:
+        raise RuntimeError("BFV techniques: the noise model drops no level "
+                           f"at noise_scale_deg {LEVELED_DROP_DEG}")
+    torch.cuda.synchronize()
+    print(f"BFV techniques setup: N={params.n} L={params.size_q} "
+          f"alpha={params.size_p} t={params.plain_modulus}, Bsk "
+          f"{len(ctx.bsk_moduli)} primes of 29 bits; leveled drops "
+          f"{pipes['leveled', ENGINES[0]][2]} levels at noise_scale_deg 1 "
+          f"and {drop} at {LEVELED_DROP_DEG}; context (host tables of "
+          f"{ctx.ntt.num_limbs} moduli) {t_ctx:.1f} s, keys, encryptions "
+          f"and pipelines {time.time() - t0:.1f} s")
+    for (tech, e), (p, fn, _) in pipes.items():
+        if tech != "hps":  # HPS's calls are phase 18's
+            fn(p, d1, d2, probes)
+    fused(d1, d2, probes)
+    _print_calls(probes, card, since)
+    outs = {}
+    for (tech, e), (p, fn, _) in pipes.items():
+        label = f"{MULTECH_LABELS[tech]}, {e}"
+        got = _count(wrappers, label, lambda: fn(p, d1, d2), launches)
+        if not torch.equal(got, fn(p, d1, d2, pp.PLAIN)):
+            raise RuntimeError(f"{label}: kernel path differs from the plain "
+                               "path")
+        if tech in outs and not torch.equal(outs[tech], got):
+            raise RuntimeError(f"{MULTECH_LABELS[tech]}: the engines differ")
+        outs[tech] = got
+    got = _count(wrappers, "BFV step, fused lift", lambda: fused(d1, d2),
+                 launches)
+    if not (torch.equal(got, outs["hps"])
+            and torch.equal(fused(d1, d2, pp.PLAIN), got)):
+        raise RuntimeError("BFV step: the fused lift differs from the xla "
+                           "lift or from its plain path")
+    print("BFV techniques: each kernel path bit-equal to its plain path on "
+          "both engines, the engines bit-equal; the fused lift (one K3 at "
+          "alpha 43, k_out 87) bit-equal to the xla lift")
+    t_ = params.plain_modulus
+    want = negacyclic_product(m1, m2) % t_
+    for tech, out in outs.items():
+        lvl = pipes[tech, ENGINES[0]][2]
+        k_l = params.size_q - lvl
+        got = keys.decrypt(ctx, sk,
+                           out[:, :k_l].contiguous()).cpu().numpy()
+        right = int((got == want).sum())
+        budget = keys.invariant_noise_budget(ctx, sk, Ciphertext(out))
+        margin, need, inside, what = multech_bound(
+            ctx, "hps" if tech == "hps" else tech.split(",")[0], lvl)
+        print(f"BFV decrypt, {tech}: m1*m2 mod (X^N + 1, t) in {right} of "
+              f"{params.n} coefficients (over Ql, {k_l} primes); noise "
+              f"budget {budget} bits; bound {what}: {margin:.2f} against "
+              f"{need:.2f}, {'inside' if inside else 'OUTSIDE'}"
+              + ("" if inside else " (not gated)"))
+        if inside and right != params.n:
+            raise RuntimeError(f"BFV decrypt, {tech}: {params.n - right} "
+                               "coefficients of m1*m2 differ inside the "
+                               "bound")
+
+    # 33. timing: the techniques chained in turns, the lifts in turns,
+    # peak memory, the profiler
+    def chain_pipe(tech):
+        return ((fused, bfv32.bfv_mult_relin32, 0) if tech == "fused lift"
+                else pipes[tech, ENGINES[0]])
+
+    def chain(tech):
+        p, fn, _ = chain_pipe(tech)
+
+        def run(steps):
+            d = d1
+            for _ in range(steps):
+                d = fn(p, d, d2)
+            return d
+        return run
+
+    order = ("hps", "behz", "overq", "leveled, drop")
+    finals = _chain_timing(order + order[::-1], chain, CHAIN_BFV_STEPS, card,
+                           "BFV step by technique")
+    if not torch.equal(finals["overq"], chain("leveled")(CHAIN_BFV_STEPS)):
+        raise RuntimeError("BFV timing: leveled without a drop differs from "
+                           "HPSoverQ")
+    finals = _chain_timing(("hps", "fused lift", "fused lift", "hps"), chain,
+                           CHAIN_BFV_STEPS, card, "BFV step by lift")
+    if not torch.equal(finals["hps"], finals["fused lift"]):
+        raise RuntimeError("BFV timing: the lifts' chained outputs differ")
+    hps = pipes["hps", ENGINES[0]][0]
+    both = torch.cat([d1, d2])
+    lifts = {"xla lift (K5 x4, K2)": lambda: pp._fwd(
+        hps.ks, torch.stack([bfv32._lift(hps, d1, pp.KERNELS),
+                             bfv32._lift(hps, d2, pp.KERNELS)]), hps.rows_d,
+        pp.KERNELS),
+        "fused lift (K3)": lambda: bfv32._lift_ntt_fused(fused, both)}
+    times = {}
+    for label in list(lifts) + list(lifts)[::-1]:
+        times.setdefault(label, []).append(_device_ms(lifts[label], REPS))
+    print("timing the lift and forward NTT of (d1, d2), device time: "
+          + ", ".join(f"{k} {np.mean(v):.4f} ms ("
+                      + ", ".join(f"{u:.4f}" for u in v) + ")"
+                      for k, v in times.items()) + f" [{card}]")
+    for tech in order[1:] + ("fused lift",):
+        p, fn, _ = chain_pipe(tech)
+        d = [d1]
+
+        def run(p=p, fn=fn):
+            d[0] = fn(p, d[0], d2)
+        _profile(run, PROFILE_STEPS, card, f"BFV {tech} step")
 
 
 _PROBED_SOURCES = ("bconv_ntt.cu", "modup_ip.cu", "ntt.cu", "bconv.cu",
@@ -2666,6 +3012,10 @@ def main() -> int:
 
     # 27-30. Fast32
     _fast32_phases(card, wrappers, launches, dev)
+    torch.cuda.empty_cache()
+
+    # 31-33. BFV's other multiplication techniques and the fused lift
+    _bfv_multech_phases(card, probes, wrappers, since, launches, dev)
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):

@@ -2,15 +2,17 @@
 
 A second package beside the JAX one, which stays the reference the port
 is tested against.  Its user-facing evaluator is `Fast32` (fast32.py):
-CKKS, BFV (HPS) and BGV over every level of the modulus chain, with
-keygen (secret, public, relin and Galois keys), public-key and symmetric
-encryption, the plain ops, multiply and relinearize, square, rescale and
-modulus switch, rotations in NTT and coefficient form, both hoisted forms
-and decryption; `BatchEncoder` and `CKKSEncoder` carry values in and
-out.  Below it, the ops: hybrid key switching, the CKKS multiply +
-relinearize + rescale step on three modup routes and with three
-epilogues, rotations and hoisted rotations (ops/pipeline32.py), the BFV
-HPS step on two engines (ops/bfv32.py) and the BGV multiply +
+CKKS, BFV (by the parameters' multiplication technique: HPS, BEHZ,
+HPSoverQ or HPSoverQ-leveled) and BGV over every level of the modulus
+chain, with keygen (secret, public, relin and Galois keys), public-key
+and symmetric encryption, the plain ops, multiply and relinearize,
+square, rescale and modulus switch, rotations in NTT and coefficient
+form, both hoisted forms and decryption; `BatchEncoder` and
+`CKKSEncoder` carry values in and out.  Below it, the ops: hybrid key
+switching, the CKKS multiply + relinearize + rescale step on three modup
+routes and with three epilogues, rotations and hoisted rotations
+(ops/pipeline32.py), the BFV multiply + relinearize by each technique on
+two engines (ops/bfv32.py, ops/behz32.py) and the BGV multiply +
 relinearize + modulus switch (ops/bgv32.py).  They run on hand-written
 CUDA kernels for Hopper (sm_90a, csrc/): the NTTs, all on one one-pass
 radix-8 core that holds each row in a thread-block cluster, the base
@@ -22,7 +24,7 @@ on the CUDA device unless the context was built with device="cpu", where
 each kernel wrapper takes its plain torch version.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from .schemes.context import Context, make_context  # noqa: F401
 from .schemes.ciphertext import Ciphertext, Plaintext  # noqa: F401

@@ -6,8 +6,9 @@ module, like the rest of the port, never imports JAX.  Residues are below
 `residues` carries ciphertexts (CKKS and BGV in NTT form, BFV in
 coefficient form), secret keys and plaintexts; the relin key becomes a
 level's evk (`relin_evk`) or a whole BFV or BGV step (`bfv_pipeline`,
-`bgv_pipeline`).  A BGV ciphertext's correction factor is a host integer:
-the caller carries it beside the residues.
+`bfv_behz_pipeline`, `bfv_leveled_pipeline`, `bgv_pipeline`).  A BGV
+ciphertext's correction factor is a host integer: the caller carries it
+beside the residues.
 
 The JAX package's key, plaintext and ciphertext objects (any object with
 their fields: the module reads `.data` through `np.asarray`, and never
@@ -22,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.bfv32 import BFVPipeline32, build_bfv32
+from .ops.bfv32 import (BFVBehz32, BFVLeveled32, BFVPipeline32,
+                        build_bfv32, build_bfv_behz32, build_bfv_leveled32)
 from .ops.bgv32 import BGVPipeline32, build_bgv32
 from .ops.pipeline32 import DEFAULT_ENGINE, Galois32, convert_key32
 from .schemes.ciphertext import Ciphertext, Plaintext
@@ -56,11 +58,34 @@ def galois_keys(ctx: Context, glk_data: np.ndarray, elts,
 
 
 def bfv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,
-                 engine: str = DEFAULT_ENGINE) -> BFVPipeline32:
-    """A BFV context's RelinKey.data (dnum, 2, K, N) -> the HPS step at
-    this level on `engine`, on the context's device."""
+                 engine: str = DEFAULT_ENGINE,
+                 lift: str = "xla") -> BFVPipeline32:
+    """A BFV context's RelinKey.data (dnum, 2, K, N) -> the HPS (and
+    HPSoverQ) step at this level on `engine` with HPS's `lift`, on the
+    context's device."""
     return build_bfv32(ctx, residues(rlk_data).to(ctx.key_q.device),
-                       chain_index, engine, ctx.key_q.device)
+                       chain_index, engine, ctx.key_q.device, lift)
+
+
+def bfv_behz_pipeline(ctx: Context, rlk_data: np.ndarray,
+                      chain_index: int = 1,
+                      engine: str = DEFAULT_ENGINE) -> BFVBehz32:
+    """A "behz" BFV context's RelinKey.data -> the BEHZ step at this level
+    on `engine`, on the context's device."""
+    return build_bfv_behz32(ctx, residues(rlk_data).to(ctx.key_q.device),
+                            chain_index, engine, ctx.key_q.device)
+
+
+def bfv_leveled_pipeline(ctx: Context, rlk_data: np.ndarray,
+                         noise_scale_deg: int = 1,
+                         engine: str = DEFAULT_ENGINE,
+                         force_lvl: int = None) -> BFVLeveled32:
+    """A BFV context's RelinKey.data -> the HPSoverQ-leveled step at the
+    noise model's drop for `noise_scale_deg` (or `force_lvl`) on `engine`,
+    on the context's device."""
+    return build_bfv_leveled32(ctx, residues(rlk_data).to(ctx.key_q.device),
+                               noise_scale_deg, engine, ctx.key_q.device,
+                               force_lvl)
 
 
 def bgv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,

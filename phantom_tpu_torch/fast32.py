@@ -33,8 +33,12 @@ Usage:
 
 Engines: "mxu-pallas" (the default) and, for BFV only, "pallas-roll", as
 the ops run them; the JAX package's butterfly ("xla", use_pallas=False)
-and einsum ("mxu") engines have no counterpart and raise.  BFV runs the
-HPS technique; BEHZ, HPSoverQ and leveled raise NotImplementedError.
+and einsum ("mxu") engines have no counterpart and raise.  BFV multiplies
+by the context's `mul_tech`, as the JAX package's Fast32 does: "hps",
+"behz", "hps_overq" or "hps_overq_leveled" (ops/bfv32.py); the leveled
+technique's pipeline is built at the drop the noise model gives for
+noise_scale_deg 1, at the full level, and adds 1 to the product's
+noise_scale_deg.
 """
 
 from __future__ import annotations
@@ -53,6 +57,14 @@ from .schemes.ciphertext import Ciphertext, Plaintext
 from .schemes.context import Context
 
 Ct32 = Ciphertext
+# BFV's multiply and multiply + relinearize per mul_tech
+_BFV_MULT = {
+    "hps": (bfv32.bfv_mult32, bfv32.bfv_mult_relin32),
+    "behz": (bfv32.bfv_mult_behz32, bfv32.bfv_mult_relin_behz32),
+    "hps_overq": (bfv32.bfv_mult_hps_overq32, bfv32.bfv_mult_relin_overq32),
+    "hps_overq_leveled": (bfv32.bfv_mult_leveled32,
+                          bfv32.bfv_mult_relin_leveled32),
+}
 
 
 def _qcol(q: torch.Tensor) -> torch.Tensor:
@@ -178,16 +190,35 @@ class Fast32:
                 ks=self.keyswitch_at(ci)).to(self.device)
         return self._ckks[ci]
 
-    def _bfv_at(self, ci: int) -> bfv32.BFVPipeline32:
-        if self.ctx.params.mul_tech != "hps":
-            raise NotImplementedError(
-                f"BFV mul_tech {self.ctx.params.mul_tech!r} is not ported "
-                "yet (ROADMAP.md section 1 item 3); the port runs \"hps\"")
+    def _bfv_at(self, ci: int):
+        """The level's BFV pipeline for the context's mul_tech: BFVBehz32,
+        BFVLeveled32 (at the full level) or BFVPipeline32 (HPS and
+        HPSoverQ)."""
         if ci not in self._bfv:
-            self._bfv[ci] = bfv32.BFVPipeline32(
-                self.ctx, self.evk_at(ci), ci, self.engine,
-                ks=self.keyswitch_at(ci)).to(self.device)
+            mt = self.ctx.params.mul_tech
+            if mt == "behz":
+                p = bfv32.BFVBehz32(self.ctx, self.evk_at(ci), ci,
+                                    self.engine, ks=self.keyswitch_at(ci))
+            elif mt == "hps_overq_leveled":
+                p = bfv32.BFVLeveled32(
+                    self.ctx, self.evk_at(1), bfv32.levels_to_drop(self.ctx),
+                    self.engine, ks=self.keyswitch_at(1))
+            else:
+                p = bfv32.BFVPipeline32(self.ctx, self.evk_at(ci), ci,
+                                        self.engine, ks=self.keyswitch_at(ci))
+            self._bfv[ci] = p.to(self.device)
         return self._bfv[ci]
+
+    def _bfv_mult(self, c1: Ct32, c2: Ct32, relin: bool,
+                  ops: Kernels) -> Ct32:
+        """BFV multiply (+ relinearize) by the context's mul_tech."""
+        p = self._bfv_at(c1.chain_index)
+        mt = self.ctx.params.mul_tech
+        fn = _BFV_MULT[mt][relin]
+        nsd = max(c1.noise_scale_deg, c2.noise_scale_deg) + (
+            1 if mt == "hps_overq_leveled" else 0)
+        return c1.replace(data=fn(p, c1.data, c2.data, ops),
+                          noise_scale_deg=nsd)
 
     def _bgv_at(self, ci: int) -> bgv32.BGVPipeline32:
         if ci not in self._bgv:
@@ -317,10 +348,7 @@ class Fast32:
             return c1.replace(data=self._relin_ckks(c1, c1.data, c2.data, ops),
                               scale=c1.scale * c2.scale)
         if self.scheme == "bfv":
-            out = bfv32.bfv_mult_relin32(self._bfv_at(ci), c1.data, c2.data,
-                                         ops)
-            return c1.replace(data=out, noise_scale_deg=max(
-                c1.noise_scale_deg, c2.noise_scale_deg))
+            return self._bfv_mult(c1, c2, True, ops)
         out = bgv32.bgv_mult_relin32(self._bgv_at(ci), c1.data, c2.data, ops)
         t = self.ctx.params.plain_modulus
         return c1.replace(data=out, correction_factor=(
@@ -330,9 +358,7 @@ class Fast32:
         """The unrelinearized product, a size-3 ciphertext."""
         ci = c1.chain_index
         if self.scheme == "bfv":
-            out = bfv32.bfv_mult32(self._bfv_at(ci), c1.data, c2.data, ops)
-            return c1.replace(data=out, noise_scale_deg=max(
-                c1.noise_scale_deg, c2.noise_scale_deg))
+            return self._bfv_mult(c1, c2, False, ops)
         out = torch.stack(pp._tensor_2x2(self._q(ci), c1.data,
                                          c2.data)).int()
         if self.scheme == "ckks":

@@ -1,6 +1,6 @@
 """Context: the NTT tables and the per-level constants of the whole
-modulus chain (counterpart of phantom_tpu/schemes/context.py, CKKS, BFV
-HPS and BGV subsets).
+modulus chain (counterpart of phantom_tpu/schemes/context.py: CKKS, BFV
+with every multiplication technique, and BGV).
 
 Chain indexing matches the JAX package: index 0 is the key level (all of
 Q and P), index 1 the first data level (all of Q, `first_data_index`), and
@@ -20,6 +20,13 @@ is table rows `BFVConsts.rows_d` of it, so the kernels, which take
 (tables, rows), transform D, Ql and QlP rows alike.  The Rl primes are
 below min(QP), 27 or 28 bits at N = 2^16; every kernel keeps its lazy
 values below 4q < 2^32 for any q < 2^30, so they need nothing else.
+A BFV context with mul_tech "behz" also holds BEHZ's base Bsk = B u
+{m_sk}, chosen as the JAX package chooses it: the first size_q + 1
+29-bit primes == 1 mod 2N outside QP, B then m_sk.  Its rows follow Rl
+in `ntt`; a level's Bsk is B[:size_ql] + [m_sk] (`BEHZConsts.rows_bsk`,
+indexed like rows_d).  Where some QP prime is 2^30 or more the JAX
+package takes 61-bit Bsk primes, which no 32-bit residue holds, so the
+port raises there.
 BFV and BGV contexts also hold `plain_ntt`, the tables mod t of the batch
 encoder's slot map.
 """
@@ -76,6 +83,14 @@ class BFVConsts(NamedTuple):
     r_t: int                         # Ql mod t
 
 
+class BEHZConsts(NamedTuple):
+    """A BFV level's BEHZ base: Bsk = B[:size_ql] + [m_sk] and its table
+    rows in ctx.ntt (the JAX package's tables_bsk(size_ql))."""
+
+    bsk: Tuple[int, ...]             # B[:size_ql], then m_sk
+    rows_bsk: Tuple[int, ...]        # table rows of Bsk in ctx.ntt
+
+
 class BGVConsts(NamedTuple):
     """A BGV level's decryption and modulus-switch constants (the JAX
     package's BGVConsts): the exact centered conversion Ql -> {t} and the
@@ -93,11 +108,12 @@ class ContextData:
     on first use (None where the level or the scheme has none)."""
 
     def __init__(self, params: EncryptionParameters, chain_index: int,
-                 moduli, rl_moduli=()):
+                 moduli, rl_moduli=(), bsk_moduli=()):
         self.chain_index = chain_index
         self.moduli = tuple(moduli)
         self._params = params
         self._rl_moduli = tuple(rl_moduli)
+        self._bsk_moduli = tuple(bsk_moduli)
 
     @property
     def size_ql(self) -> int:
@@ -126,6 +142,16 @@ class ContextData:
             return None
         return _bfv_consts(self.moduli, self._rl_moduli, p.size_qp,
                            p.plain_modulus)
+
+    @cached_property
+    def behz(self) -> Optional[BEHZConsts]:
+        if not self._data or not self._bsk_moduli:
+            return None
+        k, p = self.size_ql, self._params
+        base = p.size_qp + p.size_q + 1  # the rows after QP and Rl
+        return BEHZConsts(
+            bsk=self._bsk_moduli[:k] + self._bsk_moduli[-1:],
+            rows_bsk=tuple(range(base, base + k)) + (base + p.size_q,))
 
     @cached_property
     def bgv(self) -> Optional[BGVConsts]:
@@ -236,8 +262,10 @@ class Context(nn.Module):
         t = params.plain_modulus
         self.rl_moduli = tuple(host.numth.get_primes_below(
             min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
+        self.bsk_moduli = tuple(bsk_base(params)) if (
+            bfv and params.mul_tech == "behz") else ()
         self.ntt = NTTTables32(host.make_rns_ntt_tables(
-            params.n, qp + list(self.rl_moduli)))
+            params.n, qp + list(self.rl_moduli) + list(self.bsk_moduli)))
         self.plain_ntt = NTTTables32(host.make_rns_ntt_tables(
             params.n, [t])) if bfv or bgv else None
         self.register_buffer("key_q", u32_tensor(qp))
@@ -250,7 +278,7 @@ class Context(nn.Module):
         data = params.data_moduli
         self.chain = (ContextData(params, 0, qp),) + tuple(
             ContextData(params, ci, data[:params.size_q + 1 - ci],
-                        self.rl_moduli)
+                        self.rl_moduli, self.bsk_moduli)
             for ci in range(1, params.size_q + 1))
 
     @property
@@ -265,6 +293,22 @@ class Context(nn.Module):
             raise ValueError(f"chain index {chain_index} outside the chain "
                              f"(0 to {len(self.chain) - 1})")
         return self.chain[chain_index]
+
+
+def bsk_base(params: EncryptionParameters) -> List[int]:
+    """BEHZ's Bsk: B (size_q primes) then m_sk, the first size_q + 1 of
+    the 29-bit primes == 1 mod 2N that are not in QP, as the JAX package
+    picks them for 32-bit parameters.  It raises where some QP prime is
+    2^30 or more: the JAX package then takes 61-bit Bsk primes, which the
+    port's 32-bit residues cannot hold."""
+    qp = params.coeff_modulus
+    if max(qp) >= 1 << 30:
+        raise ValueError("BEHZ with a QP prime of 2^30 or more needs 61-bit "
+                         "Bsk primes; the port's residues are 32-bit")
+    used = set(qp)
+    pool = [p for p in host.numth.get_primes(
+        2 * params.n, 29, params.size_q + 1 + len(qp)) if p not in used]
+    return pool[:params.size_q + 1]
 
 
 def resolve_device(device=None) -> torch.device:

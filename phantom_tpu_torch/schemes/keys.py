@@ -18,7 +18,8 @@ BGV as m centered mod t, in NTT form.  Symmetric encryption is
 decryption is round(t [c0 + c1 s]_Ql / Ql) mod t (ops/scaleround32.py
 with num = t, den = Ql and the output base {t}); BGV's the exact centered
 conversion of [c0 + c1 s]_Ql to {t}, divided by the ciphertext's
-correction factor.
+correction factor.  invariant_noise_budget gives a BFV ciphertext's
+remaining noise budget in bits, by the CRT in Python integers.
 
 Each `*_core32` takes its samples as tensors (ternary and CBD vectors
 (N,), uniform residues (K, N)), so tests feed it the JAX package's own
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import sampling as smp
@@ -379,3 +381,33 @@ def _dot_with_sk_powers(ctx: Context, sk: torch.Tensor,
         acc = (acc + ct[i].long() * s_pow) % q
         s_pow = s_pow * s % q
     return acc.int()
+
+
+def invariant_noise_budget(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
+                           ops: Kernels = KERNELS) -> int:
+    """A BFV ciphertext's remaining noise budget in bits (the JAX package's
+    invariant_noise_budget): v = t [c0 + c1 s + ...]_Ql composed by the
+    CRT in Python integers and centered, then log2(Ql) - log2(2 max |v|),
+    each a bit length as the reference counts it; 0 at the least."""
+    if ctx.params.scheme != "bfv":
+        raise ValueError("noise budget is defined for BFV")
+    data = ct.data
+    k = data.shape[1]
+    rows = ctx.rows_qp[:k]
+    if not ct.is_ntt_form:
+        data = ops.ntt_forward(data, ctx.ntt, rows)
+    x = u32(ops.ntt_inverse(_dot_with_sk_powers(ctx, sk, data), ctx.ntt,
+                            rows)).cpu().numpy()
+    moduli = ctx.params.data_moduli[:k]
+    total = 1
+    for q in moduli:
+        total *= q
+    acc = np.zeros(x.shape[1], dtype=object)
+    for row, q in zip(x, moduli):
+        punct = total // q
+        acc += (row * pow(punct % q, -1, q) % q).astype(object) * punct
+    v = acc % total * ctx.params.plain_modulus % total
+    norm = int(np.where(v > total // 2, total - v, v).max())
+    if norm == 0:
+        return total.bit_length() - 1
+    return max((total.bit_length() - 1) - (2 * norm).bit_length(), 0)

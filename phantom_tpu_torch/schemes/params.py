@@ -5,14 +5,18 @@ parameter set is a power-of-two degree n, the data primes, the special
 primes of hybrid key switching (alpha of them) and, for BFV and BGV, the
 plain modulus t, a prime == 1 mod 2n below every data prime (batching).
 `mul_tech` names BFV's multiplication technique as the JAX package's
-MulTech does (MUL_TECHS; the port runs "hps"), and `galois_elts` the
-Galois elements whose keys create_galois_keys makes by default.
+MulTech does (MUL_TECHS), `sec_level` the HE-standard security level the
+coefficient modulus must meet (128, 192 or 256 bits; 0, the default,
+checks nothing), and `galois_elts` the Galois elements whose keys
+create_galois_keys makes by default.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Sequence, Tuple
+
+from ..host import hestd
 
 SCHEMES = ("ckks", "bfv", "bgv")
 # the JAX package's MulTech: BEHZ, HPS, HPS_OVERQ, HPS_OVERQ_LEVELED
@@ -27,6 +31,7 @@ class EncryptionParameters:
     scheme: str = "ckks"
     plain_modulus: int = 0
     mul_tech: str = "hps"
+    sec_level: int = 0
     galois_elts: Tuple[int, ...] = ()
 
     def __post_init__(self):
@@ -48,17 +53,24 @@ class EncryptionParameters:
             raise ValueError("CKKS takes no plain modulus")
         if self.mul_tech not in MUL_TECHS:
             raise ValueError(f"mul_tech {self.mul_tech!r} not in {MUL_TECHS}")
+        total_bits = sum(q.bit_length() for q in self.coeff_modulus)
+        if self.sec_level and total_bits > hestd.max_coeff_modulus_bits(
+                self.n, self.sec_level):
+            raise ValueError(
+                f"coeff modulus ({total_bits} bits) exceeds HE-std budget for "
+                f"N={self.n} at {self.sec_level}-bit security")
 
     @staticmethod
     def create(n: int, data_moduli: Sequence[int],
                special_moduli: Sequence[int], scheme: str = "ckks",
                plain_modulus: int = 0, *, mul_tech: str = "hps",
+               sec_level: int = 0,
                galois_elts: Sequence[int] = ()) -> "EncryptionParameters":
         return EncryptionParameters(
             n=int(n), data_moduli=tuple(int(q) for q in data_moduli),
             special_moduli=tuple(int(p) for p in special_moduli),
             scheme=scheme, plain_modulus=int(plain_modulus),
-            mul_tech=mul_tech,
+            mul_tech=mul_tech, sec_level=int(sec_level),
             galois_elts=tuple(int(e) for e in galois_elts))
 
     @property

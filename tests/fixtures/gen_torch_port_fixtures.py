@@ -44,6 +44,26 @@ bfv_step_n1024.npz: BFV at n = 1024, the same chain (five 28-bit data
   (X^n + 1, t)).  Stored: data_moduli, special_moduli (u64), t, sk, rlk,
   d1, d2, m1, m2 (int64), keyswitch, out, pt_out.
 
+bfv_multech_n1024.npz: BFV's other multiplication techniques at
+  bfv_step_n1024.npz's parameters (n = 1024, five 28-bit data primes,
+  alpha = 2, t = PlainModulus.batching(n, 16)): real JAX keys over QP,
+  which every technique shares, and two symmetric encryptions d1, d2 of
+  polynomials m1, m2 with coefficients in [-3, 3].  One context per
+  mul_tech (the BEHZ one holds the Bsk base, stored as bsk_moduli).  For
+  behz, overq (HPSoverQ), lev0 (leveled at the noise model's drop for
+  noise_scale_deg 1, which is 0 here) and lev1 (leveled with force_lvl=1,
+  the u64 evaluator's noise model patched to 1), on the JAX Fast32's
+  default engine (use_pallas=False): mul_<tech>, the multiply, and
+  relin_<tech>, the multiply + relinearize, each asserted equal to the u64
+  evaluator's multiply and multiply_and_relin before anything is
+  written; pt_mul_<tech> and pt_relin_<tech>, their JAX decryptions;
+  budget_<tech>, the invariant_noise_budget of relin_<tech>, and
+  budget_d1, d1's.  lift: the fused lift (_lift_ntt_fused on the
+  mxu-pallas engine, K3 in interpret mode) of the four polys of (d1, d2),
+  (4, size_d, N) in NTT form over D, asserted equal to the xla lift
+  followed by the forward NTT.  Stored also: data_moduli, special_moduli
+  (u64), t, sk, rlk, m1, m2 (int64).
+
 bgv_step_n1024.npz: BGV at n = 1024, the same chain (five 28-bit data
   primes, alpha = 2, a short last digit), t = PlainModulus.batching(n, 16),
   built as tests/test_fastpath32.py's BGV fixture builds it: real JAX keys
@@ -108,7 +128,8 @@ fast32_<case>.npz: the JAX package's Fast32 verbs at n = 1024 (the card's
   public, relin and Galois keys for steps (1, 2)).
 
 Run from the repo root (CPU, about four minutes for all; names choose
-files, e.g. `bfv_step` writes only bfv_step_n1024.npz):
+files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
+only bfv_multech_n1024.npz):
 
     PYTHONPATH=. python tests/fixtures/gen_torch_port_fixtures.py [name ...]
 """
@@ -302,6 +323,86 @@ def bfv_step():
           t=np.array(t, dtype=np.uint64), sk=u32(sk.data),
           rlk=u32(rlk.data), d1=d1, d2=d2, m1=m1, m2=m2, keyswitch=ks_out,
           out=out, pt_out=u32(pt_out))
+
+
+def bfv_multech():
+    from phantom_tpu.host import noise as noise_mod
+    from phantom_tpu.schemes import MulTech
+    qs = numth.get_primes(2 * N, 28, K_DATA)
+    ps = numth.get_primes(2 * N, 29, ALPHA)
+    t = PlainModulus.batching(N, 16).value
+    ctxs = {mt: make_context(EncryptionParameters.create(
+        Scheme.BFV, N, qs + ps, plain_modulus=t, special_modulus_size=ALPHA,
+        mul_tech=mt)) for mt in MulTech}
+    hps = ctxs[MulTech.HPS]
+    k_sk, k_rlk, k1, k2 = jax.random.split(jax.random.PRNGKey(SEED + 11), 4)
+    sk = keys.gen_secret_key(hps, k_sk)
+    rlk = keys.gen_relin_key(hps, sk, k_rlk)
+    rng = np.random.default_rng(SEED + 11)
+    m1, m2 = (rng.integers(-3, 4, N) for _ in range(2))
+    ct1, ct2 = (keys.encrypt_symmetric(hps, sk, Plaintext(
+        data=jnp.asarray((m % t).astype(np.uint64))[None], chain_index=1), k)
+        for m, k in ((m1, k1), (m2, k2)))
+    d1, d2 = jnp.asarray(u32(ct1.data)), jnp.asarray(u32(ct2.data))
+    out = dict(budget_d1=np.array(keys.invariant_noise_budget(hps, sk, ct1)))
+    techs = {
+        "behz": (MulTech.BEHZ, lambda c: bfv32.build_bfv_behz32(c, rlk),
+                 bfv32.bfv_mult_behz32, bfv32.bfv_mult_relin_behz32),
+        "overq": (MulTech.HPS_OVERQ, lambda c: bfv32.build_bfv32(c, rlk),
+                  bfv32.bfv_mult_hps_overq32, bfv32.bfv_mult_relin_overq32),
+        "lev0": (MulTech.HPS_OVERQ_LEVELED,
+                 lambda c: bfv32.build_bfv_leveled32(c, rlk),
+                 bfv32.bfv_mult_leveled32, bfv32.bfv_mult_relin_leveled32),
+        "lev1": (MulTech.HPS_OVERQ_LEVELED,
+                 lambda c: bfv32.build_bfv_leveled32(c, rlk, force_lvl=1),
+                 bfv32.bfv_mult_leveled32, bfv32.bfv_mult_relin_leveled32),
+    }
+    for name, (mt, build, mul, mul_relin) in techs.items():
+        ctx = ctxs[mt]
+        p = build(ctx)
+        if name.startswith("lev"):
+            assert p.lvl == int(name[-1]), p.lvl
+        drop = noise_mod.find_levels_to_drop
+        if name == "lev1":  # the u64 evaluator consults the noise model
+            noise_mod.find_levels_to_drop = lambda *a, **kw: 1
+        try:
+            ref_mul = evaluate.multiply(ctx, ct1, ct2)
+            ref = evaluate.multiply_and_relin(ctx, ct1, ct2, rlk)
+        finally:
+            noise_mod.find_levels_to_drop = drop
+        got_mul, got = (np.asarray(f(p, d1, d2)) for f in (mul, mul_relin))
+        np.testing.assert_array_equal(got_mul, u32(ref_mul.data))
+        np.testing.assert_array_equal(got, u32(ref.data))
+        out.update({f"mul_{name}": got_mul, f"relin_{name}": got,
+                    f"pt_mul_{name}": u32(keys.decrypt(
+                        ctx, sk, ref_mul).data)[0],
+                    f"pt_relin_{name}": u32(keys.decrypt(
+                        ctx, sk, ref).data)[0],
+                    f"budget_{name}": np.array(keys.invariant_noise_budget(
+                        ctx, sk, ref))})
+        right = np.array_equal(out[f"pt_relin_{name}"],
+                               negacyclic_mod_t(m1, m2, t))
+        print(f"{name}: lvl {getattr(p, 'lvl', 0)}, budget "
+              f"{int(out['budget_' + name])}, decrypts to m1 m2: {right}")
+    # the fused lift, in the kernels' blocked tiling, against the xla lift
+    pf = bfv32.build_bfv32(hps, rlk, use_pallas="mxu-pallas")
+    tq = pf.ks.t_ql
+    polys = jnp.concatenate([d1, d2])
+    lift = np.asarray(bfv32._lift_ntt_fused(
+        pf, polys.reshape(4, K_DATA, tq.n1, tq.n2))).reshape(4, -1, N)
+    px = bfv32.build_bfv32(hps, rlk)
+    lifted = jnp.stack([jnp.concatenate(
+        [x, bfv32.bc32.bconv_exact32(x, px.q_to_r)]) for x in polys])
+    np.testing.assert_array_equal(lift, np.asarray(pp._fwd(px.ks, lifted,
+                                                           px.t_d)))
+    _save("bfv_multech_n1024.npz",
+          data_moduli=np.array(qs, dtype=np.uint64),
+          special_moduli=np.array(ps, dtype=np.uint64),
+          bsk_moduli=np.asarray(ctxs[MulTech.BEHZ].bsk_ntt.q).astype(
+              np.uint64),
+          t=np.array(t, dtype=np.uint64), sk=u32(sk.data),
+          rlk=u32(rlk.data), d1=np.asarray(d1), d2=np.asarray(d2), m1=m1,
+          m2=m2, lift=lift, **out)
 
 
 def bgv_step():
@@ -679,7 +780,7 @@ FAST32 = {"fast32_ckks_chain": f32_ckks_chain,
 
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
-                      "bgv_step", "bfv_live", "ntt32_n128", "fast32"]
+                      "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128", "fast32"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -691,6 +792,8 @@ def main(names):
         step_n128(5)
     if "bfv_step" in names:
         bfv_step()
+    if "bfv_multech" in names:
+        bfv_multech()
     if "bgv_step" in names:
         bgv_step()
     if "bfv_live" in names:

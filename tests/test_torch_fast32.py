@@ -8,9 +8,11 @@ chain index 3, encryption and decryption per scheme, the hoisted forms,
 the plain ops and the modulus switch, square, multiply then relinearize,
 the other verbs, and keygen fed the JAX samplers' draws.  Bit-exact on
 residues and metadata; decoded slots as the JAX package decoded them.
-Also: every level of the chain is built on first use, BFV's other
-multiplication techniques and the engines the port lacks raise, and
-Fast32.encrypt_asymmetric draws u, e0, e1 in that order.  Every kernel
+Also: every level of the chain is built on first use, BFV multiplies by
+the context's mul_tech (BEHZ, HPSoverQ and leveled against
+bfv_multech_n1024.npz), a BEHZ context past 30-bit primes and the engines
+the port lacks raise, and Fast32.encrypt_asymmetric draws u, e0, e1 in
+that order.  Every kernel
 runs its plain version on the CPU."""
 
 import os
@@ -166,17 +168,45 @@ def test_every_level_built_on_first_use():
         ctx.get_context_data(7)
 
 
-@pytest.mark.parametrize("tech", ["behz", "hps_overq", "hps_overq_leveled"])
-def test_bfv_other_techniques_raise(tech):
-    """BEHZ, HPSoverQ and leveled are not ported: the multiply raises,
-    never falling back to HPS."""
-    ctx = make_context(_params("bfv", k=3, mul_tech=tech), device=CPU)
-    n = ctx.params.n
-    ev = Fast32(ctx, rlk=torch.zeros((3, 2, 4, n), dtype=torch.int32))
-    ct = Ciphertext(torch.zeros((2, 3, n), dtype=torch.int32))
-    for verb in (ev.multiply_and_relin, ev.multiply):
-        with pytest.raises(NotImplementedError, match="section 1 item 3"):
-            verb(ct, ct)
+@pytest.mark.parametrize("tech,case", [("behz", "behz"),
+                                       ("hps_overq", "overq"),
+                                       ("hps_overq_leveled", "lev0")])
+def test_bfv_techniques_dispatch(tech, case):
+    """Fast32 multiplies by the context's mul_tech: multiply and
+    multiply_and_relin bit-equal to the JAX package's outputs in
+    bfv_multech_n1024.npz (leveled at the noise model's drop for
+    noise_scale_deg 1, none there), and noise_scale_deg as the JAX
+    package's Fast32 sets it (+1 for leveled)."""
+    g = np.load(chip_smoke.BFV_MULTECH_GOLDEN)
+    ctx = make_context(EncryptionParameters.create(
+        int(g["d1"].shape[-1]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist(), "bfv", int(g["t"]), mul_tech=tech),
+        device=CPU)
+    ev = Fast32(ctx, rlk=torch.from_numpy(g["rlk"].astype(np.int32)))
+    c1 = Ciphertext(torch.from_numpy(g["d1"].astype(np.int32)))
+    c2 = Ciphertext(torch.from_numpy(g["d2"].astype(np.int32)),
+                    noise_scale_deg=2)
+    nsd = 2 + (tech == "hps_overq_leveled")
+    for verb, name in ((ev.multiply, "mul"),
+                       (ev.multiply_and_relin, "relin")):
+        out = verb(c1, c2)
+        np.testing.assert_array_equal(out.data.numpy().astype(np.uint32),
+                                      g[f"{name}_{case}"])
+        assert out.noise_scale_deg == nsd and out.chain_index == 1
+
+
+def test_bfv_behz_refuses_primes_past_30_bits():
+    """A BEHZ context (and so a Fast32 on it) whose QP has a prime of 2^30
+    or more raises: the JAX package's 61-bit Bsk has no 32-bit
+    counterpart, and nothing falls back to HPS."""
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.host.modulus import PlainModulus
+    n = 1024
+    params = EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, 3), numth.get_primes(2 * n, 31, 1),
+        "bfv", PlainModulus.batching(n, 16), mul_tech="behz")
+    with pytest.raises(ValueError, match="61-bit Bsk"):
+        Fast32(make_context(params, device=CPU))
 
 
 def test_engines_the_port_lacks_raise():

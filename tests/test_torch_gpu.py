@@ -8,8 +8,8 @@ run these with
 
 Every kernel at several sizes, with every option of its wrapper; the
 tables are real NTT tables and the inputs seeded; bit-exact.  The BFV step
-on both engines and the BGV step on each modup route against the plain
-path and the golden files.
+on both engines, BFV's other techniques and the fused lift, and the BGV
+step on each modup route against the plain path and the golden files.
 """
 
 import os
@@ -659,6 +659,57 @@ def test_bfv_step(dev, engine):
     assert np.array_equal(got.cpu().numpy().view(np.uint32), g["out"])
     ks = pp.keyswitch32(p.ks, d1[1], p.evk)
     assert np.array_equal(ks.cpu().numpy().view(np.uint32), g["keyswitch"])
+
+
+@pytest.mark.parametrize("logn", [10, 16])
+def test_k3_fused_lift(dev, logn):
+    """K3 at the BFV fused lift's shape (43 data primes, D = Ql u Rl of 87
+    rows): y (4, 43, N) scaled by QhatInv, mat (4, 87, 43), the floor sums
+    v (4, N) and vmul (87,); 43 products pass one 64-bit word, so the
+    carry path runs.  Bit-equal to its plain version and to the xla lift
+    (K5 per poly) followed by K2."""
+    from phantom_tpu_torch.ops import bfv32
+    n = 1 << logn
+    ctx = make_context(chip_smoke.mod_t_params(n, 43, 22), device=dev)
+    p = bfv32.BFVPipeline32(ctx, torch.zeros(1, dtype=torch.int32, device=dev),
+                            lift="kernel").to(dev)
+    assert not nk.sum_fits_64(43, ctx.ntt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn)
+    q = ctx.key_q[:43].long().view(-1, 1)
+    polys = (torch.randint(0, 1 << 62, (4, 43, n), generator=gen,
+                           device=dev) % q).int()
+    polys[0, :, :2] = (q - 1).int()  # the largest residues
+    calls = []
+
+    def keep(*a, **kw):
+        calls.append((a, kw))
+        return nk.bconv_ntt_forward(*a, **kw)
+
+    before = nk.bconv_ntt_forward.launches
+    got = bfv32._lift_ntt_fused(p, polys, pp.KERNELS._replace(
+        bconv_ntt_forward=keep))
+    assert nk.bconv_ntt_forward.launches == before + 1
+    (a, kw), = calls
+    assert tuple(a[0].shape) == (4, 43, n) and tuple(a[1].shape) == (4, 87, 43)
+    assert tuple(kw["v"].shape) == (4, n) and tuple(kw["vmul"].shape) == (87,)
+    _same(got, nk.bconv_ntt_forward_plain(*a, **kw))
+    lifted = torch.cat([bfv32._lift(p, polys[:2], pp.KERNELS),
+                        bfv32._lift(p, polys[2:], pp.KERNELS)])
+    _same(got, nk.ntt_forward(lifted, ctx.ntt, p.rows_d))
+
+
+@pytest.mark.parametrize("engine", ["mxu-pallas", "pallas-roll"])
+def test_bfv_techniques_golden(dev, engine):
+    """bfv_multech_n1024.npz through the kernels on each engine (BEHZ,
+    HPSoverQ, leveled at two drops, the fused lift, decryptions, noise
+    budgets) bit-equal to the JAX package's outputs and to the plain
+    path."""
+    res = chip_smoke.bfv_multech_golden(dev, (engine,))
+    plain = chip_smoke.bfv_multech_golden(dev, (engine,), pp.PLAIN)
+    for name, (got, want) in res.items():
+        assert np.array_equal(got, want), name
+        assert np.array_equal(got, plain[name][0]), name
 
 
 @pytest.mark.parametrize("self_mul", [False, True], ids=["pass", "self_mul"])

@@ -18,6 +18,7 @@ from phantom_tpu_torch.ops import (bconv_kernels, ip_kernels, moddown_kernels,
 
 _NO_JAX = """
 import os, sys
+import torch
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 import chip_smoke
@@ -43,10 +44,21 @@ bgv = pt.make_context(pt.EncryptionParameters.create(
     host.modulus.PlainModulus.batching(n, 16)), device="cpu")
 assert bgv.get_context_data(2).bgv.qlast_mod_qi is not None
 assert pt.build_keyswitch32(bgv, device="cpu").bgv
+from phantom_tpu_torch.ops import behz32
+from phantom_tpu_torch.host import globals_, hestd, noise
+behz = pt.make_context(pt.EncryptionParameters.create(
+    n, params.data_moduli, params.special_moduli, "bfv",
+    host.modulus.PlainModulus.batching(n, 16), mul_tech="behz"),
+    device="cpu")
+assert len(behz.bsk_moduli) == 6
+assert behz.get_context_data(1).behz.rows_bsk == tuple(range(13, 18)) + (18,)
+assert bfv32.build_bfv_leveled32(behz, torch.zeros(
+    (3, 2, 7, n), dtype=torch.int32), device="cpu").lvl == 0
+assert len(globals_.default_coeff_modulus_128(4096)) == 3
+assert hestd.max_coeff_modulus_bits(n, 0) and noise.SIGMA == 3.2
 from phantom_tpu_torch import fast32
 from phantom_tpu_torch.schemes import batch_encoder, ciphertext, ckks_encoder
 import numpy as np
-import torch
 gen = torch.Generator()
 ev = pt.Fast32(ctx)
 sk = ev.gen_secret_key(gen)
