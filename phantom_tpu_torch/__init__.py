@@ -7,8 +7,12 @@ HPSoverQ or HPSoverQ-leveled) and BGV over every level of the modulus
 chain, with keygen (secret, public, relin and Galois keys), public-key
 and symmetric encryption, the plain ops, multiply and relinearize,
 square, rescale and modulus switch, rotations in NTT and coefficient
-form, both hoisted forms and decryption; `BatchEncoder` and
-`CKKSEncoder` carry values in and out.  Below it, the ops: hybrid key
+form, both hoisted forms and decryption; `BatchEncoder`, `CKKSEncoder`
+(host) and `CKKSDeviceEncoder` (the double-float FFT on the card) carry
+values in and out.  On Fast32 sit `LinearTransform` (BSGS matrix-vector
+products with one shared modup per layer) and polynomial evaluation in
+the monomial and Chebyshev bases (`poly_eval_fast32`,
+`poly_eval_cheb_fast32`).  Below it, the ops: hybrid key
 switching, the CKKS multiply + relinearize + rescale step on three modup
 routes and with three epilogues, rotations and hoisted rotations
 (ops/pipeline32.py), the BFV multiply + relinearize by each technique on
@@ -18,18 +22,23 @@ CUDA kernels for Hopper (sm_90a, csrc/): the NTTs, all on one one-pass
 radix-8 core that holds each row in a thread-block cluster, the base
 conversions (on the int8 tensor cores), the fused modup + key inner
 product (NTT, coefficient and pre-converted form), the key inner product
-and the moddown epilogues.  It imports torch and numpy and never JAX,
-and keeps its own copy of the host math (host/).  Its entry points run
+and the moddown epilogues; and F1, the encoder's double-float FFT.  It
+imports torch and numpy and never JAX, and keeps its own copy of the
+host math (host/).  Its entry points run
 on the CUDA device unless the context was built with device="cpu", where
 each kernel wrapper takes its plain torch version.
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from .schemes.context import Context, make_context  # noqa: F401
 from .schemes.ciphertext import Ciphertext, Plaintext  # noqa: F401
 from .schemes.batch_encoder import BatchEncoder  # noqa: F401
-from .schemes.ckks_encoder import CKKSEncoder, encode_extended  # noqa: F401
+from .schemes.ckks_encoder import (CKKSDeviceEncoder,  # noqa: F401
+                                   CKKSEncoder, encode_extended)
+from .schemes.linear import LinearTransform  # noqa: F401
+from .schemes.poly import (chebyshev_fit,  # noqa: F401
+                           poly_eval_cheb_fast32, poly_eval_fast32)
 from .schemes.keys import create_galois_keys  # noqa: F401
 from .schemes.params import EncryptionParameters  # noqa: F401
 from .ops.bfv32 import (BFVPipeline32, bfv_mult_relin32,  # noqa: F401

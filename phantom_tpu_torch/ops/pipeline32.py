@@ -86,6 +86,7 @@ from torch import nn
 
 from . import (bconv_kernels, ip_kernels, moddown_kernels, modup_ip_kernels,
                ntt_kernels, ntt_roll_kernels)
+from .ckks_fft import ckks_fft, ckks_fft_plain
 from .bconv32 import (BaseConvConsts32, ModulusVec32, bconv_approx32,
                       bconv_exact32, exact_from_scaled32, floor_sum_div32,
                       matmul_reduce32, scale_by_qhat_inv32)
@@ -116,6 +117,7 @@ class Kernels(NamedTuple):
     ntt_forward_roll: Callable   # K6
     ntt_inverse_roll: Callable   # K6
     modup_ip_preconv: Callable   # K4, preconv form
+    ckks_fft: Callable           # F1, the CKKS encoder's FFT
 
 
 KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
@@ -126,7 +128,7 @@ KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                   modup_ip_kernels.modup_ip_coeff,
                   ntt_roll_kernels.ntt_forward_roll,
                   ntt_roll_kernels.ntt_inverse_roll,
-                  modup_ip_kernels.modup_ip_preconv)
+                  modup_ip_kernels.modup_ip_preconv, ckks_fft)
 PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.bconv_ntt_forward_plain,
                 bconv_kernels.fold_matmul_plain,
@@ -137,7 +139,7 @@ PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 modup_ip_kernels.modup_ip_coeff_plain,
                 ntt_kernels.ntt_forward_plain,
                 ntt_kernels.ntt_inverse_plain,
-                modup_ip_kernels.modup_ip_preconv_plain)
+                modup_ip_kernels.modup_ip_preconv_plain, ckks_fft_plain)
 
 
 def _rows(idx) -> torch.Tensor:
@@ -811,15 +813,19 @@ def rotate32(ks: KeySwitch32, g: Galois32, d: torch.Tensor, step: int,
 
 def hoisted_linear_combo32(ks: KeySwitch32, g: Galois32, d: torch.Tensor,
                            steps: Sequence[int], pts: Sequence[torch.Tensor],
-                           ops: Kernels = KERNELS) -> torch.Tensor:
+                           ops: Kernels = KERNELS,
+                           t_up: torch.Tensor = None) -> torch.Tensor:
     """sum_s pt_s * rotate(d, s) with one modup and one moddown pair: the
     Halevi-Shoup matvec inner loop.  pts: per-step (size_qlp, N) NTT-form
     weights over QlP, aligned with `steps`; a step of 0 mod N/2 is the
-    identity and needs no key switch."""
+    identity and needs no key switch.  t_up: modup_from_ntt32 of d[1],
+    when the caller shares one modup over several calls (the BSGS groups
+    of schemes/linear.py); without it the call takes its own."""
     k = ks.size_ql
     c0, c1 = d[0].long(), d[1].long()
     q, qlp = _qcol(ks.mv_ql.q), _qcol(ks.mv_qlp.q)
-    t_up = modup_from_ntt32(ks, d[1], ops)
+    if t_up is None:
+        t_up = modup_from_ntt32(ks, d[1], ops)
     acc_c0 = acc_c1 = acc0 = acc1 = None
     for s, pt in zip(steps, pts):
         pt = pt.long()

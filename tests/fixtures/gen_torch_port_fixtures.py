@@ -778,9 +778,208 @@ FAST32 = {"fast32_ckks_chain": f32_ckks_chain,
              for s in ("ckks", "bgv")}}
 
 
+# ---------------------------------------------------------------------------
+# the CKKS application path: the double-float FFT, the device encoder, the
+# linear transform and polynomial evaluation
+# ---------------------------------------------------------------------------
+
+def _planes(x):
+    """A complex double-float ((re_hi, re_lo), (im_hi, im_lo)) as (4, N)
+    f32."""
+    return np.stack([np.asarray(x[0][0]), np.asarray(x[0][1]),
+                     np.asarray(x[1][0]), np.asarray(x[1][1])])
+
+
+def _nested(p):
+    return ((jnp.asarray(p[0]), jnp.asarray(p[1])),
+            (jnp.asarray(p[2]), jnp.asarray(p[3])))
+
+
+def ckks_fft():
+    """ckks_fft.npz: the JAX package's ops/ckks_fft.py and its
+    CKKSDeviceEncoder, eager (op by op) and jitted."""
+    from phantom_tpu.ops import ckks_fft as cf
+    from phantom_tpu.schemes.ckks_encoder import (CKKSDeviceEncoder,
+                                                  _decode_dev32,
+                                                  _encode_dev32)
+    out = {}
+    rng = np.random.default_rng(SEED + 20)
+    # the primitives on f32 pairs spanning many exponents
+    a, b, c, d = (rng.standard_normal((4, 4096)) * 2.0 ** rng.integers(
+        -30, 30, (4, 4096))).astype(np.float32)
+    prims = dict(two_sum=cf.two_sum(a, b), quick_two_sum=cf.quick_two_sum(
+        a, b), two_prod=cf.two_prod(a, b), df_add=cf.df_add((a, b), (c, d)),
+        df_sub=cf.df_sub((a, b), (c, d)), df_mul=cf.df_mul((a, b), (c, d)))
+    x, y = ((a, b), (c, d)), ((c, a), (d, b))
+    prims.update(cdf_add=sum(cf.cdf_add(x, y), ()),
+                 cdf_sub=sum(cf.cdf_sub(x, y), ()),
+                 cdf_mul=sum(cf.cdf_mul(x, y), ()))
+    out["prim_in"] = np.stack([a, b, c, d])
+    for name, r in prims.items():
+        out[f"prim_{name}"] = np.stack([np.asarray(v) for v in r])
+    for n in (256, 1024):
+        t = cf.make_fft_tables(n)
+        out[f"fwd_{n}"] = np.stack([np.asarray(getattr(t, f"fwd_{p}"))
+                                    for p in ("re_hi", "re_lo", "im_hi",
+                                              "im_lo")])
+        out[f"inv_{n}"] = np.stack([np.asarray(getattr(t, f"inv_{p}"))
+                                    for p in ("re_hi", "re_lo", "im_hi",
+                                              "im_lo")])
+        out[f"slot_pos_{n}"] = np.asarray(t.slot_pos)
+        out[f"slot_conj_{n}"] = np.asarray(t.slot_conj)
+        v = rng.standard_normal((2, n)) * 2.0 ** 30
+        x = np.stack(cf.df_from_f64(v[0]) + cf.df_from_f64(v[1]))
+        out[f"x_{n}"] = x
+        for name, f in (("forward", cf.fft_forward),
+                        ("inverse", cf.fft_inverse)):
+            out[f"{name}_eager_{n}"] = _planes(f(_nested(x), t))
+            out[f"{name}_jit_{n}"] = _planes(jax.jit(f)(_nested(x), t))
+    # the device encoder at n = 1024 on 28-bit primes, at two levels
+    ctx, meta = _f32_ctx("ckks", 5, 2)
+    out.update(meta)
+    enc = CKKSDeviceEncoder(ctx, engine="xla")
+    z = 0.5 * (rng.standard_normal(enc.slots)
+               + 1j * rng.standard_normal(enc.slots))
+    out["z"] = z
+    for ci, bits in ((1, 28), (3, 40)):
+        scale = 2.0 ** bits
+        pt = enc.encode(z, scale, ci)
+        out[f"enc_jit_{ci}"] = u32(pt.data)
+        out[f"scale_{ci}"] = np.array(scale)
+        t32, mv32, garner = enc._fast_consts(ci)
+        re, im = enc._scatter(z, scale)
+        with jax.disable_jit():
+            coeffs = cf.fft_inverse((re, im), enc.tables)
+            hi, lo = coeffs[0]
+            ai = jnp.round(hi).astype(jnp.int64)
+            bi = jnp.round(lo + (hi - ai.astype(jnp.float32))).astype(
+                jnp.int64)
+            out[f"ints_eager_{ci}"] = np.asarray(ai + bi)
+            out[f"enc_eager_{ci}"] = u32(_encode_dev32(enc.tables, t32, mv32,
+                                                       re, im))
+            evs = np.asarray(_decode_dev32(
+                enc.tables, t32, mv32, garner,
+                jnp.asarray(pt.data).astype(jnp.uint32),
+                jnp.float32(1.0 / scale)))
+        sp = np.asarray(enc.tables.slot_pos)
+        out[f"dec_eager_{ci}"] = (evs[0][sp].astype(np.float64)
+                                  + evs[1][sp].astype(np.float64)) + 1j * (
+            evs[2][sp].astype(np.float64) + evs[3][sp].astype(np.float64))
+        out[f"dec_jit_{ci}"] = enc.decode(pt)
+        np.testing.assert_allclose(out[f"dec_jit_{ci}"], z, atol=1e-6)
+    _save("ckks_fft.npz", **out)
+
+
+def linear():
+    """linear_n1024.npz: a BSGS LinearTransform on the JAX Fast32, after
+    tests/test_linear.py (n = 1024, four 28-bit primes, one special)."""
+    from phantom_tpu.schemes import LinearTransform
+    qs = numth.get_primes(2 * F32_N, 28, 4)
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.CKKS, F32_N, qs, special_modulus_size=1))
+    out = dict(data_moduli=np.array(qs[:3], dtype=np.uint64),
+               special_moduli=np.array(qs[3:], dtype=np.uint64),
+               t=np.array(0, dtype=np.uint64))
+    k_sk, k_pk, k_glk, k_enc = jax.random.split(jax.random.PRNGKey(81), 4)
+    sk = keys.gen_secret_key(ctx, k_sk)
+    pk = keys.gen_public_key(ctx, sk, k_pk)
+    enc = CKKSEncoder(ctx)
+    rng = np.random.default_rng(5)
+    d = 8
+    M = rng.standard_normal((d, d)) * 0.3
+    idx = np.arange(d)
+    M[idx, (idx + 4) % d] = 0.0             # diagonals 4 and 5 skipped
+    M[idx, (idx + 5) % d] = 0.0
+    x = rng.standard_normal(d) * 0.3
+    lt = LinearTransform(M)
+    glk = keys.create_galois_keys(ctx, sk, k_glk, steps=lt.steps_required())
+    scale = 2.0 ** 26
+    lt.prepare(enc, scale)
+    ct = keys.encrypt_asymmetric(ctx, pk, lt.encode_input(enc, x, scale),
+                                 k_enc)
+    ev = Fast32(ctx, glk=glk)
+    y = lt.apply_fast32(ev, ev.from_ciphertext(ct))
+    got = enc.decode(keys.decrypt(ctx, sk, ev.to_ciphertext(y))).real[:d]
+    np.testing.assert_allclose(got, M @ x, atol=1e-3)
+    _keys(out, ctx, sk, pk, glk=glk)
+    out["M"], out["x"], out["scale"] = M, x, np.array(scale)
+    out["pts"] = np.stack([u32(p) for grp in lt._prepared[1] for p in grp])
+    _ct(out, "ct", ev.from_ciphertext(ct))
+    _ct(out, "y", y)
+    _save("linear_n1024.npz", **out)
+
+
+POLY_CASES = {  # name: (basis, coefficients' seed, degree, kind, interval)
+    "dense7": ("monomial", 1, 7, "dense", None),
+    "sparse": ("monomial", 2, 9, "sparse", None),
+    "odd": ("monomial", 3, 7, "odd", None),
+    "cheb": ("chebyshev", 4, 13, "dense", None),
+    "cheb_interval": ("chebyshev", 5, 11, "sine", (-2.0, 2.0)),
+}
+
+
+def poly_coeffs(case):
+    """The case's coefficients (chip_smoke and the tests make the same)."""
+    from phantom_tpu.schemes.poly import chebyshev_fit
+    basis, seed, deg, kind, interval = POLY_CASES[case]
+    r = np.random.default_rng(seed)
+    if kind == "sine":
+        return chebyshev_fit(lambda v: np.sin(2 * v) / 2, deg, interval)
+    c = r.uniform(-0.3, 0.3, deg + 1)
+    if kind == "sparse":
+        c[[2, 3, 5, 6, 8]] = 0.0
+    if kind == "odd":
+        c[::2] = 0.0
+    return c
+
+
+def poly():
+    """poly_n1024.npz: poly_eval_fast32 and poly_eval_cheb_fast32 on the
+    JAX Fast32, after tests/test_poly.py (n = 1024, nine 28-bit data
+    primes; three special primes, so the relin key has three digits)."""
+    from phantom_tpu.schemes.poly import (poly_eval_cheb_fast32,
+                                          poly_eval_fast32)
+    qs = numth.get_primes(2 * F32_N, 28, 12)
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.CKKS, F32_N, qs, special_modulus_size=3))
+    out = dict(data_moduli=np.array(qs[:9], dtype=np.uint64),
+               special_moduli=np.array(qs[9:], dtype=np.uint64),
+               t=np.array(0, dtype=np.uint64))
+    k = jax.random.split(jax.random.PRNGKey(83), 4)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    enc = CKKSEncoder(ctx)
+    scale = 2.0 ** 28
+    x = np.random.default_rng(6).uniform(-0.8, 0.8, enc.slots)
+    ct = keys.encrypt_asymmetric(ctx, pk, enc.encode(x, scale), k[3])
+    ev = Fast32(ctx, rlk=rlk)
+    c = ev.from_ciphertext(ct)
+    _keys(out, ctx, sk, pk, rlk)
+    out["x"] = x
+    _ct(out, "ct", c)
+    for case, (basis, _, _, _, interval) in POLY_CASES.items():
+        cc = poly_coeffs(case)
+        if basis == "monomial":
+            y = poly_eval_fast32(ev, c, cc, enc)
+            want = np.polyval(cc[::-1], x)
+        else:
+            y = poly_eval_cheb_fast32(ev, c, cc, enc, interval=interval)
+            a, b = interval or (-1.0, 1.0)
+            want = np.polynomial.chebyshev.chebval(
+                (2 * x - (a + b)) / (b - a), cc)
+        got = enc.decode(keys.decrypt(ctx, sk, ev.to_ciphertext(
+            ev.rescale_to_next(y)))).real
+        np.testing.assert_allclose(got, want, atol=5e-3)
+        out[f"coeffs_{case}"] = cc
+        _ct(out, f"y_{case}", y)
+    _save("poly_n1024.npz", **out)
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
-                      "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128", "fast32"]
+                      "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
+                      "fast32", "ckks_fft", "linear", "poly"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -802,6 +1001,10 @@ def main(names):
         ntt32_n128()
     for name, make in FAST32.items():
         if name in names or "fast32" in names:
+            make()
+    for name, make in (("ckks_fft", ckks_fft), ("linear", linear),
+                       ("poly", poly)):
+        if name in names:
             make()
 
 

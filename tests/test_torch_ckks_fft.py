@@ -1,0 +1,174 @@
+"""The port's double-float CKKS FFT and CKKSDeviceEncoder against the JAX
+package's, on the golden file tests/fixtures/torch_port/ckks_fft.npz
+(made by tests/fixtures/gen_torch_port_fixtures.py).
+
+Two oracles, as the file records both.  The JAX package evaluated op by
+op (eager) is the bit oracle: the tables, the double-float primitives,
+both transforms at n = 256 and 1024, the rounded encode integers, the
+encoded residues and the decoded slots are equal word for word.  The
+jitted JAX encoder (how the JAX package runs it) is held to a stated
+tolerance, because XLA's fusions on the CPU round some double-float
+words differently: its encoded coefficients within one of the port's
+(each differing coefficient listed), its decoded slots within 1e-10.
+Every F1 call takes its plain version on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from phantom_tpu_torch import (CKKSDeviceEncoder, CKKSEncoder, Plaintext,
+                               make_context)
+from phantom_tpu_torch.ops import ckks_fft as cf
+from phantom_tpu_torch.ops import pipeline32 as tpp
+from phantom_tpu_torch.schemes.params import EncryptionParameters
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return np.load(f"{chip_smoke.FIXTURES}/ckks_fft.npz")
+
+
+@pytest.fixture(scope="module")
+def fft_results():
+    return chip_smoke.fft_golden(CPU)
+
+
+@pytest.fixture(scope="module")
+def encoder_results():
+    return chip_smoke.encoder_golden(CPU)
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_tables_bit_match(fft_results, n):
+    for name in ("table fwd", "table inv", "slot_pos", "slot_conj"):
+        got, want = fft_results[f"{name} {n}"]
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_transform_bit_match_eager(fft_results, golden, n, direction):
+    """The plain transforms equal the JAX package's eager evaluation word
+    for word; against its jitted evaluation only hi + lo agrees, within
+    2^-44 of the largest output (the count of differing words is what
+    the jitted fusions change)."""
+    got, want = fft_results[f"{direction} {n}"]
+    np.testing.assert_array_equal(got, want)
+    jit = golden[f"{direction}_jit_{n}"]
+    print(f"{direction} n={n}: {np.count_nonzero(got != jit.view(np.uint32))}"
+          f" of {got.size} words differ from the jitted JAX evaluation")
+    jit = jit.astype(np.float64)
+    mine = got.view(np.float32).astype(np.float64)
+    val = lambda p: np.stack([p[0] + p[1], p[2] + p[3]])  # noqa: E731
+    assert np.abs(val(mine) - val(jit)).max() <= 2.0 ** -44 * np.abs(
+        val(jit)).max()
+
+
+def test_primitives_bit_match(golden):
+    a, b, c, d = (torch.from_numpy(v) for v in golden["prim_in"])
+    x, y = ((a, b), (c, d)), ((c, a), (d, b))
+    got = dict(two_sum=cf.two_sum(a, b), quick_two_sum=cf.quick_two_sum(a, b),
+               two_prod=cf.two_prod(a, b), df_add=cf.df_add((a, b), (c, d)),
+               df_sub=cf.df_sub((a, b), (c, d)),
+               df_mul=cf.df_mul((a, b), (c, d)),
+               cdf_add=sum(cf.cdf_add(x, y), ()),
+               cdf_sub=sum(cf.cdf_sub(x, y), ()),
+               cdf_mul=sum(cf.cdf_mul(x, y), ()))
+    for name, r in got.items():
+        np.testing.assert_array_equal(
+            torch.stack(list(r)).numpy().view(np.uint32),
+            golden[f"prim_{name}"].view(np.uint32), err_msg=name)
+
+
+def test_round_trip():
+    """inverse(forward(p)) within 1e-10 of p, as the JAX package's
+    tests/test_ckks_device_encoder.py holds its own (far below f32)."""
+    n = 256
+    t = cf.make_fft_tables(n, CPU)
+    p = np.random.default_rng(2).standard_normal(n)
+    hi, lo = cf.df_from_f64(p)
+    x = torch.from_numpy(np.stack([hi, lo, np.zeros_like(hi),
+                                   np.zeros_like(hi)]))
+    back = cf.ckks_fft(cf.ckks_fft(x, t), t, inverse=True).double()
+    assert float((back[0] + back[1] - torch.from_numpy(p)).abs().max()) < 1e-10
+
+
+@pytest.mark.parametrize("ci", [1, 3])
+def test_encoder_bit_match_eager(encoder_results, ci):
+    exact, _ = encoder_results
+    for name in ("ints", "residues", "decoded"):
+        got, want = exact[f"{name} {ci}"]
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("ci", [1, 3])
+def test_encoder_against_jitted(encoder_results, golden, ci):
+    """Residues within +-1 of the jitted JAX encoder's in every coefficient
+    (the JAX package's own bound for its device encoder against its host
+    encoder, tests/test_ckks_device_encoder.py:40); decode within 1e-10
+    of the jitted JAX decoder and within 1e-6 of the input."""
+    exact, jitted = encoder_results
+    where, worst, dec_err = jitted[ci]
+    print(f"chain index {ci}: coefficients differing from the jitted JAX "
+          f"encoder: {where.tolist()} (largest {worst})")
+    assert worst <= 1
+    assert dec_err < 1e-10
+    assert np.abs(exact[f"decoded {ci}"][0] - golden["z"]).max() < 1e-6
+
+
+@pytest.fixture(scope="module")
+def small():
+    g = np.load(f"{chip_smoke.FIXTURES}/ckks_fft.npz")
+    ctx = make_context(EncryptionParameters.create(
+        1024, g["data_moduli"].tolist(), g["special_moduli"].tolist()),
+        device="cpu")
+    return ctx, CKKSDeviceEncoder(ctx), CKKSEncoder(ctx)
+
+
+def test_device_decodes_host_encoding(small):
+    """Each encoder decodes the other's plaintext within 1e-6."""
+    ctx, dev, host = small
+    z = np.random.default_rng(5).standard_normal(dev.slots) * 0.5
+    scale = 2.0 ** 28
+    assert np.abs(dev.decode(host.encode(z, scale)) - z).max() < 1e-6
+    assert np.abs(host.decode(dev.encode(z, scale)) - z).max() < 1e-6
+
+
+def test_kernels_equal_plain_on_cpu(small):
+    ctx, dev, _ = small
+    z = np.random.default_rng(6).standard_normal(dev.slots)
+    a = dev.encode(z, 2.0 ** 26, 2)
+    b = dev.encode(z, 2.0 ** 26, 2, ops=tpp.PLAIN)
+    assert torch.equal(a.data, b.data) and a.chain_index == 2
+    np.testing.assert_array_equal(dev.decode(a), dev.decode(b, tpp.PLAIN))
+
+
+def test_decode_of_uniform_residues_does_not_raise(small):
+    """Where the host decode's exact CRT raises OverflowError at full
+    width (ROADMAP.md section 3, item 4), the two-limb Garner compose
+    returns values (finite or not) for any residues."""
+    ctx, dev, _ = small
+    q = ctx.key_q[:5].long().view(-1, 1)
+    data = (torch.randint(0, 1 << 62, (5, 1024),
+                          generator=torch.Generator().manual_seed(7)) % q)
+    out = dev.decode(Plaintext(data=data.int(), chain_index=1,
+                               is_ntt_form=True, scale=2.0 ** 28))
+    assert out.shape == (512,)
+
+
+def test_wide_primes_and_bad_operands_raise():
+    """The port's contexts hold primes below 2^30 only; a context with a
+    wider one (here a stand-in) is refused with the ROADMAP item that
+    would serve it."""
+    from types import SimpleNamespace
+    wide = SimpleNamespace(params=SimpleNamespace(
+        scheme="ckks", n=1024, coeff_modulus=(132120577, (1 << 30) + 12289)))
+    with pytest.raises(ValueError, match="item 8"):
+        CKKSDeviceEncoder(wide)
+    n = 1024
+    t = cf.make_fft_tables(n, "meta")
+    with pytest.raises(ValueError):
+        cf.ckks_fft(torch.zeros(4, n, device="meta"), t)

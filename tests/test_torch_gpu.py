@@ -862,3 +862,78 @@ def test_fast32_coeff_rotation_k4c(dev, logn):
         got = ev.rotate(c, step)
         assert mk.modup_ip_coeff.launches == before + 1
         _same(got.data, ev.rotate(c, step, pp.PLAIN).data)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("logn", [1, 3, 10, 11, 12, 16, 17])
+def test_f1_fft(dev, logn, inverse):
+    """F1 against the plain double-float FFT, word for word, on every split
+    of the transform: all local (N <= 2^11), and 1 to 6 wide stages."""
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n = 1 << logn
+    t = cf.make_fft_tables(n, dev)
+    rng = np.random.default_rng(logn)
+    v = rng.standard_normal((2, n)) * 2.0 ** rng.integers(-20, 50)
+    x = torch.from_numpy(np.stack(cf.df_from_f64(v[0]) + cf.df_from_f64(
+        v[1]))).to(dev)
+    before = cf.ckks_fft.launches
+    got = cf.ckks_fft(x, t, inverse)
+    assert cf.ckks_fft.launches == before + 1
+    want = cf.ckks_fft_plain(x, t, inverse)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_f1_golden(dev):
+    for name, (got, want) in chip_smoke.fft_golden(dev).items():
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_f1_refuses_bad_operands(dev):
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    t = cf.make_fft_tables(1024, dev)
+    for x in (torch.zeros((4, 512), device=dev),
+              torch.zeros((4, 1024), dtype=torch.float64, device=dev),
+              torch.zeros((1024, 4), device=dev).t()):
+        with pytest.raises(ValueError):
+            cf.ckks_fft(x, t)
+
+
+def test_device_encoder_golden(dev):
+    """The device encoder through F1, K1 and K2 equals the JAX package's
+    eager evaluation and holds the jitted one to +-1 and 1e-10."""
+    exact, jitted = chip_smoke.encoder_golden(dev)
+    for name, (got, want) in exact.items():
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    for where, worst, dec in jitted.values():
+        assert worst <= 1 and dec < 1e-10
+
+
+@pytest.mark.parametrize("ci", [1, 7])
+def test_device_encoder_full_width(dev, ci):
+    """At N = 2^16 over 43 28-bit primes: the kernel path equals the plain
+    path, encode at 2^28 is within +-1 of the host encoder and decodes
+    within 1e-9 of the host decode; a round trip at 2^30 within 1e-6 (at
+    2^28 the rounding alone leaves about 1e-6 in a slot)."""
+    from phantom_tpu_torch import CKKSDeviceEncoder, CKKSEncoder
+    ctx = make_context(chip_smoke.chain_params(**chip_smoke.HEADLINE),
+                       device=dev)
+    enc, host = CKKSDeviceEncoder(ctx), CKKSEncoder(ctx)
+    z = chip_smoke.unit_disc(np.random.default_rng(ci), enc.slots)
+    pt = enc.encode(z, 2.0 ** 28, ci)
+    assert torch.equal(pt.data, enc.encode(z, 2.0 ** 28, ci,
+                                           ops=pp.PLAIN).data)
+    k = ctx.get_context_data(ci).size_ql
+    c = [nk.ntt_inverse(p.data, ctx.ntt, ctx.rows_qp[:k])[0].cpu().numpy()
+         for p in (pt, host.encode(z, 2.0 ** 28, ci))]
+    assert chip_smoke._centered_diff(c[0], c[1],
+                                     ctx.params.data_moduli[0]).max() <= 1
+    dec = enc.decode(pt)
+    np.testing.assert_array_equal(dec, enc.decode(pt, pp.PLAIN))
+    assert np.abs(dec - host.decode(pt)).max() < 1e-9
+    assert np.abs(enc.decode(enc.encode(z, 2.0 ** 30, ci)) - z).max() < 1e-6
+
+
+def test_linear_and_poly_golden(dev):
+    for got in (chip_smoke.linear_golden(dev), chip_smoke.poly_golden(dev)):
+        for name, (a, b) in got.items():
+            np.testing.assert_array_equal(a, b, err_msg=name)

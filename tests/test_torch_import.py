@@ -12,9 +12,9 @@ import torch
 from phantom_tpu_torch import make_context
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-from phantom_tpu_torch.ops import (bconv_kernels, ip_kernels, moddown_kernels,
-                                   modup_ip_kernels, ntt_kernels,
-                                   ntt_roll_kernels)
+from phantom_tpu_torch.ops import (bconv_kernels, ckks_fft, ip_kernels,
+                                   moddown_kernels, modup_ip_kernels,
+                                   ntt_kernels, ntt_roll_kernels)
 
 _NO_JAX = """
 import os, sys
@@ -68,6 +68,13 @@ c = ev.encrypt_asymmetric(ev.gen_public_key(sk, gen), enc.encode(
 assert np.abs(enc.decode(ev.decrypt(sk, c)) - 0.5).max() < 1e-3
 assert pt.BatchEncoder(bgv).decode(pt.BatchEncoder(bgv).encode([5])).tolist(
     )[:2] == [5, 0]
+from phantom_tpu_torch.ops import ckks_fft
+from phantom_tpu_torch.schemes import linear, poly
+denc = pt.CKKSDeviceEncoder(ctx)
+assert np.abs(denc.decode(denc.encode(np.full(denc.slots, 0.25), 2.0 ** 20))
+              - 0.25).max() < 1e-5
+assert linear.bsgs_split(16) == (4, 4) and poly.bsgs_counts(7) == (4, 2)
+assert pt.LinearTransform(np.eye(4)).steps_required() == []
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -200,6 +207,46 @@ def test_fast32_entry_points_need_cuda_or_cpu(monkeypatch):
         ev.multiply_and_relin(ct, ct)
 
 
+def test_application_path_needs_cuda_or_cpu(monkeypatch):
+    """CKKSDeviceEncoder, LinearTransform.apply_fast32 and the polynomial
+    evaluators run on the context's device: on a device without kernels
+    (meta) each raises rather than fall back to the CPU or to a plain
+    version."""
+    import numpy as np
+    from phantom_tpu_torch import (CKKSDeviceEncoder, Fast32, LinearTransform,
+                                   poly_eval_cheb_fast32, poly_eval_fast32)
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 1024
+    params = EncryptionParameters.create(n, numth.get_primes(2 * n, 28, 3),
+                                         numth.get_primes(2 * n, 29, 1))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        make_context(params)
+    meta = make_context(params, device="meta")
+    enc = CKKSDeviceEncoder(meta)
+    assert enc.tables.fwd.device.type == "meta"
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        enc.encode([0.5], 2.0 ** 20)
+    ct = Ciphertext(torch.empty((2, 3, n), dtype=torch.int32, device="meta"),
+                    scale=2.0 ** 20)
+    glk = keys.GaloisKeys(torch.empty((1, 3, 2, 4, n), dtype=torch.int32,
+                                      device="meta"), (5,))
+    ev = Fast32(meta, rlk=torch.empty((3, 2, 4, n), dtype=torch.int32,
+                                      device="meta"), glk=glk)
+    lt = LinearTransform(np.eye(2) + np.eye(2)[::-1])
+    lt._prepared[1] = [[torch.empty((4, n), dtype=torch.int32,
+                                    device="meta")] * 2]
+    lt.pts_scale = 2.0 ** 20
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        lt.apply_fast32(ev, ct)
+    for fn in (poly_eval_fast32, poly_eval_cheb_fast32):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fn(ev, ct, [0.0, 0.5, 0.25], enc)
+
+
 @pytest.fixture(scope="module")
 def meta_args():
     from phantom_tpu_torch.host import numth
@@ -217,7 +264,8 @@ def meta_args():
                                     "modup_ip", "inner_product",
                                     "moddown_rows", "moddown_rescale",
                                     "modup_ip_coeff", "ntt_forward_roll",
-                                    "ntt_inverse_roll", "modup_ip_preconv"])
+                                    "ntt_inverse_roll", "modup_ip_preconv",
+                                    "ckks_fft"])
 def test_meta_tensor_raises(meta_args, kernel):
     t, x = meta_args
 
@@ -250,6 +298,9 @@ def test_meta_tensor_raises(meta_args, kernel):
         "ntt_inverse_roll": lambda: ntt_roll_kernels.ntt_inverse_roll(x, t),
         "modup_ip_preconv": lambda: modup_ip_kernels.modup_ip_preconv(
             m(1, 3, 1024), x[:2], m(1, 2, 3, 1024), t, alpha=2),
+        "ckks_fft": lambda: ckks_fft.ckks_fft(
+            torch.empty((4, 1024), device="meta"),
+            ckks_fft.make_fft_tables(1024, "meta")),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()
