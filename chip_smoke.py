@@ -220,14 +220,17 @@ Phases, one line each or more; any failure exits non-zero:
                without a drop chained = HPSoverQ; the fused lift against
                the xla lift chained in turns and the lift + forward NTT
                alone, device time; the profiler over each technique
- 34. F1        the double-float FFT kernel: no FFMA in the SASS of its two
-               kernels; ckks_fft.npz's tables and transforms (n = 256,
-               1024) bit-equal to the JAX package's eager evaluation;
-               forward and inverse at N = 2^16 on seeded inputs under the
-               probes (bit-equal to the plain FFT, timed, bound);
-               torch.fft.fft over complex128 of the twisted vector as the
-               library's yardstick (not bit-identical); int64 -> f32 on the
-               card rounding as on the CPU
+ 34. F1        the double-float FFT kernels: no FFMA in the SASS of any
+               kernel named ckks_fft_*; ckks_fft.npz's tables and
+               transforms (n = 256, 1024) bit-equal to the JAX package's
+               eager evaluation; forward and inverse at N = 2^16 on seeded
+               inputs under the probes (bit-equal to the plain FFT, timed,
+               bound); each form's CUDA launches and their blocks as the
+               library records them (ptk_ckks_fft_grids: fewer than six,
+               more than 32 blocks each); torch.fft.fft over complex128 of
+               the twisted vector as the library's yardstick (not
+               bit-identical); int64 -> f32 on the card rounding as on the
+               CPU
  35. encoder   CKKSDeviceEncoder: ckks_fft.npz's encodings and decodings
                bit-equal to the JAX eager encoder, within +-1 and 1e-10 of
                the jitted one; at the headline configuration, chain
@@ -235,7 +238,11 @@ Phases, one line each or more; any failure exits non-zero:
                encode at 2^28 within +-1 of the host CKKSEncoder in every
                coefficient and decoded within 1e-9 of the host decode, a
                round trip at 2^30 within 1e-6, uniform residues decoded
-               without raising; event times beside the host encoder's
+               without raising; event times beside the host encoder's;
+               F1's encode and decode forms under the probes (bit-equal
+               to plain, timed, bound), and encode's and
+               decode's parts timed apart (host preparation, copy, F1, K2;
+               K1 on two limbs, F1, copy back)
  36. MLP       linear_n1024.npz and poly_n1024.npz through the kernels
                bit-equal to the JAX package's outputs; then at the headline
                configuration a d = 64 network: x through CKKSDeviceEncoder
@@ -248,7 +255,8 @@ Phases, one line each or more; any failure exits non-zero:
                counts (one modup per layer) and bit-equal to its plain path,
                the whole circuit once more on the plain path, the decoded
                slots within 1e-2 of numpy's float64 evaluation; prepare
-               timed apart, event time per stage and end to end, a profile
+               timed apart, event time per stage and end to end, a
+               profile
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -272,9 +280,13 @@ sheet, dense int8).  K5 runs on the tensor cores, so its work is priced
 as there: 16 plane products of 2 k_out k_in N operations each (the
 unpadded shape) and 7 Shoup products per output for the fold.  F1's work
 is its f32 operations, 162 a butterfly, at 132 SMs x 128 lanes x 1.98
-GHz = 33.5 T/s.  No single PyTorch call computes a modular NTT or a
-modular product-sum, so library_ms is null for K1-K9; F1's is
-torch.fft.fft over complex128.  Last comes {"ok": true, "device": ...}.
+GHz = 33.5 T/s; its fused forms' bytes add the slots and slot_of (encode:
+and the (k, N) residues written), the limbs and slot_of (decode).  No
+single PyTorch call computes a modular NTT or a modular product-sum, so
+library_ms is null for K1-K9; F1's is torch.fft.fft over complex128 (the
+bare form's calls; its row lists the fused forms' sums under "forms",
+with library_ms null: no PyTorch call fuses the scatter or the residues).
+Last comes {"ok": true, "device": ...}.
 Without a CUDA device, or without the repo around it, it exits non-zero
 before printing any result.
 """
@@ -343,8 +355,12 @@ KERNELS = [  # name, wrapper attribute, source, the TPU kernel it replaces
      "phantom_tpu/ops/ntt_mxu_pallas.py:1427"),
     # not a TPU kernel: the JAX package runs this FFT as XLA fusions
     ("F1", "ckks_fft", "phantom_tpu_torch/csrc/ckks_fft.cu",
-     "phantom_tpu/ops/ckks_fft.py:165 (XLA, no pallas_call)"),
+     "phantom_tpu/ops/ckks_fft.py:168 (XLA, no pallas_call)"),
 ]
+# F1's fused forms (pipeline32.Kernels fields past KERNELS): their probes'
+# names; they launch F1's kernels and count in its one launch count
+F1_FORMS = {"ckks_fft_encode": "F1 encode", "ckks_fft_decode": "F1 decode"}
+PROBE_NAMES = [name for name, *_ in KERNELS] + list(F1_FORMS.values())
 
 
 def _launches(**kw):
@@ -1322,11 +1338,21 @@ F1_BUTTERFLY_OPS = 4 * 24 + 2 * 11 + 2 * 22
 def call_bound(name: str, a: dict, out):
     """(bytes, 32-bit multiplies, int8 tensor-core operations, f32
     operations) of one call from its bound arguments."""
-    if name == "F1":  # x and the direction's table read, the result written
-        n = a["x"].shape[-1]
-        byt = 4 * (a["x"].numel() + a["t"].fwd.numel() + _n(out))
-        f32 = (n // 2) * (n.bit_length() - 1) * F1_BUTTERFLY_OPS + (
-            4 * n if a["inverse"] else 0)
+    if name.startswith("F1"):
+        # the transform's f32 operations; bytes: the direction's table, the
+        # input and the output (encode also reads slot_of and the moduli,
+        # decode slot_of; the scatter, rounding and residues are not priced)
+        n = a["t"].n
+        f32 = (n // 2) * (n.bit_length() - 1) * F1_BUTTERFLY_OPS
+        byt = 4 * a["t"].fwd.numel() + out.numel() * out.element_size()
+        if name == "F1":
+            f32 += 4 * n if a["inverse"] else 0
+            byt += 4 * a["x"].numel()
+        elif name == "F1 encode":
+            f32 += 2 * n
+            byt += 8 * a["z"].numel() + 4 * (n + a["q"].numel())
+        else:
+            byt += 4 * (a["x"].numel() + n)
         return byt, 0, 0, f32
     byt, ops = _call_work(name, a, out)
     tc_ops = 0
@@ -1549,18 +1575,22 @@ def ptxas_report(proc, kernels) -> dict:
     return out
 
 
-def sass_count(lib: str, kernel: str, opcode: str) -> dict:
-    """{instruction: count} of the `opcode` instructions in `kernel`'s SASS
-    in the built library (cuobjdump -sass)."""
-    sass = _cuobjdump(lib, "-sass")
-    counts, inside = {}, False
-    for line in sass.splitlines():
+def sass_by_function(lib: str, needle: str, opcodes) -> dict:
+    """{function: {instruction: count}} of the `opcodes` in every function
+    of the library's SASS whose name holds `needle` (one cuobjdump)."""
+    out, name = {}, None
+    for line in _cuobjdump(lib, "-sass").splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside and f" {opcode}" in line:
-            ins = line.split("*/")[1].split()[0] if "*/" in line else opcode
-            counts[ins] = counts.get(ins, 0) + 1
-    return counts
+            name = line.split("Function :")[1].strip()
+            name = name if needle in name else None
+            if name:
+                out[name] = {}
+        elif name and "*/" in line:
+            ins = [w for w in line.split("*/")[1].split()
+                   if not w.startswith("@")]  # the predicate, if any
+            if ins and ins[0].split(".")[0] in opcodes:
+                out[name][ins[0]] = out[name].get(ins[0], 0) + 1
+    return out
 
 
 def _time(fn, reps: int) -> float:
@@ -1675,7 +1705,7 @@ def calls_only(card: str, dev) -> None:
     from phantom_tpu_torch.ops import bfv32, bgv32
     from phantom_tpu_torch.ops import pipeline32 as pp
     probes = _probes(pp, kernel_wrappers())
-    since = {name: 0 for name, *_ in KERNELS}
+    since = {name: 0 for name in PROBE_NAMES}
     ctx = make_context(chain_params(**HEADLINE))
     _, pipe, d1, d2, *_ = make_step_inputs(ctx, SEED, DELTA_BITS, dev)
     pipe(d1, d2, probes)
@@ -1702,12 +1732,18 @@ def calls_only(card: str, dev) -> None:
 
 
 def _probes(pp, wrappers):
-    return pp.Kernels(*(_Probe(name, k, p, REPS) for (name, *_), k, p
-                        in zip(KERNELS, wrappers, pp.PLAIN)))
+    """A Kernels of probes: KERNELS' wrappers, then the fields past them
+    (F1's forms, where the tree has them)."""
+    extra = pp.Kernels._fields[len(KERNELS):]
+    return pp.Kernels(*(
+        [_Probe(name, k, p, REPS) for (name, *_), k, p
+         in zip(KERNELS, wrappers, pp.PLAIN)]
+        + [_Probe(F1_FORMS[f], getattr(pp.KERNELS, f), getattr(pp.PLAIN, f),
+                  REPS) for f in extra]))
 
 
 def _print_calls(probes, card, since):
-    for (name, *_), probe in zip(KERNELS, probes):
+    for name, probe in zip(PROBE_NAMES, probes):
         for c in probe.calls[since[name]:]:
             tc = (f", {c['tc_ops'] / 1e9:.3f} G int8" if c["tc_ops"]
                   else f", {c['f32_ops'] / 1e9:.4f} G f32" if c["f32_ops"]
@@ -2846,28 +2882,31 @@ def mlp_weights(d: int, band: int, seed: int):
     return w1, w2, rng.uniform(-1.0, 1.0, d)
 
 
-def _f1_phase(card, probes, dev, lib) -> None:
-    """Phase 34: F1's SASS (no FFMA), the golden file through F1, F1
-    forward and inverse at N = 2^16 under the probes (bit-equal to the
-    plain FFT, timed, bound), torch.fft.fft over complex128 as the
-    library's yardstick, and int64 -> f32 on the card against the CPU."""
+# F1's kernels are templates named ckks_fft_<pass>_kernel
+F1_PREFIX = "ckks_fft_"
+F1_KERNELS = ("ckks_fft_row_kernel", "ckks_fft_col_kernel")
+
+
+def f1_grids(fn) -> list:
+    """The blocks of each CUDA launch of one call of an F1 form, as the
+    library records them (ptk_ckks_fft_grids; the first 8, and a 0 for
+    each launch past them)."""
+    import ctypes
+    from phantom_tpu_torch import _build
+    fn()
+    blocks = (ctypes.c_int * 8)()
+    count = _build.library().ptk_ckks_fft_grids(blocks, len(blocks))
+    return list(blocks[:count]) + [0] * (count - len(blocks))
+
+
+def _f1_inputs(dev, t, ctx):
+    """Seeded inputs of F1's forms at N = 2^16: the bare transforms'
+    planes (forward: rounded coefficients; inverse: slot-like values, both
+    at 2^40), the encoder's slots at 2^28 over chain index 1's primes, and
+    two uniform coefficient-form limbs."""
     import torch
-    from phantom_tpu_torch.ops.ckks_fft import df_from_f64, make_fft_tables
-    for k in ("fft_stage_kernel", "fft_local_kernel"):
-        fma = sass_count(lib, k, "FFMA")
-        muls = sum(sass_count(lib, k, "FMUL").values())
-        if fma or not muls:
-            raise RuntimeError(f"F1 {k}: FFMA {fma}, FMUL {muls} in SASS")
-        print(f"sass: F1 {k} issues no FFMA ({muls} FMUL)")
-    got = fft_golden(dev)
-    for name, (a, b) in got.items():
-        if not np.array_equal(a, b):
-            raise RuntimeError(f"F1 golden: {name} differs from the JAX "
-                               "package's eager evaluation")
-    print(f"F1 golden: {len(got)} tables and transforms at n = 256 and "
-          "1024 bit-equal to the JAX package's eager evaluation")
-    n = HEADLINE["n"]
-    t = make_fft_tables(n, dev)
+    from phantom_tpu_torch.ops.ckks_fft import df_from_f64
+    n = t.n
     rng = np.random.default_rng(SEED + 30)
     coeffs = np.round(rng.standard_normal(n) * 2.0 ** 40)
     slots = rng.standard_normal((2, n)) * 2.0 ** 40
@@ -2876,16 +2915,77 @@ def _f1_phase(card, probes, dev, lib) -> None:
         return torch.from_numpy(np.stack(df_from_f64(re) + df_from_f64(im))
                                 ).to(dev)
 
-    probes.ckks_fft(planes(coeffs, np.zeros(n)), t)
-    probes.ckks_fft(planes(*slots), t, inverse=True)
-    v = torch.from_numpy(coeffs * np.exp(1j * np.pi * np.arange(n) / n)).to(
-        dev)
+    z = unit_disc(rng, n // 2)
+    k = ctx.get_context_data(1).size_ql
+    moduli = ctx.get_context_data(1).moduli[:2]
+    limbs = torch.from_numpy(np.stack([rng.integers(0, q, n)
+                                       for q in moduli])).int().to(dev)
+    return dict(
+        coeffs=coeffs, fwd=planes(coeffs, np.zeros(n)), inv=planes(*slots),
+        z=torch.from_numpy(z.view(np.float64).reshape(-1, 2)).to(dev),
+        q=ctx.key_q[:k], limbs=limbs, moduli=moduli)
+
+
+def _f1_phase(card, probes, dev, lib, ctx) -> None:
+    """Phase 34: every F1 kernel's SASS (no FFMA), the golden file through
+    F1, F1 forward and inverse at N = 2^16 under the probes (bit-equal to
+    the plain FFT, timed, bound), the CUDA launches and blocks of each
+    form, torch.fft.fft over complex128 as the library's yardstick, and
+    int64 -> f32 on the card against the CPU."""
+    import torch
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    counts = sass_by_function(lib, F1_PREFIX, ("FFMA", "FMUL", "FADD"))
+    missing = [k for k in F1_KERNELS if not any(k in f for f in counts)]
+    if missing:
+        raise RuntimeError(f"F1: no {missing} in the library")
+    for f, c in counts.items():
+        fma = {k: v for k, v in c.items() if k.startswith("FFMA")}
+        muls = sum(v for k, v in c.items() if k.startswith("FMUL"))
+        if fma or not muls:
+            raise RuntimeError(f"F1 {f}: FFMA {fma}, FMUL {muls} in SASS")
+    print(f"sass: {len(counts)} F1 kernels ({', '.join(F1_KERNELS)} "
+          f"instances) issue no FFMA ("
+          + ", ".join(f"{sum(v for k, v in c.items() if k.startswith('FMUL'))}"
+                      for c in counts.values()) + " FMUL)")
+    got = fft_golden(dev)
+    for name, (a, b) in got.items():
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"F1 golden: {name} differs from the JAX "
+                               "package's eager evaluation")
+    print(f"F1 golden: {len(got)} tables and transforms at n = 256 and "
+          "1024 bit-equal to the JAX package's eager evaluation")
+    n = HEADLINE["n"]
+    t = cf.make_fft_tables(n, dev)
+    a = _f1_inputs(dev, t, ctx)
+    probes.ckks_fft(a["fwd"], t)
+    probes.ckks_fft(a["inv"], t, inverse=True)
+    for c, what in zip(probes.ckks_fft.calls[-2:], ("forward", "inverse")):
+        print(f"F1 {what}, N = {n}: {c['dev_ms']:.5f} ms device a call "
+              f"({c['dev_ms'] / c['bound_ms']:.1f}x its bound "
+              f"{c['bound_ms']:.5f} ms by {c['bound_by']}), event "
+              f"{c['ms']:.5f} [{card}]")
+    forms = {
+        "forward": lambda: cf.ckks_fft(a["fwd"], t),
+        "inverse": lambda: cf.ckks_fft(a["inv"], t, inverse=True),
+        "encode": lambda: cf.ckks_fft_encode(a["z"], 2.0 ** 28, a["q"], t),
+        "decode": lambda: cf.ckks_fft_decode(a["limbs"], a["moduli"],
+                                             2.0 ** 28, t)}
+    for what, fn in forms.items():
+        blocks = f1_grids(fn)
+        print(f"F1 {what}, N = {n}: {len(blocks)} CUDA launches a call, "
+              f"blocks {blocks} (ptk_ckks_fft_grids)")
+        if not 0 < len(blocks) < 6 or min(blocks) <= 32:
+            raise RuntimeError(f"F1 {what}: {len(blocks)} launches, blocks "
+                               f"{blocks}: not spread over the card")
+    v = torch.from_numpy(a["coeffs"] * np.exp(1j * np.pi * np.arange(n) / n)
+                         ).to(dev)
     # the kernels line sums the two probed calls, so two library calls
     probes.ckks_fft.library_ms = round(2 * _time(lambda: torch.fft.fft(v),
                                                  REPS), 5)
     print(f"F1 library yardstick: torch.fft.fft of the twisted vector, "
           f"complex128, N = {n}: {probes.ckks_fft.library_ms / 2:.4f} ms per "
-          f"call (not bit-identical to F1) [{card}]")
+          f"call, device {_device_ms(lambda: torch.fft.fft(v), REPS):.5f} "
+          f"(not bit-identical to F1) [{card}]")
     m = torch.randint(-(1 << 60), 1 << 60, (1 << 20,), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(SEED))
     m[:4] = torch.tensor([(1 << 40) + 1, (1 << 40) + 3, -(1 << 53) - 1,
@@ -2899,13 +2999,71 @@ def _f1_phase(card, probes, dev, lib) -> None:
           f"to even) in {m.numel()} seeded values and their remainders")
 
 
-def _encoder_phase(card, wrappers, launches, dev, ctx) -> None:
+def _host_ms(fn, reps: int) -> float:
+    """Milliseconds per call on the host's clock, the device synchronized
+    after each call, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _encoder_parts(card, enc, f1ops, z, scale: float, ci: int, pt):
+    """F1's forms at chain index ci under the probes (bit-equal to plain,
+    timed, bound), then encode's and decode's parts timed apart: the host
+    preparation, the copy, F1 and K2; K1 on two limbs, F1 and the copy
+    back."""
+    import torch
+    from phantom_tpu_torch.ops import ntt_kernels
+    ctx = enc.ctx
+    dev = ctx.key_q.device
+    k = ctx.get_context_data(ci).size_ql
+    enc.encode(z, scale, ci, ops=f1ops)
+    enc.decode(pt, f1ops)
+    fe, fd = f1ops.ckks_fft_encode.calls[-1], f1ops.ckks_fft_decode.calls[-1]
+    zh = enc._slots(z)
+    zd = zh.to(dev)
+    rns = f1ops.ckks_fft_encode.kernel(zd, scale, ctx.key_q[:k], enc.tables)
+    x2 = ntt_kernels.ntt_inverse(pt.data[:2].contiguous(), ctx.ntt,
+                                 ctx.rows_qp[:2])
+    out = f1ops.ckks_fft_decode.kernel(
+        x2, ctx.get_context_data(ci).moduli[:2], pt.scale, enc.tables)
+    parts_e = dict(
+        prep=_host_ms(lambda: enc._slots(z), REPS),
+        copy=_time(lambda: zh.to(dev), REPS),
+        k2=_time(lambda: ntt_kernels.ntt_forward(rns, ctx.ntt,
+                                                 ctx.rows_qp[:k]), REPS))
+    parts_d = dict(
+        k1=_time(lambda: ntt_kernels.ntt_inverse(
+            pt.data[:2].contiguous(), ctx.ntt, ctx.rows_qp[:2]), REPS),
+        back=_host_ms(lambda: torch.view_as_complex(out).cpu().numpy(),
+                      REPS))
+    print(f"F1 encode form, chain index {ci} ({k} primes): bit-equal to "
+          f"plain; {fe['ms']:.5f} ms (device {fe['dev_ms']:.5f}), bound "
+          f"{fe['bound_ms']:.5f} ms by {fe['bound_by']} "
+          f"({fe['bytes'] / 1e6:.1f} MB); decode form {fd['ms']:.5f} ms "
+          f"(device {fd['dev_ms']:.5f}), bound {fd['bound_ms']:.5f} ms by "
+          f"{fd['bound_by']} [{card}]")
+    print(f"encode parts, chain index {ci}: host preparation "
+          f"{parts_e['prep']:.4f} ms, copy {parts_e['copy']:.4f}, F1 "
+          f"{fe['ms']:.4f}, K2 {parts_e['k2']:.4f} (sum "
+          f"{parts_e['prep'] + parts_e['copy'] + fe['ms'] + parts_e['k2']:.4f})"
+          f"; decode parts: K1 on 2 limbs {parts_d['k1']:.4f}, F1 "
+          f"{fd['ms']:.4f}, copy back {parts_d['back']:.4f} (sum "
+          f"{parts_d['k1'] + fd['ms'] + parts_d['back']:.4f}) [{card}]")
+
+
+def _encoder_phase(card, probes, wrappers, launches, dev, ctx) -> None:
     """Phase 35: the golden file through the device encoder, then at the
     headline chain (chain indices 1 and 7): the launch counts, the kernel
     path against the plain path, encode's residues at 2^28 against the
     host encoder's (+-1), their decode against the host decode (1e-9), a
     round trip at 2^30 (1e-6), decode of uniform residues, event times
-    beside the host encoder's."""
+    beside the host encoder's; F1's forms under the probes and encode's and decode's parts (_encoder_parts)."""
     import torch
     from phantom_tpu_torch import CKKSDeviceEncoder, CKKSEncoder, Plaintext
     from phantom_tpu_torch.ops import ntt_kernels
@@ -2927,6 +3085,8 @@ def _encoder_phase(card, wrappers, launches, dev, ctx) -> None:
     enc, host = CKKSDeviceEncoder(ctx), CKKSEncoder(ctx)
     rng = np.random.default_rng(SEED + 31)
     scale = 2.0 ** 28
+    f1ops = pp.KERNELS._replace(ckks_fft_encode=probes.ckks_fft_encode,
+                                ckks_fft_decode=probes.ckks_fft_decode)
     for ci in ENC_CHAIN:
         z = unit_disc(rng, enc.slots)
         k = ctx.get_context_data(ci).size_ql
@@ -2986,6 +3146,7 @@ def _encoder_phase(card, wrappers, launches, dev, ctx) -> None:
               f"ms, decode {t_dec:.3f} ms; host encoder (one call each) "
               f"encode {h_enc:.1f} ms, decode {h_dec:.1f} ms; the host "
               f"decode of uniform residues {h_junk} [{card}]")
+        _encoder_parts(card, enc, f1ops, z, scale, ci, pt)
 
 
 def _mlp_phase(card, wrappers, launches, dev, ctx) -> float:
@@ -3130,8 +3291,9 @@ def _mlp_phase(card, wrappers, launches, dev, ctx) -> float:
                                   interval=MLP_INTERVAL)
         return enc.decode(ev.decrypt(sk, ev.rescale_to_next(v)))
 
+    act = dict(c.times)["activation"]
     print(f"timing MLP circuit end to end (encode to decode): "
-          f"{_time(run, 3):.3f} ms [{card}]")
+          f"{_time(run, 3):.3f} ms, the activation {act:.3f} ms [{card}]")
     _profile(run, 2, card, "MLP circuit, encode to decode")
     if not err <= MLP_TOL:
         raise RuntimeError(f"MLP circuit: error {err} > {MLP_TOL}")
@@ -3142,9 +3304,9 @@ def _app_phases(card, probes, wrappers, launches, dev, lib) -> None:
     """Phases 34-36 on one headline context."""
     import torch
     from phantom_tpu_torch import make_context
-    _f1_phase(card, probes, dev, lib)
     ctx = make_context(chain_params(**HEADLINE))
-    _encoder_phase(card, wrappers, launches, dev, ctx)
+    _f1_phase(card, probes, dev, lib, ctx)
+    _encoder_phase(card, probes, wrappers, launches, dev, ctx)
     torch.cuda.empty_cache()
     _mlp_phase(card, wrappers, launches, dev, ctx)
 
@@ -3188,7 +3350,11 @@ def main() -> int:
     if calls:
         calls_only(card, dev)
         return 0
-    imma = sass_count(path, "fold_matmul_kernel", "IMMA")
+    imma = {}
+    for counts in sass_by_function(path, "fold_matmul_kernel",
+                                   ("IMMA",)).values():
+        for ins, k in counts.items():
+            imma[ins] = imma.get(ins, 0) + k
     if not imma:
         raise RuntimeError("K5: no IMMA instruction in fold_matmul_kernel")
     print(f"sass: K5 fold_matmul_kernel issues {sum(imma.values())} int8 "
@@ -3241,7 +3407,7 @@ def main() -> int:
 
     wrappers = kernel_wrappers()
     probes = _probes(pp, wrappers)
-    since = {name: 0 for name, *_ in KERNELS}
+    since = {name: 0 for name in PROBE_NAMES}
     # the same relin key through each epilogue
     pipes = {name: pp.CKKSPipeline32(ctx, pipe.evk, **kw).to(dev) if kw
              else pipe for name, kw in EPILOGUES.items()}
@@ -3565,20 +3731,27 @@ def main() -> int:
     _app_phases(card, probes, wrappers, launches, dev, path)
     _print_calls(probes, card, since)
 
-    rows = []
-    for (name, attr, src, repl), probe in zip(KERNELS, probes):
+    def summed(probe):
         if not probe.calls:
-            raise RuntimeError(f"{name}: not probed")
-        rows.append(dict(
-            name=f"{name} {attr}", route="cuda", source=src, replaces=repl,
-            launches=launches[name],
+            raise RuntimeError(f"{probe.name}: not probed")
+        return dict(
             max_abs_err=max(c["err"] for c in probe.calls),
             ms=round(sum(c["ms"] for c in probe.calls), 5),
             plain_ms=round(sum(c["plain_ms"] for c in probe.calls), 5),
             bound_ms=round(sum(c["bound_ms"] for c in probe.calls), 5),
             bound_by=max(("bytes", "operations"), key=lambda b: sum(
                 c["bound_ms"] for c in probe.calls if c["bound_by"] == b)),
-            library_ms=getattr(probe, "library_ms", None)))
+            library_ms=getattr(probe, "library_ms", None))
+
+    rows = []
+    for (name, attr, src, repl), probe in zip(KERNELS, probes):
+        rows.append(dict(name=f"{name} {attr}", route="cuda", source=src,
+                         replaces=repl, launches=launches[name],
+                         **summed(probe)))
+    # F1's fused forms: the same kernels and launch count, probed apart
+    rows[-1]["forms"] = [
+        dict(name=f"{F1_FORMS[f]} {f}", **summed(getattr(probes, f)))
+        for f in F1_FORMS]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,8 @@ SMEM_OPTIN = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "ptk_error_string": ([_I], ctypes.c_char_p),
     "ptk_ntt_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -56,7 +58,12 @@ _SIGNATURES = {
     "ptk_moddown_rescale": ([_P] * 14 + [_I, _I, _I] + [_P] * 8
                             + [_I, _I, _I, _P], _I),
     "ptk_ntt_roll": ([_P] * 6 + [_I] * 4 + [_P] * 5 + [_I, _P], _I),
-    "ptk_ckks_fft": ([_P, _P, _I, _I, _P], _I),
+    "ptk_ckks_fft": ([_P, _P, _P, _I, _I, _P], _I),
+    "ptk_ckks_fft_encode": ([_P, _I, _D, _P, _I, _P, _P, _P, _P, _I, _P],
+                            _I),
+    "ptk_ckks_fft_decode": ([_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
+                             _P], _I),
+    "ptk_ckks_fft_grids": ([_P, _I], _I),
 }
 
 _lock = threading.Lock()

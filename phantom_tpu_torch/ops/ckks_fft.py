@@ -1,5 +1,6 @@
 """The CKKS special FFT in double-float (two-f32) arithmetic, its tables
-and F1, its CUDA kernel (counterpart of phantom_tpu/ops/ckks_fft.py).
+and F1, its CUDA kernel (counterpart of phantom_tpu/ops/ckks_fft.py), with
+the device encoder's two fused forms of it.
 
 The transform is the negacyclic evaluation map of the NTT engine with
 complex entries,
@@ -16,12 +17,24 @@ schemes/ckks_encoder.CKKSDeviceEncoder, so the plain versions here
 evaluate op by op in f32, one torch operation each, and equal the JAX
 package's eager evaluation word for word.
 
-F1 (`ckks_fft`, csrc/ckks_fft.cu) runs the whole transform on the card
-and equals the plain version bit for bit.  It is not a TPU kernel: the
-JAX package runs this transform as XLA fusions.  A ciphertext-free
-vector is held as one (4, N) f32 tensor, the planes re_hi, re_lo,
-im_hi, im_lo; the plain transforms take and return the JAX package's
-nested tuples ((re_hi, re_lo), (im_hi, im_lo)).
+F1 (csrc/ckks_fft.cu) runs on the card and equals the plain versions bit
+for bit, in three forms that share one launch count (`ckks_fft.launches`):
+
+  ckks_fft         the bare transform: (4, N) f32 planes re_hi, re_lo,
+                   im_hi, im_lo in and out;
+  ckks_fft_encode  slot values in, residues out: the slots times the scale
+                   in float64 at their positions (scatter_plain), split
+                   into double-floats, the inverse transform, the rounding
+                   (round_coeffs) and the floor modulus by each prime;
+  ckks_fft_decode  the first two coefficient-form limbs in, slot values
+                   out: the centered value by Garner (garner_centered),
+                   split and scaled in f32, the forward transform, the
+                   slots gathered and summed in float64.
+
+It is not a TPU kernel: the JAX package runs this transform as XLA
+fusions and the scatter in numpy on the host.  The plain transforms take
+and return the JAX package's nested tuples ((re_hi, re_lo), (im_hi,
+im_lo)).
 """
 
 from __future__ import annotations
@@ -117,7 +130,9 @@ class CKKSFFTTables(nn.Module):
     psi^-rev(i); and the slot indices, (N/2,) int64: `slot_pos[j]` is the
     position of slot j in the evaluation vector, `slot_conj[j]` that of
     its conjugate (the generator-5 order composed with the rev order of
-    the evaluation domain)."""
+    the evaluation domain).  The two are disjoint and cover the N
+    positions; `slot_of`, (N,) int32, inverts them for F1's forms:
+    slot_of[slot_pos[j]] = j, slot_of[slot_conj[j]] = ~j = -1 - j."""
 
     def __init__(self, n: int):
         super().__init__()
@@ -143,6 +158,10 @@ class CKKSFFTTables(nn.Module):
         self.register_buffer("inv", planes(np.exp(-1j * ang)))
         self.register_buffer("slot_pos", torch.from_numpy(slot_pos))
         self.register_buffer("slot_conj", torch.from_numpy(slot_conj))
+        slot_of = np.zeros(n, dtype=np.int32)
+        slot_of[slot_pos] = np.arange(n // 2)
+        slot_of[slot_conj] = ~np.arange(n // 2)
+        self.register_buffer("slot_of", torch.from_numpy(slot_of))
 
 
 def make_fft_tables(n: int, device=None) -> CKKSFFTTables:
@@ -211,6 +230,86 @@ def ckks_fft_plain(x: torch.Tensor, t: CKKSFFTTables,
     return torch.stack([out[0][0], out[0][1], out[1][0], out[1][1]])
 
 
+# -- the encoder's fused forms (plain versions) -----------------------------
+
+def scatter_plain(z: torch.Tensor, scale: float,
+                  t: CKKSFFTTables) -> torch.Tensor:
+    """The slots z, (m, 2) float64 (re, im) with m <= N/2, the rest zero,
+    times `scale` at their positions in the evaluation vector, conjugates
+    mirrored, as (4, N) f32 double-float planes.  Evaluated as numpy's
+    complex128 z * scale is, (re s - im 0, re 0 + im s), so that every
+    signed zero is numpy's, then split as df_from_f64."""
+    n = t.n
+    zz = torch.zeros((n // 2, 2), dtype=torch.float64, device=z.device)
+    zz[:z.shape[0]] = z
+    re = zz[:, 0] * scale - zz[:, 1] * 0.0
+    im = zz[:, 0] * 0.0 + zz[:, 1] * scale
+    ev = torch.empty((2, n), dtype=torch.float64, device=z.device)
+    ev[0, t.slot_pos] = re
+    ev[1, t.slot_pos] = im
+    ev[0, t.slot_conj] = re
+    ev[1, t.slot_conj] = -im
+    hi = ev.float()
+    lo = (ev - hi.double()).float()
+    return torch.stack([hi[0], lo[0], hi[1], lo[1]])
+
+
+def round_coeffs(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Double-float coefficients to int64: round(hi) + round(lo + (hi -
+    round(hi))), each round half to even."""
+    a = torch.round(hi).long()
+    return a + torch.round(lo + (hi - a.float())).long()
+
+
+def ckks_fft_encode_plain(z: torch.Tensor, scale: float, q: torch.Tensor,
+                          t: CKKSFFTTables) -> torch.Tensor:
+    """The encode form's plain version: slots z (m, 2) float64 -> the
+    rounded coefficients of their inverse transform modulo each prime of
+    q, (k,) int32: (k, N) int32 (a floor modulus, in [0, q))."""
+    c = ckks_fft_plain(scatter_plain(z, scale, t), t, inverse=True)
+    return (round_coeffs(c[0], c[1]) % q.long().view(-1, 1)).int()
+
+
+def garner_centered(x: torch.Tensor, moduli) -> torch.Tensor:
+    """The centered value (N,) int64 of coefficient-form residues x, (r,
+    N) int32 with r = len(moduli) of 1 or 2 (the first limbs), composed
+    by Garner: valid while |value| < q0 q1 / 2."""
+    x = x.long()
+    q0 = moduli[0]
+    if len(moduli) == 1:
+        return torch.where(x[0] > q0 // 2, x[0] - q0, x[0])
+    q1 = moduli[1]
+    u = (x[1] - x[0] % q1) % q1 * pow(q0 % q1, -1, q1) % q1
+    return x[0] + q0 * torch.where(u > q1 // 2, u - q1, u)
+
+
+def ckks_fft_decode_plain(x: torch.Tensor, moduli, scale: float,
+                          t: CKKSFFTTables) -> torch.Tensor:
+    """The decode form's plain version: the first limbs x (r, N) int32 in
+    coefficient form -> the slot values (N/2, 2) float64 (re, im): the
+    centered coefficients split into f32 (hi, lo), times the f32 1/scale,
+    the forward transform, the slots gathered and hi + lo in float64."""
+    m = garner_centered(x, moduli)
+    hi = m.float()
+    lo = (m - hi.long()).float()
+    inv = float(np.float32(1.0 / scale))
+    zero = torch.zeros_like(hi)
+    ev = ckks_fft_plain(torch.stack([hi * inv, lo * inv, zero, zero]), t)
+    g = ev[:, t.slot_pos].double()
+    return torch.stack([g[0] + g[1], g[2] + g[3]], dim=1)
+
+
+# -- F1 ---------------------------------------------------------------------
+
+_MAX_LOGN = 22  # the two passes hold at most 2^11 words a subproblem
+
+
+def _check_n(n: int, name: str) -> None:
+    if n < 2 or n & (n - 1) or n > 1 << _MAX_LOGN:
+        raise ValueError(f"{name}: N = {n} is not a power of two in [2, "
+                         f"2^{_MAX_LOGN}]")
+
+
 def ckks_fft(x: torch.Tensor, t: CKKSFFTTables,
              inverse: bool = False) -> torch.Tensor:
     """F1 on a CUDA tensor, the plain version on a CPU tensor: x (4, N)
@@ -224,13 +323,13 @@ def ckks_fft(x: torch.Tensor, t: CKKSFFTTables,
             or not x.is_contiguous() or t.fwd.device != x.device):
         raise ValueError(f"ckks_fft: x must be a contiguous (4, {n}) "
                          f"float32 tensor on the tables' device")
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"ckks_fft: N = {n} is not a power of two")
-    out = x.clone()
+    _check_n(n, "ckks_fft")
+    _build.check_aligned(x)
+    out = torch.empty_like(x)
     table = t.inv if inverse else t.fwd
     with torch.cuda.device(x.device):
         err = _build.library().ptk_ckks_fft(
-            out.data_ptr(), table.data_ptr(), n, int(inverse),
+            x.data_ptr(), table.data_ptr(), out.data_ptr(), n, int(inverse),
             _build.stream(x))
     _build.check(err, "ckks_fft")
     ckks_fft.launches += 1
@@ -238,3 +337,68 @@ def ckks_fft(x: torch.Tensor, t: CKKSFFTTables,
 
 
 ckks_fft.launches = 0
+
+
+def ckks_fft_encode(z: torch.Tensor, scale: float, q: torch.Tensor,
+                    t: CKKSFFTTables) -> torch.Tensor:
+    """F1's encode form on a CUDA tensor, its plain version on a CPU one:
+    the slots z, (m, 2) float64 with m <= N/2 (the rest zero), at
+    `scale` -> (k, N) int32 residues modulo q, (k,) int32 moduli below
+    2^30, bit-equal to ckks_fft_encode_plain.  Counts in
+    ckks_fft.launches."""
+    if _build.is_plain(z, "ckks_fft_encode"):
+        return ckks_fft_encode_plain(z, scale, q, t)
+    n = t.n
+    if (z.dim() != 2 or z.shape[1] != 2 or z.shape[0] > n // 2
+            or z.dtype != torch.float64 or not z.is_contiguous()
+            or t.fwd.device != z.device):
+        raise ValueError(f"ckks_fft_encode: z must be a contiguous (m, 2) "
+                         f"float64 tensor, m <= {n // 2}, on the tables' "
+                         f"device")
+    _check_n(n, "ckks_fft_encode")
+    _build.check_operands(q)
+    if q.dim() != 1 or q.device != z.device:
+        raise ValueError("ckks_fft_encode: q must be a (k,) int32 tensor")
+    _build.check_aligned(z)
+    k = q.shape[0]
+    out = torch.empty((k, n), dtype=torch.int32, device=z.device)
+    scratch = torch.empty((4, n), dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        err = _build.library().ptk_ckks_fft_encode(
+            z.data_ptr(), z.shape[0], float(scale), q.data_ptr(), k,
+            t.slot_of.data_ptr(), t.inv.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), n, _build.stream(z))
+    _build.check(err, "ckks_fft_encode")
+    ckks_fft.launches += 1
+    return out
+
+
+def ckks_fft_decode(x: torch.Tensor, moduli, scale: float,
+                    t: CKKSFFTTables) -> torch.Tensor:
+    """F1's decode form on a CUDA tensor, its plain version on a CPU one:
+    the first limbs x, (r, N) int32 in coefficient form with r =
+    len(moduli) of 1 or 2, at `scale` -> the slot values (N/2, 2) float64,
+    bit-equal to ckks_fft_decode_plain.  Counts in ckks_fft.launches."""
+    if _build.is_plain(x, "ckks_fft_decode"):
+        return ckks_fft_decode_plain(x, moduli, scale, t)
+    n = t.n
+    r = len(moduli)
+    _build.check_operands(x)
+    if r not in (1, 2) or x.shape != (r, n) or t.fwd.device != x.device:
+        raise ValueError(f"ckks_fft_decode: x must be ({r}, {n}) on the "
+                         f"tables' device, with one or two moduli")
+    _check_n(n, "ckks_fft_decode")
+    _build.check_aligned(x)
+    q0 = int(moduli[0])
+    q1 = int(moduli[1]) if r == 2 else 1
+    inv = pow(q0 % q1, -1, q1) if r == 2 else 0
+    out = torch.empty((n // 2, 2), dtype=torch.float64, device=x.device)
+    scratch = torch.empty((4, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().ptk_ckks_fft_decode(
+            x.data_ptr(), r, q0, q1, inv, float(np.float32(1.0 / scale)),
+            t.slot_of.data_ptr(), t.fwd.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), n, _build.stream(x))
+    _build.check(err, "ckks_fft_decode")
+    ckks_fft.launches += 1
+    return out

@@ -86,7 +86,9 @@ from torch import nn
 
 from . import (bconv_kernels, ip_kernels, moddown_kernels, modup_ip_kernels,
                ntt_kernels, ntt_roll_kernels)
-from .ckks_fft import ckks_fft, ckks_fft_plain
+from .ckks_fft import (ckks_fft, ckks_fft_decode, ckks_fft_decode_plain,
+                       ckks_fft_encode, ckks_fft_encode_plain,
+                       ckks_fft_plain)
 from .bconv32 import (BaseConvConsts32, ModulusVec32, bconv_approx32,
                       bconv_exact32, exact_from_scaled32, floor_sum_div32,
                       matmul_reduce32, scale_by_qhat_inv32)
@@ -118,6 +120,8 @@ class Kernels(NamedTuple):
     ntt_inverse_roll: Callable   # K6
     modup_ip_preconv: Callable   # K4, preconv form
     ckks_fft: Callable           # F1, the CKKS encoder's FFT
+    ckks_fft_encode: Callable    # F1, encode form (counts as F1)
+    ckks_fft_decode: Callable    # F1, decode form (counts as F1)
 
 
 KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
@@ -128,7 +132,8 @@ KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                   modup_ip_kernels.modup_ip_coeff,
                   ntt_roll_kernels.ntt_forward_roll,
                   ntt_roll_kernels.ntt_inverse_roll,
-                  modup_ip_kernels.modup_ip_preconv, ckks_fft)
+                  modup_ip_kernels.modup_ip_preconv, ckks_fft,
+                  ckks_fft_encode, ckks_fft_decode)
 PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.bconv_ntt_forward_plain,
                 bconv_kernels.fold_matmul_plain,
@@ -139,7 +144,8 @@ PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 modup_ip_kernels.modup_ip_coeff_plain,
                 ntt_kernels.ntt_forward_plain,
                 ntt_kernels.ntt_inverse_plain,
-                modup_ip_kernels.modup_ip_preconv_plain, ckks_fft_plain)
+                modup_ip_kernels.modup_ip_preconv_plain, ckks_fft_plain,
+                ckks_fft_encode_plain, ckks_fft_decode_plain)
 
 
 def _rows(idx) -> torch.Tensor:

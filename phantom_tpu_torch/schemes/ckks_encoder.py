@@ -16,11 +16,13 @@ host.
 CKKSDeviceEncoder is the JAX package's device encoder on its u32 path
 (every prime below 2^30): the float stage is the double-float special FFT
 (ops/ckks_fft.py, F1 on the card), and the exact stages stay on the
-device: encode rounds the double-float coefficients to int64, reduces
-them into the level's primes and takes the forward NTT (K2); decode takes
-the inverse NTT (K1), composes the centered value from the first two
-limbs by Garner (valid while |value| < q0 q1 / 2, so it never overflows
-where the host decode's exact CRT raises) and runs the forward FFT.  Its
+device.  Encode copies the slot values to the device as they are and runs
+F1's encode form (the scatter at the scale, the inverse FFT, the rounding
+to int64 and the reduction into the level's primes in one call), then
+the forward NTT (K2); decode takes the inverse NTT (K1) of the first two
+limbs only and F1's decode form (the centered value composed from them by
+Garner, valid while |value| < q0 q1 / 2, so it never overflows where the
+host decode's exact CRT raises, then the forward FFT and the slots).  Its
 f32 arithmetic is the JAX package's evaluated op by op; the jitted JAX
 encoder's XLA fusions round some double-float words differently on the
 CPU, so its residues may differ by one in a coefficient.
@@ -33,7 +35,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.ckks_fft import CKKSFFTTables, df_from_f64
+from ..ops.ckks_fft import CKKSFFTTables, round_coeffs, scatter_plain
 from ..ops.pipeline32 import KERNELS, Kernels
 from .ciphertext import Plaintext
 from .context import Context, qlp_rows
@@ -164,9 +166,9 @@ def encode_extended(enc: CKKSEncoder, values, scale: float,
 
 
 class CKKSDeviceEncoder:
-    """Encode and decode on the context's device through the double-float
-    FFT (F1), the JAX package's CKKSDeviceEncoder on its u32 path.  Every
-    method takes `ops`, the kernels it calls (F1, K1, K2; pipeline32.PLAIN
+    """Encode and decode on the context's device through F1's fused forms,
+    the JAX package's CKKSDeviceEncoder on its u32 path.  Every method
+    takes `ops`, the kernels it calls (F1's forms, K1, K2; pipeline32.PLAIN
     for the plain versions)."""
 
     def __init__(self, ctx: Context):
@@ -179,40 +181,25 @@ class CKKSDeviceEncoder:
                 "section 1, item 8)")
         self.ctx = ctx
         self.slots = ctx.params.n // 2
-        tables = CKKSFFTTables(ctx.params.n)
-        self._slot_pos = tables.slot_pos.numpy()
-        self._slot_conj = tables.slot_conj.numpy()
-        self.tables = tables.to(ctx.key_q.device)
+        self.tables = CKKSFFTTables(ctx.params.n).to(ctx.key_q.device)
 
-    def _scatter(self, values, scale: float) -> torch.Tensor:
-        """The slots times `scale` (float64 on the host) at their positions
-        in the evaluation vector, conjugates mirrored, as (4, N) f32
-        double-float planes on the device."""
-        n = self.ctx.params.n
+    def _slots(self, values) -> torch.Tensor:
+        """The slot values as an (m, 2) float64 (re, im) tensor on the
+        host, m <= N/2."""
         v = np.asarray(values, dtype=np.complex128).ravel()
         if v.shape[0] > self.slots:
             raise ValueError("too many values for slot count")
-        z = np.zeros(self.slots, dtype=np.complex128)
-        z[:v.shape[0]] = v
-        z = z * scale
-        ev_re = np.zeros(n, dtype=np.float64)
-        ev_im = np.zeros(n, dtype=np.float64)
-        ev_re[self._slot_pos] = z.real
-        ev_im[self._slot_pos] = z.imag
-        ev_re[self._slot_conj] = z.real
-        ev_im[self._slot_conj] = -z.imag
-        planes = np.stack(df_from_f64(ev_re) + df_from_f64(ev_im))
-        return torch.from_numpy(planes).to(self.ctx.key_q.device)
+        return torch.from_numpy(v.view(np.float64).reshape(-1, 2))
 
     def encode_ints(self, values, scale: float,
                     ops: Kernels = KERNELS) -> torch.Tensor:
-        """The rounded coefficients (N,) int64: the inverse FFT, then
-        round(hi) + round(lo + (hi - round(hi))) (half to even)."""
-        coeffs = ops.ckks_fft(self._scatter(values, scale), self.tables,
-                              inverse=True)
-        hi, lo = coeffs[0], coeffs[1]
-        a = torch.round(hi).long()
-        return a + torch.round(lo + (hi - a.float())).long()
+        """The rounded coefficients (N,) int64: the bare inverse FFT of the
+        scattered slots, then round(hi) + round(lo + (hi - round(hi)))
+        (half to even)."""
+        z = self._slots(values).to(self.ctx.key_q.device)
+        c = ops.ckks_fft(scatter_plain(z, scale, self.tables), self.tables,
+                         inverse=True)
+        return round_coeffs(c[0], c[1])
 
     def encode(self, values, scale: float,
                chain_index: Optional[int] = None,
@@ -222,39 +209,20 @@ class CKKSDeviceEncoder:
         ctx = self.ctx
         ci = ctx.first_data_index if chain_index is None else chain_index
         k = ctx.get_context_data(ci).size_ql
-        ints = self.encode_ints(values, scale, ops)
-        rns = (ints % ctx.key_q[:k].long().view(-1, 1)).int()
+        z = self._slots(values).to(ctx.key_q.device)
+        rns = ops.ckks_fft_encode(z, scale, ctx.key_q[:k], self.tables)
         data = ops.ntt_forward(rns, ctx.ntt, ctx.rows_qp[:k])
         return Plaintext(data=data, chain_index=ci, is_ntt_form=True,
                          scale=scale)
 
-    def _centered(self, plain: Plaintext,
-                        ops: Kernels = KERNELS) -> torch.Tensor:
-        """The plaintext's centered coefficients (N,) int64, composed from
-        its first two limbs by Garner."""
-        ctx = self.ctx
-        moduli = ctx.get_context_data(plain.chain_index).moduli
-        k = len(moduli)
-        x = ops.ntt_inverse(plain.data.contiguous(), ctx.ntt,
-                            ctx.rows_qp[:k]).long()
-        q0 = moduli[0]
-        if k == 1:
-            return torch.where(x[0] > q0 // 2, x[0] - q0, x[0])
-        q1 = moduli[1]
-        t = (x[1] - x[0] % q1) % q1 * pow(q0 % q1, -1, q1) % q1
-        return x[0] + q0 * torch.where(t > q1 // 2, t - q1, t)
-
     def decode(self, plain: Plaintext, ops: Kernels = KERNELS) -> np.ndarray:
-        """NTT-form plaintext -> complex slot values (N/2,): the centered
-        coefficients split into f32 (hi, lo), times the f32 1/scale, the
-        forward FFT, the slots gathered and summed in float64."""
-        m = self._centered(plain, ops)
-        hi = m.float()
-        lo = (m - hi.long()).float()
-        inv = float(np.float32(1.0 / plain.scale))
-        zero = torch.zeros_like(hi)
-        ev = ops.ckks_fft(torch.stack([hi * inv, lo * inv, zero, zero]),
-                          self.tables)
-        g = ev[:, self.tables.slot_pos].double()
-        out = torch.complex(g[0] + g[1], g[2] + g[3])
-        return out.cpu().numpy()
+        """NTT-form plaintext -> complex slot values (N/2,): the inverse
+        NTT of the first two limbs (the only ones Garner reads; the
+        transform is row by row), then the decode form."""
+        ctx = self.ctx
+        moduli = ctx.get_context_data(plain.chain_index).moduli[:2]
+        r = len(moduli)
+        x = ops.ntt_inverse(plain.data[:r].contiguous(), ctx.ntt,
+                            ctx.rows_qp[:r])
+        out = ops.ckks_fft_decode(x, moduli, plain.scale, self.tables)
+        return torch.view_as_complex(out).cpu().numpy()

@@ -883,6 +883,81 @@ def test_f1_fft(dev, logn, inverse):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _f1_primes(k: int):
+    # 28-bit primes; get_primes needs 2N | q - 1, so take them for 2^17
+    return torch.tensor(numth.get_primes(1 << 18, 28, k), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("logn", [1, 3, 10, 11, 12, 13, 16, 17])
+def test_f1_encode_form(dev, logn):
+    """F1's encode form against its plain version, word for word: full,
+    partial and empty slot vectors with signed zeros, 43 primes (the
+    headline chain's count) and 1; one launch a call."""
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n = 1 << logn
+    t = cf.make_fft_tables(n, dev)
+    rng = np.random.default_rng(logn)
+    z = rng.standard_normal((n // 2, 2)) * 2.0 ** rng.integers(-10, 20)
+    z[:3] = [[-0.0, 0.0], [0.0, -0.0], [-0.0, -0.0]][:n // 2]
+    for k in (43, 1):
+        q = _f1_primes(k).to(dev)
+        for count in sorted({n // 2, max(n // 3, 1), 0}):
+            x = torch.from_numpy(z[:count].copy()).to(dev)
+            before = cf.ckks_fft.launches
+            got = cf.ckks_fft_encode(x, 2.0 ** 40, q, t)
+            assert cf.ckks_fft.launches == before + 1
+            want = cf.ckks_fft_encode_plain(x, 2.0 ** 40, q, t)
+            assert torch.equal(got, want), (k, count)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("logn", [1, 3, 10, 11, 12, 13, 16, 17])
+def test_f1_decode_form(dev, logn, rows):
+    """F1's decode form against its plain version, word for word, on
+    uniform residues of one or two limbs; one launch a call."""
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n = 1 << logn
+    t = cf.make_fft_tables(n, dev)
+    moduli = _f1_primes(rows).tolist()
+    rng = np.random.default_rng(logn + rows)
+    x = torch.from_numpy(np.stack([rng.integers(0, q, n) for q in moduli])
+                         ).int().to(dev)
+    before = cf.ckks_fft.launches
+    got = cf.ckks_fft_decode(x, moduli, 2.0 ** 30, t)
+    assert cf.ckks_fft.launches == before + 1
+    want = cf.ckks_fft_decode_plain(x, moduli, 2.0 ** 30, t)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("form", ["forward", "inverse", "encode", "decode"])
+@pytest.mark.parametrize("logn", [1, 11, 12, 16, 17])
+def test_f1_grids(dev, logn, form):
+    """The blocks of F1's CUDA launches as the library records them: one
+    block up to N = 2^11; above, the column pass's 2^(lr-1) blocks and the
+    row pass's 2^(lc-1), in the direction's order."""
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n = 1 << logn
+    t = cf.make_fft_tables(n, dev)
+    x = torch.zeros((4, n), device=dev)
+    q = _f1_primes(3).to(dev)
+    limbs = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    calls = {
+        "forward": lambda: cf.ckks_fft(x, t),
+        "inverse": lambda: cf.ckks_fft(x, t, inverse=True),
+        "encode": lambda: cf.ckks_fft_encode(
+            torch.zeros((n // 2, 2), dtype=torch.float64, device=dev),
+            2.0 ** 30, q, t),
+        "decode": lambda: cf.ckks_fft_decode(limbs, q[:2].tolist(),
+                                             2.0 ** 30, t)}
+    want = [1]
+    if logn > 11:
+        lr = logn // 2
+        want = [1 << (lr - 1), 1 << (logn - lr - 1)]  # columns, rows
+        if form in ("inverse", "encode"):
+            want.reverse()
+    assert chip_smoke.f1_grids(calls[form]) == want
+
+
 def test_f1_golden(dev):
     for name, (got, want) in chip_smoke.fft_golden(dev).items():
         np.testing.assert_array_equal(got, want, err_msg=name)

@@ -22,6 +22,7 @@ import torch
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 import chip_smoke
+import f1_anatomy
 import phantom_tpu_torch as pt
 from phantom_tpu_torch import convert, host
 from phantom_tpu_torch.ops import (bfv32, bgv32, modup_ip_kernels,
@@ -87,7 +88,8 @@ print("ok")
 
 
 def test_import_without_jax():
-    """phantom_tpu_torch and chip_smoke import, and a context builds, with
+    """phantom_tpu_torch, chip_smoke and f1_anatomy import, and a context
+    builds, with
     JAX blocked; no module in sys.modules has a file under phantom_tpu/."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                        text=True, timeout=300, cwd=ROOT,
@@ -265,7 +267,8 @@ def meta_args():
                                     "moddown_rows", "moddown_rescale",
                                     "modup_ip_coeff", "ntt_forward_roll",
                                     "ntt_inverse_roll", "modup_ip_preconv",
-                                    "ckks_fft"])
+                                    "ckks_fft", "ckks_fft_encode",
+                                    "ckks_fft_decode"])
 def test_meta_tensor_raises(meta_args, kernel):
     t, x = meta_args
 
@@ -300,6 +303,12 @@ def test_meta_tensor_raises(meta_args, kernel):
             m(1, 3, 1024), x[:2], m(1, 2, 3, 1024), t, alpha=2),
         "ckks_fft": lambda: ckks_fft.ckks_fft(
             torch.empty((4, 1024), device="meta"),
+            ckks_fft.make_fft_tables(1024, "meta")),
+        "ckks_fft_encode": lambda: ckks_fft.ckks_fft_encode(
+            torch.empty((512, 2), dtype=torch.float64, device="meta"),
+            2.0 ** 30, m(3), ckks_fft.make_fft_tables(1024, "meta")),
+        "ckks_fft_decode": lambda: ckks_fft.ckks_fft_decode(
+            m(2, 1024), (268369921, 268361729), 2.0 ** 30,
             ckks_fft.make_fft_tables(1024, "meta")),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
