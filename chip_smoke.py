@@ -257,6 +257,40 @@ Phases, one line each or more; any failure exits non-zero:
                slots within 1e-2 of numpy's float64 evaluation; prepare
                timed apart, event time per stage and end to end, a
                profile
+ 37. roll      roll_n1024.npz through the kernels: the CKKS step, the
+               NTT-form modup and the key switch on "pallas-roll", the
+               CKKS step and the moddown pair on the xla-bconv moddown,
+               the BGV step on "pallas-roll", bit-equal to the JAX
+               package's same routes
+ 38. routes    the headline CKKS step on "pallas-roll" (K6 both ways, K5,
+               K9) and on the xla-bconv moddown (K1, K5 over both halves,
+               K2 with the epilogue): launch counts, bit-equal to the
+               default route and to the plain path, decryption, event
+               time; a profile of the roll step
+ 39. BGV roll  the BGV step on "pallas-roll": launch counts, bit-equal to
+               the default engine and to the plain path
+ 40. Fast32    Fast32's CKKS (multiply_and_relin, rotate,
+     roll      rescale_to_next) and BGV (multiply_and_relin, rotate,
+               mod_switch_to_next) verbs on "pallas-roll" at the headline
+               and BGV configurations: launch counts, bit-equal to the
+               default engine, event time
+ 41. u64       the IMADs of each U kernel in the SASS; the four u64 golden
+     golden    files (CKKS and BGV, 50- and 60-bit chains) through U1-U4,
+               every output bit-equal to the JAX package's
+ 42. u64 CKKS  bench.py --path u64: N = 2^16, 43 data primes of 50 bits, 22
+               special of 51; the context's build time (at most 30 s), the
+               keys and two encryptions on the card (relin key and
+               encryption under launch counts), the step multiply_and_relin
+               + rescale_to_next with every U call under a probe (bit-equal
+               to plain, event and device time, plain time, bound), the
+               launch counts, the whole step bit-equal to the plain path,
+               decoded within 1e-2 of numpy's float64 product (the error
+               printed), 10 chained steps timed (event time per step, peak
+               memory), the plain step timed, a profile (device-busy, idle
+               share)
+ 43. u64 BGV   the same for BGV (t the 20-bit batching prime):
+               multiply_and_relin + mod_switch_to_next, decrypted right in
+               every one of the 65536 slots
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -286,6 +320,12 @@ single PyTorch call computes a modular NTT or a modular product-sum, so
 library_ms is null for K1-K9; F1's is torch.fft.fft over complex128 (the
 bare form's calls; its row lists the fused forms' sums under "forms",
 with library_ms null: no PyTorch call fuses the scatter or the residues).
+U1-U4's rows sum the probed calls of phases 42-43 (U1's forward and
+inverse, U4's five forms, each listed under "forms"); their bound counts
+u64 work in 32-bit multiplies (MUL_HI, MUL_LO: a 64 x 64 product's high
+word 4, its low word 3, so a Shoup product 10, a Barrett-128 product 31,
+reduce128_any 45, the floor sum 58 a word); no PyTorch call computes a
+u64 modular function, so their library_ms is null.
 Last comes {"ok": true, "device": ...}.
 Without a CUDA device, or without the repo around it, it exits non-zero
 before printing any result.
@@ -971,6 +1011,64 @@ FAST32_CASES = {"ckks_chain": "ckks", "bgv_chain": "bgv",
                 "keygen_ckks": "ckks", "keygen_bgv": "bgv"}
 
 
+ROLL_GOLDEN = os.path.join(FIXTURES, "roll_n1024.npz")
+
+
+def roll_golden(device, ops=None, schemes=("ckks", "bgv"),
+                path: str = ROLL_GOLDEN) -> dict:
+    """roll_n1024.npz through the port on `device`: {name: (port output,
+    JAX output)} as uint32 arrays, for the CKKS step, the NTT-form modup
+    and the key switch on "pallas-roll", the CKKS step and the moddown
+    pair on the xla-bconv moddown ("ckks" in schemes), and the BGV step on
+    "pallas-roll" ("bgv")."""
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import bgv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ops = pp.KERNELS if ops is None else ops
+    g = np.load(path)
+    n = int(g["d1"].shape[-1])
+    qs, ps = g["data_moduli"].tolist(), g["special_moduli"].tolist()
+
+    def t(name):
+        return torch.as_tensor(g[name].view(np.int32), device=device)
+
+    out = {}
+    if "ckks" in schemes:
+        out.update(_roll_golden_ckks(g, t, n, qs, ps, device, ops))
+    if "bgv" in schemes:
+        bctx = make_context(EncryptionParameters.create(
+            n, qs, ps, "bgv", int(g["t"])), device=device)
+        bgv = bgv32.build_bgv32(bctx, t("bgv_rlk"), device=device,
+                                engine=pp.ROLL_ENGINE)
+        out["bgv_roll_step"] = bgv(t("bd1"), t("bd2"), ops)
+    return {k: (v.cpu().numpy().view(np.uint32), g[k])
+            for k, v in out.items()}
+
+
+def _roll_golden_ckks(g, t, n, qs, ps, device, ops) -> dict:
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ctx = make_context(EncryptionParameters.create(n, qs, ps),
+                       device=device)
+    d1, d2 = t("d1"), t("d2")
+    roll = pp.build_pipeline32(ctx, t("rlk"), device=device,
+                               engine=pp.ROLL_ENGINE)
+    xla = pp.build_pipeline32(ctx, t("rlk"), device=device,
+                              modup="xla-split", moddown="xla")
+    md = t("md")
+    return dict(
+        roll_step=roll(d1, d2, ops),
+        roll_modup=pp.modup_from_ntt32(roll.ks, d1[1], ops),
+        roll_ks=pp.keyswitch_from_ntt32(roll.ks, d1[1], roll.evk, ops),
+        xla_step=xla(d1, d2, ops),
+        xla_pair=torch.stack(pp.moddown32_pair(xla.ks, md[0], md[1],
+                                               ops=ops)))
+
+
 def fast32_case(case: str, device, engine: str = "mxu-pallas"):
     """A Fast32 golden file on `device`: (the file, its context, its keys
     carried over by convert.py (sk, pk, rlk, glk, None where absent), a
@@ -1047,7 +1145,8 @@ def _golden_cmp(out: dict, case: str, g, name: str, c) -> None:
     out[f"{case}: {name}"] = (_res(c.data), g[name])
 
 
-def fast32_golden(device, cases=tuple(FAST32_CASES), ops=None):
+def fast32_golden(device, cases=tuple(FAST32_CASES), ops=None,
+                  engine: str = "mxu-pallas"):
     """The Fast32 golden files through the port on `device`: {"<case>:
     <name>": (port output, JAX output)}, numpy arrays (residues as uint32,
     decoded slots as they are); each ciphertext's and plaintext's metadata
@@ -1063,7 +1162,7 @@ def fast32_golden(device, cases=tuple(FAST32_CASES), ops=None):
         _golden_cmp(out, case, g, name, c)
 
     for case in cases:
-        g, ctx, k, ev = fast32_case(case, device)
+        g, ctx, k, ev = fast32_case(case, device, engine)
         scheme = FAST32_CASES[case]
         if case.startswith("keygen"):
             t = {n: torch.from_numpy(g[n].view(np.int32) if g[n].dtype ==
@@ -1489,6 +1588,254 @@ def bound_ms(byt: int, ops: int, tc_ops: int = 0, f32_ops: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# the u64 evaluator (CKKS and BGV over 50- and 61-bit primes): golden files
+# ---------------------------------------------------------------------------
+
+U64_GOLDEN = ("u64_ckks_b50.npz", "u64_ckks_b60.npz", "u64_bgv_b50.npz",
+              "u64_bgv_b60.npz")
+# the generator's U64_VERBS and U64_DECRYPTED (the files are its output)
+U64_VERBS = {
+    "ckks": ("negate", "add", "sub", "add_plain", "sub_plain",
+             "multiply_plain", "multiply", "square", "relinearize",
+             "multiply_and_relin", "rescale", "mod_switch", "mod_switch_to",
+             "rotate1", "rotate2", "conjugate", "hoisting", "combo",
+             "add_many", "keyswitch_coeff"),
+    "bgv": ("negate", "add", "sub", "add_plain", "sub_plain",
+            "multiply_plain", "multiply", "square", "relinearize",
+            "multiply_and_relin", "mod_switch", "mod_switch_to",
+            "balanced_add", "rotate_rows", "rotate_columns", "hoisting",
+            "add_many", "add_plain_ms"),
+}
+U64_DECRYPTED = ("multiply_and_relin", "mod_switch", "rotate1",
+                 "rotate_rows", "rescale", "balanced_add")
+
+
+def digest(a) -> np.ndarray:
+    """sha256 over an array's shape and u64 words, (32,) uint8, as the
+    golden files' generator takes it (a tensor of int64 words or a numpy
+    array)."""
+    import hashlib
+    if not isinstance(a, np.ndarray):
+        a = a.detach().cpu().numpy()
+    a = np.ascontiguousarray(a.astype(np.int64).view(np.uint64)
+                             if a.dtype != np.uint64 else a)
+    h = hashlib.sha256(repr(a.shape).encode() + a.tobytes())
+    return np.frombuffer(h.digest(), dtype=np.uint8).copy()
+
+
+def u64_kernel_inputs(d, k):
+    """The u64 kernels' uniform inputs cut from a golden file's draws (a
+    copy of the generator's)."""
+    rlk_a, glk_a, pk_a = d["rlk_a"], d["glk_a"], d["pk_a"]
+    return dict(
+        ntt_x=rlk_a[:2], ntt_xi=rlk_a[:2] + glk_a[0, :2],
+        bc_x=pk_a[:2], ip_t=rlk_a,
+        ip_evk=np.ascontiguousarray(glk_a[:2].transpose(1, 0, 2, 3)),
+        po_a=rlk_a[:2, :k], po_b=rlk_a[1:3, :k], po_c=glk_a[2, :2, :k],
+        po_w=rlk_a[0, :k, 0])
+
+
+def _u64_cmp(g, fname: str, name: str, x, meta_of=None) -> None:
+    """x's digest (and, given a ciphertext or plaintext, its metadata)
+    against the file's (RuntimeError)."""
+    if meta_of is not None:
+        c = meta_of
+        meta = g[name + "__meta"].tolist()
+        have = [c.chain_index, int(c.is_ntt_form)]
+        if len(meta) > 2:
+            have += [c.correction_factor, c.noise_scale_deg]
+        if have != meta or c.scale != float(g[name + "__scale"]):
+            raise RuntimeError(f"golden {fname}: {name} metadata {have}, "
+                               f"scale {c.scale} != {meta}")
+    want = g[name] if name in g else None
+    if want is not None:
+        got = x.detach().cpu().numpy().view(np.uint64) if not isinstance(
+            x, np.ndarray) else x
+        if not np.array_equal(got.astype(np.uint64), want):
+            raise RuntimeError(f"golden {fname}: {name} differs")
+    elif not np.array_equal(digest(x), g["h__" + name]):
+        raise RuntimeError(f"golden {fname}: {name} differs (digest)")
+
+
+def u64_golden(device, fname: str, ops=None) -> int:
+    """One u64 golden file through the port's u64 evaluator on `device`
+    (`ops`: keyswitch.KERNELS64 by default): keys from the stored JAX
+    draws, both encryptions, every verb, the decryptions and decodings and
+    the kernels' functions, each bit-equal to the JAX package's (digests,
+    RuntimeError otherwise).  Returns the number of outputs held."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, CKKSEncoder, make_context
+    from phantom_tpu_torch.ops import bconv as bc
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    from phantom_tpu_torch.schemes.ciphertext import Plaintext
+    from phantom_tpu_torch.schemes.ckks_encoder import encode_extended
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ops = ksw.KERNELS64 if ops is None else ops
+    g = np.load(os.path.join(FIXTURES, fname))
+    scheme = "ckks" if "ckks" in fname else "bgv"
+    n = int(g["s_tern"].shape[0])
+    ctx = make_context(EncryptionParameters.create(
+        n, g["data_moduli"].tolist(), g["special_moduli"].tolist(), scheme,
+        int(g["t"])), device=device)
+
+    def w(name):
+        return torch.from_numpy(g[name].astype(np.uint64).view(
+            np.int64)).to(device)
+
+    def s(name):
+        return torch.from_numpy(g[name].astype(np.int64)).to(device)
+
+    held = [0]
+
+    def cmp(name, x, meta_of=None):
+        _u64_cmp(g, fname, name, x, meta_of)
+        held[0] += 1
+
+    sk = keys.gen_secret_core64(ctx, s("s_tern"), ops)
+    cmp("sk", sk)
+    pk = torch.stack(keys.encrypt_zero_sym_core64(ctx, sk, w("pk_a"),
+                                                  s("pk_e"), ops))
+    cmp("pk", pk)
+    rlk = keys.gen_relin_core64(ctx, sk, w("rlk_a"), s("rlk_e"), ops)
+    cmp("rlk", rlk)
+    elts = tuple(g["elts"].tolist())
+    glk = keys.GaloisKeys(torch.stack([
+        keys.gen_galois_core64(ctx, sk, e, w("glk_a")[i], s("glk_e")[i], ops)
+        for i, e in enumerate(elts)]), elts)
+    cmp("glk", glk.data)
+
+    def pt(name):
+        meta = g[name + "__meta"].tolist()
+        return Plaintext(data=w(name), chain_index=meta[0],
+                         is_ntt_form=bool(meta[1]),
+                         scale=float(g[name + "__scale"]))
+
+    pt1, pt2 = pt("pt1"), pt("pt2")
+    if scheme == "ckks":
+        enc = CKKSEncoder(ctx)
+        mine = enc.encode(g["z1"], pt1.scale, ops=ops)
+        cmp("pt1", mine.data, mine)
+    else:
+        enc = BatchEncoder(ctx)
+        mine = enc.encode(g["z1"].astype(np.int64))
+        cmp("pt1", mine.data.long())
+    c1 = keys.encrypt_asymmetric_core64(ctx, pk, pt1, s("enc_u"),
+                                        s("enc_e"), ops)
+    cmp("c1", c1.data, c1)
+    c2 = keys.encrypt_symmetric_core64(ctx, sk, pt2, w("sym_a"), s("sym_e"),
+                                       ops)
+    cmp("c2", c2.data, c2)
+    mul = ev.multiply(ctx, c1, c2, ops)
+    mr = ev.multiply_and_relin(ctx, c1, c2, rlk, ops)
+    res = dict(negate=ev.negate(ctx, c1), add=ev.add(ctx, c1, c2, ops),
+               sub=ev.sub(ctx, c1, c2, ops),
+               add_plain=ev.add_plain(ctx, c1, pt2, ops),
+               sub_plain=ev.sub_plain(ctx, c1, pt2, ops),
+               multiply_plain=ev.multiply_plain(ctx, c1, pt2, ops),
+               multiply=mul, square=ev.square(ctx, c1, ops),
+               relinearize=ev.relinearize(ctx, mul, rlk, ops),
+               multiply_and_relin=mr,
+               mod_switch=ev.mod_switch_to_next(ctx, mr, ops),
+               mod_switch_to=ev.mod_switch_to(ctx, c1, 3, ops),
+               hoisting=ev.hoisting(ctx, c1, glk, [1, 2], ops),
+               add_many=ev.add_many(ctx, [c1, c2, c1], ops))
+    if scheme == "ckks":
+        res["rescale"] = ev.rescale_to_next(ctx, mr, ops)
+        res["rotate1"] = ev.rotate_vector(ctx, c1, 1, glk, ops)
+        res["rotate2"] = ev.rotate_vector(ctx, c1, 2, glk, ops)
+        res["conjugate"] = ev.complex_conjugate(ctx, c1, glk, ops)
+        pts = w("combo_pts")
+        res["combo"] = ev.hoisted_linear_combo(
+            ctx, c1, glk, [0, 1, 2], list(pts), 2.0 ** 20, ops=ops)
+        cd = ctx.get_context_data(1)
+        c2_coeff = ops.ntt_inverse(c1.data[1], ctx.ntt64,
+                                   ctx.rows_qp[:cd.size_ql])
+        res["keyswitch_coeff"] = c1.replace(data=ksw.keyswitch(
+            ctx, cd, c2_coeff, rlk, ops))
+        rng = np.random.default_rng(int(g["data_moduli"][0]) % 1000)
+        wts = rng.standard_normal((1, enc.slots))
+        mine = encode_extended(enc, wts[0], 2.0 ** 20, 1, ops)
+        want = encode_extended(enc, wts[0], 2.0 ** 20, 1,
+                               ksw.PLAIN64)
+        if not torch.equal(mine, want):
+            raise RuntimeError(f"golden {fname}: encode_extended differs")
+    else:
+        ms1 = ev.mod_switch_to_next(ctx, c1, ops)
+        prod = ev.multiply_and_relin(
+            ctx, ms1, ev.mod_switch_to_next(ctx, c2, ops), rlk, ops)
+        res["balanced_add"] = ev.add(ctx, prod, ms1, ops)
+        res["rotate_rows"] = ev.rotate_rows(ctx, c1, 1, glk, ops)
+        res["rotate_columns"] = ev.rotate_columns(ctx, c1, glk, ops)
+        res["add_plain_ms"] = ev.add_plain(ctx, ms1, pt2, ops)
+    if set(res) != set(U64_VERBS[scheme]):
+        raise RuntimeError(f"golden {fname}: verbs {sorted(res)}")
+    for name, c in res.items():
+        cmp(name, c.data, c)
+        if name in U64_DECRYPTED:
+            dec = keys.decrypt64(ctx, sk, c, ops)
+            cmp("dec_" + name, dec.data, dec)
+            if scheme == "ckks":
+                got = enc.decode(dec, ops=ops)
+                if not np.array_equal(got, g["decoded_" + name]):
+                    raise RuntimeError(f"golden {fname}: decoded_{name} "
+                                       "differs")
+                held[0] += 1
+    held[0] += _u64_kernel_golden(g, fname, ctx, ops, device)
+    return held[0]
+
+
+def _u64_kernel_golden(g, fname, ctx, ops, device) -> int:
+    """The kernels' functions of a u64 golden file (ntt_*, bc_*, fs_*,
+    ip_out, po_*) on its inputs."""
+    import torch
+    from phantom_tpu_torch.ops import bconv as bc
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    from phantom_tpu_torch.ops.rns_host import i64_tensor
+    cd = ctx.get_context_data(1)
+    lv = cd.u64
+    ks = lv.ks
+    k = cd.size_ql
+    inp = {n: torch.from_numpy(np.ascontiguousarray(v).astype(
+        np.uint64).view(np.int64)).to(device)
+        for n, v in u64_kernel_inputs(g, k).items()}
+    t = ctx.ntt64
+    x = torch.from_numpy(g["fs_x"].view(np.int64)).to(device)
+    y = bc.scale_by_qhat_inv(x, ks.p_to_q)
+    res = dict(
+        ntt_fwd=ops.ntt_forward(inp["ntt_x"], t),
+        ntt_inv=ops.ntt_inverse(inp["ntt_xi"], t),
+        ntt_inv_scaled=ops.ntt_inverse(
+            inp["ntt_xi"][:, :k].contiguous(), t, ctx.rows_qp[:k],
+            ks.modup_scale, ks.modup_scale_shoup),
+        bc_approx=ops.bconv(inp["bc_x"], ks.digit_convs[0], "approx"),
+        bc_exact=ops.bconv(inp["bc_x"], ks.digit_convs[0], "exact"),
+        ip_out=ksw.inner_product_evk(inp["ip_t"], inp["ip_evk"], cd, ops),
+        fs_y=y, fs_v=bc.floor_sum_div(y, ks.p_to_q),
+        fs_exact=ops.bconv(x, ks.p_to_q, "exact"),
+        po_mul=ops.mul_rns(inp["po_a"], inp["po_b"], lv.mv),
+        po_fma=ops.fma_rns(inp["po_a"], inp["po_b"], inp["po_c"], lv.mv),
+        po_tensor=ops.tensor_prod_2x2(inp["po_a"], inp["po_b"], lv.mv),
+        po_square=ops.tensor_square_2x2(inp["po_a"], lv.mv))
+    wv = g["rlk_a"][0, :k, 0]
+    qs = ctx.params.data_moduli[:k]
+    res["po_shoup"] = ops.sub_mul_shoup(
+        inp["po_a"], i64_tensor(wv, device),
+        i64_tensor([(int(v) << 64) // q for v, q in zip(wv, qs)], device),
+        lv.mv)
+    if ks.p_to_t is not None:
+        res["fs_exact_t"] = ops.bconv(x, ks.p_to_t, "exact")
+    if not np.array_equal(res["fs_v"].cpu().numpy().view(np.uint64),
+                          g["fs_v"]):
+        raise RuntimeError(f"golden {fname}: fs_v differs")
+    for name, v in res.items():
+        if not np.array_equal(digest(v), g["h__" + name]):
+            raise RuntimeError(f"golden {fname}: {name} differs (digest)")
+    return len(res)
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
 
@@ -1670,7 +2017,7 @@ class _Probe:
                                f"{shape}: max_abs_err {err}")
         ba = self.sig.bind(*args, **kw)
         ba.apply_defaults()
-        byt, ops, tc_ops, f32_ops = call_bound(self.name, ba.arguments, out)
+        byt, ops, tc_ops, f32_ops = self.bound(ba.arguments, out)
         b_ms, b_by = bound_ms(byt, ops, tc_ops, f32_ops)
         self.calls.append(dict(
             shape=shape, err=err, bound_ms=b_ms, bound_by=b_by, bytes=byt,
@@ -1679,6 +2026,11 @@ class _Probe:
             ms=_time(lambda: self.kernel(*args, **kw), self.reps),
             plain_ms=_time(lambda: self.plain(*args, **kw), self.reps)))
         return out
+
+    def bound(self, arguments, out):
+        """(bytes, 32-bit multiplies, int8 tensor-core and f32 operations)
+        the call needs."""
+        return call_bound(self.name, arguments, out)
 
 
 def kernel_wrappers():
@@ -3311,6 +3663,429 @@ def _app_phases(card, probes, wrappers, launches, dev, lib) -> None:
     _mlp_phase(card, wrappers, launches, dev, ctx)
 
 
+
+# ---------------------------------------------------------------------------
+# phases 37-44: the u32 roll engine and xla-bconv moddown, and the u64
+# evaluator on U1-U4
+# ---------------------------------------------------------------------------
+
+# bench.py --path u64: 43 data primes of 50 bits, 22 special of 51 (dnum
+# 2), N = 2^16; CKKS at scale 2^44; BGV with bench.py's 20-bit t
+U64_CFG = dict(n=1 << 16, limbs=43, alpha=22, bits=50)
+U64_SCALE_BITS = 44
+U64_CHAIN_STEPS = 10
+U64_TOL = 1e-2  # JAX tests/test_ckks.py:84's bound
+U64_REPS = 3    # timed calls per probed U call (the plain versions are slow)
+U64_KERNELS = [  # name, wrapper attribute, source, the stage it replaces
+    ("U1", "ntt_forward", "phantom_tpu_torch/csrc/u64_ntt.cu",
+     "phantom_tpu/ops/ntt.py:101 and :151 (XLA, no pallas_call)"),
+    ("U2", "bconv", "phantom_tpu_torch/csrc/u64_bconv.cu",
+     "phantom_tpu/ops/bconv.py:153 and :171 (XLA, no pallas_call)"),
+    ("U3", "inner_product_evk_kernel", "phantom_tpu_torch/csrc/u64_ip.cu",
+     "phantom_tpu/schemes/keyswitch.py:69 (XLA, no pallas_call)"),
+    ("U4", "mul_rns", "phantom_tpu_torch/csrc/u64_polyops.cu",
+     "phantom_tpu/ops/modmath.py:146 in ops/polyops.py:34-103 (XLA, no "
+     "pallas_call)"),
+]
+# the Kernels64 fields, by the kernel each launches
+U64_FIELDS = {"ntt_forward": "U1", "ntt_inverse": "U1", "bconv": "U2",
+              "inner_product": "U3", "mul_rns": "U4", "fma_rns": "U4",
+              "tensor_prod_2x2": "U4", "tensor_square_2x2": "U4",
+              "sub_mul_shoup": "U4"}
+# 32-bit multiplies per u64 operation, as the bounds count them: a 64 x 64
+# product's high word (__umul64hi) 4, its low word 3 (the 32-bit partial
+# products of one decomposition; phase 41 prints the IMADs each U kernel's
+# SASS holds)
+MUL_HI, MUL_LO = 4, 3
+SHOUP_OPS = MUL_HI + 2 * MUL_LO                     # x w - floor(x ws) q
+BARRETT64_OPS = MUL_HI + MUL_LO
+# the quotient's three high and three low products, then k q
+BARRETT128_OPS = 3 * MUL_HI + 4 * MUL_LO
+MULMOD_OPS = MUL_HI + MUL_LO + BARRETT128_OPS
+REDUCE_ANY_OPS = 2 * BARRETT64_OPS + MULMOD_OPS
+# the floor sum's y V (wide), y U (low) and two exact divisions
+FLOOR_SUM_OPS = MUL_HI + 2 * MUL_LO + 2 * BARRETT128_OPS
+
+
+def _launches64(**kw):
+    return {name: kw.get(name, 0) for name, *_ in U64_KERNELS}
+
+
+# k = 43 is not a multiple of alpha = 22, so the modup is the unfused
+# one, as in the JAX package: the inverse NTT of c2, U2 per digit, one
+# forward NTT; U3; per half the moddown's U1 inverse, U2 exact (BGV: to Ql
+# and to {t}), U1 forward and U4's (x - .) P^-1
+EXPECTED64 = {
+    # U4's tensor product; the relinearization above; the rescale's U1
+    # inverse, its last limb reduced mod each q_i (U4), U1 forward and U4
+    "u64 CKKS step": _launches64(U1=8, U2=4, U3=1, U4=5),
+    # BGV's moddown adds u = [-delta_t P^-1]_t and u P per half (U4 x2);
+    # the modulus switch's U1 inverse, u mod t, c_last mod q_i and u q_last
+    # (U4 x3), U1 forward and U4
+    "u64 BGV step": _launches64(U1=8, U2=6, U3=1, U4=11),
+    # u and e (U1 x2), u pk (U4), the moddown of both halves; BGV also the
+    # plaintext's lift (U1) and u and u P per half (U4 x2)
+    "u64 CKKS encrypt_asymmetric": _launches64(U1=6, U2=2, U4=3),
+    "u64 BGV encrypt_asymmetric": _launches64(U1=7, U2=4, U4=7),
+    "u64 gen_relin_key": _launches64(U1=1, U4=3),
+}
+EXPECTED.update({
+    # every transform K6: the modup's inverse and the complement rows'
+    # forward, K5 per digit (2), K9; two moddowns (K6 inverse, K5, K6
+    # forward each); the rescale's K6 inverse and forward
+    "headline step, pallas-roll": _launches(K5=4, K9=1, K6f=4, K6i=4),
+    # the xla-split modup (K1, K5 x2, K2), K9; the pair's K1 with v, one
+    # K5 over both halves, one K2 with the epilogue; the rescale (K1, K3)
+    "headline step, xla-bconv moddown": _launches(K1=3, K2=2, K3=1, K5=3,
+                                                  K9=1),
+    # the modup as on the CKKS step, K9; both halves' moddown K6 inverse,
+    # K5 to Ql and to {t}, K6 forward; the modulus switch K6 both ways
+    "BGV step, pallas-roll": _launches(K5=4, K9=1, K6f=3, K6i=3),
+    # Fast32 on "pallas-roll": the CKKS and BGV verbs of phase 40
+    "Fast32 roll CKKS multiply_and_relin": _launches(K5=4, K9=1, K6f=3,
+                                                     K6i=3),
+    "Fast32 roll CKKS rescale_to_next": _launches(K6f=1, K6i=1),
+    "Fast32 roll CKKS rotate": _launches(K5=4, K9=1, K6f=3, K6i=3),
+    "Fast32 roll BGV multiply_and_relin": _launches(K5=4, K9=1, K6f=2,
+                                                    K6i=2),
+    "Fast32 roll BGV mod_switch_to_next": _launches(K6f=1, K6i=1),
+    "Fast32 roll BGV rotate": _launches(K5=4, K9=1, K6f=2, K6i=2),
+})
+
+
+def kernel_wrappers64():
+    """U1-U4's wrappers, in U64_KERNELS' order (each holds its kernel's
+    launch count; U1's forward and inverse share one, as do U4's forms)."""
+    from phantom_tpu_torch.ops import bconv, ntt, polyops
+    from phantom_tpu_torch.schemes import keyswitch
+    return [ntt.ntt_forward, bconv.bconv,
+            keyswitch.inner_product_evk_kernel, polyops.mul_rns]
+
+
+def _count64(wrappers, what: str, fn, launches: dict):
+    """_count for U1-U4 against EXPECTED64[what]."""
+    import torch
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: w.launches for (name, *_), w in zip(U64_KERNELS, wrappers)}
+    print(f"launches, {what}: " + ", ".join(f"{k}={v}"
+                                            for k, v in got.items()))
+    if got != EXPECTED64[what]:
+        raise RuntimeError(f"{what}: launches {got} != {EXPECTED64[what]}")
+    for k, v in got.items():
+        launches[k] += v
+    return out
+
+
+def _words_bytes(*xs) -> int:
+    return sum(8 * x.numel() for x in xs if x is not None)
+
+
+def _work64(field: str, a: dict, out):
+    """(bytes, 32-bit multiplies) one U call needs on these operands: each
+    input read once, each output written once (twiddle tables per row
+    used), the products as MUL_HI / MUL_LO count them."""
+    x = next(v for v in a.values() if hasattr(v, "numel"))
+    if field in ("ntt_forward", "ntt_inverse"):
+        n, num_l = x.shape[-1], x.shape[-2]
+        rows = x.numel() // n
+        logn = n.bit_length() - 1
+        ops = rows * (n // 2) * logn * SHOUP_OPS
+        if field == "ntt_inverse":
+            ops += x.numel() * SHOUP_OPS
+        return 2 * _words_bytes(x) + num_l * 2 * n * 8, ops
+    if field == "bconv":
+        c, form = a["c"], a["form"]
+        k_in, m = x.shape
+        k_out = c.obase.q.shape[0]
+        prep = 0 if form == "reduce" else SHOUP_OPS
+        if form == "exact":
+            prep += FLOOR_SUM_OPS
+        per = k_in * (MUL_HI + MUL_LO) + REDUCE_ANY_OPS + (
+            MULMOD_OPS if form == "exact" else 0)
+        return (_words_bytes(x, out, c.qhat_mod_p),
+                m * (k_in * prep + k_out * per))
+    if field == "inner_product":
+        beta, kk, n = x.shape
+        ops = 2 * kk * n * (beta * (MUL_HI + MUL_LO) + REDUCE_ANY_OPS)
+        return _words_bytes(x, a["evk"], out), ops
+    words = out.numel()
+    per = {"mul_rns": MULMOD_OPS, "fma_rns": MULMOD_OPS,
+           "tensor_prod_2x2": (2 * MULMOD_OPS + 2 * (MUL_HI + MUL_LO)
+                               + BARRETT128_OPS) / 3,
+           "tensor_square_2x2": (2 * MULMOD_OPS + MUL_HI + MUL_LO
+                                 + BARRETT128_OPS) / 3,
+           "sub_mul_shoup": SHOUP_OPS}[field]
+    ins = [v for k, v in a.items() if k in ("a", "b", "c", "ct", "ct1",
+                                            "ct2", "s") and v is not None]
+    return _words_bytes(*ins, out), int(words * per)
+
+
+class _Probe64(_Probe):
+    """A _Probe of one Kernels64 field: the bound from _work64."""
+
+    def __init__(self, field, kernel, plain, reps: int):
+        super().__init__(f"{U64_FIELDS[field]} {field}", kernel, plain,
+                         reps)
+        self.field = field
+
+    def bound(self, arguments, out):
+        byt, ops = _work64(self.field, arguments, out)
+        return byt, ops, 0, 0
+
+
+def _probes64(reps: int = REPS):
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    return ksw.Kernels64(*(
+        _Probe64(f, getattr(ksw.KERNELS64, f), getattr(ksw.PLAIN64, f), reps)
+        for f in ksw.Kernels64._fields))
+
+
+def _print_calls64(probes, card, since):
+    for probe in probes:
+        for c in probe.calls[since.get(probe.name, 0):]:
+            print(f"kernel {probe.name} {c['shape']}: bit-equal to plain; "
+                  f"{c['ms']:.4f} ms (device {c['dev_ms']:.4f}) vs plain "
+                  f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms by "
+                  f"{c['bound_by']} ({c['bytes'] / 1e6:.1f} MB, "
+                  f"{c['ops'] / 1e9:.3f} G mul) [{card}]")
+        since[probe.name] = len(probe.calls)
+
+
+def _roll_phases(card, wrappers, launches, dev) -> None:
+    """Phases 37-40: the roll engine's and the xla-bconv moddown's golden
+    file on the card, the headline CKKS step on both (launch counts, bit
+    equality with the default route, decryption), the BGV step on
+    "pallas-roll", and Fast32's CKKS and BGV verbs on "pallas-roll"."""
+    import torch
+    from phantom_tpu_torch import Fast32, make_context
+    from phantom_tpu_torch.ops import bgv32
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+    res = roll_golden(dev)
+    for name, (got, want) in res.items():
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"golden: roll file {name} differs")
+    print(f"golden: {', '.join(res)} (roll engine, xla-bconv moddown) "
+          "bit-equal to the JAX package's same routes")
+    params = chain_params(**HEADLINE)
+    ctx = make_context(params)
+    sk, pipe, d1, d2, m1, m2 = make_step_inputs(ctx, SEED, DELTA_BITS, dev)
+    out = pipe(d1, d2)
+    pipes = {"headline step, pallas-roll": dict(engine=pp.ROLL_ENGINE),
+             "headline step, xla-bconv moddown": dict(modup="xla-split",
+                                                      moddown="xla")}
+    pipes = {what: pp.CKKSPipeline32(ctx, pipe.evk, **kw).to(dev)
+             for what, kw in pipes.items()}
+    for what, p in pipes.items():
+        got = _count(wrappers, what, lambda: p(d1, d2), launches)
+        if not (torch.equal(got, out) and torch.equal(p(d1, d2, pp.PLAIN),
+                                                      out)):
+            raise RuntimeError(f"{what}: differs from the default route or "
+                               "from its plain path")
+        dist = check_decrypt(ctx, sk, got, m1, m2, DELTA_BITS)
+        ms = _time(lambda: p(d1, d2), REPS)
+        print(f"{what}: bit-equal to the default route and to its plain "
+              f"path {tuple(got.shape)}; decrypts to m1*m2 in all "
+              f"{params.n} coefficients (largest distance {dist:.3e}); "
+              f"{ms:.3f} ms/step [{card}]")
+    roll = pipes["headline step, pallas-roll"]
+    _profile(lambda: roll(d1, d2), PROFILE_STEPS, card,
+             "headline step, pallas-roll")
+    del ctx, sk, pipe, pipes, roll, d1, d2, out
+    torch.cuda.empty_cache()
+    bctx = make_context(mod_t_params(**BGV, scheme="bgv"))
+    _, rlk, a, b, *_ = make_mod_t_inputs(bctx, SEED, dev)
+    ref = bgv32.build_bgv32(bctx, rlk)(a, b)
+    p = bgv32.build_bgv32(bctx, rlk, engine=pp.ROLL_ENGINE)
+    got = _count(wrappers, "BGV step, pallas-roll", lambda: p(a, b),
+                 launches)
+    if not (torch.equal(got, ref) and torch.equal(p(a, b, pp.PLAIN), ref)):
+        raise RuntimeError("BGV step, pallas-roll: differs from the default "
+                           "engine or from its plain path")
+    print(f"BGV step, pallas-roll: bit-equal to the default engine and to "
+          f"its plain path {tuple(got.shape)}; "
+          f"{_time(lambda: p(a, b), REPS):.3f} ms/step [{card}]")
+    del bctx, rlk, a, b, ref, p, got
+    torch.cuda.empty_cache()
+    for scheme in ("ckks", "bgv"):
+        prm = (chain_params(**HEADLINE) if scheme == "ckks"
+               else mod_t_params(**BGV, scheme="bgv"))
+        c = make_context(prm)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 40)
+        sk = keys.gen_secret_key(c, gen)
+        rlk = keys.gen_relin_key(c, sk, gen)
+        glk = keys.create_galois_keys(c, sk, gen, steps=[1])
+        evs = {e: Fast32(c, rlk=rlk, glk=glk, engine=e)
+               for e in (pp.DEFAULT_ENGINE, pp.ROLL_ENGINE)}
+        rng = np.random.default_rng(SEED + 40)
+        m1, m2 = (rng.integers(-3, 4, prm.n) for _ in range(2))
+        plain = ((lambda m: encode_coeffs(c, m, DELTA_BITS))
+                 if scheme == "ckks" else
+                 (lambda m: torch.as_tensor(m, device=dev)))
+        x, y = (Ciphertext(data=keys.encrypt_symmetric(c, sk, plain(m), gen),
+                           chain_index=1, is_ntt_form=True,
+                           scale=(2.0 ** DELTA_BITS if scheme == "ckks"
+                                  else 1.0)) for m in (m1, m2))
+        mr = {e: ev.multiply_and_relin(x, y) for e, ev in evs.items()}
+        verbs = [("multiply_and_relin", lambda ev: ev.multiply_and_relin(
+            x, y)), ("rotate", lambda ev: ev.rotate(x, 1))]
+        verbs.append(("rescale_to_next", lambda ev: ev.rescale_to_next(
+            mr[pp.DEFAULT_ENGINE])) if scheme == "ckks" else
+            ("mod_switch_to_next", lambda ev: ev.mod_switch_to_next(
+                mr[pp.DEFAULT_ENGINE])))
+        for verb, fn in verbs:
+            evs[pp.ROLL_ENGINE].prebuild(x.chain_index)
+            got = _count(wrappers, f"Fast32 roll {scheme.upper()} {verb}",
+                         lambda: fn(evs[pp.ROLL_ENGINE]), launches)
+            want = fn(evs[pp.DEFAULT_ENGINE])
+            if not _same(got, want):
+                raise RuntimeError(f"Fast32 roll {scheme} {verb}: differs "
+                                   "from the default engine")
+            print(f"Fast32 {scheme.upper()} {verb} on pallas-roll: bit-equal "
+                  f"to the default engine; "
+                  f"{_time(lambda: fn(evs[pp.ROLL_ENGINE]), REPS):.3f} ms "
+                  f"[{card}]")
+        del c, sk, rlk, glk, evs, x, y, mr
+        torch.cuda.empty_cache()
+
+
+def _u64_phases(card, launches64, dev, lib: str) -> list:
+    """Phases 41-44: the u64 golden files through U1-U4 on the card; the
+    u64 CKKS and BGV steps at bench.py --path u64 width (keygen and
+    encryption on the card, every U call under a probe, the launch
+    counts, kernel path bit-equal to plain path, decryption, chained
+    timing, profile).  Returns the probes."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, CKKSEncoder, make_context
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    imads = {}
+    for fn, counts in sass_by_function(lib, "ptk64", ("IMAD",)).items():
+        imads[fn.split("(")[0][-40:]] = sum(counts.values())
+    print("sass: IMAD instructions per U kernel function: " + ", ".join(
+        f"{k} {v}" for k, v in imads.items()) + f"; the bounds count a "
+        f"64x64 product's high word as {MUL_HI} and its low word as "
+        f"{MUL_LO} 32-bit multiplies")
+    for fname in U64_GOLDEN:
+        t0 = time.time()
+        held = u64_golden(dev, fname)
+        print(f"golden: {fname}: {held} outputs through U1-U4 bit-equal to "
+              f"the JAX package's ({time.time() - t0:.1f} s)")
+    wrappers = kernel_wrappers64()
+    probes = _probes64(U64_REPS)
+    since = {}
+    for scheme in ("ckks", "bgv"):
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        prm = (chain_params(**U64_CFG) if scheme == "ckks" else
+               mod_t_params(**U64_CFG, scheme="bgv"))
+        ctx = make_context(prm)
+        torch.cuda.synchronize()
+        t_ctx = time.time() - t0
+        if t_ctx > 30:
+            raise RuntimeError(f"u64 context build {t_ctx:.1f} s > 30 s")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 64)
+        t0 = time.time()
+        sk = keys.gen_secret_key64(ctx, gen)
+        pk = keys.gen_public_key64(ctx, sk, gen)
+        rlk = _count64(wrappers, "u64 gen_relin_key",
+                       lambda: keys.gen_relin_key64(ctx, sk, gen),
+                       launches64)
+        rng = np.random.default_rng(SEED + 64)
+        n = prm.n
+        if scheme == "ckks":
+            enc = CKKSEncoder(ctx)
+            z = [rng.uniform(-1, 1, enc.slots) + 1j * rng.uniform(
+                -1, 1, enc.slots) for _ in range(2)]
+            pts = [enc.encode(v, 2.0 ** U64_SCALE_BITS) for v in z]
+        else:
+            enc = BatchEncoder(ctx)
+            t = prm.plain_modulus
+            z = [rng.integers(0, t, n) for _ in range(2)]
+            pts = [enc.encode(v) for v in z]
+        c1 = _count64(wrappers, f"u64 {scheme.upper()} encrypt_asymmetric",
+                      lambda: keys.encrypt_asymmetric64(ctx, pk, pts[0],
+                                                        gen), launches64)
+        c2 = keys.encrypt_asymmetric64(ctx, pk, pts[1], gen)
+        torch.cuda.synchronize()
+        print(f"u64 {scheme.upper()} setup: N={n} L={prm.size_q} "
+              f"alpha={prm.size_p} ({max(prm.data_moduli).bit_length()}-bit "
+              f"data, {max(prm.special_moduli).bit_length()}-bit special "
+              f"primes); context {t_ctx:.1f} s, keys and encryptions on the "
+              f"card {time.time() - t0:.1f} s")
+
+        def step(a, b, ops):
+            m = ev.multiply_and_relin(ctx, a, b, rlk, ops)
+            if scheme == "ckks":
+                return ev.rescale_to_next(ctx, m, ops)
+            return ev.mod_switch_to_next(ctx, m, ops)
+
+        step(c1, c2, probes)
+        _print_calls64(probes, card, since)
+        out = _count64(wrappers, f"u64 {scheme.upper()} step",
+                       lambda: step(c1, c2, ksw.KERNELS64), launches64)
+        ref = step(c1, c2, ksw.PLAIN64)
+        if not _same(out, ref):
+            raise RuntimeError(f"u64 {scheme} step: kernel path differs "
+                               "from the plain path")
+        dec = keys.decrypt64(ctx, sk, out)
+        if scheme == "ckks":
+            got = enc.decode(dec)
+            err = float(np.abs(got - z[0] * z[1]).max())
+            print(f"u64 CKKS step: kernel path bit-equal to the plain path "
+                  f"{tuple(out.data.shape)}; decoded slots within {err:.3e} "
+                  f"of numpy's float64 product (bound {U64_TOL})")
+            if not err <= U64_TOL:
+                raise RuntimeError(f"u64 CKKS step: error {err} > {U64_TOL}")
+        else:
+            got = enc.decode(dec).astype(np.int64)
+            want = z[0] * z[1] % t
+            right = int((got == want).sum())
+            print(f"u64 BGV step: kernel path bit-equal to the plain path "
+                  f"{tuple(out.data.shape)}; decrypts right in {right} of "
+                  f"{n} slots (correction factor {out.correction_factor})")
+            if right != n:
+                raise RuntimeError("u64 BGV step: wrong decryption")
+        zero = torch.zeros_like(out.data[:, :1])
+
+        def chain(route):
+            ops = ksw.PLAIN64 if route == "plain path" else ksw.KERNELS64
+
+            def run(steps):
+                d = c1
+                for _ in range(steps):
+                    o = step(d, c2, ops)
+                    d = o.replace(data=torch.cat([o.data, zero], dim=1),
+                                  chain_index=1, scale=c1.scale,
+                                  correction_factor=1)
+                return d
+            return run
+
+        _chain_timing(("kernel path",), chain, U64_CHAIN_STEPS, card,
+                      f"u64 {scheme.upper()} step")
+        print(f"timing u64 {scheme.upper()} step, plain path: "
+              f"{_time(lambda: step(c1, c2, ksw.PLAIN64), 1):.1f} ms/op "
+              f"(one step after a warm-up) [{card}]")
+        dd = [c1]
+
+        def prof():
+            o = step(dd[0], c2, ksw.KERNELS64)
+            dd[0] = o.replace(data=torch.cat([o.data, zero], dim=1),
+                              chain_index=1, scale=c1.scale,
+                              correction_factor=1)
+        _profile(prof, PROFILE_STEPS, card, f"u64 {scheme.upper()} step")
+        del ctx, sk, pk, rlk, c1, c2, out, ref, dec, dd, pts
+    return probes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3730,6 +4505,15 @@ def main() -> int:
     # 34-36. the CKKS application path: F1, the device encoder, the MLP
     _app_phases(card, probes, wrappers, launches, dev, path)
     _print_calls(probes, card, since)
+    torch.cuda.empty_cache()
+
+    # 37-40. the roll engine and the xla-bconv moddown
+    _roll_phases(card, wrappers, launches, dev)
+    torch.cuda.empty_cache()
+
+    # 41-43. the u64 evaluator on U1-U4
+    launches64 = {name: 0 for name, *_ in U64_KERNELS}
+    probes64 = _u64_phases(card, launches64, dev, path)
 
     def summed(probe):
         if not probe.calls:
@@ -3752,6 +4536,16 @@ def main() -> int:
     rows[-1]["forms"] = [
         dict(name=f"{F1_FORMS[f]} {f}", **summed(getattr(probes, f)))
         for f in F1_FORMS]
+    for name, attr, src, repl in U64_KERNELS:
+        mine = [p for p in probes64 if p.name.split()[0] == name]
+        both = _Probe64.__new__(_Probe64)
+        both.name, both.calls = name, [c for p in mine for c in p.calls]
+        rows.append(dict(name=f"{name} {attr}", route="cuda", source=src,
+                         replaces=repl, launches=launches64[name],
+                         **summed(both)))
+        if len(mine) > 1:
+            rows[-1]["forms"] = [dict(name=p.name, **summed(p))
+                                 for p in mine if p.calls]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

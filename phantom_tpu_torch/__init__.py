@@ -13,23 +13,31 @@ values in and out.  On Fast32 sit `LinearTransform` (BSGS matrix-vector
 products with one shared modup per layer) and polynomial evaluation in
 the monomial and Chebyshev bases (`poly_eval_fast32`,
 `poly_eval_cheb_fast32`).  Below it, the ops: hybrid key
-switching, the CKKS multiply + relinearize + rescale step on three modup
-routes and with three epilogues, rotations and hoisted rotations
-(ops/pipeline32.py), the BFV multiply + relinearize by each technique on
-two engines (ops/bfv32.py, ops/behz32.py) and the BGV multiply +
-relinearize + modulus switch (ops/bgv32.py).  They run on hand-written
+switching, the CKKS multiply + relinearize + rescale step on two engines,
+three modup routes, two moddown routes and with three epilogues,
+rotations and hoisted rotations (ops/pipeline32.py), the BFV multiply +
+relinearize by each technique on two engines (ops/bfv32.py,
+ops/behz32.py) and the BGV multiply + relinearize + modulus switch on
+two engines (ops/bgv32.py).  Primes of 2^30 and more, up to 61 bits,
+take the u64 evaluator (schemes/evaluate.py, the JAX package's generic
+path) for CKKS and BGV: every verb but BFV's, with keygen, encryption
+and decryption (schemes/keys.py's u64 half) and the host CKKSEncoder,
+on u64 words held as int64 tensors and four kernels of its own, U1-U4
+(the NTT, the base conversion, the key inner product and the
+Barrett-128 products).  They run on hand-written
 CUDA kernels for Hopper (sm_90a, csrc/): the NTTs, all on one one-pass
 radix-8 core that holds each row in a thread-block cluster, the base
 conversions (on the int8 tensor cores), the fused modup + key inner
 product (NTT, coefficient and pre-converted form), the key inner product
-and the moddown epilogues; and F1, the encoder's double-float FFT.  It
+and the moddown epilogues; F1, the encoder's double-float FFT; and the
+u64 evaluator's U1-U4.  It
 imports torch and numpy and never JAX, and keeps its own copy of the
 host math (host/).  Its entry points run
 on the CUDA device unless the context was built with device="cpu", where
 each kernel wrapper takes its plain torch version.
 """
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 from .schemes.context import Context, make_context  # noqa: F401
 from .schemes.ciphertext import Ciphertext, Plaintext  # noqa: F401

@@ -64,6 +64,10 @@ _SIGNATURES = {
     "ptk_ckks_fft_decode": ([_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
                              _P], _I),
     "ptk_ckks_fft_grids": ([_P, _I], _I),
+    "ptk_u64_ntt": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "ptk_u64_bconv": ([_P] * 16 + [_I] * 4 + [_P], _I),
+    "ptk_u64_inner_product": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "ptk_u64_polyops": ([_I] + [_P] * 9 + [_I] * 5 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -168,6 +172,15 @@ def check_operands(*tensors: torch.Tensor) -> None:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous int32 "
                              f"tensors on {dev}")
+
+
+def check_device(*tensors) -> None:
+    """Every tensor given (None skipped) lies on the first one's
+    device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"kernel operands on {t.device} and {dev}")
 
 
 def check_aligned(*tensors) -> None:

@@ -15,7 +15,9 @@ their fields: the module reads `.data` through `np.asarray`, and never
 imports JAX) carry across whole, onto the context's device: `secret_key`,
 `public_key` and `relin_key` to tensors, `galois_key_set` to
 keys.GaloisKeys, `plaintext` and `ciphertext` (a Ciphertext or a Fast32
-Ct32) to the port's, with all their metadata.
+Ct32) to the port's, with all their metadata.  On a context with a prime
+of 2^30 or more (the u64 evaluator's) the same functions carry u64 words
+(`words`: numpy uint64 -> the int64 tensor of their bit patterns).
 """
 
 from __future__ import annotations
@@ -40,6 +42,17 @@ def residues(a: np.ndarray) -> torch.Tensor:
     if a.dtype.kind != "u" or (a.size and int(a.max()) >= 1 << 30):
         raise ValueError("expected unsigned residues below 2^30")
     return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32)))
+
+
+def words(a: np.ndarray) -> torch.Tensor:
+    """Unsigned words below 2^64 (a numpy uint array) -> the int64 tensor
+    of their bit patterns: the u64 evaluator's residues."""
+    if not isinstance(a, np.ndarray):
+        raise TypeError(f"expected a numpy array, got {type(a).__name__}")
+    if a.dtype.kind != "u":
+        raise ValueError("expected unsigned words")
+    return torch.from_numpy(np.ascontiguousarray(
+        a.astype(np.uint64)).view(np.int64))
 
 
 def relin_evk(ctx: Context, rlk_data: np.ndarray,
@@ -98,7 +111,8 @@ def bgv_pipeline(ctx: Context, rlk_data: np.ndarray, chain_index: int = 1,
 
 
 def _on(ctx: Context, obj) -> torch.Tensor:
-    return residues(np.asarray(obj.data)).to(ctx.key_q.device)
+    a = np.asarray(obj.data)
+    return (words(a) if ctx.wide else residues(a)).to(ctx.key_q.device)
 
 
 def secret_key(ctx: Context, sk) -> torch.Tensor:

@@ -31,15 +31,15 @@ Usage:
     c = ev.rotate(c, 1)
     z2 = CKKSEncoder(ctx).decode(ev.decrypt(sk, c))
 
-Engines: "mxu-pallas" (the default) and, for BFV only, "pallas-roll", as
-the ops run them; the JAX package's butterfly ("xla", use_pallas=False)
-and einsum ("mxu") engines have no counterpart and raise.  BFV multiplies
-by the context's `mul_tech`, as the JAX package's Fast32 does: "hps",
-"behz", "hps_overq" or "hps_overq_leveled" (ops/bfv32.py); the leveled
-technique's pipeline is built at the drop the noise model gives for
-noise_scale_deg 1, at the full level, and adds 1 to the product's
-noise_scale_deg.
-"""
+Engines: "mxu-pallas" (the default) and "pallas-roll" (every transform
+K6, the modup on the xla-split structure, the CKKS tensor terms added
+after the moddown pair), as the ops run them; the JAX package's
+butterfly ("xla", use_pallas=False) and einsum ("mxu") engines have no
+counterpart and raise. BFV multiplies by the context's `mul_tech`, as
+the JAX package's Fast32 does: "hps", "behz", "hps_overq" or
+"hps_overq_leveled" (ops/bfv32.py); the leveled technique's pipeline is
+built at the drop the noise model gives for noise_scale_deg 1, at the
+full level, and adds 1 to the product's noise_scale_deg. """
 
 from __future__ import annotations
 
@@ -108,8 +108,8 @@ def _balance_factors(f1: int, f2: int, t: int):
 class Fast32:
     """Per-context evaluator with per-level caches, on the context's
     device.  rlk: the relin key (dnum, 2, K, N); glk: keys.GaloisKeys;
-    engine: pipeline32.ENGINES ("pallas-roll" for BFV only); modup: the
-    key switch's modup route (pipeline32.MODUP_ROUTES)."""
+    engine: pipeline32.ENGINES; modup: the key switch's modup route
+    (pipeline32.MODUP_ROUTES; "auto" on "pallas-roll")."""
 
     def __init__(self, ctx: Context, rlk=None, glk=None,
                  engine: str = pp.DEFAULT_ENGINE, modup: str = "auto"):
@@ -118,9 +118,7 @@ class Fast32:
                 f"engine {engine!r}: the port runs {pp.ENGINES}; the JAX "
                 "package's butterfly (use_pallas=False) and einsum (\"mxu\")"
                 " engines have no counterpart")
-        if engine != pp.DEFAULT_ENGINE and ctx.params.scheme != "bfv":
-            raise ValueError(f"{ctx.params.scheme} runs on the "
-                             f"{pp.DEFAULT_ENGINE!r} engine only so far")
+        ctx.require_u32("Fast32")
         if modup not in pp.MODUP_ROUTES:
             raise ValueError(f"modup {modup!r} not in {pp.MODUP_ROUTES}")
         self.ctx = ctx
@@ -334,11 +332,17 @@ class Fast32:
     def _relin_ckks(self, c: Ct32, d1: torch.Tensor, d2: torch.Tensor,
                     ops: Kernels) -> torch.Tensor:
         """CKKS: c2 = d1[1] d2[1] key-switched, the moddown pair adding the
-        tensor terms c0, c1 in its epilogue."""
+        tensor terms c0, c1 in its epilogue (on "pallas-roll" after it, in
+        plain torch)."""
         ci = c.chain_index
         ks = self.keyswitch_at(ci)
-        c2 = (d1[1].long() * d2[1].long() % self._q(ci)).int()
+        q = self._q(ci)
+        c2 = (d1[1].long() * d2[1].long() % q).int()
         s0, s1 = pp.modup_ip32(ks, c2, self.evk_at(ci), ops)
+        if ks.engine == pp.ROLL_ENGINE:
+            c0, c1, _ = pp._tensor_2x2(q, d1, d2)
+            m0, m1 = pp.moddown32_pair(ks, s0, s1, ops=ops)
+            return torch.stack([(c0 + m0) % q, (c1 + m1) % q]).int()
         return torch.stack(pp.moddown32_pair(ks, s0, s1, (d1, d2), ops))
 
     def multiply_and_relin(self, c1: Ct32, c2: Ct32,

@@ -16,6 +16,13 @@ mod-t-preserving division by q_last.  On the default engine:
                                 and mod q_i in plain torch, K2 over Ql-1
                                 with (x - .) q_last^-1 in its epilogue
 
+On the "pallas-roll" engine every transform is K6 and the key switch's
+modup takes the xla-split structure (K6 with the modup scale, K5 per
+digit, K6 over the complement rows, K9), as the JAX package's roll engine
+runs it.  BGV's moddown is the xla-bconv form on every route (the JAX
+package's moddown32_pair falls back to it for BGV), so the KeySwitch32's
+moddown option changes nothing here.
+
 Ciphertexts are (2, size_ql, N) int32 in NTT form.  Correction factors
 stay host integers that the caller tracks, as in the JAX package: the
 step's output carries f1 f2 q_last^-1 mod t.  The output is bit-equal to
@@ -48,9 +55,6 @@ class BGVPipeline32(nn.Module):
         cd = ctx.get_context_data(chain_index)
         if cd.bgv is None:
             raise ValueError("BGVPipeline32 needs a BGV context")
-        if engine != DEFAULT_ENGINE:
-            raise ValueError(f"the BGV step runs on the {DEFAULT_ENGINE!r} "
-                             f"engine only so far, not {engine!r}")
         if cd.bgv.qlast_mod_qi is None:
             raise ValueError("the modulus switch needs two data primes")
         self.ks = KeySwitch32(ctx, chain_index, engine, modup) if ks is None \
@@ -75,9 +79,9 @@ def build_bgv32(ctx: Context, rlk: torch.Tensor, chain_index: int = 1,
                 device=None, engine: str = DEFAULT_ENGINE,
                 modup: str = "auto") -> BGVPipeline32:
     """rlk: the relin key (dnum, 2, K, N) over QP of a BGV context; engine
-    "mxu-pallas" only so far; modup one of pipeline32.MODUP_ROUTES ("xla"
+    one of pipeline32.ENGINES; modup one of pipeline32.MODUP_ROUTES ("xla"
     is "xla-split" here, as in the JAX package: K4's preconv form serves
-    the CKKS step only)."""
+    the CKKS step only; the roll engine takes "auto" = "xla-split")."""
     return BGVPipeline32(ctx, convert_key32(ctx, rlk, chain_index),
                          chain_index, engine, modup).to(
                              resolve_device(device))

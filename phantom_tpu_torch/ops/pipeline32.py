@@ -8,10 +8,16 @@ normalize_engine):
   "mxu-pallas" (the default; the JAX package's default dispatch), below;
   "pallas-roll": every transform is K6 (ops/ntt_roll_kernels.py), the
     coefficient-form key switch converts with K5 (the digit's own rows
-    ride in coefficient form and transform too), K9 takes the inner
-    product, and each half's moddown is K6's inverse of the P rows, the
-    exact conversion (K5) and K6's forward with the (x - .) P^-1 epilogue.
-    It runs BFV only so far: the CKKS entry points raise on it.
+    ride in coefficient form and transform too), the NTT-form modup is
+    K6's inverse with the modup scale, K5 per digit and K6's forward of
+    the complement rows (the xla-split structure: the JAX package's roll
+    engine has no fused modup), K9 takes the inner product, and each
+    half's moddown is K6's inverse of the P rows, the exact conversion
+    (K5) and K6's forward with the (x - .) P^-1 epilogue.  The CKKS step
+    there is the JAX package's composed step: the tensor product in plain
+    torch, the modup and K9, two moddowns, the sums, then the rescale: K6's
+    inverse of the last limb, the reduction mod each q_i in plain torch,
+    K6's forward with (x - .) q_last^-1.
 
 The coefficient-form key switch of BFV's relinearization (keyswitch32) on
 the default engine: the QhatInv pre-scale in plain torch, then K4's
@@ -41,7 +47,15 @@ KERNEL_BCONV_ALPHA_MAX = 8 special primes and "xla-split" above.
   on all:
     moddown pair                    K1 over the P rows emitting the floor
                                     correction v, then K3: exact P -> Ql
-                                    conversion, forward NTT, (x - .) P^-1
+                                    conversion, forward NTT, (x - .) P^-1;
+                                    with the xla-bconv moddown (a
+                                    KeySwitch32 built with moddown="xla",
+                                    the JAX package's
+                                    PHANTOM_MODDOWN_VARIANT=xla): K1 with
+                                    v, K5 over both halves' P rows, the
+                                    correction - v (P mod p) in plain
+                                    torch, then one K2 with the (x - .)
+                                    P^-1 epilogue and the tensor adds
     rescale                         K1 of the last limb, + half, then K3
                                     with alpha = 1, post_sub, * q_last^-1
   the CKKS step's epilogue, fixed when its pipeline is built:
@@ -101,6 +115,7 @@ from ..schemes.context import Context, qlp_rows, resolve_device
 # special-base size, the xla-split modup above it (KeySwitch32.modup)
 KERNEL_BCONV_ALPHA_MAX = 8
 MODUP_ROUTES = ("auto", "kernel", "xla", "xla-split")
+MODDOWN_ROUTES = ("kernel", "xla")
 DEFAULT_ENGINE = "mxu-pallas"
 ROLL_ENGINE = "pallas-roll"
 ENGINES = (DEFAULT_ENGINE, ROLL_ENGINE)
@@ -158,20 +173,32 @@ def _qcol(q: torch.Tensor) -> torch.Tensor:
 
 class KeySwitch32(nn.Module):
     """u32 tables for hybrid key switching at one level on one engine
-    (ENGINES) and modup route (MODUP_ROUTES): the QP NTT tables with the
+    (ENGINES), modup route (MODUP_ROUTES; the roll engine takes
+    "xla-split" only, as "auto") and moddown route (MODDOWN_ROUTES, the
+    default engine's pair: K3, or "xla", K5 and K2): the QP NTT tables with the
     row indices of Ql, P, QlP and the concatenated per-digit complement
     rows, the conversion constants, the fused modup matrices (NTT and
     coefficient form) and the fused scales; on a BGV context also the
     t-corrected moddown's tables.  Holds no key material."""
 
     def __init__(self, ctx: Context, chain_index: int = 1,
-                 engine: str = DEFAULT_ENGINE, modup: str = "auto"):
+                 engine: str = DEFAULT_ENGINE, modup: str = "auto",
+                 moddown: str = "kernel"):
         super().__init__()
+        ctx.require_u32("KeySwitch32")
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r} not in {ENGINES}")
         if modup not in MODUP_ROUTES:
             raise ValueError(f"modup {modup!r} not in {MODUP_ROUTES}")
+        if moddown not in MODDOWN_ROUTES:
+            raise ValueError(f"moddown {moddown!r} not in {MODDOWN_ROUTES}")
+        if engine == ROLL_ENGINE:
+            if modup not in ("auto", "xla-split") or moddown != "kernel":
+                raise ValueError(f"the {ROLL_ENGINE!r} engine takes the "
+                                 "xla-split modup and its own moddown")
+            modup = "xla-split"
         self._engine = engine
+        self._moddown = moddown
         cd = ctx.get_context_data(chain_index)
         ks = cd.ks
         k = cd.size_ql
@@ -260,6 +287,11 @@ class KeySwitch32(nn.Module):
         return self._modup
 
     @property
+    def moddown(self) -> str:
+        """The moddown pair's route: "kernel" (K3) or "xla" (K5, K2)."""
+        return self._moddown
+
+    @property
     def fused_modup(self) -> bool:
         """True on the "kernel" route (K4, K3 self rows)."""
         return self._modup == "kernel"
@@ -271,16 +303,10 @@ class KeySwitch32(nn.Module):
 
 
 def build_keyswitch32(ctx: Context, chain_index: int = 1, device=None,
-                      engine: str = DEFAULT_ENGINE,
-                      modup: str = "auto") -> KeySwitch32:
-    return KeySwitch32(ctx, chain_index, engine, modup).to(
+                      engine: str = DEFAULT_ENGINE, modup: str = "auto",
+                      moddown: str = "kernel") -> KeySwitch32:
+    return KeySwitch32(ctx, chain_index, engine, modup, moddown).to(
         resolve_device(device))
-
-
-def _default_engine_only(ks: KeySwitch32, what: str) -> None:
-    if ks.engine != DEFAULT_ENGINE:
-        raise ValueError(f"{what}: runs on the {DEFAULT_ENGINE!r} engine "
-                         f"only so far, not {ks.engine!r}")
 
 
 def _fwd(ks: KeySwitch32, x: torch.Tensor, rows, ops: Kernels,
@@ -314,13 +340,13 @@ def modup_xla32(ks: KeySwitch32, y: torch.Tensor, c2_ntt: torch.Tensor,
                 ops: Kernels = KERNELS) -> torch.Tensor:
     """y: the pre-scaled iNTT rows (size_ql, N); c2_ntt: the NTT-form input.
     Per digit the complement rows convert (K5) and only those transform, in
-    one forward NTT over all digits (K2); the digit's own rows splice back
-    in NTT form.  Returns (beta, size_qlp, N)."""
+    one forward NTT over all digits (the engine's: K2 or K6); the digit's
+    own rows splice back in NTT form.  Returns (beta, size_qlp, N)."""
     k, alpha = ks.size_ql, ks.size_p
     compl = [matmul_reduce32(y[d * alpha:min((d + 1) * alpha, k)],
                              ks.digit_convs[d], ops.fold_matmul)
              for d in range(ks.beta)]
-    tn = ops.ntt_forward(torch.cat(compl), ks.ntt, ks.rows_compl)
+    tn = _fwd(ks, torch.cat(compl), ks.rows_compl, ops)
     out = []
     off = 0
     for d in range(ks.beta):
@@ -348,7 +374,11 @@ def modup_delta_xla32(ks: KeySwitch32, y: torch.Tensor,
 
 def _modup_inverse(ks: KeySwitch32, c2_ntt: torch.Tensor, ops: Kernels,
                    mul_by=None) -> torch.Tensor:
-    """K1: the iNTT of the Ql rows scaled by n^-1 * QhatInv."""
+    """The engine's iNTT of the Ql rows scaled by n^-1 * QhatInv: K1
+    (with K1's mul_by prologue) or K6."""
+    if ks.engine == ROLL_ENGINE:
+        return _inv(ks, c2_ntt, ks.rows_ql, ops, scale=ks.modup_scale,
+                    scale_shoup=ks.modup_scale_shoup)
     return ops.ntt_inverse(c2_ntt, ks.ntt, ks.rows_ql, scale=ks.modup_scale,
                            scale_shoup=ks.modup_scale_shoup, mul_by=mul_by)
 
@@ -357,9 +387,8 @@ def modup_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
                      ops: Kernels = KERNELS) -> torch.Tensor:
     """(size_ql, N) NTT form -> the modup tensor (beta, size_qlp, N), NTT
     form.  On the "kernel" route one K3 converts and transforms every QlP
-    row of every digit, the digit's own rows passed through; else
-    modup_xla32."""
-    _default_engine_only(ks, "modup_from_ntt32")
+    row of every digit, the digit's own rows passed through; else (the
+    roll engine too: K6 for the transforms) modup_xla32."""
     y = _modup_inverse(ks, c2_ntt, ops)
     if not ks.fused_modup:
         return modup_xla32(ks, y, c2_ntt, ops)
@@ -379,9 +408,8 @@ def inner_product32(ks: KeySwitch32, t_modup: torch.Tensor,
 
 def _modup_ip_split(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
                     ops: Kernels = KERNELS):
-    """modup_ip32 on the xla-split route at any alpha: modup_xla32, then
-    inner_product32."""
-    _default_engine_only(ks, "modup_ip32")
+    """modup_ip32 on the xla-split route at any alpha (and on the roll
+    engine): modup_xla32, then inner_product32 (K9)."""
     y = _modup_inverse(ks, c2_ntt, ops)
     return inner_product32(ks, modup_xla32(ks, y, c2_ntt, ops), evk, ops)
 
@@ -393,7 +421,6 @@ def modup_ip32(ks: KeySwitch32, c2_ntt: torch.Tensor, evk: torch.Tensor,
     never exists in memory); else _modup_ip_split."""
     if not ks.fused_modup:
         return _modup_ip_split(ks, c2_ntt, evk, ops)
-    _default_engine_only(ks, "modup_ip32")
     y = _modup_inverse(ks, c2_ntt, ops)
     s = ops.modup_ip(y, ks.modup_mats, c2_ntt.contiguous(), evk, ks.ntt,
                      ks.rows_qlp, k_data=ks.size_ql)
@@ -413,11 +440,15 @@ def _moddown_inputs(ks: KeySwitch32, xs, ops: Kernels):
 
 
 def _moddown(ks: KeySwitch32, xs, tensor_add, ops: Kernels,
-             rows_per_block=None) -> torch.Tensor:
+             rows_per_block=None, route: str = "kernel") -> torch.Tensor:
     """G = len(xs) <= 2 inputs (size_qlp, N) -> (G, size_ql, N): K1, then
     one K3 over G x size_ql outputs, or with rows_per_block (G = 2) one K8
-    serving that many output rows per block."""
+    serving that many output rows per block; on the "xla" route one K5
+    over the G alpha P rows, the v correction in plain torch and one K2
+    with the epilogue (_moddown_xla)."""
     y, v, sub = _moddown_inputs(ks, xs, ops)
+    if route == "xla":
+        return _moddown_xla(ks, y, v, sub, tensor_add, ops)
     if rows_per_block is not None:
         return ops.moddown_rows(y, ks.p_to_q.qhat_mod_p, v, ks.p_to_q.q_mod_p,
                                 sub, tensor_add, ks.ntt, ks.rows_ql, ks.pinv,
@@ -426,6 +457,20 @@ def _moddown(ks: KeySwitch32, xs, tensor_add, ops: Kernels,
         y, ks.moddown_mat[:len(xs)], ks.ntt, ks.rows_ql, v=v,
         vmul=ks.p_to_q.q_mod_p, sub_from=sub, epi_scale=ks.pinv,
         epi_scale_shoup=ks.pinv_shoup, tensor_add=tensor_add)
+
+
+def _moddown_xla(ks: KeySwitch32, y, v, sub, tensor_add,
+                 ops: Kernels) -> torch.Tensor:
+    """The xla-bconv moddown (the JAX package's moddown32_pair under
+    PHANTOM_MODDOWN_VARIANT=xla): delta = K5(y) - v (P mod q_i) over the
+    G halves' columns at once, then one K2 with the (sub - .) P^-1
+    epilogue and the tensor adds."""
+    delta = exact_from_scaled32(y.transpose(0, 1), v, ks.p_to_q,
+                                ops.fold_matmul).transpose(0, 1)
+    return ops.ntt_forward(delta.contiguous(), ks.ntt, ks.rows_ql,
+                           sub_from=sub, epi_scale=ks.pinv,
+                           epi_scale_shoup=ks.pinv_shoup,
+                           tensor_add=tensor_add)
 
 
 def _moddown_delta32(ks: KeySwitch32, x_p: torch.Tensor,
@@ -478,11 +523,12 @@ def moddown32(ks: KeySwitch32, x: torch.Tensor,
 
 def moddown32_pair(ks: KeySwitch32, x0: torch.Tensor, x1: torch.Tensor,
                    tensor_add=None, ops: Kernels = KERNELS):
-    """moddown32 of both key-switch halves in one K1 and one K3 launch (for
-    BGV one K1, two K5 and one K2: _moddown_bgv), bit-identical to two
+    """moddown32 of both key-switch halves in one K1 and one K3 launch (on
+    the "xla" moddown route K1, K5 and K2; for BGV one K1, two K5 and one
+    K2: _moddown_bgv, which is that route already), bit-identical to two
     moddown32 calls (which the roll engine makes).  tensor_add = (d1, d2)
-    adds the relin tensor terms c0 and c1 in K3's epilogue (the default
-    engine's CKKS moddown only)."""
+    adds the relin tensor terms c0 and c1 in K3's (K2's) epilogue (the
+    default engine's CKKS moddown only)."""
     if ks.engine != DEFAULT_ENGINE or ks.bgv:
         if tensor_add is not None:
             raise ValueError("moddown32_pair: tensor_add needs the "
@@ -491,7 +537,7 @@ def moddown32_pair(ks: KeySwitch32, x0: torch.Tensor, x1: torch.Tensor,
             out = _moddown_bgv(ks, [x0, x1], ops)
             return out[0], out[1]
         return moddown32(ks, x0, ops), moddown32(ks, x1, ops)
-    out = _moddown(ks, [x0, x1], tensor_add, ops)
+    out = _moddown(ks, [x0, x1], tensor_add, ops, route=ks.moddown)
     return out[0], out[1]
 
 
@@ -563,23 +609,26 @@ def keyswitch_from_ntt32(ks: KeySwitch32, c2_ntt: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class CKKSPipeline32(nn.Module):
-    """The step's state at one level: key-switch tables on a modup route
-    (`modup`, MODUP_ROUTES), the relin evk (beta, 2, size_qlp, N), the
-    rescale constants and the epilogue, fixed at construction: the moddown
-    pair then rescale (the default, as in the JAX package), K8 with
-    `moddown_rows` = R output rows per block, or K7 with `merged_epilogue`.
-    The two options exclude each other.  `ks`: the level's KeySwitch32 to
-    share (Fast32's), else one is built; evk may be None where only the
-    rescale runs.  Calling it runs mult_relin_rescale32."""
+    """The step's state at one level: key-switch tables on an engine
+    (ENGINES), a modup route (`modup`, MODUP_ROUTES) and a moddown
+    route (`moddown`, MODDOWN_ROUTES), the relin evk (beta, 2,
+    size_qlp, N), the rescale constants and the epilogue, fixed at
+    construction: the moddown pair then rescale (the default, as in the
+    JAX package), K8 with `moddown_rows` = R output rows per block, or
+    K7 with `merged_epilogue` (those two on the default engine's kernel
+    moddown, and exclusive). `ks`: the level's KeySwitch32 to share
+    (Fast32's), else one is built; evk may be None where only the
+    rescale runs. Calling it runs mult_relin_rescale32."""
 
     def __init__(self, ctx: Context, evk: torch.Tensor, chain_index: int = 1,
                  moddown_rows=None, merged_epilogue: bool = False,
                  engine: str = DEFAULT_ENGINE, modup: str = "auto",
-                 ks: KeySwitch32 = None):
+                 ks: KeySwitch32 = None, moddown: str = "kernel"):
         super().__init__()
-        if engine != DEFAULT_ENGINE:
-            raise ValueError(f"the CKKS step runs on the {DEFAULT_ENGINE!r} "
-                             f"engine only so far, not {engine!r}")
+        special = moddown_rows is not None or merged_epilogue
+        if special and (engine != DEFAULT_ENGINE or moddown != "kernel"):
+            raise ValueError("the K8 and K7 epilogues take the "
+                             f"{DEFAULT_ENGINE!r} engine's kernel moddown")
         if moddown_rows is not None:
             if merged_epilogue:
                 raise ValueError("choose one epilogue: moddown_rows or "
@@ -593,8 +642,8 @@ class CKKSPipeline32(nn.Module):
         if rc is None:
             raise ValueError(f"chain index {chain_index} has no prime to "
                              "rescale by")
-        self.ks = KeySwitch32(ctx, chain_index, modup=modup) if ks is None \
-            else ks
+        self.ks = KeySwitch32(ctx, chain_index, engine, modup, moddown) \
+            if ks is None else ks
         k = self.ks.size_ql
         self.register_buffer("evk", evk)
         self.register_buffer("rows_ql_next", _rows(range(k - 1)))
@@ -624,21 +673,32 @@ class CKKSPipeline32(nn.Module):
 def build_pipeline32(ctx: Context, rlk: torch.Tensor, chain_index: int = 1,
                      device=None, moddown_rows=None,
                      merged_epilogue: bool = False,
-                     engine: str = DEFAULT_ENGINE,
-                     modup: str = "auto") -> CKKSPipeline32:
-    """rlk: the relin key (dnum, 2, K, N) over QP; the epilogue options and
-    the modup route as CKKSPipeline32's; `engine` "mxu-pallas" only so
-    far."""
+                     engine: str = DEFAULT_ENGINE, modup: str = "auto",
+                     moddown: str = "kernel") -> CKKSPipeline32:
+    """rlk: the relin key (dnum, 2, K, N) over QP; the epilogue options,
+    the engine and the routes as CKKSPipeline32's."""
     return CKKSPipeline32(ctx, convert_key32(ctx, rlk, chain_index),
                           chain_index, moddown_rows, merged_epilogue,
-                          engine, modup).to(resolve_device(device))
+                          engine, modup, moddown=moddown).to(
+                              resolve_device(device))
 
 
 def _rescale(p: CKKSPipeline32, x: torch.Tensor,
              ops: Kernels = KERNELS) -> torch.Tensor:
-    """round(x / q_last) on NTT-form (2, k, N) -> (2, k-1, N)."""
+    """round(x / q_last) on NTT-form (2, k, N) -> (2, k-1, N): K1 and K3
+    (its alpha = 1 conversion reduces mod each q_i); on the roll engine K6,
+    the reduction in plain torch and K6 with the epilogue."""
     ks = p.ks
     k = ks.size_ql
+    if ks.engine == ROLL_ENGINE:
+        xl = _inv(ks, x[:, k - 1:k].contiguous(), ks.rows_ql[k - 1:k],
+                  ops).long()
+        xl = (xl + p.half) % u32(ks.mv_ql.q[k - 1:k])
+        q = _qcol(ks.mv_ql.q[:k - 1])
+        delta = ((xl % q - _qcol(p.half_mod_q)) % q).int()
+        return _fwd(ks, delta, p.rows_ql_next, ops,
+                    sub_from=x[:, :k - 1].contiguous(),
+                    epi_scale=p.qlast_inv, epi_scale_shoup=p.qlast_inv_shoup)
     xl = ops.ntt_inverse(x[:, k - 1:k].contiguous(), ks.ntt,
                          ks.rows_ql[k - 1:k])
     xl = ((xl.long() + p.half) % u32(ks.mv_ql.q[k - 1:k])).int()
@@ -660,6 +720,8 @@ def mult_relin_rescale32(p: CKKSPipeline32, d1: torch.Tensor,
     (_relin_rescale).  With merged_epilogue the result is a view: rows
     [0, size_ql - 1) of K7's output."""
     ks = p.ks
+    if ks.engine == ROLL_ENGINE:
+        return _mult_relin_rescale_roll(p, d1, d2, ops)
     if ks.modup == "xla-split":
         return _mult_relin_rescale_split(p, d1, d2, ops)
     if ks.modup == "xla":
@@ -697,6 +759,21 @@ def _mult_relin_rescale_split(p: CKKSPipeline32, d1: torch.Tensor,
     return _relin_rescale(p, s0, s1, d1, d2, ops)
 
 
+def _mult_relin_rescale_roll(p: CKKSPipeline32, d1: torch.Tensor,
+                             d2: torch.Tensor,
+                             ops: Kernels = KERNELS) -> torch.Tensor:
+    """The step on the roll engine, the JAX package's composed step: the
+    tensor product in plain torch, modup_ip32 (K6, K5 per digit, K6, K9),
+    two moddowns (K6, K5, K6 each), the sums, then the rescale."""
+    ks = p.ks
+    q = _qcol(ks.mv_ql.q)
+    c0, c1, c2 = _tensor_2x2(q, d1, d2)
+    s0, s1 = modup_ip32(ks, c2.int(), p.evk, ops)
+    m0, m1 = moddown32_pair(ks, s0, s1, ops=ops)
+    out = torch.stack([(c0 + m0) % q, (c1 + m1) % q]).int()
+    return _rescale(p, out, ops)
+
+
 def _mult_relin_rescale_preconv(p: CKKSPipeline32, d1: torch.Tensor,
                                 d2: torch.Tensor,
                                 ops: Kernels = KERNELS) -> torch.Tensor:
@@ -721,7 +798,7 @@ def _relin_rescale(p: CKKSPipeline32, s0, s1, d1, d2,
     ks = p.ks
     if not p.merged_epilogue:
         return _rescale(p, _moddown(ks, [s0, s1], (d1, d2), ops,
-                                    p.moddown_rows), ops)
+                                    p.moddown_rows, ks.moddown), ops)
     y, v, sub = _moddown_inputs(ks, [s0, s1], ops)
     out = ops.moddown_rescale(
         y, ks.p_to_q.qhat_mod_p, v, ks.p_to_q.q_mod_p, sub, (d1, d2), ks.ntt,

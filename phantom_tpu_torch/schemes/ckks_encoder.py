@@ -11,7 +11,9 @@ the rounded integers are the same; the budget check compares integers.
 The exact stages: the rounded coefficients reduce into each prime on the
 host, then the forward NTT over the level's rows (K2 on the card);
 decode takes the inverse NTT (K1) and composes the CRT exactly on the
-host.
+host.  On a context with primes of 2^30 or more (the u64 evaluator's)
+the residues are u64 words and both transforms are U1 (ops/ntt.py); the
+`ops` given map to KERNELS64 or, for pipeline32.PLAIN, PLAIN64.
 
 CKKSDeviceEncoder is the JAX package's device encoder on its u32 path
 (every prime below 2^30): the float stage is the double-float special FFT
@@ -36,14 +38,16 @@ import numpy as np
 import torch
 
 from ..ops.ckks_fft import CKKSFFTTables, round_coeffs, scatter_plain
-from ..ops.pipeline32 import KERNELS, Kernels
+from ..ops.pipeline32 import KERNELS, PLAIN, Kernels
 from .ciphertext import Plaintext
 from .context import Context, qlp_rows
+from .keyswitch import KERNELS64, PLAIN64, Kernels64
 
 
-def _rns(coeffs: np.ndarray, moduli, max_coeff: float) -> np.ndarray:
+def _rns(coeffs: np.ndarray, moduli, max_coeff: float,
+         wide: bool = False) -> np.ndarray:
     """Round the real coefficients to integers and reduce them mod each
-    prime: (len(moduli), N) int32."""
+    prime: (len(moduli), N) int32, or int64 words for a wide context."""
     if max_coeff < 2 ** 62:
         ints64 = np.round(coeffs).astype(np.int64)
         rns = np.stack([ints64 % np.int64(q) for q in moduli])
@@ -51,7 +55,18 @@ def _rns(coeffs: np.ndarray, moduli, max_coeff: float) -> np.ndarray:
         ints = [int(round(c)) for c in coeffs]
         rns = np.stack([np.array([x % q for x in ints], dtype=np.int64)
                         for q in moduli])
-    return rns.astype(np.int32)
+    return rns if wide else rns.astype(np.int32)
+
+
+def _transform(ctx: Context, ops, inverse: bool):
+    """(transform, tables) over the context's words: ops' K2 / K1 on a
+    32-bit context, U1 on a wide one."""
+    if ctx.wide:
+        ops64 = ops if isinstance(ops, Kernels64) else (
+            PLAIN64 if ops is PLAIN else KERNELS64)
+        fn = ops64.ntt_inverse if inverse else ops64.ntt_forward
+        return fn, ctx.ntt64
+    return (ops.ntt_inverse if inverse else ops.ntt_forward), ctx.ntt
 
 
 def _check_budget(max_coeff: float, moduli) -> None:
@@ -119,9 +134,11 @@ class CKKSEncoder:
         coeffs = self._coeffs(values, scale)
         max_coeff = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
         _check_budget(max_coeff, cd.moduli)
-        rns = torch.from_numpy(_rns(coeffs, cd.moduli, max_coeff)).to(
+        rns = torch.from_numpy(_rns(coeffs, cd.moduli, max_coeff,
+                                    ctx.wide)).to(
             ctx.key_q.device)
-        data = ops.ntt_forward(rns, ctx.ntt, ctx.rows_qp[:cd.size_ql])
+        fwd, tables = _transform(ctx, ops, False)
+        data = fwd(rns, tables, ctx.rows_qp[:cd.size_ql])
         return Plaintext(data=data, chain_index=ci, is_ntt_form=True,
                          scale=scale)
 
@@ -130,8 +147,9 @@ class CKKSEncoder:
         ctx = self.ctx
         cd = ctx.get_context_data(plain.chain_index)
         k = cd.size_ql
-        coeffs_rns = ops.ntt_inverse(plain.data.contiguous(), ctx.ntt,
-                                     ctx.rows_qp[:k]).cpu().numpy()
+        inv, tables = _transform(ctx, ops, True)
+        coeffs_rns = inv(plain.data.contiguous(), tables,
+                         ctx.rows_qp[:k]).cpu().numpy()
         moduli = list(cd.moduli)
         total = 1
         for q in moduli:
@@ -160,9 +178,10 @@ def encode_extended(enc: CKKSEncoder, values, scale: float,
     max_coeff = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
     _check_budget(max_coeff, moduli)
     dev = ctx.key_q.device
-    rns = torch.from_numpy(_rns(coeffs, moduli, max_coeff)).to(dev)
-    return ops.ntt_forward(rns, ctx.ntt, torch.tensor(rows, dtype=torch.int32,
-                                                      device=dev))
+    rns = torch.from_numpy(_rns(coeffs, moduli, max_coeff, ctx.wide)).to(dev)
+    fwd, tables = _transform(ctx, ops, False)
+    return fwd(rns, tables, torch.tensor(rows, dtype=torch.int32,
+                                         device=dev))
 
 
 class CKKSDeviceEncoder:

@@ -29,6 +29,17 @@ package takes 61-bit Bsk primes, which no 32-bit residue holds, so the
 port raises there.
 BFV and BGV contexts also hold `plain_ntt`, the tables mod t of the batch
 encoder's slot map.
+
+A context with a prime of 2^30 or more (`wide`, up to the reference's
+61-bit bound) is the u64 evaluator's (schemes/evaluate.py, the JAX
+package's generic path): it holds `ntt64`, u64 tables over QP, and no
+32-bit tables (`ntt` is None; `key_q` holds the moduli as u64 words),
+and each level's u64 constants (`ContextData.u64`: the moduli with
+their Barrett words, the rescale, key-switch and BGV constants of the
+JAX package's context, as int64 words) are built on first use on the
+context's device, like the 32-bit ones.  The 32-bit paths raise on it
+(`require_u32`).  A wide BFV context raises: BFV on the u64 path comes
+in a later slice.
 """
 
 from __future__ import annotations
@@ -40,8 +51,13 @@ import torch
 from torch import nn
 
 from .. import host
+from ..ops import bconv as bc64
+from ..ops.ntt import NTTTables64
 from ..ops.ntt32 import NTTTables32, u32_tensor
+from ..ops.rns_host import ModulusVec, i64_tensor, modulus_vec
 from .params import EncryptionParameters
+
+WIDE_PRIME = 1 << 30
 
 
 class RescaleConsts(NamedTuple):
@@ -108,10 +124,11 @@ class ContextData:
     on first use (None where the level or the scheme has none)."""
 
     def __init__(self, params: EncryptionParameters, chain_index: int,
-                 moduli, rl_moduli=(), bsk_moduli=()):
+                 moduli, rl_moduli=(), bsk_moduli=(), device=None):
         self.chain_index = chain_index
         self.moduli = tuple(moduli)
         self._params = params
+        self._device = device  # () -> the context's device
         self._rl_moduli = tuple(rl_moduli)
         self._bsk_moduli = tuple(bsk_moduli)
 
@@ -159,6 +176,117 @@ class ContextData:
         if not self._data or p.scheme != "bgv":
             return None
         return _bgv_consts(self.moduli, p.plain_modulus)
+
+    @cached_property
+    def u64(self) -> "Level64":
+        """The level's u64 constants on the context's device."""
+        return Level64(self, self._device())
+
+
+class Level64:
+    """A level's u64 constants (the device half of the JAX package's
+    ContextData): `mv` (Ql), `rescale`, `ks` and `bgv`, None where the
+    level or the scheme has none; int64 words on `device`."""
+
+    def __init__(self, cd: ContextData, device):
+        self.mv = modulus_vec(cd.moduli, device)
+        rc, ks, bgv = cd.rescale, cd.ks, cd.bgv
+        self.rescale = None if rc is None else RescaleConsts64(
+            qlast_inv=i64_tensor(rc.qlast_inv, device),
+            qlast_inv_shoup=i64_tensor(rc.qlast_inv_shoup, device),
+            half=rc.half, half_mod_q=i64_tensor(rc.half_mod_q, device))
+        self.ks = None if ks is None else _keyswitch_consts64(
+            cd, ks, device)
+        self.bgv = None if bgv is None else BGVConsts64(
+            q_to_t=bc64.consts_from_host(bgv.q_to_t, device),
+            qhalf_mod_q=i64_tensor(bgv.qhalf_mod_q, device),
+            qhalf_mod_t=bgv.qhalf_mod_t,
+            t_mv=modulus_vec([cd._params.plain_modulus], device),
+            neg_qlast_inv_mod_t=_t_word(bgv.neg_qlast_inv_mod_t,
+                                        cd._params.plain_modulus, device),
+            qlast_mod_qi=(None if bgv.qlast_mod_qi is None else
+                          i64_tensor(bgv.qlast_mod_qi, device)),
+            qlast_mod_qi_shoup=(None if bgv.qlast_mod_qi is None else
+                                i64_tensor([(v << 64) // q for v, q in zip(
+                                    bgv.qlast_mod_qi, cd.moduli)], device)))
+
+
+class RescaleConsts64(NamedTuple):
+    qlast_inv: torch.Tensor         # (k-1,) q_last^-1 mod q_i
+    qlast_inv_shoup: torch.Tensor
+    half: int                       # floor(q_last / 2)
+    half_mod_q: torch.Tensor        # (k-1,)
+
+
+class KeySwitchConsts64(NamedTuple):
+    """The JAX package's KeySwitchConsts as int64 words."""
+
+    digit_convs: Tuple[bc64.BaseConvConsts, ...]  # digit -> complement
+    p_to_q: bc64.BaseConvConsts
+    pinv_mod_q: torch.Tensor
+    pinv_shoup: torch.Tensor
+    qlp: ModulusVec                  # Ql then P rows
+    pow64_mod_qlp: torch.Tensor      # 2^64 mod each QlP prime
+    modup_scale: torch.Tensor        # n^-1 * digit QhatInv per Ql row
+    modup_scale_shoup: torch.Tensor
+    rows_qlp: torch.Tensor           # (size_qlp,) int32 rows of QP
+    p_to_t: Optional[bc64.BaseConvConsts] = None   # BGV only, below
+    phalf_mod_p: Optional[torch.Tensor] = None
+    phalf_mod_q: Optional[torch.Tensor] = None
+    phalf_mod_t: Optional[int] = None
+    neg_pinv_mod_t: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    bigp_mod_q: Optional[torch.Tensor] = None
+    bigp_shoup: Optional[torch.Tensor] = None
+    t_mv: Optional[ModulusVec] = None
+
+
+class BGVConsts64(NamedTuple):
+    q_to_t: bc64.BaseConvConsts
+    qhalf_mod_q: torch.Tensor
+    qhalf_mod_t: int
+    t_mv: ModulusVec
+    neg_qlast_inv_mod_t: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    qlast_mod_qi: Optional[torch.Tensor]
+    qlast_mod_qi_shoup: Optional[torch.Tensor]
+
+
+def _t_word(w: Optional[int], t: int, device):
+    """A constant mod t as U4's Shoup form takes it: (w, floor(w 2^64 /
+    t)), (1,) words each; None stays None."""
+    if w is None:
+        return None
+    return (i64_tensor([w], device), i64_tensor([(w << 64) // t], device))
+
+
+def _keyswitch_consts64(cd: ContextData, ks: KeySwitchConsts,
+                        device) -> KeySwitchConsts64:
+    p = cd._params
+    rows = list(range(cd.size_ql)) + list(range(p.size_q, p.size_qp))
+    qlp = [p.coeff_modulus[r] for r in rows]
+    bgv = {}
+    if ks.p_to_t is not None:
+        bgv = dict(p_to_t=bc64.consts_from_host(ks.p_to_t, device),
+                   phalf_mod_p=i64_tensor(ks.phalf_mod_p, device),
+                   phalf_mod_q=i64_tensor(ks.phalf_mod_q, device),
+                   phalf_mod_t=ks.phalf_mod_t,
+                   neg_pinv_mod_t=_t_word(ks.neg_pinv_mod_t,
+                                          p.plain_modulus, device),
+                   bigp_mod_q=i64_tensor(ks.bigp_mod_q, device),
+                   bigp_shoup=i64_tensor([(v << 64) // q for v, q in zip(
+                       ks.bigp_mod_q, cd.moduli)], device),
+                   t_mv=modulus_vec([p.plain_modulus], device))
+    return KeySwitchConsts64(
+        digit_convs=tuple(bc64.consts_from_host(c, device)
+                          for c in ks.digit_convs),
+        p_to_q=bc64.consts_from_host(ks.p_to_q, device),
+        pinv_mod_q=i64_tensor(ks.pinv_mod_q, device),
+        pinv_shoup=i64_tensor(ks.pinv_shoup, device),
+        qlp=modulus_vec(qlp, device),
+        pow64_mod_qlp=i64_tensor([(1 << 64) % q for q in qlp], device),
+        modup_scale=i64_tensor(ks.modup_scale, device),
+        modup_scale_shoup=i64_tensor(ks.modup_scale_shoup, device),
+        rows_qlp=torch.tensor(rows, dtype=torch.int32, device=device),
+        **bgv)
 
 
 def _rescale_consts(moduli) -> Optional[RescaleConsts]:
@@ -260,25 +388,39 @@ class Context(nn.Module):
         bfv = params.scheme == "bfv"
         bgv = params.scheme == "bgv"
         t = params.plain_modulus
-        self.rl_moduli = tuple(host.numth.get_primes_below(
-            min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
+        self.wide = max(qp) >= WIDE_PRIME
         self.bsk_moduli = tuple(bsk_base(params)) if (
             bfv and params.mul_tech == "behz") else ()
-        self.ntt = NTTTables32(host.make_rns_ntt_tables(
-            params.n, qp + list(self.rl_moduli) + list(self.bsk_moduli)))
+        if self.wide and bfv:
+            raise NotImplementedError(
+                "BFV with a prime of 2^30 or more (the u64 path: HPS, "
+                "HPSoverQ and the leveled multiplies) comes in the next "
+                "slice of the port")
+        self.rl_moduli = tuple(host.numth.get_primes_below(
+            min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
+        self.ntt = self.ntt64 = None
+        if self.wide:
+            self.ntt64 = NTTTables64(host.make_rns_ntt_tables(params.n, qp))
+            self.register_buffer("key_q", i64_tensor(qp))
+        else:
+            self.ntt = NTTTables32(host.make_rns_ntt_tables(
+                params.n, qp + list(self.rl_moduli) + list(self.bsk_moduli)))
+            self.register_buffer("key_q", u32_tensor(qp))
         self.plain_ntt = NTTTables32(host.make_rns_ntt_tables(
             params.n, [t])) if bfv or bgv else None
-        self.register_buffer("key_q", u32_tensor(qp))
         self.register_buffer("rows_qp", torch.arange(len(qp),
                                                      dtype=torch.int32))
         if bgv:  # t mod each QP prime and its Shoup word: BGV's t e noise
-            self.register_buffer("t_mod_q", u32_tensor([t % q for q in qp]))
-            self.register_buffer("t_mod_q_shoup", u32_tensor(
-                [(t % q << 32) // q for q in qp]))
+            words = i64_tensor if self.wide else u32_tensor
+            shift = 64 if self.wide else 32
+            self.register_buffer("t_mod_q", words([t % q for q in qp]))
+            self.register_buffer("t_mod_q_shoup", words(
+                [(t % q << shift) // q for q in qp]))
         data = params.data_moduli
-        self.chain = (ContextData(params, 0, qp),) + tuple(
+        dev = lambda: self.key_q.device  # noqa: E731
+        self.chain = (ContextData(params, 0, qp, device=dev),) + tuple(
             ContextData(params, ci, data[:params.size_q + 1 - ci],
-                        self.rl_moduli, self.bsk_moduli)
+                        self.rl_moduli, self.bsk_moduli, dev)
             for ci in range(1, params.size_q + 1))
 
     @property
@@ -287,6 +429,32 @@ class Context(nn.Module):
 
     def data_level_count(self) -> int:
         return len(self.chain) - 1
+
+    @property
+    def key_mv(self) -> ModulusVec:
+        """QP with its Barrett words (u64 contexts), on the context's
+        device."""
+        t = self.ntt64
+        return ModulusVec(t.q, t.ratio_lo, t.ratio_hi)
+
+    def require_u32(self, what: str) -> None:
+        """Raise where a 32-bit path meets a wide context."""
+        if self.wide:
+            raise ValueError(
+                f"{what}: the 32-bit paths take primes below 2^30; this "
+                "context has wider ones (the u64 evaluator, "
+                "schemes/evaluate.py, runs it)")
+
+    def require_u64(self, what: str) -> None:
+        """Raise where the u64 evaluator meets a context it does not
+        run."""
+        if self.params.scheme == "bfv":
+            raise NotImplementedError(
+                f"{what}: BFV on the u64 path comes in the next slice")
+        if not self.wide:
+            raise ValueError(
+                f"{what}: the u64 evaluator runs contexts with a prime of "
+                "2^30 or more; this one takes the 32-bit paths (Fast32)")
 
     def get_context_data(self, chain_index: int) -> ContextData:
         if not 0 <= chain_index < len(self.chain):

@@ -1,0 +1,519 @@
+"""The u64 evaluator: CKKS and BGV verbs over primes up to 2^61
+(counterpart of phantom_tpu/schemes/evaluate.py, the JAX package's
+generic path, `bench.py --path u64`).
+
+Each verb is a function of the context and the port's Ciphertexts, whose
+data are u64 words stored as int64 tensors, (size, L, N), on the
+context's device: add, sub, negate, add_many and the plain ops;
+multiply, square, relinearize and multiply_and_relin; rescale_to_next,
+mod_switch_to_next and mod_switch_to (BGV's divides by q_last keeping
+the value mod t and tracks the correction factor; unequal factors are
+balanced before an add); apply_galois, the rotations, complex_conjugate,
+hoisting and hoisted_linear_combo.  The bookkeeping follows the JAX
+package verb for verb, and so do the results, bit for bit.
+
+The kernels: U1 (ops/ntt.py) takes every NTT, U2 (ops/bconv.py) every
+base conversion, U3 (schemes/keyswitch.py) every key inner product and
+U4 (ops/polyops.py) the tensor and plain products, the moddown's and
+the rescale's (x - delta) w, the balanced add's scaling, and the
+products and reductions of one row (the rescale's last limb mod each
+q_i, BGV's u mod t and its corrections u P and u q_last); additions and
+subtractions stay plain torch.  Every verb takes `ops`, the kernels
+it calls (keyswitch.KERNELS64, or PLAIN64 for the plain versions).
+
+BFV's verbs (the HPS, BEHZ, HPSoverQ and leveled multiplies) come in the
+next slice: on a BFV context every verb raises NotImplementedError, and
+so does a coefficient-form ciphertext, which only BFV makes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..fast32 import _balance_factors
+from ..ops import modmath as mm
+from ..ops import polyops as po
+from ..ops.rns_host import i64_tensor
+from . import galois as gal
+from .ciphertext import Ciphertext, Plaintext
+from .context import Context, ContextData
+from .keyswitch import (KERNELS64, Kernels64, evk_rows, inner_product_evk,
+                        keyswitch_from_ntt, moddown_ntt, modup_from_ntt)
+
+
+def _cd(ctx: Context, ct, what: str = "the u64 evaluator") -> ContextData:
+    ctx.require_u64(what)
+    if not ct.is_ntt_form and isinstance(ct, Ciphertext):
+        raise NotImplementedError(f"{what}: coefficient-form ciphertexts "
+                                  "are BFV's, which comes in the next slice")
+    return ctx.get_context_data(ct.chain_index)
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    return v.view(-1, 1)
+
+
+def _tool(ctx: Context) -> gal.GaloisTool:
+    tool = getattr(ctx, "_galois_tool", None)
+    if tool is None:
+        tool = ctx._galois_tool = gal.GaloisTool(ctx.params.n)
+    return tool
+
+
+def _check_compatible(ct1: Ciphertext, ct2: Ciphertext,
+                      check_scale: bool = True) -> None:
+    if ct1.chain_index != ct2.chain_index:
+        raise ValueError("ciphertexts are at different levels")
+    if ct1.is_ntt_form != ct2.is_ntt_form:
+        raise ValueError("NTT form mismatch")
+    if check_scale and abs(ct1.scale - ct2.scale) > 1e-6 * ct1.scale:
+        raise ValueError("scale mismatch")
+
+
+def _rows(ctx: Context, k: int) -> torch.Tensor:
+    return ctx.rows_qp[:k]
+
+
+# ---------------------------------------------------------------------------
+# linear ops
+# ---------------------------------------------------------------------------
+
+def negate(ctx: Context, ct: Ciphertext) -> Ciphertext:
+    cd = _cd(ctx, ct, "negate")
+    return ct.replace(data=po.neg_rns(ct.data, cd.u64.mv))
+
+
+def _pad_to(data: torch.Tensor, size: int) -> torch.Tensor:
+    if data.shape[0] == size:
+        return data
+    return torch.cat([data, data.new_zeros((size - data.shape[0],)
+                                           + tuple(data.shape[1:]))])
+
+
+def _balance_correction(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
+                        ops: Kernels64):
+    """Scale both BGV operands to a common correction factor, each by the
+    centered representative of its multiplier: U4's Shoup form with w_l =
+    that representative mod q_l."""
+    t = ctx.params.plain_modulus
+    f, m1, m2 = _balance_factors(ct1.correction_factor,
+                                 ct2.correction_factor, t)
+    cd = ctx.get_context_data(ct1.chain_index)
+    mv = cd.u64.mv
+
+    def scale_ct(ct, m):
+        if m == 1:
+            return ct.replace(correction_factor=f)
+        centered = m - t if m > t // 2 else m
+        w = [centered % q for q in cd.moduli]
+        scaled = ops.sub_mul_shoup(
+            ct.data, i64_tensor(w, mv.q.device),
+            i64_tensor([(v << 64) // q for v, q in zip(w, cd.moduli)],
+                       mv.q.device), mv)
+        return ct.replace(data=scaled, correction_factor=f)
+
+    return scale_ct(ct1, m1), scale_ct(ct2, m2)
+
+
+def _add_sub(ctx: Context, ct1: Ciphertext, ct2: Ciphertext, fn, what: str,
+             ops: Kernels64):
+    _check_compatible(ct1, ct2)
+    cd = _cd(ctx, ct1, what)
+    if (ctx.params.scheme == "bgv"
+            and ct1.correction_factor != ct2.correction_factor):
+        ct1, ct2 = _balance_correction(ctx, ct1, ct2, ops)
+    size = max(ct1.size, ct2.size)
+    return ct1.replace(data=fn(_pad_to(ct1.data, size),
+                               _pad_to(ct2.data, size), cd.u64.mv))
+
+
+def add(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
+        ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """ct1 + ct2; BGV operands with unequal correction factors are
+    balanced first (U4)."""
+    return _add_sub(ctx, ct1, ct2, po.add_rns, "add", ops)
+
+
+def sub(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
+        ops: Kernels64 = KERNELS64) -> Ciphertext:
+    return _add_sub(ctx, ct1, ct2, po.sub_rns, "sub", ops)
+
+
+def add_many(ctx: Context, cts, ops: Kernels64 = KERNELS64) -> Ciphertext:
+    cts = list(cts)
+    if not cts:
+        raise ValueError("add_many needs at least one ciphertext")
+    acc = cts[0]
+    for ct in cts[1:]:
+        acc = add(ctx, acc, ct, ops)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# multiplication and relinearization
+# ---------------------------------------------------------------------------
+
+def multiply(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
+             ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """The tensor product (U4 for two size-2 operands)."""
+    _check_compatible(ct1, ct2, check_scale=False)
+    cd = _cd(ctx, ct1, "multiply")
+    mv = cd.u64.mv
+    if ct1.size == 2 and ct2.size == 2:
+        prod = ops.tensor_prod_2x2(ct1.data, ct2.data, mv)
+    else:
+        prod = po.tensor_prod_mxn(ct1.data, ct2.data, mv)
+    if ctx.params.scheme == "ckks":
+        return ct1.replace(data=prod, scale=ct1.scale * ct2.scale)
+    t = ctx.params.plain_modulus
+    return ct1.replace(data=prod, correction_factor=(
+        ct1.correction_factor * ct2.correction_factor) % t)
+
+
+def square(ctx: Context, ct: Ciphertext,
+           ops: Kernels64 = KERNELS64) -> Ciphertext:
+    cd = _cd(ctx, ct, "square")
+    if ct.size != 2:
+        return multiply(ctx, ct, ct, ops)
+    prod = ops.tensor_square_2x2(ct.data, cd.u64.mv)
+    if ctx.params.scheme == "ckks":
+        return ct.replace(data=prod, scale=ct.scale * ct.scale)
+    t = ctx.params.plain_modulus
+    return ct.replace(data=prod,
+                      correction_factor=ct.correction_factor ** 2 % t)
+
+
+def relinearize(ctx: Context, ct: Ciphertext, rlk: torch.Tensor,
+                ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """A size-3 ciphertext -> size 2, by the relin key (dnum, 2, K, N)."""
+    if ct.size != 3:
+        raise ValueError("relinearize expects a size-3 ciphertext")
+    cd = _cd(ctx, ct, "relinearize")
+    mv = cd.u64.mv
+    sw = keyswitch_from_ntt(ctx, cd, ct.data[2], rlk, ops)
+    return ct.replace(data=torch.stack([po.add_rns(ct.data[0], sw[0], mv),
+                                        po.add_rns(ct.data[1], sw[1], mv)]))
+
+
+def multiply_and_relin(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
+                       rlk: torch.Tensor,
+                       ops: Kernels64 = KERNELS64) -> Ciphertext:
+    return relinearize(ctx, multiply(ctx, ct1, ct2, ops), rlk, ops)
+
+
+# ---------------------------------------------------------------------------
+# plaintext ops
+# ---------------------------------------------------------------------------
+
+def _bgv_plain(ctx: Context, cd: ContextData, ct: Ciphertext,
+               pt: Plaintext, ops: Kernels64) -> torch.Tensor:
+    """BGV's plaintext m (times the correction factor) lifted to NTT form
+    over Ql."""
+    from .keys import bgv_lift_plain_ntt64
+    t = ctx.params.plain_modulus
+    m = pt.data[0]
+    f = ct.correction_factor % t
+    if f != 1:
+        m = m * f % t
+    return bgv_lift_plain_ntt64(ctx, cd, m, ops)
+
+
+def _plain_c0(ctx: Context, ct: Ciphertext, pt: Plaintext, fn,
+              ops: Kernels64, what: str) -> Ciphertext:
+    cd = _cd(ctx, ct, what)
+    plain = (pt.data if ctx.params.scheme == "ckks"
+             else _bgv_plain(ctx, cd, ct, pt, ops))
+    c0 = fn(ct.data[0], plain, cd.u64.mv)
+    return ct.replace(data=torch.cat([c0.unsqueeze(0), ct.data[1:]]))
+
+
+def add_plain(ctx: Context, ct: Ciphertext, pt: Plaintext,
+              ops: Kernels64 = KERNELS64) -> Ciphertext:
+    return _plain_c0(ctx, ct, pt, po.add_rns, ops, "add_plain")
+
+
+def sub_plain(ctx: Context, ct: Ciphertext, pt: Plaintext,
+              ops: Kernels64 = KERNELS64) -> Ciphertext:
+    return _plain_c0(ctx, ct, pt, po.sub_rns, ops, "sub_plain")
+
+
+def multiply_plain(ctx: Context, ct: Ciphertext, pt: Plaintext,
+                   ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """ct * pt, NTT form (U4): CKKS's scale multiplies; BGV's plaintext
+    enters without the correction factor, as in the JAX package."""
+    from .keys import bgv_lift_plain_ntt64
+    cd = _cd(ctx, ct, "multiply_plain")
+    mv = cd.u64.mv
+    if ctx.params.scheme == "ckks":
+        return ct.replace(data=ops.mul_rns(ct.data, pt.data, mv),
+                          scale=ct.scale * pt.scale)
+    m_ntt = bgv_lift_plain_ntt64(ctx, cd, pt.data[0], ops)
+    return ct.replace(data=ops.mul_rns(ct.data, m_ntt, mv))
+
+
+# ---------------------------------------------------------------------------
+# rescale and modulus switching
+# ---------------------------------------------------------------------------
+
+def _divide_round_qlast_ntt(ctx: Context, cd: ContextData, x: torch.Tensor,
+                            ops: Kernels64) -> torch.Tensor:
+    """round(x / q_last) over the remaining limbs, NTT form in and out."""
+    lv = cd.u64
+    rc = lv.rescale
+    k = cd.size_ql
+    mv = lv.mv
+    xl = ops.ntt_inverse(x[..., k - 1:k, :], ctx.ntt64,
+                         ctx.rows_qp[k - 1:k])
+    xl = mm.add_mod(xl, rc.half, mv.q[k - 1])
+    rest = mv.slice(0, k - 1)
+    red = po.rows_times(xl, None, None, rest, ops.sub_mul_shoup)
+    delta = mm.sub_mod(red, _col(rc.half_mod_q), _col(rest.q))
+    delta_ntt = ops.ntt_forward(delta, ctx.ntt64, _rows(ctx, k - 1))
+    return ops.sub_mul_shoup(x[..., :k - 1, :], rc.qlast_inv,
+                             rc.qlast_inv_shoup, rest, delta_ntt)
+
+
+def rescale_to_next(ctx: Context, ct: Ciphertext,
+                    ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """CKKS: divide by q_last with rounding; the scale divides by it."""
+    if ctx.params.scheme != "ckks":
+        raise ValueError("rescale is CKKS-only; use mod_switch for BFV/BGV")
+    cd = _cd(ctx, ct, "rescale_to_next")
+    if cd.size_ql < 2:
+        raise ValueError("cannot rescale: last level")
+    qlast = ctx.params.data_moduli[cd.size_ql - 1]
+    return ct.replace(data=_divide_round_qlast_ntt(ctx, cd, ct.data, ops),
+                      chain_index=ct.chain_index + 1,
+                      scale=ct.scale / qlast)
+
+
+def _bgv_mod_switch(ctx: Context, cd: ContextData, ct: Ciphertext,
+                    ops: Kernels64):
+    """Subtract delta == c (mod q_last), == 0 (mod t), divide exactly by
+    q_last; the plaintext picks up q_last^-1 mod t (the correction
+    factor)."""
+    lv = cd.u64
+    bgv, rc, mv = lv.bgv, lv.rescale, lv.mv
+    k = cd.size_ql
+    x = ct.data
+    c_last = ops.ntt_inverse(x[..., k - 1:k, :], ctx.ntt64,
+                             ctx.rows_qp[k - 1:k])
+    # u = [-c_last q_last^-1]_t: Shoup's product takes c_last unreduced
+    u = ops.sub_mul_shoup(c_last, *bgv.neg_qlast_inv_mod_t, bgv.t_mv)
+    rest = mv.slice(0, k - 1)
+    delta = mm.add_mod(po.rows_times(c_last, None, None, rest,
+                                     ops.sub_mul_shoup),
+                       po.rows_times(u, bgv.qlast_mod_qi,
+                                     bgv.qlast_mod_qi_shoup, rest,
+                                     ops.sub_mul_shoup), _col(rest.q))
+    delta_ntt = ops.ntt_forward(delta, ctx.ntt64, _rows(ctx, k - 1))
+    out = ops.sub_mul_shoup(x[..., :k - 1, :], rc.qlast_inv,
+                            rc.qlast_inv_shoup, rest, delta_ntt)
+    t_int = ctx.params.plain_modulus
+    qlast = ctx.params.data_moduli[k - 1]
+    return out, ct.correction_factor * pow(qlast % t_int, -1, t_int) % t_int
+
+
+def mod_switch_to_next(ctx: Context, ct: Ciphertext,
+                       ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """Drop the last prime: CKKS drops the limb (scale unchanged), BGV
+    divides by q_last keeping the value mod t."""
+    cd = _cd(ctx, ct, "mod_switch_to_next")
+    if cd.size_ql < 2:
+        raise ValueError("cannot mod-switch: last level")
+    if ctx.params.scheme == "ckks":
+        return ct.replace(data=ct.data[..., :cd.size_ql - 1, :],
+                          chain_index=ct.chain_index + 1)
+    out, f = _bgv_mod_switch(ctx, cd, ct, ops)
+    return ct.replace(data=out, chain_index=ct.chain_index + 1,
+                      correction_factor=f)
+
+
+def mod_switch_to(ctx: Context, ct: Ciphertext, chain_index: int,
+                  ops: Kernels64 = KERNELS64) -> Ciphertext:
+    while ct.chain_index < chain_index:
+        ct = mod_switch_to_next(ctx, ct, ops)
+    return ct
+
+
+def mod_switch_plain_to_next(ctx: Context, pt: Plaintext) -> Plaintext:
+    """Drop the last prime of an NTT-form (CKKS) plaintext."""
+    cd = ctx.get_context_data(pt.chain_index)
+    if cd.size_ql < 2:
+        raise ValueError("cannot mod-switch plaintext: last level")
+    return pt.replace(data=pt.data[..., :cd.size_ql - 1, :],
+                      chain_index=pt.chain_index + 1)
+
+
+def mod_switch_plain_to(ctx: Context, pt: Plaintext,
+                        chain_index: int) -> Plaintext:
+    while pt.chain_index < chain_index:
+        pt = mod_switch_plain_to_next(ctx, pt)
+    return pt
+
+
+# ---------------------------------------------------------------------------
+# Galois automorphisms and rotations
+# ---------------------------------------------------------------------------
+
+def _key_index(glk, elt: int) -> int:
+    if elt not in glk.elts:
+        raise ValueError(f"no galois key for element {elt}")
+    return glk.elts.index(elt)
+
+
+def apply_galois(ctx: Context, ct: Ciphertext, elt: int, glk,
+                 ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """sigma_elt, then the key switch of c1 back to s; glk:
+    keys.GaloisKeys."""
+    if ct.size != 2:
+        raise ValueError("apply_galois requires a size-2 ciphertext "
+                         "(relinearize first)")
+    cd = _cd(ctx, ct, "apply_galois")
+    kidx = _key_index(glk, elt)
+    tool = _tool(ctx)
+    c0p = tool.apply_ntt(ct.data[0], elt)
+    c1p = tool.apply_ntt(ct.data[1], elt)
+    sw = keyswitch_from_ntt(ctx, cd, c1p, glk.data[kidx], ops)
+    return ct.replace(data=torch.stack([po.add_rns(c0p, sw[0], cd.u64.mv),
+                                        sw[1]]))
+
+
+def _naf(value: int):
+    """Non-adjacent form: the signed powers of two summing to value."""
+    out = []
+    while value:
+        zs = value & 3
+        if zs == 1:
+            out.append(1)
+            value -= 1
+        elif zs == 3:
+            out.append(-1)
+            value += 1
+        else:
+            out.append(0)
+        value >>= 1
+    return [d << i for i, d in enumerate(out) if d]
+
+
+def rotate(ctx: Context, ct: Ciphertext, step: int, glk,
+           ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """Rotate by `step`, by its NAF decomposition where its own element
+    has no key."""
+    n = ctx.params.n
+    if step % (n // 2) == 0:
+        return ct
+    elt = gal.get_elt_from_step(step, n)
+    if elt in glk.elts:
+        return apply_galois(ctx, ct, elt, glk, ops)
+    for part in _naf(step):
+        e = gal.get_elt_from_step(part, n)
+        if e not in glk.elts:
+            raise ValueError(f"no galois key for step {part}")
+        ct = apply_galois(ctx, ct, e, glk, ops)
+    return ct
+
+
+def rotate_rows(ctx: Context, ct: Ciphertext, step: int, glk,
+                ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """BGV row rotation."""
+    return rotate(ctx, ct, step, glk, ops)
+
+
+def rotate_columns(ctx: Context, ct: Ciphertext, glk,
+                   ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """BGV column swap: the element 2N - 1."""
+    return apply_galois(ctx, ct, 2 * ctx.params.n - 1, glk, ops)
+
+
+def rotate_vector(ctx: Context, ct: Ciphertext, step: int, glk,
+                  ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """CKKS slot rotation."""
+    return rotate(ctx, ct, step, glk, ops)
+
+
+def complex_conjugate(ctx: Context, ct: Ciphertext, glk,
+                      ops: Kernels64 = KERNELS64) -> Ciphertext:
+    return apply_galois(ctx, ct, 2 * ctx.params.n - 1, glk, ops)
+
+
+def hoisting(ctx: Context, ct: Ciphertext, glk, steps,
+             ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """sum_s rotate(ct, s) with one modup and one moddown pair: per step
+    the permuted c0 and the inner product of the shared modup read
+    through the step's permutation (U3's perm)."""
+    if ct.size != 2:
+        raise ValueError("hoisting requires a size-2 ciphertext")
+    cd = _cd(ctx, ct, "hoisting")
+    lv = cd.u64
+    tool = _tool(ctx)
+    elts = [gal.get_elt_from_step(s, ctx.params.n) for s in steps]
+    kidx = [_key_index(glk, e) for e in elts]
+    t_modup = modup_from_ntt(ctx, cd, ct.data[1], ops)
+    qlp_q = _col(lv.ks.qlp.q)
+    acc_c0 = acc_cx = None
+    for elt, ki in zip(elts, kidx):
+        c0p = tool.apply_ntt(ct.data[0], elt)
+        prod = inner_product_evk(t_modup, evk_rows(ctx, glk.data[ki], cd),
+                                 cd, ops, tool.ntt_perm(elt, ct.data.device))
+        acc_c0 = c0p if acc_c0 is None else po.add_rns(acc_c0, c0p, lv.mv)
+        acc_cx = prod if acc_cx is None else mm.add_mod(acc_cx, prod, qlp_q)
+    cx0 = moddown_ntt(ctx, cd, acc_cx[0], ops)
+    cx1 = moddown_ntt(ctx, cd, acc_cx[1], ops)
+    return ct.replace(data=torch.stack([po.add_rns(acc_c0, cx0, lv.mv),
+                                        cx1]))
+
+
+def hoisted_linear_combo(ctx: Context, ct: Ciphertext, glk, steps, pts_qlp,
+                         pts_scale: float,
+                         t_modup: Optional[torch.Tensor] = None,
+                         ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """sum_s pt_s * rotate(ct, s) with one modup and one moddown: the
+    weights (size_qlp, N) NTT form over QlP (ckks_encoder.encode_extended)
+    multiply each step's key-switch product while it still lives over QlP;
+    a step of 0 mod N/2 needs no key switch.  t_modup: a shared
+    modup_from_ntt of c1."""
+    if ctx.params.scheme != "ckks":
+        raise ValueError("hoisted_linear_combo expects NTT-form CKKS input")
+    if ct.size != 2:
+        raise ValueError("requires a size-2 ciphertext")
+    cd = _cd(ctx, ct, "hoisted_linear_combo")
+    lv = cd.u64
+    mv, qlp = lv.mv, lv.ks.qlp
+    k = cd.size_ql
+    n = ctx.params.n
+    tool = _tool(ctx)
+    c0, c1 = ct.data[0], ct.data[1]
+    if t_modup is None:
+        t_modup = modup_from_ntt(ctx, cd, c1, ops)
+    acc_c0 = acc_c1 = acc_cx = None
+    for s, pt in zip(steps, pts_qlp):
+        if s % (n // 2) == 0:
+            term0 = ops.mul_rns(c0, pt[:k], mv)
+            term1 = ops.mul_rns(c1, pt[:k], mv)
+            acc_c1 = term1 if acc_c1 is None else po.add_rns(acc_c1, term1,
+                                                             mv)
+        else:
+            elt = gal.get_elt_from_step(s, n)
+            if elt not in glk.elts:
+                raise ValueError(f"no galois key for step {s}")
+            ki = glk.elts.index(elt)
+            prod = inner_product_evk(
+                t_modup, evk_rows(ctx, glk.data[ki], cd), cd, ops,
+                tool.ntt_perm(elt, c0.device))
+            weighted = ops.mul_rns(prod, pt, qlp)
+            term0 = ops.mul_rns(tool.apply_ntt(c0, elt), pt[:k], mv)
+            acc_cx = weighted if acc_cx is None else mm.add_mod(
+                acc_cx, weighted, _col(qlp.q))
+        acc_c0 = term0 if acc_c0 is None else po.add_rns(acc_c0, term0, mv)
+    if acc_cx is None:
+        out0, out1 = acc_c0, acc_c1
+    else:
+        cx0 = moddown_ntt(ctx, cd, acc_cx[0], ops)
+        cx1 = moddown_ntt(ctx, cd, acc_cx[1], ops)
+        out0 = po.add_rns(acc_c0, cx0, mv)
+        out1 = cx1 if acc_c1 is None else po.add_rns(cx1, acc_c1, mv)
+    return ct.replace(data=torch.stack([out0, out1]),
+                      scale=ct.scale * pts_scale)

@@ -35,10 +35,14 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops import bconv as bconv64
+from ..ops import modmath as mm64
+from ..ops import polyops as po64
 from ..ops import sampling as smp
 from ..ops.bconv32 import BaseConvConsts32, bconv_exact32
 from ..ops.modmath32 import mul_mod_shoup32, u32
 from ..ops.ntt32 import u32_tensor
+from ..ops.rns_host import i64_tensor
 from ..ops.pipeline32 import (KERNELS, Kernels, KeySwitch32, _fwd, _inv,
                               build_keyswitch32, moddown32_pair,
                               moddown_coeff32)
@@ -46,6 +50,7 @@ from ..ops.scaleround32 import ExactScaleRound32, scale_and_round_exact32
 from . import galois as gal
 from .ciphertext import Ciphertext, Plaintext
 from .context import Context
+from .keyswitch import KERNELS64, Kernels64
 
 
 def _qcol(q: torch.Tensor) -> torch.Tensor:
@@ -411,3 +416,283 @@ def invariant_noise_budget(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
     if norm == 0:
         return total.bit_length() - 1
     return max((total.bit_length() - 1) - (2 * norm).bit_length(), 0)
+
+
+# ---------------------------------------------------------------------------
+# the u64 half (contexts with a prime of 2^30 or more): the JAX package's
+# keys.py on u64 words, the samples as tensors in the *_core64 functions
+# ---------------------------------------------------------------------------
+
+def lift_signed_to_rns64(e: torch.Tensor, mv, multiplier=None
+                         ) -> torch.Tensor:
+    """Signed (..., N) small integers -> (..., L, N) u64 residues of mv,
+    times the per-limb u64 `multiplier` (L,) when given (BGV's t e)."""
+    q, rlo, rhi = mv.col()
+    r = mm64.reduce_i64_centered(e.long().unsqueeze(-2), q)
+    if multiplier is not None:
+        r = mm64.mul_mod(r, multiplier.view(-1, 1), q, rlo, rhi)
+    return r
+
+
+def _t_mult64(ctx: Context, rows: int = None):
+    """BGV's noise multiplier t mod q over the first `rows` QP rows (all
+    by default); None for CKKS."""
+    if ctx.params.scheme != "bgv":
+        return None
+    return ctx.t_mod_q if rows is None else ctx.t_mod_q[:rows]
+
+
+def gen_secret_core64(ctx: Context, s: torch.Tensor,
+                      ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """The ternary vector s (N,) -> the secret key, NTT form over QP."""
+    ctx.require_u64("gen_secret_key")
+    return ops.ntt_forward(lift_signed_to_rns64(s, ctx.key_mv), ctx.ntt64,
+                           ctx.rows_qp)
+
+
+def encrypt_zero_sym_core64(ctx: Context, sk: torch.Tensor, a: torch.Tensor,
+                            e: torch.Tensor, ops: Kernels64 = KERNELS64):
+    """(c0, c1) = (-(a s + e), a) in NTT form at the key level (t e for
+    BGV): a (..., K, N) uniform, e (..., N) CBD."""
+    mv = ctx.key_mv
+    e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx)),
+                            ctx.ntt64, ctx.rows_qp)
+    a_s = ops.mul_rns(a, sk, mv)
+    return po64.neg_rns(po64.add_rns(a_s, e_ntt, mv), mv), a
+
+
+def gen_kswitch_core64(ctx: Context, sk: torch.Tensor, new_key: torch.Tensor,
+                       a: torch.Tensor, e: torch.Tensor,
+                       ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """The key-switching key for `new_key` (K, N): (dnum, 2, K, N), digit
+    d's encryption of zero with P * new_key (U4, by P mod q and its Shoup
+    word) added on its own rows."""
+    p = ctx.params
+    alpha = p.size_p
+    big_p = 1
+    for v in p.special_moduli:
+        big_p *= v
+    mv = ctx.key_mv
+    pm = [big_p % v for v in p.coeff_modulus]
+    dev = new_key.device
+    term = ops.sub_mul_shoup(
+        new_key, i64_tensor(pm, dev),
+        i64_tensor([(x << 64) // v for x, v in zip(pm, p.coeff_modulus)],
+                   dev), mv)
+    c0, c1 = encrypt_zero_sym_core64(ctx, sk, a, e, ops)
+    q = mv.q.view(-1, 1)
+    c0 = c0.clone()
+    for d in range(a.shape[0]):
+        lo, hi = d * alpha, min((d + 1) * alpha, p.size_q)
+        c0[d, lo:hi] = mm64.add_mod(c0[d, lo:hi], term[lo:hi], q[lo:hi])
+    return torch.stack([c0, c1], dim=1)
+
+
+def gen_relin_core64(ctx: Context, sk: torch.Tensor, a: torch.Tensor,
+                     e: torch.Tensor, ops: Kernels64 = KERNELS64):
+    """The relin key from its samples: switches s^2 to s."""
+    return gen_kswitch_core64(ctx, sk, ops.mul_rns(sk, sk, ctx.key_mv), a, e,
+                              ops)
+
+
+def gen_galois_core64(ctx: Context, sk: torch.Tensor, elt: int,
+                      a: torch.Tensor, e: torch.Tensor,
+                      ops: Kernels64 = KERNELS64):
+    """One Galois key from its samples: switches sigma_elt(s) to s."""
+    perm = torch.from_numpy(gal.make_ntt_perm(elt, ctx.params.n)).to(
+        sk.device)
+    return gen_kswitch_core64(ctx, sk, sk[:, perm], a, e, ops)
+
+
+def bgv_lift_plain_ntt64(ctx: Context, cd, m: torch.Tensor,
+                         ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """BGV: m (N,) in [0, t) centered ([t/2, t) -> q - (t - m)) over Ql,
+    NTT form (k, N)."""
+    t = ctx.params.plain_modulus
+    m = m.long()
+    k = cd.size_ql
+    return ops.ntt_forward(lift_signed_to_rns64(
+        torch.where(m >= (t + 1) >> 1, m - t, m), cd.u64.mv), ctx.ntt64,
+        ctx.rows_qp[:k])
+
+
+def encrypt_zero_asym_core64(ctx: Context, pk: torch.Tensor, chain_index: int,
+                             u: torch.Tensor, e: torch.Tensor,
+                             ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """An NTT-form encryption of zero at `chain_index`, (2, size_ql, N):
+    (u pk_i + e_i) at the key level (u (N,) ternary, e (2, N) CBD), its
+    QlP rows, then the moddown of each half."""
+    from .keyswitch import moddown_ntt
+    cd = ctx.get_context_data(chain_index)
+    mv = ctx.key_mv
+    u_ntt = ops.ntt_forward(lift_signed_to_rns64(u, mv), ctx.ntt64,
+                            ctx.rows_qp)
+    e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx)),
+                            ctx.ntt64, ctx.rows_qp)
+    x = po64.add_rns(ops.mul_rns(pk, u_ntt, mv), e_ntt, mv)
+    x = x.index_select(1, cd.u64.ks.rows_qlp.long())
+    return torch.stack([moddown_ntt(ctx, cd, x[0], ops),
+                        moddown_ntt(ctx, cd, x[1], ops)])
+
+
+def encrypt_asymmetric_core64(ctx: Context, pk: torch.Tensor,
+                              plain: Plaintext, u: torch.Tensor,
+                              e: torch.Tensor,
+                              ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """Public-key encryption with the samples u (N,) and e (2, N): CKKS at
+    the plaintext's chain index, BGV at the first data level (correction
+    factor 1); NTT form."""
+    ctx.require_u64("encrypt_asymmetric")
+    scheme = ctx.params.scheme
+    ci = plain.chain_index if scheme == "ckks" else ctx.first_data_index
+    cd = ctx.get_context_data(ci)
+    zero = encrypt_zero_asym_core64(ctx, pk, ci, u, e, ops)
+    pt = (plain.data if scheme == "ckks"
+          else bgv_lift_plain_ntt64(ctx, cd, plain.data[0], ops))
+    c0 = po64.add_rns(zero[0], pt, cd.u64.mv)
+    return Ciphertext(data=torch.stack([c0, zero[1]]), chain_index=ci,
+                      is_ntt_form=True,
+                      scale=plain.scale if scheme == "ckks" else 1.0)
+
+
+def encrypt_symmetric_core64(ctx: Context, sk: torch.Tensor,
+                             plain: Plaintext, a: torch.Tensor,
+                             e: torch.Tensor,
+                             ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """Secret-key encryption with the samples a (k, N) uniform over the
+    level and e (N,) CBD: (-(a s + e) + m, a), NTT form."""
+    ctx.require_u64("encrypt_symmetric")
+    scheme = ctx.params.scheme
+    ci = plain.chain_index if scheme == "ckks" else ctx.first_data_index
+    cd = ctx.get_context_data(ci)
+    k = cd.size_ql
+    mv = cd.u64.mv
+    e_ntt = ops.ntt_forward(
+        lift_signed_to_rns64(e, mv, _t_mult64(ctx, k)), ctx.ntt64,
+        ctx.rows_qp[:k])
+    c0 = po64.neg_rns(po64.add_rns(ops.mul_rns(a, sk[:k], mv), e_ntt, mv),
+                      mv)
+    pt = (plain.data if scheme == "ckks"
+          else bgv_lift_plain_ntt64(ctx, cd, plain.data[0], ops))
+    return Ciphertext(data=torch.stack([po64.add_rns(c0, pt, mv), a]),
+                      chain_index=ci, is_ntt_form=True,
+                      scale=plain.scale if scheme == "ckks" else 1.0)
+
+
+def sample_uniform_rns64(gen: torch.Generator, n: int, mv) -> torch.Tensor:
+    """(L, N) u64 words, row l uniform in [0, q_l): (hi 2^62 + lo) mod q
+    for two 62-bit draws (hi's (L, N) first), statistical distance below
+    q / 2^124 from uniform."""
+    shape = (mv.q.shape[0], n)
+    q, rlo, rhi = mv.col()
+    hi = torch.randint(0, 1 << smp.DRAW_BITS, shape, generator=gen,
+                       device=gen.device)
+    lo = torch.randint(0, 1 << smp.DRAW_BITS, shape, generator=gen,
+                       device=gen.device)
+    pow62 = mm64.barrett_reduce_u64(
+        torch.full_like(q, 1 << smp.DRAW_BITS), q, rhi)
+    return mm64.add_mod(mm64.mul_mod(torch.remainder(hi, q), pow62, q, rlo,
+                                     rhi), torch.remainder(lo, q), q)
+
+
+def gen_secret_key64(ctx: Context, gen: torch.Generator,
+                     ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    return gen_secret_core64(ctx, smp.sample_ternary_vec(gen, ctx.params.n),
+                             ops)
+
+
+def gen_public_key64(ctx: Context, sk: torch.Tensor, gen: torch.Generator,
+                     ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """(2, K, N): a, then e."""
+    a = sample_uniform_rns64(gen, ctx.params.n, ctx.key_mv)
+    e = smp.sample_error_cbd(gen, ctx.params.n)
+    return torch.stack(encrypt_zero_sym_core64(ctx, sk, a, e, ops))
+
+
+def _kswitch_draws64(ctx: Context, gen: torch.Generator):
+    """Per digit a uniform a, then a CBD e: (dnum, K, N), (dnum, N)."""
+    p = ctx.params
+    draws = [(sample_uniform_rns64(gen, p.n, ctx.key_mv),
+              smp.sample_error_cbd(gen, p.n))
+             for _ in range(-(-p.size_q // p.size_p))]
+    return (torch.stack([a for a, _ in draws]),
+            torch.stack([e for _, e in draws]))
+
+
+def gen_relin_key64(ctx: Context, sk: torch.Tensor, gen: torch.Generator,
+                    ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    return gen_relin_core64(ctx, sk, *_kswitch_draws64(ctx, gen), ops)
+
+
+def create_galois_keys64(ctx: Context, sk: torch.Tensor,
+                         gen: torch.Generator, steps=None, elts=None,
+                         ops: Kernels64 = KERNELS64) -> GaloisKeys:
+    elts = galois_elts(ctx, steps, elts)
+    return GaloisKeys(torch.stack([
+        gen_galois_core64(ctx, sk, elt, *_kswitch_draws64(ctx, gen), ops)
+        for elt in elts]), elts)
+
+
+def encrypt_asymmetric64(ctx: Context, pk: torch.Tensor, plain: Plaintext,
+                         gen: torch.Generator,
+                         ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """u, e0, e1 drawn in that order."""
+    n = ctx.params.n
+    u = smp.sample_ternary_vec(gen, n)
+    e = torch.stack([smp.sample_error_cbd(gen, n) for _ in range(2)])
+    return encrypt_asymmetric_core64(ctx, pk, plain, u, e, ops)
+
+
+def encrypt_symmetric64(ctx: Context, sk: torch.Tensor, plain: Plaintext,
+                        gen: torch.Generator,
+                        ops: Kernels64 = KERNELS64) -> Ciphertext:
+    """a, then e."""
+    ci = (plain.chain_index if ctx.params.scheme == "ckks"
+          else ctx.first_data_index)
+    mv = ctx.get_context_data(ci).u64.mv
+    a = sample_uniform_rns64(gen, ctx.params.n, mv)
+    e = smp.sample_error_cbd(gen, ctx.params.n)
+    return encrypt_symmetric_core64(ctx, sk, plain, a, e, ops)
+
+
+def _dot_with_sk_powers64(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
+                          ops: Kernels64) -> torch.Tensor:
+    """[c0 + c1 s + c2 s^2 + ...]_Ql in NTT form (U4's fma and mul)."""
+    cd = ctx.get_context_data(ct.chain_index)
+    mv = cd.u64.mv
+    s = sk[:cd.size_ql]
+    acc = ct.data[0]
+    s_pow = s
+    for i in range(1, ct.size):
+        acc = ops.fma_rns(ct.data[i], s_pow, acc, mv)
+        if i + 1 < ct.size:
+            s_pow = ops.mul_rns(s_pow, s, mv)
+    return acc
+
+
+def decrypt64(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
+              ops: Kernels64 = KERNELS64) -> Plaintext:
+    """CKKS: the NTT-form plaintext at the ciphertext's level and scale.
+    BGV: the message (1, N) mod t: the exact centered conversion of
+    [c0 + c1 s + ...]_Ql to {t} (U2), divided by the correction factor."""
+    ctx.require_u64("decrypt")
+    if not ct.is_ntt_form:
+        raise NotImplementedError("decrypt: coefficient-form ciphertexts "
+                                  "are BFV's, which comes in the next slice")
+    acc = _dot_with_sk_powers64(ctx, sk, ct, ops)
+    if ctx.params.scheme == "ckks":
+        return Plaintext(data=acc, chain_index=ct.chain_index,
+                         is_ntt_form=True, scale=ct.scale)
+    cd = ctx.get_context_data(ct.chain_index)
+    lv = cd.u64
+    b = lv.bgv
+    t = ctx.params.plain_modulus
+    x = ops.ntt_inverse(acc, ctx.ntt64, ctx.rows_qp[:cd.size_ql])
+    shifted = mm64.add_mod(x, b.qhalf_mod_q.view(-1, 1),
+                           lv.mv.q.view(-1, 1))
+    conv = bconv64.bconv_exact(shifted, b.q_to_t, ops.bconv)
+    m = mm64.sub_mod(conv, b.qhalf_mod_t, b.t_mv.q.view(-1, 1))
+    f = ct.correction_factor % t
+    if f != 1:
+        m = mm64.mul_mod(m, pow(f, -1, t), *b.t_mv.col())
+    return Plaintext(data=m, chain_index=ct.chain_index)

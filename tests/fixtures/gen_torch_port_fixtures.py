@@ -127,6 +127,48 @@ fast32_<case>.npz: the JAX package's Fast32 verbs at n = 1024 (the card's
   modswitch) and keygen_{ckks,bgv} (four data primes, alpha 2: secret,
   public, relin and Galois keys for steps (1, 2)).
 
+roll_n1024.npz: the u32 key-switch paths on the "pallas-roll" engine and
+  the xla-bconv moddown (PHANTOM_MODDOWN_VARIANT=xla), at ckks_step's
+  chain (n = 1024, five 28-bit data primes, alpha = 2, a short last
+  digit) and bgv_step's.  CKKS (ckks_step's keys and encryptions d1, d2):
+  roll_step = mult_relin_rescale32 on the roll engine, xla_step = the same
+  on the mxu-pallas engine's xla-split modup with the xla-bconv moddown,
+  both asserted equal to the u64 evaluator's
+  rescale_to_next(multiply_and_relin); roll_modup = modup_from_ntt32 of
+  d1[1] and roll_ks = keyswitch_from_ntt32 of d1[1] (relin evk) on the
+  roll engine; xla_pair = moddown32_pair of the uniform pair (md0, md1)
+  with the xla-bconv moddown, asserted equal to two moddown32 calls.  BGV
+  (bgv_step's keys and encryptions bd1, bd2): bgv_roll_step =
+  bgv_mult_relin_modswitch32 on the roll engine, asserted equal to the u64
+  evaluator's mod_switch_to_next(multiply_and_relin).  Stored beside:
+  data_moduli, special_moduli (u64), rlk, bgv_rlk, t.  `fast32_roll`
+  also runs the JAX Fast32 on the roll engine over fast32_verbs_ckks and
+  fast32_verbs_bgv's cases and asserts every output equal to those
+  files (it writes nothing).
+
+u64_{ckks,bgv}_b{50,60}.npz: the u64 generic evaluator (evaluate.py,
+  keyswitch.py, keys.py and ops/ntt, bconv, polyops) at n = 1024 on a
+  chain of five data primes of 50 (60) bits and two special primes of 51
+  (61) bits (alpha = 2, beta = 3 with a short last digit); BGV with t =
+  PlainModulus.batching(n, 20).  To keep the files small every output is
+  stored as `digest` (sha256 over its shape and u64 words) under
+  h__<name>; inputs stay whole.  Inputs: the JAX draws of the keys
+  (s_tern; pk_a, pk_e; rlk_a, rlk_e; glk_a, glk_e, for steps (1, 2) and
+  conjugation, elts), plaintexts pt1, pt2 of uniform slot values z1, z2
+  (CKKS at scale 2^(bits - 10)), the draws of c1 =
+  encrypt_asymmetric(pt1) (enc_u, enc_e) and of c2 = encrypt_symmetric(pt2)
+  (sym_a, sym_e), combo_pts (CKKS), fs_x (2, N) over P whose columns are
+  near a floor boundary (X = 0, 1, 2, P - 1, P - 2, then uniform).
+  Digests: the keys (sk, pk, rlk, glk), c1, c2, every verb's output
+  (U64_VERBS below, with __meta and __scale whole), and the kernels'
+  functions on u64_kernel_inputs (cut from the draws): ntt_fwd, ntt_inv,
+  ntt_inv_scaled (over Ql, the modup scale), bc_approx, bc_exact (first
+  digit -> complement), fs_y, fs_v (also whole), fs_exact (P -> Ql;
+  BGV also fs_exact_t, P -> {t}), ip_out (inner_product_evk), po_mul,
+  po_fma, po_tensor, po_square, po_shoup.  The verbs of U64_DECRYPTED
+  keep their decryption whole (dec_<verb>), CKKS also decoded
+  (decoded_<verb>).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -711,7 +753,7 @@ def f32_combo():
     _save("fast32_combo.npz", **out)
 
 
-def f32_verbs(scheme):
+def f32_verbs(scheme, use_pallas=False, save=True):
     ctx, out = _f32_ctx(scheme, 3, 1)
     k = jax.random.split(jax.random.PRNGKey(73), 6)
     sk = keys.gen_secret_key(ctx, k[0])
@@ -721,7 +763,7 @@ def f32_verbs(scheme):
     rng = np.random.default_rng(4)
     _, _, pt = _encode(ctx, scheme, rng)
     _, _, pt2 = _encode(ctx, scheme, rng)
-    ev = Fast32(ctx, rlk=rlk, glk=glk)
+    ev = Fast32(ctx, rlk=rlk, glk=glk, use_pallas=use_pallas)
     c = ev.encrypt_asymmetric(pk, pt, k[4])
     c2 = ev.encrypt_asymmetric(pk, pt2, k[5])
     _keys(out, ctx, sk, pk, rlk, glk)
@@ -744,7 +786,9 @@ def f32_verbs(scheme):
     for name, x in res.items():
         _ct(out, name, x)
     _pt(out, "dec", ev.decrypt(sk, mr))
-    _save(f"fast32_verbs_{scheme}.npz", **out)
+    if save:
+        _save(f"fast32_verbs_{scheme}.npz", **out)
+    return out
 
 
 def f32_keygen(scheme):
@@ -976,10 +1020,335 @@ def poly():
     _save("poly_n1024.npz", **out)
 
 
+# ---------------------------------------------------------------------------
+# the u32 key switch on "pallas-roll" and the xla-bconv moddown
+# ---------------------------------------------------------------------------
+
+def roll():
+    qs, ps, ctx, sk, rlk, ct1, ct2 = _setup()
+    ref = u32(evaluate.rescale_to_next(
+        ctx, evaluate.multiply_and_relin(ctx, ct1, ct2, rlk)).data)
+    d1, d2 = u32(ct1.data), u32(ct2.data)
+    j1, j2 = jnp.asarray(d1), jnp.asarray(d2)
+    pr = pp.build_pipeline32(ctx, rlk, use_pallas="pallas-roll")
+    ksr = pr.ks
+    out = dict(roll_step=np.asarray(pp.mult_relin_rescale32(pr, j1, j2)),
+               roll_modup=np.asarray(pp.modup_from_ntt32(ksr, j1[1])),
+               roll_ks=np.asarray(pp.keyswitch_from_ntt32(ksr, j1[1],
+                                                          pr.evk)))
+    np.testing.assert_array_equal(out["roll_step"], ref)
+    rng = np.random.default_rng(SEED + 5)
+    md = uniform(rng, list(qs) + list(ps), (2,), N)
+    old = pp.MODUP_VARIANT, pp.MODDOWN_VARIANT
+    pp.MODUP_VARIANT, pp.MODDOWN_VARIANT = "xla-split", "xla"
+    try:
+        px = pp.build_pipeline32(ctx, rlk, use_pallas="mxu-pallas")
+        out["xla_step"] = np.asarray(pp.mult_relin_rescale32(px, j1, j2))
+        pair = pp.moddown32_pair(px.ks, jnp.asarray(md[0]),
+                                 jnp.asarray(md[1]))
+        out["xla_pair"] = np.stack([np.asarray(x) for x in pair])
+    finally:
+        pp.MODUP_VARIANT, pp.MODDOWN_VARIANT = old
+    np.testing.assert_array_equal(out["xla_step"], ref)
+    single = np.stack([np.asarray(pp.moddown32(px.ks, jnp.asarray(x)))
+                       for x in md])
+    np.testing.assert_array_equal(out["xla_pair"], single)
+    # BGV at bgv_step's parameters
+    t = PlainModulus.batching(N, 16).value
+    bctx = make_context(EncryptionParameters.create(
+        Scheme.BGV, N, qs + ps, plain_modulus=t, special_modulus_size=ALPHA))
+    k = jax.random.split(jax.random.PRNGKey(11), 5)
+    bsk = keys.gen_secret_key(bctx, k[0])
+    bpk = keys.gen_public_key(bctx, bsk, k[1])
+    brlk = keys.gen_relin_key(bctx, bsk, k[2])
+    benc = BatchEncoder(bctx)
+    rg = np.random.default_rng(5)
+    bpt = [benc.encode(rg.integers(0, t, N, dtype=np.uint64))
+           for _ in range(2)]
+    bc1 = keys.encrypt_asymmetric(bctx, bpk, bpt[0], k[3])
+    bc2 = keys.encrypt_asymmetric(bctx, bpk, bpt[1], k[4])
+    pb = bgv32.build_bgv32(bctx, brlk, use_pallas="pallas-roll")
+    out["bgv_roll_step"] = np.asarray(bgv32.bgv_mult_relin_modswitch32(
+        pb, jnp.asarray(u32(bc1.data)), jnp.asarray(u32(bc2.data))))
+    np.testing.assert_array_equal(out["bgv_roll_step"], u32(
+        evaluate.mod_switch_to_next(
+            bctx, evaluate.multiply_and_relin(bctx, bc1, bc2, brlk)).data))
+    _save("roll_n1024.npz", data_moduli=np.array(qs, dtype=np.uint64),
+          special_moduli=np.array(ps, dtype=np.uint64),
+          t=np.array(t, dtype=np.uint64), rlk=u32(rlk.data), d1=d1, d2=d2,
+          md=md, bgv_rlk=u32(brlk.data), bd1=u32(bc1.data),
+          bd2=u32(bc2.data), **out)
+
+
+def fast32_roll():
+    """The JAX Fast32 on "pallas-roll" reproduces fast32_verbs_{ckks,bgv}
+    (which the default engine made)."""
+    for scheme in ("ckks", "bgv"):
+        ref = np.load(os.path.join(DIR, f"fast32_verbs_{scheme}.npz"))
+        got = f32_verbs(scheme, use_pallas="pallas-roll", save=False)
+        for name, v in got.items():
+            np.testing.assert_array_equal(v, ref[name], err_msg=name)
+        print(f"fast32 {scheme} verbs on pallas-roll: {len(got)} arrays "
+              "equal to the file")
+
+
+# ---------------------------------------------------------------------------
+# the u64 generic evaluator
+# ---------------------------------------------------------------------------
+
+U64_T_BITS = 20
+
+
+def digest(a) -> np.ndarray:
+    """sha256 over an array's shape and u64 words, (32,) uint8: the u64
+    files keep outputs as digests (the port's tests and chip_smoke.py
+    compute the same of theirs)."""
+    import hashlib
+    a = np.ascontiguousarray(np.asarray(a).astype(np.uint64))
+    h = hashlib.sha256(repr(a.shape).encode() + a.tobytes())
+    return np.frombuffer(h.digest(), dtype=np.uint8).copy()
+
+
+def _ct64(out, name, c):
+    out["h__" + name] = digest(c.data)
+    out[name + "__meta"] = np.array([c.chain_index, int(c.is_ntt_form),
+                                     int(c.correction_factor),
+                                     int(c.noise_scale_deg)], dtype=np.int64)
+    out[name + "__scale"] = np.array(c.scale, dtype=np.float64)
+
+
+def _pt64(out, name, p, keep=False):
+    if keep:
+        out[name] = np.asarray(p.data).astype(np.uint64)
+    else:
+        out["h__" + name] = digest(p.data)
+    out[name + "__meta"] = np.array([p.chain_index, int(p.is_ntt_form)],
+                                    dtype=np.int64)
+    out[name + "__scale"] = np.array(p.scale, dtype=np.float64)
+
+
+def _zero_samples64(ctx, rng, mv=None):
+    k_a, k_e = jax.random.split(rng)
+    mv = ctx.key_mv if mv is None else mv
+    return (np.asarray(jsmp.sample_uniform_rns(k_a, N, mv)),
+            np.asarray(jsmp.sample_error_cbd(k_e, N)).astype(np.int8))
+
+
+def _kswitch_samples64(ctx, rng):
+    dnum = -(-ctx.params.size_q // ctx.params.size_p)
+    draws = [_zero_samples64(ctx, k) for k in jax.random.split(rng, dnum)]
+    return np.stack([a for a, _ in draws]), np.stack([e for _, e in draws])
+
+
+def _near_boundary(rng, moduli, n):
+    """(len(moduli), n) residues of X = 0, 1, 2, P - 1, P - 2 (P the
+    product), then uniform X."""
+    big_p = 1
+    for q in moduli:
+        big_p *= q
+    xs = [0, 1, 2, big_p - 1, big_p - 2]
+    xs += [int(rng.integers(0, 1 << 62)) * int(rng.integers(0, 1 << 62))
+           % big_p for _ in range(n - len(xs))]
+    return np.array([[x % q for x in xs] for q in moduli], dtype=np.uint64)
+
+
+def u64_kernel_inputs(d, k):
+    """The u64 kernels' uniform inputs, cut from a u64 file's stored draws
+    (d: its arrays; k: the data primes at chain index 1).  chip_smoke.py
+    keeps a copy (it reads no JAX)."""
+    rlk_a, glk_a, pk_a = d["rlk_a"], d["glk_a"], d["pk_a"]
+    return dict(
+        ntt_x=rlk_a[:2], ntt_xi=rlk_a[:2] + glk_a[0, :2],
+        bc_x=pk_a[:2], ip_t=rlk_a,
+        ip_evk=np.ascontiguousarray(glk_a[:2].transpose(1, 0, 2, 3)),
+        po_a=rlk_a[:2, :k], po_b=rlk_a[1:3, :k], po_c=glk_a[2, :2, :k],
+        po_w=rlk_a[0, :k, 0])
+
+
+def _kernel_outputs(ctx, out):
+    """Digests of the u64 kernels' functions on u64_kernel_inputs."""
+    from phantom_tpu.ops import bconv as bc
+    from phantom_tpu.ops import polyops as po
+    from phantom_tpu.schemes import keyswitch as ksw
+    cd = ctx.get_context_data(1)
+    ks = cd.ks
+    k = cd.size_ql
+    inp = {n: jnp.asarray(v) for n, v in u64_kernel_inputs(out, k).items()}
+    res = dict(
+        ntt_fwd=ntt64.ntt_forward(inp["ntt_x"], ctx.ntt),
+        ntt_inv=ntt64.ntt_inverse(inp["ntt_xi"], ctx.ntt),
+        ntt_inv_scaled=ntt64.ntt_inverse(
+            inp["ntt_xi"][:, :k], ctx.tables_q(k), scale=ks.modup_scale,
+            scale_shoup=ks.modup_scale_shoup),
+        bc_approx=bc.bconv_approx(inp["bc_x"], ks.digit_convs[0]),
+        bc_exact=bc.bconv_exact(inp["bc_x"], ks.digit_convs[0]),
+        ip_out=ksw.inner_product_evk(inp["ip_t"], inp["ip_evk"], cd))
+    x = jnp.asarray(out["fs_x"])
+    y = bc.scale_by_qhat_inv(x, ks.p_to_q)
+    res["fs_y"] = y
+    res["fs_v"] = bc.floor_sum_div(y, ks.p_to_q)
+    res["fs_exact"] = bc.bconv_exact(x, ks.p_to_q)
+    if ks.p_to_t is not None:
+        res["fs_exact_t"] = bc.bconv_exact(x, ks.p_to_t)
+    a, b, c = inp["po_a"], inp["po_b"], inp["po_c"]
+    mv = cd.mv
+    res.update(po_mul=po.mul_rns(a, b, mv), po_fma=po.fma_rns(a, b, c, mv),
+               po_tensor=po.tensor_prod_2x2(a, b, mv),
+               po_square=po.tensor_square_2x2(a, mv))
+    w = out["rlk_a"][0, :k, 0]
+    ws = np.array([(int(v) << 64) // int(q) for v, q in zip(
+        w, ctx.params.data_moduli[:k])], dtype=np.uint64)
+    res["po_shoup"] = po.scalar_mul_rns(a, jnp.asarray(w), jnp.asarray(ws),
+                                        mv)
+    out["fs_v"] = np.asarray(res["fs_v"])
+    for name, v in res.items():
+        out["h__" + name] = digest(v)
+
+
+U64_VERBS = {
+    "ckks": ("negate", "add", "sub", "add_plain", "sub_plain",
+             "multiply_plain", "multiply", "square", "relinearize",
+             "multiply_and_relin", "rescale", "mod_switch", "mod_switch_to",
+             "rotate1", "rotate2", "conjugate", "hoisting", "combo",
+             "add_many", "keyswitch_coeff"),
+    "bgv": ("negate", "add", "sub", "add_plain", "sub_plain",
+            "multiply_plain", "multiply", "square", "relinearize",
+            "multiply_and_relin", "mod_switch", "mod_switch_to",
+            "balanced_add", "rotate_rows", "rotate_columns", "hoisting",
+            "add_many", "add_plain_ms"),
+}
+# verbs whose decryption (and CKKS decoding) the files keep whole
+U64_DECRYPTED = ("multiply_and_relin", "mod_switch", "rotate1",
+                 "rotate_rows", "rescale", "balanced_add")
+
+
+def u64_chain(scheme, bits):
+    from phantom_tpu.schemes import galois as jgal
+    from phantom_tpu.schemes import keyswitch as ksw
+    qs = numth.get_primes(2 * N, bits, K_DATA)
+    ps = numth.get_primes(2 * N, bits + 1, ALPHA)
+    extra = {}
+    if scheme == "bgv":
+        extra["plain_modulus"] = PlainModulus.batching(N, U64_T_BITS).value
+    ctx = make_context(EncryptionParameters.create(
+        SCHEMES[scheme], N, qs + ps, special_modulus_size=ALPHA, **extra))
+    t = extra.get("plain_modulus", 0)
+    out = dict(data_moduli=np.array(qs, dtype=np.uint64),
+               special_moduli=np.array(ps, dtype=np.uint64),
+               t=np.array(t, dtype=np.uint64))
+    k = jax.random.split(jax.random.PRNGKey(bits * 7 + len(scheme)), 6)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    elts = jgal.get_elts_from_steps([1, 2], N) + [2 * N - 1]
+    glk = keys.create_galois_keys(ctx, sk, k[3], elts=elts)
+    for name, key in (("sk", sk), ("pk", pk), ("rlk", rlk), ("glk", glk)):
+        out["h__" + name] = digest(key.data)
+    out["elts"] = np.array(glk.elts, dtype=np.int64)
+    out["s_tern"] = np.asarray(jsmp.sample_ternary_vec(k[0], N)).astype(
+        np.int8)
+    out["pk_a"], out["pk_e"] = _zero_samples64(ctx, k[1])
+    out["rlk_a"], out["rlk_e"] = _kswitch_samples64(ctx, k[2])
+    rng, draws = k[3], []
+    for _ in glk.elts:
+        rng, sub = jax.random.split(rng)
+        draws.append(_kswitch_samples64(ctx, sub))
+    out["glk_a"] = np.stack([a for a, _ in draws])
+    out["glk_e"] = np.stack([e for _, e in draws])
+    rg = np.random.default_rng(bits)
+    scale = 2.0 ** (bits - 10)
+    if scheme == "ckks":
+        enc = CKKSEncoder(ctx)
+        vals = [rg.standard_normal(enc.slots) + 1j * rg.standard_normal(
+            enc.slots) for _ in range(2)]
+        pts = [enc.encode(v, scale) for v in vals]
+    else:
+        enc = BatchEncoder(ctx)
+        vals = [rg.integers(0, t, N, dtype=np.uint64) for _ in range(2)]
+        pts = [enc.encode(v) for v in vals]
+    out["z1"], out["z2"] = vals
+    _pt64(out, "pt1", pts[0], keep=True)
+    _pt64(out, "pt2", pts[1], keep=True)
+    c1 = keys.encrypt_asymmetric(ctx, pk, pts[0], k[4])
+    k_u, k_e0, k_e1 = jax.random.split(k[4], 3)
+    out["enc_u"] = np.asarray(jsmp.sample_ternary_vec(k_u, N)).astype(
+        np.int8)
+    out["enc_e"] = np.stack([np.asarray(jsmp.sample_error_cbd(x, N))
+                             for x in (k_e0, k_e1)]).astype(np.int8)
+    c2 = keys.encrypt_symmetric(ctx, sk, pts[1], k[5])
+    out["sym_a"], out["sym_e"] = _zero_samples64(
+        ctx, k[5], ctx.get_context_data(c2.chain_index).mv)
+    _ct64(out, "c1", c1)
+    _ct64(out, "c2", c2)
+    ev = evaluate
+    mul = ev.multiply(ctx, c1, c2)
+    mr = ev.multiply_and_relin(ctx, c1, c2, rlk)
+    res = dict(negate=ev.negate(ctx, c1), add=ev.add(ctx, c1, c2),
+               sub=ev.sub(ctx, c1, c2),
+               add_plain=ev.add_plain(ctx, c1, pts[1]),
+               sub_plain=ev.sub_plain(ctx, c1, pts[1]),
+               multiply_plain=ev.multiply_plain(ctx, c1, pts[1]),
+               multiply=mul, square=ev.square(ctx, c1),
+               relinearize=ev.relinearize(ctx, mul, rlk),
+               multiply_and_relin=mr,
+               mod_switch=ev.mod_switch_to_next(ctx, mr),
+               mod_switch_to=ev.mod_switch_to(ctx, c1, 3),
+               hoisting=ev.hoisting(ctx, c1, glk, [1, 2]),
+               add_many=ev.add_many(ctx, [c1, c2, c1]))
+    if scheme == "ckks":
+        res["rescale"] = ev.rescale_to_next(ctx, mr)
+        res["rotate1"] = ev.rotate_vector(ctx, c1, 1, glk)
+        res["rotate2"] = ev.rotate_vector(ctx, c1, 2, glk)
+        res["conjugate"] = ev.complex_conjugate(ctx, c1, glk)
+        weights = [rg.standard_normal(enc.slots) for _ in range(3)]
+        pts_qlp = [encode_extended(enc, w, 2.0 ** 20, 1) for w in weights]
+        out["combo_pts"] = np.stack([np.asarray(x) for x in pts_qlp])
+        res["combo"] = ev.hoisted_linear_combo(ctx, c1, glk, [0, 1, 2],
+                                               pts_qlp, 2.0 ** 20)
+        cd = ctx.get_context_data(1)
+        c2_coeff = ntt64.ntt_inverse(c1.data[1], ctx.tables_q(cd.size_ql))
+        res["keyswitch_coeff"] = c1.replace(data=ksw.keyswitch(
+            ctx, cd, c2_coeff, rlk.data), is_ntt_form=True)
+    else:
+        ms1 = ev.mod_switch_to_next(ctx, c1)
+        prod = ev.multiply_and_relin(ctx, ms1, ev.mod_switch_to_next(ctx, c2),
+                                     rlk)
+        assert prod.correction_factor != ms1.correction_factor
+        res["balanced_add"] = ev.add(ctx, prod, ms1)
+        res["rotate_rows"] = ev.rotate_rows(ctx, c1, 1, glk)
+        res["rotate_columns"] = ev.rotate_columns(ctx, c1, glk)
+        res["add_plain_ms"] = ev.add_plain(ctx, ms1, pts[1])
+    assert set(res) == set(U64_VERBS[scheme]), set(res) ^ set(
+        U64_VERBS[scheme])
+    for name, c in res.items():
+        _ct64(out, name, c)
+        if name in U64_DECRYPTED:
+            dec = keys.decrypt(ctx, sk, c)
+            _pt64(out, "dec_" + name, dec, keep=True)
+            if scheme == "ckks":
+                out["decoded_" + name] = enc.decode(dec)
+    if scheme == "ckks":
+        np.testing.assert_allclose(out["decoded_rescale"], vals[0] * vals[1],
+                                   atol=1e-2)
+    else:
+        got = np.asarray(enc.decode(keys.decrypt(ctx, sk, mr)))
+        want = vals[0].astype(object) * vals[1].astype(object) % t
+        np.testing.assert_array_equal(got.astype(object), want)
+    out["fs_x"] = _near_boundary(np.random.default_rng(bits),
+                                 ctx.params.special_moduli, N)
+    _kernel_outputs(ctx, out)
+    _save(f"u64_{scheme}_b{bits}.npz", **out)
+
+
+U64_FILES = {f"u64_{s}_b{b}": (lambda s=s, b=b: u64_chain(s, b))
+             for s in ("ckks", "bgv") for b in (50, 60)}
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
                       "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
-                      "fast32", "ckks_fft", "linear", "poly"]
+                      "fast32", "ckks_fft", "linear", "poly", "roll",
+                      "fast32_roll", "u64"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -1003,8 +1372,12 @@ def main(names):
         if name in names or "fast32" in names:
             make()
     for name, make in (("ckks_fft", ckks_fft), ("linear", linear),
-                       ("poly", poly)):
+                       ("poly", poly), ("roll", roll),
+                       ("fast32_roll", fast32_roll)):
         if name in names:
+            make()
+    for name, make in U64_FILES.items():
+        if name in names or "u64" in names:
             make()
 
 

@@ -171,13 +171,18 @@ def test_own_keys_encrypt_step_decrypt(golden):
 
 
 def test_ckks_entry_points_refuse_the_roll_engine(golden):
+    """The roll engine runs the CKKS entry points on its own routes only:
+    not the K7 or K8 epilogue, not the fused modup, not the xla-bconv
+    moddown."""
     _, ctx = golden
     with pytest.raises(ValueError, match="engine"):
         tpp.CKKSPipeline32(ctx, torch.zeros(1, dtype=torch.int32),
-                           engine="pallas-roll")
-    ks = tpp.build_keyswitch32(ctx, device=CPU, engine="pallas-roll")
-    c = torch.zeros((ctx.params.size_q, ctx.params.n), dtype=torch.int32)
+                           engine="pallas-roll", merged_epilogue=True)
     with pytest.raises(ValueError, match="engine"):
-        tpp.modup_from_ntt32(ks, c)
+        tpp.build_keyswitch32(ctx, device=CPU, engine="pallas-roll",
+                              modup="kernel")
+    with pytest.raises(ValueError, match="engine"):
+        tpp.build_keyswitch32(ctx, device=CPU, engine="pallas-roll",
+                              moddown="xla")
     with pytest.raises(ValueError, match="engine"):
         tpp.build_keyswitch32(ctx, device=CPU, engine="xla")

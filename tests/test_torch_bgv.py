@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from phantom_tpu.ops import bgv32 as jbgv
 from phantom_tpu.ops import pipeline32 as jpp
 from phantom_tpu.schemes import EncryptionParameters as JaxParams
@@ -169,7 +170,7 @@ def test_bgv_step_refuses_other_contexts(golden):
     g, ctx = golden
     rlk = convert.residues(g["rlk"])
     with pytest.raises(ValueError, match="engine"):
-        tbgv.build_bgv32(ctx, rlk, device=CPU, engine="pallas-roll")
+        tbgv.build_bgv32(ctx, rlk, device=CPU, engine="xla")
     with pytest.raises(ValueError, match="modup"):
         tbgv.build_bgv32(ctx, rlk, device=CPU, modup="mega")
     ks = tpp.build_keyswitch32(ctx, device=CPU)
@@ -181,3 +182,12 @@ def test_bgv_step_refuses_other_contexts(golden):
         device=CPU)
     with pytest.raises(ValueError, match="BGV context"):
         tbgv.build_bgv32(ckks, rlk, device=CPU)
+
+
+def test_bgv_roll_engine_golden():
+    """roll_n1024.npz: the BGV step on "pallas-roll" (K6 for every
+    transform, the xla-split modup) bit-equal to the JAX package's same
+    route."""
+    got, want = chip_smoke.roll_golden(CPU, schemes=("bgv",))[
+        "bgv_roll_step"]
+    np.testing.assert_array_equal(got, want)

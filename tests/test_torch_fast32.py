@@ -10,9 +10,9 @@ the other verbs, and keygen fed the JAX samplers' draws.  Bit-exact on
 residues and metadata; decoded slots as the JAX package decoded them.
 Also: every level of the chain is built on first use, BFV multiplies by
 the context's mul_tech (BEHZ, HPSoverQ and leveled against
-bfv_multech_n1024.npz), a BEHZ context past 30-bit primes and the engines
-the port lacks raise, and Fast32.encrypt_asymmetric draws u, e0, e1 in
-that order.  Every kernel
+bfv_multech_n1024.npz), every CKKS and BGV case also on "pallas-roll",
+a BEHZ context past 30-bit primes and the engines the port lacks raise,
+and Fast32.encrypt_asymmetric draws u, e0, e1 in that order.  Every kernel
 runs its plain version on the CPU."""
 
 import os
@@ -115,6 +115,19 @@ def test_keygen_u32_bit_match(golden, scheme):
     _check(golden, f"keygen_{scheme}")
 
 
+@pytest.mark.parametrize("case", ["verbs_ckks", "verbs_bgv", "ckks_chain",
+                                  "bgv_chain", "combo", "encrypt_ckks",
+                                  "encrypt_bgv"])
+def test_roll_engine_ckks_bgv_bit_match(case):
+    """Fast32 on "pallas-roll" (K6 for every transform, the xla-split
+    modup, the CKKS tensor terms after the moddown pair) gives every output
+    of the CKKS and BGV golden files; the generator's `fast32_roll` holds
+    the JAX package's Fast32 on "pallas-roll" to the verbs files."""
+    res = chip_smoke.fast32_golden(CPU, (case,), engine="pallas-roll")
+    for key, (got, want) in res.items():
+        np.testing.assert_array_equal(got, want, err_msg=key)
+
+
 def test_bfv_roll_engine_bit_match():
     """Fast32 on "pallas-roll" (K6 for every transform) gives the golden
     BFV multiply + relin, rotation and plain product."""
@@ -214,5 +227,5 @@ def test_engines_the_port_lacks_raise():
     for engine in (False, "xla", "mxu"):
         with pytest.raises(ValueError, match="no counterpart"):
             Fast32(ctx, engine=engine)
-    with pytest.raises(ValueError, match="only so far"):
-        Fast32(ctx, engine=tpp.ROLL_ENGINE)
+    with pytest.raises(ValueError, match="xla-split"):
+        Fast32(ctx, engine=tpp.ROLL_ENGINE, modup="kernel").keyswitch_at(1)

@@ -7,7 +7,10 @@ run these with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Every kernel at several sizes, with every option of its wrapper; the
-tables are real NTT tables and the inputs seeded; bit-exact.  The BFV step
+tables are real NTT tables and the inputs seeded; bit-exact.  The u64
+kernels U1-U4 at N = 2 to 2^16 with 50- and 61-bit primes, the u64 golden
+files through them, and the roll engine's and the xla-bconv moddown's
+golden file.  The BFV step
 on both engines, BFV's other techniques and the fused lift, and the BGV
 step on each modup route against the plain path and the golden files.
 """
@@ -1012,3 +1015,129 @@ def test_linear_and_poly_golden(dev):
     for got in (chip_smoke.linear_golden(dev), chip_smoke.poly_golden(dev)):
         for name, (a, b) in got.items():
             np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the u64 kernels U1-U4, the u64 golden files, the roll engine and the
+# xla-bconv moddown
+# ---------------------------------------------------------------------------
+
+U64_LOGNS = [1, 10, 11, 12, 13, 16]
+PLAIN_T = 1179649  # a 21-bit prime == 1 mod 2^17: BGV's conversion to {t}
+
+
+def _u64_setup(dev, logn, bits):
+    """Tables of two primes of `bits` bits and one of 50, seeded u64
+    inputs (in [0, q) or [0, 2q))."""
+    from phantom_tpu_torch.host import ntt_tables
+    from phantom_tpu_torch.ops import ntt as u1
+    from phantom_tpu_torch.ops.rns_host import i64_tensor, modulus_vec
+    n = 1 << logn
+    qs = numth.get_primes(max(2 * n, 2048), bits, 2) + numth.get_primes(
+        max(2 * n, 2048), 50, 1)
+    t = u1.NTTTables64(ntt_tables.make_rns_ntt_tables(n, qs)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn * 100 + bits)
+    q = i64_tensor(qs, dev).view(-1, 1)
+
+    def res(lead, lazy=False):
+        r = torch.randint(0, 1 << 62, lead + (3, n), generator=gen,
+                          device=dev)
+        return r % ((2 if lazy else 1) * q)
+    return qs, t, res, modulus_vec(qs, dev)
+
+
+@pytest.mark.parametrize("bits", [50, 61])
+@pytest.mark.parametrize("logn", U64_LOGNS)
+def test_u1_ntt(dev, logn, bits):
+    from phantom_tpu_torch.ops import ntt as u1
+    from phantom_tpu_torch.ops.rns_host import i64_tensor
+    qs, t, res, _ = _u64_setup(dev, logn, bits)
+    x, xi = res((2,)), res((2,), lazy=True)
+    assert torch.equal(u1.ntt_forward(x, t), u1.ntt_forward_plain(x, t))
+    assert torch.equal(u1.ntt_inverse(xi, t), u1.ntt_inverse_plain(xi, t))
+    rows = torch.tensor([2, 0, 1], dtype=torch.int32, device=dev)
+    sc = i64_tensor([3, 5, 7], dev)
+    scs = i64_tensor([(s << 64) // qs[r] for s, r in zip((3, 5, 7),
+                                                          (2, 0, 1))], dev)
+    xr = xi[:, [2, 0, 1]].contiguous()  # limb l's words in [0, 2 q_rows[l])
+    assert torch.equal(u1.ntt_inverse(xr, t, rows, sc, scs),
+                       u1.ntt_inverse_plain(xr, t, rows, sc, scs))
+    assert torch.equal(u1.ntt_forward(x[:, [2, 0, 1]].contiguous(), t, rows),
+                       u1.ntt_forward(x, t)[:, [2, 0, 1]])
+
+
+@pytest.mark.parametrize("form", ["approx", "reduce", "exact"])
+@pytest.mark.parametrize("bits", [50, 61])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_u2_bconv(dev, logn, bits, form):
+    from phantom_tpu_torch import host
+    from phantom_tpu_torch.ops import bconv as u2
+    n = 1 << logn
+    ib = numth.get_primes(2 * n, bits, 22)
+    ob = numth.get_primes(2 * n, 50, 43) + [PLAIN_T]
+    conv = u2.consts_from_host(host.BaseConverter(
+        host.RNSBase(ib), host.RNSBase(ob)), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn)
+    x = torch.randint(0, 1 << 62, (22, n), generator=gen, device=dev) \
+        % conv.ibase.q.view(-1, 1)
+    assert torch.equal(u2.bconv(x, conv, form), u2.bconv_plain(x, conv, form))
+
+
+@pytest.mark.parametrize("perm", [False, True])
+@pytest.mark.parametrize("bits", [50, 61])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_u3_inner_product(dev, logn, bits, perm):
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    qs, _, res, mv = _u64_setup(dev, logn, bits)
+    t, evk = res((2,)), res((2, 2))
+    pow64 = torch.tensor([((1 << 64) % q) for q in qs], device=dev)
+    pm = (torch.randperm(1 << logn, device=dev).int() if perm else None)
+    assert torch.equal(
+        ksw.inner_product_evk_kernel(t, evk, *mv, pow64, pm),
+        ksw.inner_product_evk_plain(t, evk, *mv, pow64, pm))
+
+
+@pytest.mark.parametrize("bits", [50, 61])
+@pytest.mark.parametrize("logn", [10, 16])
+def test_u4_products(dev, logn, bits):
+    from phantom_tpu_torch.ops import polyops as u4
+    from phantom_tpu_torch.ops.rns_host import i64_tensor
+    qs, _, res, mv = _u64_setup(dev, logn, bits)
+    a, b, c = res((2,)), res((2,)), res((2,))
+    assert torch.equal(u4.mul_rns(a, b, mv), u4.mul_rns_plain(a, b, mv))
+    assert torch.equal(u4.mul_rns(a, b[0], mv),
+                       u4.mul_rns_plain(a, b[0], mv))
+    assert torch.equal(u4.fma_rns(a, b, c, mv),
+                       u4.fma_rns_plain(a, b, c, mv))
+    assert torch.equal(u4.tensor_prod_2x2(a, b, mv),
+                       u4.tensor_prod_2x2_plain(a, b, mv))
+    assert torch.equal(u4.tensor_square_2x2(a, mv),
+                       u4.tensor_square_2x2_plain(a, mv))
+    w = [q // 3 for q in qs]
+    wv, ws = i64_tensor(w, dev), i64_tensor(
+        [(v << 64) // q for v, q in zip(w, qs)], dev)
+    for s in (None, b):
+        assert torch.equal(u4.sub_mul_shoup(a, wv, ws, mv, s),
+                           u4.sub_mul_shoup_plain(a, wv, ws, mv, s))
+    # one row of any 64-bit words read for every limb (rows_times)
+    x = (a[:, :1] << 3) ^ b[:, 2:]
+    for wr in ((wv, ws), (None, None)):
+        got = u4.rows_times(x, *wr, mv)
+        assert got.shape == a.shape
+        assert torch.equal(got, u4.rows_times(x, *wr, mv,
+                                              u4.sub_mul_shoup_plain))
+
+
+@pytest.mark.parametrize("fname", chip_smoke.U64_GOLDEN)
+def test_u64_golden_on_the_card(dev, fname):
+    """Every output of the u64 golden file through U1-U4 on the card."""
+    assert chip_smoke.u64_golden(dev, fname) > 40
+
+
+def test_roll_and_xla_moddown_golden_on_the_card(dev):
+    """roll_n1024.npz through K6, K5, K9 (roll engine) and K1, K5, K2
+    (the xla-bconv moddown) on the card."""
+    for name, (got, want) in chip_smoke.roll_golden(dev).items():
+        np.testing.assert_array_equal(got, want, err_msg=name)

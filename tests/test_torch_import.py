@@ -76,6 +76,13 @@ assert np.abs(denc.decode(denc.encode(np.full(denc.slots, 0.25), 2.0 ** 20))
               - 0.25).max() < 1e-5
 assert linear.bsgs_split(16) == (4, 4) and poly.bsgs_counts(7) == (4, 2)
 assert pt.LinearTransform(np.eye(4)).steps_required() == []
+from phantom_tpu_torch.ops import bconv, modmath, ntt, polyops, rns_host
+from phantom_tpu_torch.schemes import evaluate, keyswitch
+wide = pt.make_context(pt.EncryptionParameters.create(
+    n, host.numth.get_primes(2 * n, 50, 3),
+    host.numth.get_primes(2 * n, 61, 1)), device="cpu")
+assert wide.ntt is None and wide.ntt64.root_powers.shape == (4, n)
+assert wide.get_context_data(1).u64.ks.qlp.q.shape == (4,)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -379,3 +386,43 @@ def test_k8_held_rows(logn):
         assert moddown_kernels.held_rows(8, n, 8) == 4
         assert moddown_kernels.held_rows(6, n, 8) == 6
         assert moddown_kernels.held_rows(8, n, 2) == 1
+
+
+@pytest.mark.parametrize("kernel", ["ntt_forward64", "ntt_inverse64",
+                                    "bconv64", "inner_product_evk",
+                                    "mul_rns", "fma_rns", "tensor_prod_2x2",
+                                    "tensor_square_2x2", "sub_mul_shoup"])
+def test_u64_meta_tensor_raises(kernel):
+    """U1-U4's wrappers on a tensor of a device without a kernel raise
+    (a CUDA tensor launches, a CPU tensor takes the plain version)."""
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.ops import bconv, ntt, polyops
+    from phantom_tpu_torch.schemes import keyswitch
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    n = 64
+    ctx = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 50, 2), numth.get_primes(2 * n, 51, 1)),
+        device="cpu")
+    ks = ctx.get_context_data(1).u64.ks
+    mv = ctx.get_context_data(1).u64.mv
+
+    def m(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+
+    calls = {
+        "ntt_forward64": lambda: ntt.ntt_forward(m(3, n), ctx.ntt64),
+        "ntt_inverse64": lambda: ntt.ntt_inverse(m(3, n), ctx.ntt64),
+        "bconv64": lambda: bconv.bconv(m(1, n), ks.p_to_q, "exact"),
+        "inner_product_evk": lambda: keyswitch.inner_product_evk_kernel(
+            m(2, 3, n), m(2, 2, 3, n), *ks.qlp, ks.pow64_mod_qlp),
+        "mul_rns": lambda: polyops.mul_rns(m(2, 2, n), m(2, n), mv),
+        "fma_rns": lambda: polyops.fma_rns(m(2, n), m(2, n), m(2, n), mv),
+        "tensor_prod_2x2": lambda: polyops.tensor_prod_2x2(
+            m(2, 2, n), m(2, 2, n), mv),
+        "tensor_square_2x2": lambda: polyops.tensor_square_2x2(m(2, 2, n),
+                                                               mv),
+        "sub_mul_shoup": lambda: polyops.sub_mul_shoup(
+            m(2, n), mv.q, mv.q, mv),
+    }
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        calls[kernel]()

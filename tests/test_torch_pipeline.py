@@ -206,3 +206,24 @@ def test_keygen_encrypt_step_decrypt():
     q_pad = ctx.key_q[4:5].view(1, 1, 1)
     again = chip_smoke.remix(out, q_pad)
     assert again.shape == d1.shape and torch.equal(again[:, :4], out)
+
+
+@pytest.mark.parametrize("name", ["roll_step", "roll_modup", "roll_ks",
+                                  "xla_step", "xla_pair"])
+def test_roll_engine_and_xla_moddown_golden(name):
+    """roll_n1024.npz: the CKKS step, the NTT-form modup and the key switch
+    on "pallas-roll", the CKKS step and the moddown pair with the xla-bconv
+    moddown, each bit-equal to the JAX package's same route (the BGV step
+    on "pallas-roll": tests/test_torch_bgv.py)."""
+    got, want = _roll_golden()[name]
+    np.testing.assert_array_equal(got, want)
+
+
+_ROLL = {}
+
+
+def _roll_golden():
+    if not _ROLL:
+        _ROLL.update(chip_smoke.roll_golden(torch.device("cpu"),
+                                            schemes=("ckks",)))
+    return _ROLL
