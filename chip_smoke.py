@@ -54,10 +54,11 @@ Phases, one line each or more; any failure exits non-zero:
   2. build     the kernels of phantom_tpu_torch/csrc, built from source;
                K5's int8 tensor-core instructions (IMMA) counted in the
                built library's SASS (cuobjdump); no kernel of the two-pass
-               K2, K7 and K8 or of the radix-2 K6 (STALE_KERNELS) left in
-               its symbols, the core's kernels (CORE_KERNELS) there;
-               registers and stack of the core's kernels, and K7's
-               registers and spills (nvcc -Xptxas -v)
+               K2, K7 and K8, of the radix-2 K6 or of the former two-pass U1
+               and two-launch U2 (STALE_KERNELS) left in its symbols, the
+               core's kernels and U2's (CORE_KERNELS) there; registers and
+               stack of those, and K7's, U1's and U2's registers and
+               spills (nvcc -Xptxas -v)
   3. golden    the step (n = 1024, alpha = 2) through each epilogue on both
                routes, and the rotation golden file (rotation, key switch,
                both hoisted forms, moddown, the step through each
@@ -274,9 +275,10 @@ Phases, one line each or more; any failure exits non-zero:
                mod_switch_to_next) verbs on "pallas-roll" at the headline
                and BGV configurations: launch counts, bit-equal to the
                default engine, event time
- 41. u64       the IMADs of each U kernel in the SASS; the four u64 golden
-     golden    files (CKKS and BGV, 50- and 60-bit chains) through U1-U4,
-               every output bit-equal to the JAX package's
+ 41. u64       the IMADs of each U kernel in the SASS (U1's and U2's
+     golden    kernels found there); the four u64 golden files (CKKS and
+               BGV, 50- and 60-bit chains) through U1-U4, every output
+               bit-equal to the JAX package's
  42. u64 CKKS  bench.py --path u64: N = 2^16, 43 data primes of 50 bits, 22
                special of 51; the context's build time (at most 30 s), the
                keys and two encryptions on the card (relin key and
@@ -287,7 +289,8 @@ Phases, one line each or more; any failure exits non-zero:
                decoded within 1e-2 of numpy's float64 product (the error
                printed), 10 chained steps timed (event time per step, peak
                memory), the plain step timed, a profile (device-busy, idle
-               share)
+               share); the kernel launches U1's and U2's entry points
+               made in the step per wrapper call: one each
  43. u64 BGV   the same for BGV (t the 20-bit batching prime):
                multiply_and_relin + mod_switch_to_next, decrypted right in
                every one of the 65536 slots
@@ -321,7 +324,8 @@ library_ms is null for K1-K9; F1's is torch.fft.fft over complex128 (the
 bare form's calls; its row lists the fused forms' sums under "forms",
 with library_ms null: no PyTorch call fuses the scatter or the residues).
 U1-U4's rows sum the probed calls of phases 42-43 (U1's forward and
-inverse, U4's five forms, each listed under "forms"); their bound counts
+inverse, U4's five forms, each listed under "forms"; U1's and U2's
+"launches_per_call", the kernels one call launches); their bound counts
 u64 work in 32-bit multiplies (MUL_HI, MUL_LO: a 64 x 64 product's high
 word 4, its low word 3, so a Shoup product 10, a Barrett-128 product 31,
 reduce128_any 45, the floor sum 58 a word); no PyTorch call computes a
@@ -549,13 +553,13 @@ ANATOMY = {
     "no crossing stages or cluster syncs": [
         ("ntt_cluster.cuh", "  if (G.logc > 0) {", "  if (G.logc > 9) {")],
     "no local passes": [
-        ("ntt_cluster.cuh", "  for (int left = G.logs; left > 0;) {",
-         "  for (int left = 0; left > 0;) {"),
-        ("ntt_cluster.cuh", "  for (int ls = 0; ls < G.logs;) {",
+        ("ntt_cluster.cuh", "  for (int left = G.logs; left > kLeave;) {",
+         "  for (int left = 0; left > kLeave;) {"),
+        ("ntt_cluster.cuh", "  for (int ls = kDone; ls < G.logs;) {",
          "  for (int ls = G.logs; ls < G.logs;) {")],
     "twiddles from L1": [
-        ("ntt_cluster.cuh", "__ldg(w + (g1 << s) + b)", "__ldg(w + b)"),
-        ("ntt_cluster.cuh", "__ldg(ws + (g1 << s) + b)", "__ldg(ws + b)")],
+        ("ntt_cluster.cuh", "ldg_w(w + (g1 << s) + b)", "ldg_w(w + b)"),
+        ("ntt_cluster.cuh", "ldg_w(ws + (g1 << s) + b)", "ldg_w(ws + b)")],
     "no floor sum": [
         ("ntt.cu", "  if (e != cudaSuccess || v == nullptr) return "
          "static_cast<int>(e);", "  return static_cast<int>(e);")],
@@ -1847,16 +1851,25 @@ def _cmd(args):
         return f"unavailable ({e})"
 
 
-# the kernels of the two-pass K2, K7 and K8 and of the radix-2 K6, which
-# the library must not hold, and the one-pass core's kernels, which it must
+# the kernels of the two-pass K2, K7 and K8, of the radix-2 K6 and of the
+# two-pass U1 and two-launch U2, which the library must not hold, and the
+# one-pass core's kernels (U1's among them) and U2's one kernel, which it
+# must
 STALE_KERNELS = ("fwd_col_kernel", "fwd_chunk_kernel", "rows_col_kernel",
                  "last_col_kernel", "last_chunk_kernel",
                  "last_inv_col_kernel", "rest_col_kernel",
-                 "rest_chunk_kernel", "ntt_roll_kernel")
+                 "rest_chunk_kernel", "ntt_roll_kernel", "ntt_pass_kernel",
+                 "bconv_prep_kernel", "bconv_sum_kernel")
+K7_KERNELS = ("rescale_last_kernel", "rescale_rest_kernel")
+U64_NEW_KERNELS = ("ntt64_cluster_kernel", "bconv64_kernel")
+# the sources whose kernels' registers and spills phase 2 prints (nvcc
+# -Xptxas -v)
+PTXAS_REPORTS = (("moddown_rescale.cu", K7_KERNELS),
+                 ("u64_ntt.cu", U64_NEW_KERNELS[:1]),
+                 ("u64_bconv.cu", U64_NEW_KERNELS[1:]))
 CORE_KERNELS = ("fwd_cluster_kernel", "inv_cluster_kernel",
                 "bconv_ntt_kernel", "modup_ip_kernel", "moddown_rows_kernel",
-                "rescale_last_kernel", "rescale_rest_kernel")
-K7_KERNELS = CORE_KERNELS[-2:]
+                *K7_KERNELS, *U64_NEW_KERNELS)
 
 
 def _cuobjdump(lib: str, *args) -> str:
@@ -1866,18 +1879,23 @@ def _cuobjdump(lib: str, *args) -> str:
                           timeout=120, check=True).stdout
 
 
-def resource_usage(lib: str, kernels) -> dict:
-    """{kernel, or kernel<N> for a build templated on an int: its "REG:..
-    STACK:.. SHARED:.. LOCAL:.." line} from cuobjdump
-    --dump-resource-usage; raises for a kernel it does not list."""
+def _kernel_key(line: str, kernels):
+    """The kernel of `kernels` that a line of cuobjdump or ptxas names, as
+    kernel<N> for a build templated on an int or a bool; None if none."""
     import re
+    name = next((k for k in kernels if k in line), None)
+    t = name and re.search(name + r"IL[ib](\d+)E", line)
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+def resource_usage(lib: str, kernels) -> dict:
+    """{kernel, or kernel<N> for a build templated on an int or a bool:
+    its "REG:.. STACK:.. SHARED:.. LOCAL:.." line} from cuobjdump
+    --dump-resource-usage; raises for a kernel it does not list."""
     out, name = {}, None
     for line in _cuobjdump(lib, "--dump-resource-usage").splitlines():
         if "Function" in line:
-            name = next((k for k in kernels if k in line), None)
-            t = name and re.search(name + r"ILi(\d+)E", line)
-            if t:
-                name += f"<{t.group(1)}>"
+            name = _kernel_key(line, kernels)
         elif name is not None and "REG:" in line:
             out[name] = " ".join(w for w in line.split()
                                  if w.split(":")[0] in ("REG", "STACK",
@@ -1909,14 +1927,15 @@ def ptxas_report(proc, kernels) -> dict:
     out, name, spills = {}, None, ""
     for line in err.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in kernels if k in line), None)
+            name = _kernel_key(line, kernels)
         elif name is not None and "spill stores" in line:
             spills = line.strip()
         elif name is not None and "registers" in line:
             used = line.split(":", 1)[1].split(",")[0].strip()
             out[name] = f"{used}; {spills}"
             name = None
-    missing = [k for k in kernels if k not in out]
+    missing = [k for k in kernels
+               if not any(n.split("<")[0] == k for n in out)]
     if missing:
         raise RuntimeError(f"ptxas reports nothing of {missing}")
     return out
@@ -2049,9 +2068,12 @@ def calls_only(card: str, dev) -> None:
     and through the K8 and K7 epilogues, one alpha-8 xla-split step and
     one through each of those epilogues, one BFV step on each engine and
     one BGV step on each route, under the probes (phases 4, 8, 11, 18 and
-    23 without the rest).  It passes the wrappers only their common
-    arguments, so a copy of this file measures an earlier tree of the port
-    the same way."""
+    23 without the rest); then the u64 CKKS and BGV steps (phases 42-43
+    without the golden files and the plain step's timing: every U call
+    probed, chained timing, profile, U1's and U2's kernel launches per
+    call).  It passes the wrappers only their common arguments, so a
+    copy of this file measures an earlier tree of the port the same
+    way."""
     import torch
     from phantom_tpu_torch import make_context
     from phantom_tpu_torch.ops import bfv32, bgv32
@@ -2081,6 +2103,11 @@ def calls_only(card: str, dev) -> None:
         for kw in kws:
             build(c, rlk, **kw)(a, b, probes)
     _print_calls(probes, card, since)
+    del c, rlk, a, b
+    torch.cuda.empty_cache()
+    # the u64 CKKS and BGV steps: every U call probed, chained, profiled
+    _u64_phases(card, {name: 0 for name, *_ in U64_KERNELS}, dev, None,
+                calls=True)
 
 
 def _probes(pp, wrappers):
@@ -3955,32 +3982,73 @@ def _roll_phases(card, wrappers, launches, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _u64_phases(card, launches64, dev, lib: str) -> list:
+def _u64_library_launches():
+    """{U1, U2: the kernel launches their C entry points have made}, or
+    None for an earlier tree's library, which counts none."""
+    from phantom_tpu_torch import _build
+    lib = _build.library()
+    try:
+        return {"U1": lib.ptk_u64_ntt_launches(),
+                "U2": lib.ptk_u64_bconv_launches()}
+    except AttributeError:
+        return None
+
+
+def _u64_per_call(before, after, wrappers, calls: bool) -> dict:
+    """{U1, U2: kernel launches a wrapper call} over a counted run: the
+    launches their entry points made between `before` and `after`
+    (_u64_library_launches) over the wrapper's launch count.  The smoke
+    fails unless each is 1 (--calls, on any tree, only prints them)."""
+    got = {}
+    for (name, *_), w in zip(U64_KERNELS, wrappers):
+        if name not in ("U1", "U2"):
+            continue
+        got[name] = None if before is None or not w.launches else (
+            after[name] - before[name]) / w.launches
+        print(f"launches per call, {name}: " + (
+            "not measured (the library counts none)" if got[name] is None
+            else f"{got[name]:g} kernel launches a call ({w.launches} "
+            "calls)"))
+    if not calls and any(k != 1 for k in got.values()):
+        raise RuntimeError(f"U1 / U2: not one launch a call: {got}")
+    return got
+
+
+def _u64_phases(card, launches64, dev, lib, calls: bool = False):
     """Phases 41-44: the u64 golden files through U1-U4 on the card; the
     u64 CKKS and BGV steps at bench.py --path u64 width (keygen and
     encryption on the card, every U call under a probe, the launch
     counts, kernel path bit-equal to plain path, decryption, chained
-    timing, profile).  Returns the probes."""
+    timing, profile, U1's and U2's kernel launches per call).  With
+    `calls`
+    (--calls) without the SASS, the golden files and the plain step's
+    timing.  Returns the probes and U1's and U2's kernels per call."""
     import torch
     from phantom_tpu_torch import BatchEncoder, CKKSEncoder, make_context
     from phantom_tpu_torch.schemes import evaluate as ev
     from phantom_tpu_torch.schemes import keys
     from phantom_tpu_torch.schemes import keyswitch as ksw
-    imads = {}
-    for fn, counts in sass_by_function(lib, "ptk64", ("IMAD",)).items():
-        imads[fn.split("(")[0][-40:]] = sum(counts.values())
-    print("sass: IMAD instructions per U kernel function: " + ", ".join(
-        f"{k} {v}" for k, v in imads.items()) + f"; the bounds count a "
-        f"64x64 product's high word as {MUL_HI} and its low word as "
-        f"{MUL_LO} 32-bit multiplies")
-    for fname in U64_GOLDEN:
-        t0 = time.time()
-        held = u64_golden(dev, fname)
-        print(f"golden: {fname}: {held} outputs through U1-U4 bit-equal to "
-              f"the JAX package's ({time.time() - t0:.1f} s)")
+    if not calls:
+        imads, found = {}, set()
+        for fn, counts in sass_by_function(lib, "ptk64", ("IMAD",)).items():
+            key = _kernel_key(fn, U64_NEW_KERNELS)
+            found.add(key and key.split("<")[0])
+            imads[key or fn.split("(")[0][-40:]] = sum(counts.values())
+        print("sass: IMAD instructions per U kernel function: " + ", ".join(
+            f"{k} {v}" for k, v in imads.items()) + f"; the bounds count a "
+            f"64x64 product's high word as {MUL_HI} and its low word as "
+            f"{MUL_LO} 32-bit multiplies")
+        absent = [k for k in U64_NEW_KERNELS if k not in found]
+        if absent:
+            raise RuntimeError(f"sass: no function of {absent} under ptk64")
+        for fname in U64_GOLDEN:
+            t0 = time.time()
+            held = u64_golden(dev, fname)
+            print(f"golden: {fname}: {held} outputs through U1-U4 bit-equal "
+                  f"to the JAX package's ({time.time() - t0:.1f} s)")
     wrappers = kernel_wrappers64()
     probes = _probes64(U64_REPS)
-    since = {}
+    since, per_call = {}, {}
     for scheme in ("ckks", "bgv"):
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -4030,8 +4098,12 @@ def _u64_phases(card, launches64, dev, lib: str) -> list:
 
         step(c1, c2, probes)
         _print_calls64(probes, card, since)
+        before = _u64_library_launches()
         out = _count64(wrappers, f"u64 {scheme.upper()} step",
                        lambda: step(c1, c2, ksw.KERNELS64), launches64)
+        if scheme == "ckks":
+            per_call = _u64_per_call(before, _u64_library_launches(),
+                                     wrappers, calls)
         ref = step(c1, c2, ksw.PLAIN64)
         if not _same(out, ref):
             raise RuntimeError(f"u64 {scheme} step: kernel path differs "
@@ -4071,9 +4143,10 @@ def _u64_phases(card, launches64, dev, lib: str) -> list:
 
         _chain_timing(("kernel path",), chain, U64_CHAIN_STEPS, card,
                       f"u64 {scheme.upper()} step")
-        print(f"timing u64 {scheme.upper()} step, plain path: "
-              f"{_time(lambda: step(c1, c2, ksw.PLAIN64), 1):.1f} ms/op "
-              f"(one step after a warm-up) [{card}]")
+        if not calls:
+            print(f"timing u64 {scheme.upper()} step, plain path: "
+                  f"{_time(lambda: step(c1, c2, ksw.PLAIN64), 1):.1f} ms/op "
+                  f"(one step after a warm-up) [{card}]")
         dd = [c1]
 
         def prof():
@@ -4083,7 +4156,7 @@ def _u64_phases(card, launches64, dev, lib: str) -> list:
                               correction_factor=1)
         _profile(prof, PROFILE_STEPS, card, f"u64 {scheme.upper()} step")
         del ctx, sk, pk, rlk, c1, c2, out, ref, dec, dd, pts
-    return probes
+    return probes, per_call
 
 
 def main() -> int:
@@ -4115,10 +4188,12 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     calls = sys.argv[1:] == ["--calls"]
-    if not calls:  # K7's registers and spills, beside the library's build
+    if not calls:  # K7's, U1's and U2's registers and spills, beside the
+        # library's build
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        ptxas = start_ptxas_report("moddown_rescale.cu", os.path.join(
-            _build.BUILD_DIR, "moddown_rescale_ptxas.o"))
+        ptxas = [(start_ptxas_report(src, os.path.join(
+            _build.BUILD_DIR, src + ".ptxas.o")), kernels)
+            for src, kernels in PTXAS_REPORTS]
     path = _build.build()
     _build.library()
     print(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
@@ -4138,13 +4213,14 @@ def main() -> int:
     stale = [k for k in STALE_KERNELS if k in syms]
     missing = [k for k in CORE_KERNELS if k not in syms]
     if stale or missing:
-        raise RuntimeError(f"build: two-pass kernels {stale} in the library, "
+        raise RuntimeError(f"build: stale kernels {stale} in the library, "
                            f"core kernels {missing} not")
     use = resource_usage(path, CORE_KERNELS)
     print(f"symbols: none of {', '.join(STALE_KERNELS)}; resources: "
           + "; ".join(f"{k} {v}" for k, v in use.items()))
-    print("ptxas: " + "; ".join(f"{k} {v}" for k, v in ptxas_report(
-        ptxas, K7_KERNELS).items()))
+    for proc, kernels in ptxas:
+        print("ptxas: " + "; ".join(f"{k} {v}" for k, v in ptxas_report(
+            proc, kernels).items()))
 
     # 3. golden files from the JAX package
     g = np.load(GOLDEN)
@@ -4513,7 +4589,7 @@ def main() -> int:
 
     # 41-43. the u64 evaluator on U1-U4
     launches64 = {name: 0 for name, *_ in U64_KERNELS}
-    probes64 = _u64_phases(card, launches64, dev, path)
+    probes64, per_call = _u64_phases(card, launches64, dev, path)
 
     def summed(probe):
         if not probe.calls:
@@ -4543,6 +4619,8 @@ def main() -> int:
         rows.append(dict(name=f"{name} {attr}", route="cuda", source=src,
                          replaces=repl, launches=launches64[name],
                          **summed(both)))
+        if name in per_call:  # kernel launches a call (one: U1, U2)
+            rows[-1]["launches_per_call"] = per_call[name]
         if len(mine) > 1:
             rows[-1]["forms"] = [dict(name=p.name, **summed(p))
                                  for p in mine if p.calls]

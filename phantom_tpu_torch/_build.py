@@ -64,8 +64,10 @@ _SIGNATURES = {
     "ptk_ckks_fft_decode": ([_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
                              _P], _I),
     "ptk_ckks_fft_grids": ([_P, _I], _I),
-    "ptk_u64_ntt": ([_P] * 8 + [_I] * 4 + [_P], _I),
-    "ptk_u64_bconv": ([_P] * 16 + [_I] * 4 + [_P], _I),
+    "ptk_u64_ntt": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "ptk_u64_bconv": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "ptk_u64_ntt_launches": ([], ctypes.c_longlong),
+    "ptk_u64_bconv_launches": ([], ctypes.c_longlong),
     "ptk_u64_inner_product": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "ptk_u64_polyops": ([_I] + [_P] * 9 + [_I] * 5 + [_P], _I),
 }

@@ -1,8 +1,15 @@
 // The one-pass, cluster-resident, radix-8 NTT core, the library's only
 // NTT: forward under K2 (ntt.cu), K3 (bconv_ntt.cu), K4 (modup_ip.cu), K6's
-// forward (ntt_roll.cu, through K2), K7 (moddown_rescale.cu) and K8
-// (moddown_rows.cu), inverse under K1 (ntt.cu), K6's inverse (through K1)
-// and K7's last limb.
+// forward (ntt_roll.cu, through K2), K7 (moddown_rescale.cu), K8
+// (moddown_rows.cu) and U1 (u64_ntt.cu), inverse under K1 (ntt.cu), K6's
+// inverse (through K1), K7's last limb and U1.
+//
+// The core is generic over the word T: uint32_t (primes < 2^30, K1-K8) or
+// uint64_t (primes < 2^61, U1).  What differs is the word's arithmetic
+// (ct_lazy, gs_lazy, canon, overloaded on T: 32x32 or 64x64 Shoup
+// products) and its shared-memory rule (WordRule<T>: the pad and the lane
+// spread of unit_of, for 4- or 8-byte words).  The u32 instantiation is
+// the code the core was before it was made generic.
 //
 // The negacyclic transforms of the port's tables: out[k] = p(psi^(2 rev(k)
 // + 1)), forward Cooley-Tukey stages m = 1 .. N/2 and inverse
@@ -39,6 +46,12 @@
 // epilogue; inverse GS keeps them in [0, 2q) and the caller's Shoup
 // product by the scale takes any 32-bit word.
 //
+// U1 runs the crossing stages itself, inside its row's load (forward) or
+// store (inverse), and calls the local passes alone (local_ntt_rows,
+// local_intt), which may leave the forward's last stage to its epilogue
+// or start after the inverse's first, run in its prologue (kLeave,
+// kDone).
+//
 // A cluster may hold several rows at once, a share of each per block (K8:
 // the rows of one block of output rows): each pass then spreads the units
 // of all of them over the block's threads between the same barriers
@@ -47,8 +60,13 @@
 // Shared memory is indexed l + (l >> 5) (one pad word per 32), and the
 // units of a pass with ls < 5 are spread over the warp's lanes so that the
 // 32 lanes of a load or store hit 32 banks (unit_of); contiguous accesses
-// by the prologue and epilogue are conflict-free too.  Every size is a
-// power of two, so all index math is shifts and masks.
+// by the prologue and epilogue are conflict-free too.  A u64 word spans
+// two banks and a warp's 8-byte access is served a half-warp at a time,
+// so u64 shares are indexed l + (l >> 4) (one pad word per 16) and the
+// lane spread works on the 16 lanes of a half-warp (ls < 4); the
+// prologue's 16-byte loads of two words, stored at pad(2v) and
+// pad(2v + 1), hit 16 distinct bank pairs per half-warp too.  Every size
+// is a power of two, so all index math is shifts and masks.
 //
 // Bound: a 2^16-word row moves 256 KB in and 256 KB out (0.16 us at
 // 3.35 TB/s) and reads its table row with the Shoup words, 512 KB, which
@@ -65,6 +83,7 @@
 #include <cooperative_groups.h>
 
 #include "modarith.cuh"
+#include "modarith64.cuh"
 
 namespace ptk {
 
@@ -97,7 +116,29 @@ struct ClusterGeom {
   int logn, logc, logs;  // N = 2^logn, C = 2^logc, S = 2^logs
 };
 
-__device__ __forceinline__ int pad(int l) { return l + (l >> 5); }
+// The shared-memory rule of a word type: 2^kBankLog words fill the 32
+// banks, so one pad word follows each 2^kBankLog.  kAnyShare: the core
+// also takes shares too small for unit_of's lane spread (U1 runs every N
+// from 2 up; K1-K8 take N >= 2^10 only, and their code keeps no test).
+template <class T>
+struct WordRule;
+template <>
+struct WordRule<uint32_t> {
+  static constexpr int kBankLog = 5;
+  static constexpr bool kAnyShare = false;
+};
+template <>
+struct WordRule<uint64_t> {
+  static constexpr int kBankLog = 4;
+  static constexpr bool kAnyShare = true;
+};
+
+template <class T>
+__device__ __forceinline__ int pad_w(int l) {
+  return l + (l >> WordRule<T>::kBankLog);
+}
+
+__device__ __forceinline__ int pad(int l) { return pad_w<uint32_t>(l); }
 
 // words of dynamic shared memory for a share of 2^logs words (a multiple
 // of 4, so a buffer after it is 16-byte aligned)
@@ -138,24 +179,57 @@ __device__ __forceinline__ uint32_t canon(uint32_t x, uint32_t q) {
   return x >= q ? x - q : x;
 }
 
+// The same three on u64 words, q < 2^61 (4q < 2^63: no lazy value wraps).
+__device__ __forceinline__ void ct_lazy(uint64_t& u, uint64_t& v, uint64_t w,
+                                        uint64_t ws, uint64_t q,
+                                        uint64_t q2) {
+  const uint64_t x = u >= q2 ? u - q2 : u;
+  const uint64_t t = ptk64::shoup_lazy(v, w, ws, q);
+  u = x + t;
+  v = x - t + q2;
+}
+
+__device__ __forceinline__ void gs_lazy(uint64_t& u, uint64_t& v, uint64_t w,
+                                        uint64_t ws, uint64_t q,
+                                        uint64_t q2) {
+  const uint64_t a = u + v;
+  const uint64_t d = u - v + q2;
+  u = a >= q2 ? a - q2 : a;
+  v = ptk64::shoup_lazy(d, w, ws, q);
+}
+
+__device__ __forceinline__ uint64_t canon(uint64_t x, uint64_t q) {
+  x = x >= 2 * q ? x - 2 * q : x;
+  return x >= q ? x - q : x;
+}
+
+// a read-only word through the non-coherent cache
+__device__ __forceinline__ uint32_t ldg_w(const uint32_t* p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ uint64_t ldg_w(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const unsigned long long*>(p));
+}
+
 // R stages on 2^R words x[k] = row[base + k * stride] in registers.  The
 // stages are levels 0 .. R - 1 from the widest stride down, forward in
 // that order, inverse in reverse; at level s word k belongs to group
 // (g1 << s) + (k >> (R - s)) (its twiddle index), g1 the group at level 0.
-template <int R, bool kInverse>
-__device__ __forceinline__ void radix(uint32_t (&x)[1 << R],
-                                      const uint32_t* __restrict__ w,
-                                      const uint32_t* __restrict__ ws,
-                                      int g1, uint32_t q) {
-  uint32_t tw[(1 << R) - 1], tws[(1 << R) - 1];
+template <int R, bool kInverse, class T>
+__device__ __forceinline__ void radix(T (&x)[1 << R],
+                                      const T* __restrict__ w,
+                                      const T* __restrict__ ws, int g1,
+                                      T q) {
+  T tw[(1 << R) - 1], tws[(1 << R) - 1];
 #pragma unroll
   for (int s = 0; s < R; ++s)
 #pragma unroll
     for (int b = 0; b < (1 << s); ++b) {
-      tw[(1 << s) - 1 + b] = __ldg(w + (g1 << s) + b);
-      tws[(1 << s) - 1 + b] = __ldg(ws + (g1 << s) + b);
+      tw[(1 << s) - 1 + b] = ldg_w(w + (g1 << s) + b);
+      tws[(1 << s) - 1 + b] = ldg_w(ws + (g1 << s) + b);
     }
-  const uint32_t q2 = 2 * q;
+  const T q2 = 2 * q;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = kInverse ? R - 1 - i : i;
@@ -176,41 +250,47 @@ __device__ __forceinline__ void radix(uint32_t (&x)[1 << R],
 // row i's share at s + i * words(), transformed with table row w(i),
 // ws(i) and modulus q(i).  One row is OneRow; K8 holds several
 // (moddown_rows.cu, HeldRows).
+template <class T>
 struct OneRow {
-  const uint32_t* tw;
-  const uint32_t* tws;
-  uint32_t mod;
+  const T* tw;
+  const T* tws;
+  T mod;
   __device__ __forceinline__ int count() const { return 1; }
   __device__ __forceinline__ int words() const { return 0; }
-  __device__ __forceinline__ const uint32_t* w(int) const { return tw; }
-  __device__ __forceinline__ const uint32_t* ws(int) const { return tws; }
-  __device__ __forceinline__ uint32_t q(int) const { return mod; }
+  __device__ __forceinline__ const T* w(int) const { return tw; }
+  __device__ __forceinline__ const T* ws(int) const { return tws; }
+  __device__ __forceinline__ T q(int) const { return mod; }
 };
 
 // Unit u of a local pass of R stages whose last stage pairs words 2^ls
 // apart -> (hi, lo): the unit's words are (hi << (ls + R)) | lo | (k << ls).
-// For ls >= 5 consecutive units are consecutive words.  For ls < 5 the
-// lanes of a warp take 2^ls values of lo and hi values 2^(5-R) apart, and
-// the warp index supplies the rest, so that with the padded index each
-// access of the warp touches 32 banks (needs 2^(10 - R) units: S >= 1024).
-__device__ __forceinline__ void unit_of(int u, int ls, int R, int& hi,
-                                        int& lo) {
+// With B = 2^b lanes to spread (b = WordRule<T>::kBankLog: the 32 lanes
+// of a warp for u32, the 16 of a half-warp for u64): for ls >= b
+// consecutive units are consecutive words.  For ls < b the B lanes take
+// 2^ls values of lo and hi values 2^(b-R) apart, and the higher lane and
+// warp bits supply the rest, so that with the padded index each access of
+// the B lanes touches 32 banks (needs 2^(2b - R) units: S >= 2^(2b)).  A
+// share below that (u64 at N < 2^8, one block) takes units in order.
+template <class T>
+__device__ __forceinline__ void unit_of(int u, int ls, int R, int logs,
+                                        int& hi, int& lo) {
+  constexpr int b = WordRule<T>::kBankLog;
   lo = u & ((1 << ls) - 1);
-  if (ls >= 5) {
+  if (ls >= b || (WordRule<T>::kAnyShare && logs < 2 * b)) {
     hi = u >> ls;
     return;
   }
-  const int sp = 5 - R;
-  hi = ((u >> 5) & ((1 << sp) - 1)) | (((u & 31) >> ls) << sp) |
-       ((u >> (5 + sp)) << (sp + 5 - ls));
+  const int sp = b - R;
+  hi = ((u >> b) & ((1 << sp) - 1)) | (((u & ((1 << b) - 1)) >> ls) << sp) |
+       ((u >> (b + sp)) << (sp + b - ls));
 }
 
 // A pass of R stages whose smallest stride is 2^ls, over every row of
 // `rows` (a row's units are 2^(logs - R) consecutive values of t, whole
 // warps, so unit_of's lane spread holds per row).  For OneRow, count() is
 // the constant 1, so i folds to 0 and u to t: no index work is added.
-template <int R, bool kInverse, class Rows>
-__device__ __forceinline__ void local_pass(uint32_t* s, const ClusterGeom& G,
+template <int R, bool kInverse, class T, class Rows>
+__device__ __forceinline__ void local_pass(T* s, const ClusterGeom& G,
                                            int rank, int ls,
                                            const Rows& rows) {
   // m = N / 2^(ls + R) groups at the pass's widest stage; the share's
@@ -221,27 +301,27 @@ __device__ __forceinline__ void local_pass(uint32_t* s, const ClusterGeom& G,
   for (int t = threadIdx.x; t < units; t += blockDim.x) {
     const int i = rows.count() == 1 ? 0 : t >> lu;
     int hi, lo;
-    unit_of(t - (i << lu), ls, R, hi, lo);
-    uint32_t* si = s + i * rows.words();
+    unit_of<T>(t - (i << lu), ls, R, G.logs, hi, lo);
+    T* si = s + i * rows.words();
     const int base = (hi << (ls + R)) | lo;
-    uint32_t x[1 << R];
+    T x[1 << R];
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) x[k] = si[pad(base + (k << ls))];
+    for (int k = 0; k < (1 << R); ++k) x[k] = si[pad_w<T>(base + (k << ls))];
     radix<R, kInverse>(x, rows.w(i), rows.ws(i), g0 + hi, rows.q(i));
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) si[pad(base + (k << ls))] = x[k];
+    for (int k = 0; k < (1 << R); ++k) si[pad_w<T>(base + (k << ls))] = x[k];
   }
 }
 
 // The logc crossing stages: radix C over the cluster's shares at equal
 // offsets; block `rank` serves offsets [rank S / C, (rank + 1) S / C) of
 // every row of `rows`.
-template <int LC, bool kInverse, class Rows>
-__device__ __forceinline__ void crossing_pass(uint32_t* s,
+template <int LC, bool kInverse, class T, class Rows>
+__device__ __forceinline__ void crossing_pass(T* s,
                                               cg::cluster_group& cluster,
                                               const ClusterGeom& G, int rank,
                                               const Rows& rows) {
-  uint32_t* sh[1 << LC];
+  T* sh[1 << LC];
 #pragma unroll
   for (int k = 0; k < (1 << LC); ++k) sh[k] = cluster.map_shared_rank(s, k);
   const int lp = G.logs - LC;  // 2^lp offsets per row
@@ -249,8 +329,8 @@ __device__ __forceinline__ void crossing_pass(uint32_t* s,
   const int first = rank << lp;
   for (int o = threadIdx.x; o < per; o += blockDim.x) {
     const int i = rows.count() == 1 ? 0 : o >> lp;
-    const int p = i * rows.words() + pad(first + o - (i << lp));
-    uint32_t x[1 << LC];
+    const int p = i * rows.words() + pad_w<T>(first + o - (i << lp));
+    T x[1 << LC];
 #pragma unroll
     for (int k = 0; k < (1 << LC); ++k) x[k] = sh[k][p];
     radix<LC, kInverse>(x, rows.w(i), rows.ws(i), 1, rows.q(i));
@@ -259,13 +339,32 @@ __device__ __forceinline__ void crossing_pass(uint32_t* s,
   }
 }
 
+// The local passes of cluster_ntt_rows, all but the last kLeave stages
+// (the block synchronised before: the shares hold the crossing stages'
+// results).  Returns with the block synchronised.
+template <int kLeave = 0, class T, class Rows>
+__device__ __forceinline__ void local_ntt_rows(T* s, const ClusterGeom& G,
+                                               int rank, const Rows& rows) {
+  for (int left = G.logs; left > kLeave;) {
+    const int r = left - kLeave >= 3 ? 3 : left - kLeave;
+    left -= r;
+    if (r == 3)
+      local_pass<3, false>(s, G, rank, left, rows);
+    else if (r == 2)
+      local_pass<2, false>(s, G, rank, left, rows);
+    else
+      local_pass<1, false>(s, G, rank, left, rows);
+    __syncthreads();
+  }
+}
+
 // All log N forward stages on the rows whose shares this block holds in s
 // (written by every thread of every block of the cluster before the call,
 // [0, 2q)).
 // Returns with the shares in [0, 4q) and the block synchronised; no block
 // touches another's shares after the call.  Uniform over the cluster.
-template <class Rows>
-__device__ __forceinline__ void cluster_ntt_rows(uint32_t* s,
+template <class T, class Rows>
+__device__ __forceinline__ void cluster_ntt_rows(T* s,
                                                  cg::cluster_group& cluster,
                                                  const ClusterGeom& G,
                                                  int rank, const Rows& rows) {
@@ -281,43 +380,24 @@ __device__ __forceinline__ void cluster_ntt_rows(uint32_t* s,
   } else {
     __syncthreads();
   }
-  for (int left = G.logs; left > 0;) {
-    const int r = left >= 3 ? 3 : left;
-    left -= r;
-    if (r == 3)
-      local_pass<3, false>(s, G, rank, left, rows);
-    else if (r == 2)
-      local_pass<2, false>(s, G, rank, left, rows);
-    else
-      local_pass<1, false>(s, G, rank, left, rows);
-    __syncthreads();
-  }
+  local_ntt_rows(s, G, rank, rows);
 }
 
 // cluster_ntt_rows on one row, table row w, ws, modulus q.
-__device__ __forceinline__ void cluster_ntt(uint32_t* s,
-                                            cg::cluster_group& cluster,
+template <class T>
+__device__ __forceinline__ void cluster_ntt(T* s, cg::cluster_group& cluster,
                                             const ClusterGeom& G, int rank,
-                                            const uint32_t* __restrict__ w,
-                                            const uint32_t* __restrict__ ws,
-                                            uint32_t q) {
-  cluster_ntt_rows(s, cluster, G, rank, OneRow{w, ws, q});
+                                            const T* __restrict__ w,
+                                            const T* __restrict__ ws, T q) {
+  cluster_ntt_rows(s, cluster, G, rank, OneRow<T>{w, ws, q});
 }
 
-// The inverse of cluster_ntt on the row whose share this block holds in s
-// (written by every thread of the block before the call, [0, 2q)): the
-// local passes, strides rising, then the crossing stages.  Returns with
-// the share in [0, 2q) and the block synchronised; no block touches
-// another's share after the call.  Uniform over the cluster.
-__device__ __forceinline__ void cluster_intt(uint32_t* s,
-                                             cg::cluster_group& cluster,
-                                             const ClusterGeom& G, int rank,
-                                             const uint32_t* __restrict__ w,
-                                             const uint32_t* __restrict__ ws,
-                                             uint32_t q) {
-  const OneRow row{w, ws, q};
-  __syncthreads();
-  for (int ls = 0; ls < G.logs;) {
+// The local passes of cluster_intt, from stage kDone on (the block
+// synchronised before).  Returns with the block synchronised.
+template <int kDone = 0, class T>
+__device__ __forceinline__ void local_intt(T* s, const ClusterGeom& G,
+                                           int rank, const OneRow<T>& row) {
+  for (int ls = kDone; ls < G.logs;) {
     const int r = G.logs - ls >= 3 ? 3 : G.logs - ls;
     if (r == 3)
       local_pass<3, true>(s, G, rank, ls, row);
@@ -328,6 +408,21 @@ __device__ __forceinline__ void cluster_intt(uint32_t* s,
     ls += r;
     __syncthreads();
   }
+}
+
+// The inverse of cluster_ntt on the row whose share this block holds in s
+// (written by every thread of the block before the call, [0, 2q)): the
+// local passes, strides rising, then the crossing stages.  Returns with
+// the share in [0, 2q) and the block synchronised; no block touches
+// another's share after the call.  Uniform over the cluster.
+template <class T>
+__device__ __forceinline__ void cluster_intt(T* s, cg::cluster_group& cluster,
+                                             const ClusterGeom& G, int rank,
+                                             const T* __restrict__ w,
+                                             const T* __restrict__ ws, T q) {
+  const OneRow<T> row{w, ws, q};
+  __syncthreads();
+  local_intt(s, G, rank, row);
   if (G.logc > 0) {
     cluster.sync();
     if (G.logc == 1)

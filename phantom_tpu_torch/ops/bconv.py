@@ -20,7 +20,9 @@ workaround and has no counterpart.
 U2 (csrc/u64_bconv.cu) computes one of three forms per launch ("approx",
 "reduce": raw from y given, as the fused modup's pre-scaled iNTT hands it
 over, "exact") on (k_in, M) columns, M any count: the key switch passes
-one digit, or the P rows of one half, at a time.
+one digit, or the P rows of one half, at a time.  One launch a call and
+no scratch tensor: a block holds y for 64 columns in shared memory (see
+there).
 """
 
 from __future__ import annotations
@@ -162,10 +164,9 @@ def bconv(x: torch.Tensor, c: BaseConvConsts,
                          f"{c.ibase.q.shape[0]} (at most 63)")
     check_words(x, *c.ibase, *c.obase, *c[2:])
     out = torch.empty((k_out, m), dtype=torch.int64, device=x.device)
-    scratch = torch.empty((k_in + 1, m), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().ptk_u64_bconv(
-            out.data_ptr(), scratch.data_ptr(), x.data_ptr(),
+            out.data_ptr(), x.data_ptr(),
             c.ibase.q.data_ptr(), c.ibase.ratio_lo.data_ptr(),
             c.ibase.ratio_hi.data_ptr(), c.qhat_inv.data_ptr(),
             c.qhat_inv_shoup.data_ptr(), c.U.data_ptr(), c.V.data_ptr(),

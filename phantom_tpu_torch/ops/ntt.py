@@ -13,14 +13,17 @@ the key switch folds its QhatInv in, as the JAX package does), output
 [0, q).  One `NTTTables64` holds a whole base; a transform of L rows
 takes `rows`, the table row of each limb.
 
-The CUDA kernel (csrc/u64_ntt.cu) runs the stages in passes of up to ten
-over 1024-word subproblems in shared memory, two passes at N = 2^16 (see
-there).  Outputs are canonical, so it is bit-equal to the plain version.
+The CUDA kernel (csrc/u64_ntt.cu) runs each call as one launch on the
+one-pass cluster core (csrc/ntt_cluster.cuh) that K1-K8 run on, a row in
+a cluster of C blocks, read from device memory once and written once, at
+every N from 2 to 2^17; `u64_geometry` picks C, the threads and the
+shared memory from N.  Outputs are canonical, so it is bit-equal to the
+plain version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -118,6 +121,36 @@ def ntt_inverse_plain(x: torch.Tensor, t: NTTTables64, rows=None,
         scale_shoup.view(-1, 1), qc), qc)
 
 
+# the largest share one block holds: 2^13 u64 words (64 KiB, 68 KiB with
+# the pad), so that three blocks fit an SM; C = 8 (the portable
+# cluster size) at most, so that N = 2^17 runs at C = 8 on 2^14-word
+# shares (136 KiB, one block an SM) and not on a non-portable 16
+U64_SHARE_LOG = 13
+U64_CLUSTER_LOG = 3
+U64_MAX_LOGN = 17
+
+
+class Geometry(NamedTuple):
+    logc: int     # 2^logc blocks a row (a cluster)
+    threads: int  # threads a block
+    smem: int     # bytes of dynamic shared memory a block
+
+
+def u64_geometry(n: int) -> Geometry:
+    """U1's launch at N = n: C = 2^logc blocks a row, each holding a share
+    of S = N / C u64 words in `smem` bytes of dynamic shared memory (S
+    words and one pad word per 16), with `threads` threads (one per 32
+    words of the share, 32 to 256: the kernel runs three blocks an
+    SM)."""
+    logn = n.bit_length() - 1
+    if n != 1 << logn or not 1 <= logn <= U64_MAX_LOGN:
+        raise ValueError(f"U1 takes N = 2 .. 2^{U64_MAX_LOGN}, not {n}")
+    logc = min(max(logn - U64_SHARE_LOG, 0), U64_CLUSTER_LOG)
+    s = 1 << (logn - logc)
+    return Geometry(logc=logc, threads=min(max(s // 32, 32), 256),
+                    smem=8 * (s + (s >> 4)))
+
+
 def check_words(*tensors) -> None:
     """The u64 kernels' operands: contiguous int64 tensors on one
     device."""
@@ -150,8 +183,10 @@ def _launch(x, t: NTTTables64, rows, inverse: bool, scale=None,
         raise ValueError("scale and scale_shoup go together")
     _build.check_device(rows, t.q)
     check_words(x, t.q, t.root_powers, scale, scale_shoup)
+    geo = u64_geometry(n)
     groups = x.numel() // (num_l * n)
     out = torch.empty_like(x)
+    _build.check_aligned(x, out)
     tw, tws = ((t.inv_root_powers, t.inv_root_powers_shoup) if inverse
                else (t.root_powers, t.root_powers_shoup))
     if inverse and scale is None:
@@ -161,7 +196,8 @@ def _launch(x, t: NTTTables64, rows, inverse: bool, scale=None,
         err = _build.library().ptk_u64_ntt(
             out.data_ptr(), x.data_ptr(), t.q.data_ptr(), tw.data_ptr(),
             tws.data_ptr(), rows.data_ptr(), _ptr(scale), _ptr(scale_shoup),
-            groups, num_l, logn, int(inverse), _build.stream(x))
+            groups, num_l, logn, int(inverse), geo.logc, geo.threads,
+            geo.smem, _build.stream(x))
     _build.check(err, "u64_ntt")
     ntt_forward.launches += 1
     return out

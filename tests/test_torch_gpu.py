@@ -8,7 +8,7 @@ run these with
 
 Every kernel at several sizes, with every option of its wrapper; the
 tables are real NTT tables and the inputs seeded; bit-exact.  The u64
-kernels U1-U4 at N = 2 to 2^16 with 50- and 61-bit primes, the u64 golden
+kernels U1-U4 at N = 2 to 2^17 with 50- and 61-bit primes, the u64 golden
 files through them, and the roll engine's and the xla-bconv moddown's
 golden file.  The BFV step
 on both engines, BFV's other techniques and the fused lift, and the BGV
@@ -1022,7 +1022,7 @@ def test_linear_and_poly_golden(dev):
 # xla-bconv moddown
 # ---------------------------------------------------------------------------
 
-U64_LOGNS = [1, 10, 11, 12, 13, 16]
+U64_LOGNS = [1, 10, 11, 12, 13, 16, 17]
 PLAIN_T = 1179649  # a 21-bit prime == 1 mod 2^17: BGV's conversion to {t}
 
 
@@ -1067,6 +1067,18 @@ def test_u1_ntt(dev, logn, bits):
                        u1.ntt_forward(x, t)[:, [2, 0, 1]])
 
 
+@pytest.mark.parametrize("logn", range(1, 18))
+def test_u1_every_n(dev, logn):
+    """U1 both ways at every N from 2 to 2^17 (each geometry of
+    ops/ntt.py u64_geometry: one block up to 2^13, then 2, 4, 8 blocks a
+    row), 61-bit primes."""
+    from phantom_tpu_torch.ops import ntt as u1
+    _, t, res, _ = _u64_setup(dev, logn, 61)
+    x, xi = res((2,)), res((2,), lazy=True)
+    assert torch.equal(u1.ntt_forward(x, t), u1.ntt_forward_plain(x, t))
+    assert torch.equal(u1.ntt_inverse(xi, t), u1.ntt_inverse_plain(xi, t))
+
+
 @pytest.mark.parametrize("form", ["approx", "reduce", "exact"])
 @pytest.mark.parametrize("bits", [50, 61])
 @pytest.mark.parametrize("logn", [10, 16])
@@ -1083,6 +1095,44 @@ def test_u2_bconv(dev, logn, bits, form):
     x = torch.randint(0, 1 << 62, (22, n), generator=gen, device=dev) \
         % conv.ibase.q.view(-1, 1)
     assert torch.equal(u2.bconv(x, conv, form), u2.bconv_plain(x, conv, form))
+
+
+@pytest.mark.parametrize("form", ["approx", "reduce", "exact"])
+@pytest.mark.parametrize("k_in, k_out, m", [
+    (63, 44, 1 << 12),   # the largest 128-bit sum: 63 products of 61 bits
+    (63, 1, 3 * 1000),   # to {t} alone, a ragged M
+    (22, 1, 3 * 1000),
+    (22, 43, 3 * 1000),
+    (1, 3, 65)])
+def test_u2_bconv_shapes(dev, k_in, k_out, m, form):
+    """U2 at k_in = 63 with 61-bit primes, at k_out = 1 (BGV's {t}) and
+    at an M that is not a multiple of the kernel's 64-column tile, in
+    every form; the columns of all q_i - 1 and of zeros included."""
+    from phantom_tpu_torch import host
+    from phantom_tpu_torch.ops import bconv as u2
+    ib = numth.get_primes(2048, 61, k_in)
+    ob = numth.get_primes(2048, 50, k_out - 1) + [PLAIN_T]
+    conv = u2.consts_from_host(host.BaseConverter(
+        host.RNSBase(ib), host.RNSBase(ob)), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k_in * 1000 + m)
+    q = conv.ibase.q.view(-1, 1)
+    x = torch.randint(0, 1 << 62, (k_in, m), generator=gen, device=dev) % q
+    x[:, :7] = q - 1
+    x[:, 7:9] = 0
+    assert torch.equal(u2.bconv(x, conv, form), u2.bconv_plain(x, conv, form))
+
+
+def test_u2_refuses_64_rows(dev):
+    """k_in = 64 could wrap the 128-bit sum: the wrapper raises."""
+    from phantom_tpu_torch import host
+    from phantom_tpu_torch.ops import bconv as u2
+    conv = u2.consts_from_host(host.BaseConverter(
+        host.RNSBase(numth.get_primes(2048, 61, 64)),
+        host.RNSBase([PLAIN_T])), dev)
+    x = torch.zeros((64, 128), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        u2.bconv(x, conv, "approx")
 
 
 @pytest.mark.parametrize("perm", [False, True])
