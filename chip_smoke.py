@@ -7,6 +7,7 @@ evaluation) on one NVIDIA GPU and check it.
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
                                    # against its plain version, timed
+    python3 chip_smoke.py --calls u64  # the same of the u64 steps only
 
 Four configurations, all N = 2^16 with 43 data primes of 28 bits from
 chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
@@ -54,11 +55,11 @@ Phases, one line each or more; any failure exits non-zero:
   2. build     the kernels of phantom_tpu_torch/csrc, built from source;
                K5's int8 tensor-core instructions (IMMA) counted in the
                built library's SASS (cuobjdump); no kernel of the two-pass
-               K2, K7 and K8, of the radix-2 K6 or of the former two-pass U1
-               and two-launch U2 (STALE_KERNELS) left in its symbols, the
-               core's kernels and U2's (CORE_KERNELS) there; registers and
-               stack of those, and K7's, U1's and U2's registers and
-               spills (nvcc -Xptxas -v)
+               K2, K7 and K8, of the radix-2 K6, of the former two-pass U1,
+               two-launch U2 or one-kernel U4 (STALE_KERNELS) left in its
+               symbols, the core's kernels, U2's and U4's (CORE_KERNELS)
+               there; registers and stack of those, and K7's, U1's, U2's
+               and each U4 form's registers and spills (nvcc -Xptxas -v)
   3. golden    the step (n = 1024, alpha = 2) through each epilogue on both
                routes, and the rotation golden file (rotation, key switch,
                both hoisted forms, moddown, the step through each
@@ -88,7 +89,8 @@ Phases, one line each or more; any failure exits non-zero:
                the rescale's K1 and K3) on the same operands, device time,
                in turns
   7. profile   torch.profiler over a few chained kernel-path steps through
-               each epilogue (pair, K8, K7): the device-busy time, the
+               each epilogue (pair, K8, K7), after a warm-up step it
+               drops (every profile does so): the device-busy time, the
                idle share and the top device kernels
   8. routes    the step on the "xla" route (K4p) and on the "kernel" route
                (K4 at alpha 22) with every kernel call bit-equal to its
@@ -275,22 +277,26 @@ Phases, one line each or more; any failure exits non-zero:
                mod_switch_to_next) verbs on "pallas-roll" at the headline
                and BGV configurations: launch counts, bit-equal to the
                default engine, event time
- 41. u64       the IMADs of each U kernel in the SASS (U1's and U2's
-     golden    kernels found there); the four u64 golden files (CKKS and
-               BGV, 50- and 60-bit chains) through U1-U4, every output
-               bit-equal to the JAX package's
+ 41. u64       the IMADs of each U kernel in the SASS (U1's, U2's and
+     golden    U4's kernels found there); the four u64 golden files (CKKS
+               and BGV, 50- and 60-bit chains) through U1-U4, every output
+               bit-equal to the JAX package's, and u64_mxn_n1024.npz
+               through U4's mxn form
  42. u64 CKKS  bench.py --path u64: N = 2^16, 43 data primes of 50 bits, 22
                special of 51; the context's build time (at most 30 s), the
                keys and two encryptions on the card (relin key and
                encryption under launch counts), the step multiply_and_relin
                + rescale_to_next with every U call under a probe (bit-equal
-               to plain, event and device time, plain time, bound), the
-               launch counts, the whole step bit-equal to the plain path,
-               decoded within 1e-2 of numpy's float64 product (the error
-               printed), 10 chained steps timed (event time per step, peak
-               memory), the plain step timed, a profile (device-busy, idle
-               share); the kernel launches U1's and U2's entry points
-               made in the step per wrapper call: one each
+               to plain, event and device time, plain time, bound; U4's
+               host time a call), the launch counts, the whole step
+               bit-equal to the plain path, decoded within 1e-2 of numpy's
+               float64 product (the error printed), 10 chained steps timed
+               (event time per step, peak memory), the plain step timed, a
+               profile (device-busy, idle share, the aten kernels a step by
+               name; its records of U1-U4 held against their launch
+               counts); the
+               kernel launches U1's, U2's and U4's entry points made in
+               the step per wrapper call: one each
  43. u64 BGV   the same for BGV (t the 20-bit batching prime):
                multiply_and_relin + mod_switch_to_next, decrypted right in
                every one of the 65536 slots
@@ -324,12 +330,14 @@ library_ms is null for K1-K9; F1's is torch.fft.fft over complex128 (the
 bare form's calls; its row lists the fused forms' sums under "forms",
 with library_ms null: no PyTorch call fuses the scatter or the residues).
 U1-U4's rows sum the probed calls of phases 42-43 (U1's forward and
-inverse, U4's five forms, each listed under "forms"; U1's and U2's
-"launches_per_call", the kernels one call launches); their bound counts
-u64 work in 32-bit multiplies (MUL_HI, MUL_LO: a 64 x 64 product's high
-word 4, its low word 3, so a Shoup product 10, a Barrett-128 product 31,
-reduce128_any 45, the floor sum 58 a word); no PyTorch call computes a
-u64 modular function, so their library_ms is null.
+inverse, U4's forms, each listed under "forms" with its calls, device
+time and host time a call; U1's, U2's and U4's "launches_per_call", the
+kernels one call launches); their bound counts u64 work in 32-bit
+multiplies (MUL_HI, MUL_LO: a 64 x 64 product's high word 4, its low
+word 3, so a Shoup product 10, a Barrett-128 product 31, reduce128_any
+45, the floor sum 58 a word) and each operand's words once (a row form's
+(..., 1, N) row once, not once a limb); no PyTorch call computes a u64
+modular function, so their library_ms is null.
 Last comes {"ok": true, "device": ...}.
 Without a CUDA device, or without the repo around it, it exits non-zero
 before printing any result.
@@ -1795,8 +1803,8 @@ def _u64_kernel_golden(g, fname, ctx, ops, device) -> int:
     ip_out, po_*) on its inputs."""
     import torch
     from phantom_tpu_torch.ops import bconv as bc
+    from phantom_tpu_torch.ops import polyops
     from phantom_tpu_torch.schemes import keyswitch as ksw
-    from phantom_tpu_torch.ops.rns_host import i64_tensor
     cd = ctx.get_context_data(1)
     lv = cd.u64
     ks = lv.ks
@@ -1822,12 +1830,8 @@ def _u64_kernel_golden(g, fname, ctx, ops, device) -> int:
         po_fma=ops.fma_rns(inp["po_a"], inp["po_b"], inp["po_c"], lv.mv),
         po_tensor=ops.tensor_prod_2x2(inp["po_a"], inp["po_b"], lv.mv),
         po_square=ops.tensor_square_2x2(inp["po_a"], lv.mv))
-    wv = g["rlk_a"][0, :k, 0]
-    qs = ctx.params.data_moduli[:k]
-    res["po_shoup"] = ops.sub_mul_shoup(
-        inp["po_a"], i64_tensor(wv, device),
-        i64_tensor([(int(v) << 64) // q for v, q in zip(wv, qs)], device),
-        lv.mv)
+    res["po_shoup"] = ops.shoup_rns(inp["po_a"], polyops.limbs(
+        ctx.params.data_moduli[:k], w=g["rlk_a"][0, :k, 0], device=device))
     if ks.p_to_t is not None:
         res["fs_exact_t"] = ops.bconv(x, ks.p_to_t, "exact")
     if not np.array_equal(res["fs_v"].cpu().numpy().view(np.uint64),
@@ -1837,6 +1841,34 @@ def _u64_kernel_golden(g, fname, ctx, ops, device) -> int:
         if not np.array_equal(digest(v), g["h__" + name]):
             raise RuntimeError(f"golden {fname}: {name} differs (digest)")
     return len(res)
+
+
+U64_MXN = "u64_mxn_n1024.npz"
+MXN_CASES = ((3, 2), (3, 3), (2, 3), (1, 2))  # the generator's
+
+
+def u64_mxn_golden(device, op=None) -> int:
+    """u64_mxn_n1024.npz: tensor_prod_mxn (U4's mxn form, or `op`) of each
+    (m, n) case on both chains, bit-equal to the JAX package's (digests,
+    RuntimeError otherwise).  Returns the number of products held."""
+    import torch
+    from phantom_tpu_torch.ops import polyops
+    from phantom_tpu_torch.ops.rns_host import modulus_vec
+    op = polyops.tensor_prod_mxn if op is None else op
+    g = np.load(os.path.join(FIXTURES, U64_MXN))
+    held = 0
+    for bits in (50, 61):
+        mv = modulus_vec(g[f"moduli_b{bits}"].tolist(), device)
+        ct1, ct2 = (torch.from_numpy(g[f"{c}_b{bits}"].view(np.int64)).to(
+            device) for c in ("ct1", "ct2"))
+        for m, n in MXN_CASES:
+            name = f"mxn{m}{n}_b{bits}"
+            got = op(ct1[:m], ct2[:n], mv)
+            if got.shape != (m + n - 1,) + ct1.shape[1:] or not \
+                    np.array_equal(digest(got), g["h__" + name]):
+                raise RuntimeError(f"golden {U64_MXN}: {name} differs")
+            held += 1
+    return held
 
 
 # ---------------------------------------------------------------------------
@@ -1859,14 +1891,18 @@ STALE_KERNELS = ("fwd_col_kernel", "fwd_chunk_kernel", "rows_col_kernel",
                  "last_col_kernel", "last_chunk_kernel",
                  "last_inv_col_kernel", "rest_col_kernel",
                  "rest_chunk_kernel", "ntt_roll_kernel", "ntt_pass_kernel",
-                 "bconv_prep_kernel", "bconv_sum_kernel")
+                 "bconv_prep_kernel", "bconv_sum_kernel", "polyops_kernel")
 K7_KERNELS = ("rescale_last_kernel", "rescale_rest_kernel")
-U64_NEW_KERNELS = ("ntt64_cluster_kernel", "bconv64_kernel")
+# U1's, U2's and U4's kernels (U4: one instantiation a form and words a
+# thread, its products and its row forms)
+U64_NEW_KERNELS = ("ntt64_cluster_kernel", "bconv64_kernel",
+                   "polyops64_kernel", "polyrows64_kernel")
 # the sources whose kernels' registers and spills phase 2 prints (nvcc
 # -Xptxas -v)
 PTXAS_REPORTS = (("moddown_rescale.cu", K7_KERNELS),
                  ("u64_ntt.cu", U64_NEW_KERNELS[:1]),
-                 ("u64_bconv.cu", U64_NEW_KERNELS[1:]))
+                 ("u64_bconv.cu", U64_NEW_KERNELS[1:2]),
+                 ("u64_polyops.cu", U64_NEW_KERNELS[2:]))
 CORE_KERNELS = ("fwd_cluster_kernel", "inv_cluster_kernel",
                 "bconv_ntt_kernel", "modup_ip_kernel", "moddown_rows_kernel",
                 *K7_KERNELS, *U64_NEW_KERNELS)
@@ -1881,11 +1917,18 @@ def _cuobjdump(lib: str, *args) -> str:
 
 def _kernel_key(line: str, kernels):
     """The kernel of `kernels` that a line of cuobjdump or ptxas names, as
-    kernel<N> for a build templated on an int or a bool; None if none."""
+    kernel<N, ...> for a build templated on ints or bools (U4's as "U4
+    <form>, <W> words"); None if none."""
     import re
     name = next((k for k in kernels if k in line), None)
-    t = name and re.search(name + r"IL[ib](\d+)E", line)
-    return f"{name}<{t.group(1)}>" if t else name
+    t = name and re.search(name + r"I((?:L[ib]\d+E)+)E", line)
+    if not t:
+        return name
+    args = [int(v) for v in re.findall(r"L[ib](\d+)E", t.group(1))]
+    if name in U64_NEW_KERNELS[2:]:
+        from phantom_tpu_torch.ops import polyops
+        return f"{name}<U4 {polyops.FORMS[args[0]]}, {2 * args[1]} words>"
+    return f"{name}<{', '.join(map(str, args))}>"
 
 
 def resource_usage(lib: str, kernels) -> dict:
@@ -2063,21 +2106,26 @@ def kernel_wrappers():
             for _, attr, *_ in KERNELS]
 
 
-def calls_only(card: str, dev) -> None:
+def calls_only(card: str, dev, only_u64: bool = False) -> None:
     """--calls: every kernel call of one headline step on each modup route
     and through the K8 and K7 epilogues, one alpha-8 xla-split step and
     one through each of those epilogues, one BFV step on each engine and
     one BGV step on each route, under the probes (phases 4, 8, 11, 18 and
-    23 without the rest); then the u64 CKKS and BGV steps (phases 42-43
-    without the golden files and the plain step's timing: every U call
-    probed, chained timing, profile, U1's and U2's kernel launches per
-    call).  It passes the wrappers only their common arguments, so a
-    copy of this file measures an earlier tree of the port the same
-    way."""
+    23 without the rest; none of them with `only_u64`, --calls u64);
+    then the u64 CKKS and BGV steps (phases 42-43 without the golden
+    files and the plain step's timing: every U call probed, chained
+    timing, profile, U1's, U2's and U4's kernel launches per call, the
+    launch counts).  It passes the 32-bit wrappers only their common
+    arguments, so a copy of this file measures an earlier tree of the
+    port's 32-bit paths the same way."""
     import torch
     from phantom_tpu_torch import make_context
     from phantom_tpu_torch.ops import bfv32, bgv32
     from phantom_tpu_torch.ops import pipeline32 as pp
+    if only_u64:
+        _u64_phases(card, {name: 0 for name, *_ in U64_KERNELS}, dev, None,
+                    calls=True)
+        return
     probes = _probes(pp, kernel_wrappers())
     since = {name: 0 for name in PROBE_NAMES}
     ctx = make_context(chain_params(**HEADLINE))
@@ -2184,23 +2232,52 @@ def _chain_timing(runs, make_chain, steps: int, card: str, what: str):
     return finals
 
 
-def _profile(run, steps: int, card: str, what: str) -> None:
-    """torch.profiler over `steps` calls of run(): device-busy time per
-    call against the wall time, and the top device kernels."""
+def _trace(run, steps: int):
+    """torch.profiler over `steps` calls of run() after one warm-up call
+    that the profiler traces and drops (late in a long process it loses
+    the records of the first kernels after it starts: the warm-up takes
+    that loss): (the device events by kernel, wall ms a call)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        run()
         torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for i in range(steps):
             run()
+            if i + 1 < steps:
+                prof.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+        prof.step()
+    # ProfilerStep#: the schedule's step ranges, not kernels
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")], wall_ms
+
+
+def _profile(run, steps: int, card: str, what: str,
+             launched=None) -> None:
+    """torch.profiler over `steps` calls of run() (_trace): device-busy
+    time per call against the wall time, and the top device kernels.
+    Where `launched()` counts the port's kernel launches apart from the
+    profiler (the wrappers' counts of kernels launching once a call), the
+    trace's records of the port's kernels are held against the launches
+    of the timed calls, and the aten kernels are listed by name."""
+    before = None if launched is None else launched()
+    events, wall_ms = _trace(run, steps)
+    if launched is not None:
+        want = (launched() - before) * steps // (steps + 1)
+        held = sum(e.count for e in events if "ptk" in e.key)
+        print(f"profile {what}: the trace holds {held} of the {want} "
+              "kernel launches the port's counters saw" + (
+                  "" if held == want else
+                  "; it dropped records, so the numbers below are short"))
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     if busy_ms == 0:
         print(f"profile {what}: device time not measured (no CUDA events) "
@@ -2208,6 +2285,25 @@ def _profile(run, steps: int, card: str, what: str) -> None:
         return
     print(f"profile {what}: {busy_ms:.3f} ms device-busy of {wall_ms:.3f} ms "
           f"wall per step, idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
+    # the kernels that are not the port's own (namespaces ptk, ptk64):
+    # aten's elementwise, cat and copy kernels and the rest
+    aten = [e for e in events if "ptk" not in e.key]
+
+    def kind(k):
+        if "Cat" in k or "copy" in k.lower() or "Memcpy" in k:
+            return "cat / copy"
+        return "elementwise" if "elementwise" in k else "other"
+    counts = {c: sum(e.count for e in aten if kind(e.key) == c) / steps
+              for c in ("elementwise", "cat / copy", "other")}
+    aten_ms = sum(e.self_device_time_total for e in aten) / 1e3 / steps
+    print(f"profile {what}: {sum(e.count for e in aten) / steps:g} aten "
+          "kernels a step (" + ", ".join(f"{v:g} {c}" for c, v in
+                                        counts.items())
+          + f"), {aten_ms:.3f} ms device [{card}]")
+    if launched is not None:
+        print(f"profile {what}: aten kernels a step: " + "; ".join(
+            f"{e.count / steps:g}x {e.key[:60]}" for e in sorted(
+                aten, key=lambda e: e.key)))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3 / steps
         print(f"profile   {ms:8.4f} ms/step {e.count // steps:4d}x  "
@@ -3703,6 +3799,7 @@ U64_SCALE_BITS = 44
 U64_CHAIN_STEPS = 10
 U64_TOL = 1e-2  # JAX tests/test_ckks.py:84's bound
 U64_REPS = 3    # timed calls per probed U call (the plain versions are slow)
+HOST_REPS = 50  # calls whose host time is averaged (U4)
 U64_KERNELS = [  # name, wrapper attribute, source, the stage it replaces
     ("U1", "ntt_forward", "phantom_tpu_torch/csrc/u64_ntt.cu",
      "phantom_tpu/ops/ntt.py:101 and :151 (XLA, no pallas_call)"),
@@ -3715,10 +3812,11 @@ U64_KERNELS = [  # name, wrapper attribute, source, the stage it replaces
      "pallas_call)"),
 ]
 # the Kernels64 fields, by the kernel each launches
+U4_FIELDS = ("mul_rns", "fma_rns", "tensor_prod_2x2", "tensor_square_2x2",
+             "tensor_prod_mxn", "shoup_rns", "rescale_delta",
+             "modswitch_delta", "moddown_delta")
 U64_FIELDS = {"ntt_forward": "U1", "ntt_inverse": "U1", "bconv": "U2",
-              "inner_product": "U3", "mul_rns": "U4", "fma_rns": "U4",
-              "tensor_prod_2x2": "U4", "tensor_square_2x2": "U4",
-              "sub_mul_shoup": "U4"}
+              "inner_product": "U3", **{f: "U4" for f in U4_FIELDS}}
 # 32-bit multiplies per u64 operation, as the bounds count them: a 64 x 64
 # product's high word (__umul64hi) 4, its low word 3 (the 32-bit partial
 # products of one decomposition; phase 41 prints the IMADs each U kernel's
@@ -3741,19 +3839,22 @@ def _launches64(**kw):
 # k = 43 is not a multiple of alpha = 22, so the modup is the unfused
 # one, as in the JAX package: the inverse NTT of c2, U2 per digit, one
 # forward NTT; U3; per half the moddown's U1 inverse, U2 exact (BGV: to Ql
-# and to {t}), U1 forward and U4's (x - .) P^-1
+# and to {t}), U1 forward and U4's (x - .) P^-1 + the ciphertext's half
 EXPECTED64 = {
-    # U4's tensor product; the relinearization above; the rescale's U1
-    # inverse, its last limb reduced mod each q_i (U4), U1 forward and U4
+    # U4's tensor product; the relinearization above (its adds in the
+    # moddown's U4); the rescale's U1 inverse, its rounding correction for
+    # every limb (U4's rescale_delta), U1 forward and U4
     "u64 CKKS step": _launches64(U1=8, U2=4, U3=1, U4=5),
-    # BGV's moddown adds u = [-delta_t P^-1]_t and u P per half (U4 x2);
-    # the modulus switch's U1 inverse, u mod t, c_last mod q_i and u q_last
-    # (U4 x3), U1 forward and U4
-    "u64 BGV step": _launches64(U1=8, U2=6, U3=1, U4=11),
-    # u and e (U1 x2), u pk (U4), the moddown of both halves; BGV also the
-    # plaintext's lift (U1) and u and u P per half (U4 x2)
+    # BGV's moddown adds U4's moddown_delta per half (u = [-delta_t
+    # P^-1]_t, u P and the shifts in one launch); the modulus switch's U1
+    # inverse, U4's modswitch_delta (u mod t, c_last mod q_i, u q_last and
+    # their sum), U1 forward and U4
+    "u64 BGV step": _launches64(U1=8, U2=6, U3=1, U4=7),
+    # u and e (U1 x2), u pk + e (U4's fma), the moddown of both halves;
+    # BGV also the plaintext's lift (U1) and moddown_delta per half
     "u64 CKKS encrypt_asymmetric": _launches64(U1=6, U2=2, U4=3),
-    "u64 BGV encrypt_asymmetric": _launches64(U1=7, U2=4, U4=7),
+    "u64 BGV encrypt_asymmetric": _launches64(U1=7, U2=4, U4=5),
+    # s^2, (P mod q) s^2 (U4's Shoup form), a s + e (U4's fma)
     "u64 gen_relin_key": _launches64(U1=1, U4=3),
 }
 EXPECTED.update({
@@ -3840,15 +3941,27 @@ def _work64(field: str, a: dict, out):
         ops = 2 * kk * n * (beta * (MUL_HI + MUL_LO) + REDUCE_ANY_OPS)
         return _words_bytes(x, a["evk"], out), ops
     words = out.numel()
+    ins = [v for k, v in a.items() if k in ("a", "b", "c", "ct", "ct1",
+                                            "ct2", "s", "x", "dq", "dt")
+           and v is not None]  # a (..., 1, N) row counted once
+    if field == "tensor_prod_mxn":
+        m, n = a["ct1"].shape[0], a["ct2"].shape[0]
+        cols = a["ct1"][0].numel()
+        return _words_bytes(*ins, out), cols * (
+            m * n * (MUL_HI + MUL_LO) + (m + n - 1) * BARRETT128_OPS)
     per = {"mul_rns": MULMOD_OPS, "fma_rns": MULMOD_OPS,
            "tensor_prod_2x2": (2 * MULMOD_OPS + 2 * (MUL_HI + MUL_LO)
                                + BARRETT128_OPS) / 3,
            "tensor_square_2x2": (2 * MULMOD_OPS + MUL_HI + MUL_LO
                                  + BARRETT128_OPS) / 3,
-           "sub_mul_shoup": SHOUP_OPS}[field]
-    ins = [v for k, v in a.items() if k in ("a", "b", "c", "ct", "ct1",
-                                            "ct2", "s") and v is not None]
-    return _words_bytes(*ins, out), int(words * per)
+           "shoup_rns": SHOUP_OPS,
+           "rescale_delta": BARRETT64_OPS,
+           "modswitch_delta": BARRETT64_OPS + SHOUP_OPS,
+           "moddown_delta": SHOUP_OPS}[field]
+    # the row forms' per-column u mod t, one Shoup product
+    row = {"modswitch_delta": "x", "moddown_delta": "dt"}.get(field)
+    cols = 0 if row is None else a[row].numel()
+    return _words_bytes(*ins, out), int(words * per) + cols * SHOUP_OPS
 
 
 class _Probe64(_Probe):
@@ -3859,9 +3972,39 @@ class _Probe64(_Probe):
                          reps)
         self.field = field
 
+    def __call__(self, *args, **kw):
+        """As _Probe's, the kernel and the plain version each into an
+        output of its own where the caller gives an `out` slot (then
+        filled with the kernel's); U4's calls also time the host's part
+        (_enqueue_ms)."""
+        ba = self.sig.bind(*args, **kw)
+        slot = ba.arguments.get("out")
+        if slot is not None:
+            ba.arguments["out"] = None
+        got = super().__call__(*ba.args, **ba.kwargs)
+        if self.name.startswith("U4"):
+            self.calls[-1]["host_ms"] = _enqueue_ms(
+                lambda: self.kernel(*ba.args, **ba.kwargs), HOST_REPS)
+        return got if slot is None else slot.copy_(got)
+
     def bound(self, arguments, out):
         byt, ops = _work64(self.field, arguments, out)
         return byt, ops, 0, 0
+
+
+def _enqueue_ms(fn, reps: int) -> float:
+    """Host milliseconds a call: `reps` calls (after a warm-up call)
+    enqueued while the device sleeps, so the host never waits for it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # cycles, about 0.1 s
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def _probes64(reps: int = REPS):
@@ -3874,10 +4017,12 @@ def _probes64(reps: int = REPS):
 def _print_calls64(probes, card, since):
     for probe in probes:
         for c in probe.calls[since.get(probe.name, 0):]:
+            host = (f", host {c['host_ms']:.4f} ms a call"
+                    if "host_ms" in c else "")
             print(f"kernel {probe.name} {c['shape']}: bit-equal to plain; "
-                  f"{c['ms']:.4f} ms (device {c['dev_ms']:.4f}) vs plain "
-                  f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms by "
-                  f"{c['bound_by']} ({c['bytes'] / 1e6:.1f} MB, "
+                  f"{c['ms']:.4f} ms (device {c['dev_ms']:.4f}{host}) vs "
+                  f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
+                  f"ms by {c['bound_by']} ({c['bytes'] / 1e6:.1f} MB, "
                   f"{c['ops'] / 1e9:.3f} G mul) [{card}]")
         since[probe.name] = len(probe.calls)
 
@@ -3982,35 +4127,32 @@ def _roll_phases(card, wrappers, launches, dev) -> None:
         torch.cuda.empty_cache()
 
 
+U64_COUNTED = {"U1": "ptk_u64_ntt_launches", "U2": "ptk_u64_bconv_launches",
+               "U4": "ptk_u64_polyops_launches"}
+
+
 def _u64_library_launches():
-    """{U1, U2: the kernel launches their C entry points have made}, or
-    None for an earlier tree's library, which counts none."""
+    """{U1, U2, U4: the kernel launches their C entry points have made}."""
     from phantom_tpu_torch import _build
     lib = _build.library()
-    try:
-        return {"U1": lib.ptk_u64_ntt_launches(),
-                "U2": lib.ptk_u64_bconv_launches()}
-    except AttributeError:
-        return None
+    return {name: getattr(lib, fn)() for name, fn in U64_COUNTED.items()}
 
 
-def _u64_per_call(before, after, wrappers, calls: bool) -> dict:
-    """{U1, U2: kernel launches a wrapper call} over a counted run: the
+def _u64_per_call(before, after, wrappers, what: str) -> dict:
+    """{U1, U2, U4: kernel launches a wrapper call} over a counted run: the
     launches their entry points made between `before` and `after`
     (_u64_library_launches) over the wrapper's launch count.  The smoke
-    fails unless each is 1 (--calls, on any tree, only prints them)."""
+    fails unless each is 1."""
     got = {}
     for (name, *_), w in zip(U64_KERNELS, wrappers):
-        if name not in ("U1", "U2"):
+        if name not in U64_COUNTED:
             continue
-        got[name] = None if before is None or not w.launches else (
-            after[name] - before[name]) / w.launches
-        print(f"launches per call, {name}: " + (
-            "not measured (the library counts none)" if got[name] is None
-            else f"{got[name]:g} kernel launches a call ({w.launches} "
-            "calls)"))
-    if not calls and any(k != 1 for k in got.values()):
-        raise RuntimeError(f"U1 / U2: not one launch a call: {got}")
+        got[name] = (after[name] - before[name]) / max(w.launches, 1)
+        print(f"launches per call, {what}, {name}: {got[name]:g} kernel "
+              f"launches a call ({w.launches} calls)")
+    if any(k != 1 for k in got.values()):
+        raise RuntimeError(f"{what}: U1 / U2 / U4 not one launch a call: "
+                           f"{got}")
     return got
 
 
@@ -4019,10 +4161,10 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
     u64 CKKS and BGV steps at bench.py --path u64 width (keygen and
     encryption on the card, every U call under a probe, the launch
     counts, kernel path bit-equal to plain path, decryption, chained
-    timing, profile, U1's and U2's kernel launches per call).  With
-    `calls`
-    (--calls) without the SASS, the golden files and the plain step's
-    timing.  Returns the probes and U1's and U2's kernels per call."""
+    timing, profile, U1's, U2's and U4's kernel launches per call).  With
+    `calls` (--calls) without the SASS, the golden files and the plain
+    step's timing.  Returns the probes and U1's, U2's and U4's kernels
+    per call."""
     import torch
     from phantom_tpu_torch import BatchEncoder, CKKSEncoder, make_context
     from phantom_tpu_torch.schemes import evaluate as ev
@@ -4046,6 +4188,8 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
             held = u64_golden(dev, fname)
             print(f"golden: {fname}: {held} outputs through U1-U4 bit-equal "
                   f"to the JAX package's ({time.time() - t0:.1f} s)")
+        print(f"golden: {U64_MXN}: {u64_mxn_golden(dev)} products through "
+              "U4's mxn form bit-equal to the JAX package's tensor_prod_mxn")
     wrappers = kernel_wrappers64()
     probes = _probes64(U64_REPS)
     since, per_call = {}, {}
@@ -4099,11 +4243,12 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
         step(c1, c2, probes)
         _print_calls64(probes, card, since)
         before = _u64_library_launches()
-        out = _count64(wrappers, f"u64 {scheme.upper()} step",
-                       lambda: step(c1, c2, ksw.KERNELS64), launches64)
+        what = f"u64 {scheme.upper()} step"
+        out = _count64(wrappers, what, lambda: step(c1, c2, ksw.KERNELS64),
+                       launches64)
+        got = _u64_per_call(before, _u64_library_launches(), wrappers, what)
         if scheme == "ckks":
-            per_call = _u64_per_call(before, _u64_library_launches(),
-                                     wrappers, calls)
+            per_call = got
         ref = step(c1, c2, ksw.PLAIN64)
         if not _same(out, ref):
             raise RuntimeError(f"u64 {scheme} step: kernel path differs "
@@ -4154,7 +4299,8 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
             dd[0] = o.replace(data=torch.cat([o.data, zero], dim=1),
                               chain_index=1, scale=c1.scale,
                               correction_factor=1)
-        _profile(prof, PROFILE_STEPS, card, f"u64 {scheme.upper()} step")
+        _profile(prof, PROFILE_STEPS, card, f"u64 {scheme.upper()} step",
+                 lambda: sum(w.launches for w in wrappers))
         del ctx, sk, pk, rlk, c1, c2, out, ref, dec, dd, pts
     return probes, per_call
 
@@ -4187,7 +4333,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    calls = sys.argv[1:] == ["--calls"]
+    calls = sys.argv[1:2] == ["--calls"]
     if not calls:  # K7's, U1's and U2's registers and spills, beside the
         # library's build
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -4198,7 +4344,7 @@ def main() -> int:
     _build.library()
     print(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
     if calls:
-        calls_only(card, dev)
+        calls_only(card, dev, sys.argv[2:] == ["u64"])
         return 0
     imma = {}
     for counts in sass_by_function(path, "fold_matmul_kernel",
@@ -4601,7 +4747,14 @@ def main() -> int:
             bound_ms=round(sum(c["bound_ms"] for c in probe.calls), 5),
             bound_by=max(("bytes", "operations"), key=lambda b: sum(
                 c["bound_ms"] for c in probe.calls if c["bound_by"] == b)),
-            library_ms=getattr(probe, "library_ms", None))
+            library_ms=getattr(probe, "library_ms", None),
+            calls=len(probe.calls),
+            dev_ms=round(sum(c["dev_ms"] for c in probe.calls), 5),
+            dev_ms_a_call=round(sum(c["dev_ms"] for c in probe.calls)
+                                / len(probe.calls), 5),
+            **({} if "host_ms" not in probe.calls[0] else dict(
+                host_ms_a_call=round(float(np.mean([
+                    c["host_ms"] for c in probe.calls])), 5))))
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):

@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "ptk_error_string": ([_I], ctypes.c_char_p),
     "ptk_ntt_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -69,7 +70,8 @@ _SIGNATURES = {
     "ptk_u64_ntt_launches": ([], ctypes.c_longlong),
     "ptk_u64_bconv_launches": ([], ctypes.c_longlong),
     "ptk_u64_inner_product": ([_P] * 8 + [_I] * 3 + [_P], _I),
-    "ptk_u64_polyops": ([_I] + [_P] * 9 + [_I] * 5 + [_P], _I),
+    "ptk_u64_polyops": ([_I] + [_P] * 5 + [_L, _L] + [_I] * 5 + [_P], _I),
+    "ptk_u64_polyops_launches": ([], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,7 @@ with their 2^128 Barrett ratios floor(2^128 / q) split into two words.
 
 from __future__ import annotations
 
+from functools import cached_property
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -45,13 +46,15 @@ def split_u128(values: Sequence[int]):
     return lo, hi
 
 
-class ModulusVec(NamedTuple):
-    """A base's moduli (L,) and the words of floor(2^128 / q), int64 bit
-    patterns."""
-
+class _Moduli(NamedTuple):  # the fields; ModulusVec adds a cache slot
     q: torch.Tensor
     ratio_lo: torch.Tensor
     ratio_hi: torch.Tensor
+
+
+class ModulusVec(_Moduli):
+    """A base's moduli (L,) and the words of floor(2^128 / q), int64 bit
+    patterns."""
 
     def to(self, device) -> "ModulusVec":
         return ModulusVec(*(x.to(device) for x in self))
@@ -62,6 +65,14 @@ class ModulusVec(NamedTuple):
     def col(self):
         """(q, ratio_lo, ratio_hi) as (L, 1) columns."""
         return tuple(x.view(-1, 1) for x in self)
+
+    @cached_property
+    def words(self) -> torch.Tensor:
+        """q, ratio_lo and ratio_hi in one (3L,) tensor, the table U4's
+        products read through one pointer (built on first use, kept in
+        the instance's __dict__, which a NamedTuple itself has not): the
+        first three rows of a polyops.Limbs table."""
+        return torch.cat(tuple(self))
 
 
 def modulus_vec(moduli: Sequence[int], device=None) -> ModulusVec:

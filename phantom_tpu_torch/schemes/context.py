@@ -52,6 +52,7 @@ from torch import nn
 
 from .. import host
 from ..ops import bconv as bc64
+from ..ops import polyops as po
 from ..ops.ntt import NTTTables64
 from ..ops.ntt32 import NTTTables32, u32_tensor
 from ..ops.rns_host import ModulusVec, i64_tensor, modulus_vec
@@ -186,45 +187,40 @@ class ContextData:
 class Level64:
     """A level's u64 constants (the device half of the JAX package's
     ContextData): `mv` (Ql), `rescale`, `ks` and `bgv`, None where the
-    level or the scheme has none; int64 words on `device`."""
+    level or the scheme has none; int64 words on `device`.  `rescale` is
+    U4's table over q_0..q_{k-2} for the rescale and the modulus switch:
+    w = q_last^-1 mod q_i (the division), e = floor(q_last / 2) mod q_i
+    and the scalars q_last, floor(q_last / 2) (the rounding's row form)."""
 
     def __init__(self, cd: ContextData, device):
         self.mv = modulus_vec(cd.moduli, device)
         rc, ks, bgv = cd.rescale, cd.ks, cd.bgv
-        self.rescale = None if rc is None else RescaleConsts64(
-            qlast_inv=i64_tensor(rc.qlast_inv, device),
-            qlast_inv_shoup=i64_tensor(rc.qlast_inv_shoup, device),
-            half=rc.half, half_mod_q=i64_tensor(rc.half_mod_q, device))
+        self.rescale = None if rc is None else po.limbs(
+            cd.moduli[:-1], w=rc.qlast_inv, e=rc.half_mod_q,
+            scalars=(cd.moduli[-1], rc.half), device=device)
         self.ks = None if ks is None else _keyswitch_consts64(
             cd, ks, device)
+        t = cd._params.plain_modulus
         self.bgv = None if bgv is None else BGVConsts64(
             q_to_t=bc64.consts_from_host(bgv.q_to_t, device),
             qhalf_mod_q=i64_tensor(bgv.qhalf_mod_q, device),
             qhalf_mod_t=bgv.qhalf_mod_t,
-            t_mv=modulus_vec([cd._params.plain_modulus], device),
-            neg_qlast_inv_mod_t=_t_word(bgv.neg_qlast_inv_mod_t,
-                                        cd._params.plain_modulus, device),
-            qlast_mod_qi=(None if bgv.qlast_mod_qi is None else
-                          i64_tensor(bgv.qlast_mod_qi, device)),
-            qlast_mod_qi_shoup=(None if bgv.qlast_mod_qi is None else
-                                i64_tensor([(v << 64) // q for v, q in zip(
-                                    bgv.qlast_mod_qi, cd.moduli)], device)))
-
-
-class RescaleConsts64(NamedTuple):
-    qlast_inv: torch.Tensor         # (k-1,) q_last^-1 mod q_i
-    qlast_inv_shoup: torch.Tensor
-    half: int                       # floor(q_last / 2)
-    half_mod_q: torch.Tensor        # (k-1,)
+            t_mv=modulus_vec([t], device),
+            modswitch=None if bgv.qlast_mod_qi is None else po.limbs(
+                cd.moduli[:-1], w=bgv.qlast_mod_qi,
+                scalars=_t_words(t, bgv.neg_qlast_inv_mod_t),
+                device=device))
 
 
 class KeySwitchConsts64(NamedTuple):
-    """The JAX package's KeySwitchConsts as int64 words."""
+    """The JAX package's KeySwitchConsts as int64 words; `pinv` and BGV's
+    `delta` are U4's tables over Ql (the moddown's P^-1, and its delta:
+    w = P mod q_i, e = (P - 1) / 2 mod q_i, the scalars t, (P - 1) / 2 mod
+    t, [-P^-1]_t and its Shoup word)."""
 
     digit_convs: Tuple[bc64.BaseConvConsts, ...]  # digit -> complement
     p_to_q: bc64.BaseConvConsts
-    pinv_mod_q: torch.Tensor
-    pinv_shoup: torch.Tensor
+    pinv: po.Limbs
     qlp: ModulusVec                  # Ql then P rows
     pow64_mod_qlp: torch.Tensor      # 2^64 mod each QlP prime
     modup_scale: torch.Tensor        # n^-1 * digit QhatInv per Ql row
@@ -232,30 +228,24 @@ class KeySwitchConsts64(NamedTuple):
     rows_qlp: torch.Tensor           # (size_qlp,) int32 rows of QP
     p_to_t: Optional[bc64.BaseConvConsts] = None   # BGV only, below
     phalf_mod_p: Optional[torch.Tensor] = None
-    phalf_mod_q: Optional[torch.Tensor] = None
-    phalf_mod_t: Optional[int] = None
-    neg_pinv_mod_t: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    bigp_mod_q: Optional[torch.Tensor] = None
-    bigp_shoup: Optional[torch.Tensor] = None
-    t_mv: Optional[ModulusVec] = None
+    delta: Optional[po.Limbs] = None
 
 
 class BGVConsts64(NamedTuple):
+    """`modswitch`: U4's table over q_0..q_{k-2} for the modulus switch's
+    delta (w = q_last mod q_i, the scalars t, [-q_last^-1]_t and its Shoup
+    word); None at k = 1."""
+
     q_to_t: bc64.BaseConvConsts
     qhalf_mod_q: torch.Tensor
     qhalf_mod_t: int
     t_mv: ModulusVec
-    neg_qlast_inv_mod_t: Optional[Tuple[torch.Tensor, torch.Tensor]]
-    qlast_mod_qi: Optional[torch.Tensor]
-    qlast_mod_qi_shoup: Optional[torch.Tensor]
+    modswitch: Optional[po.Limbs]
 
 
-def _t_word(w: Optional[int], t: int, device):
-    """A constant mod t as U4's Shoup form takes it: (w, floor(w 2^64 /
-    t)), (1,) words each; None stays None."""
-    if w is None:
-        return None
-    return (i64_tensor([w], device), i64_tensor([(w << 64) // t], device))
+def _t_words(t: int, *ws: int):
+    """t, then each w mod t with its Shoup word floor(w 2^64 / t)."""
+    return (t, *(v for w in ws for v in (w, (w << 64) // t)))
 
 
 def _keyswitch_consts64(cd: ContextData, ks: KeySwitchConsts,
@@ -267,20 +257,17 @@ def _keyswitch_consts64(cd: ContextData, ks: KeySwitchConsts,
     if ks.p_to_t is not None:
         bgv = dict(p_to_t=bc64.consts_from_host(ks.p_to_t, device),
                    phalf_mod_p=i64_tensor(ks.phalf_mod_p, device),
-                   phalf_mod_q=i64_tensor(ks.phalf_mod_q, device),
-                   phalf_mod_t=ks.phalf_mod_t,
-                   neg_pinv_mod_t=_t_word(ks.neg_pinv_mod_t,
-                                          p.plain_modulus, device),
-                   bigp_mod_q=i64_tensor(ks.bigp_mod_q, device),
-                   bigp_shoup=i64_tensor([(v << 64) // q for v, q in zip(
-                       ks.bigp_mod_q, cd.moduli)], device),
-                   t_mv=modulus_vec([p.plain_modulus], device))
+                   delta=po.limbs(cd.moduli, w=ks.bigp_mod_q,
+                                  e=ks.phalf_mod_q,
+                                  scalars=(p.plain_modulus, ks.phalf_mod_t,
+                                           *_t_words(p.plain_modulus,
+                                                     ks.neg_pinv_mod_t)[1:]),
+                                  device=device))
     return KeySwitchConsts64(
         digit_convs=tuple(bc64.consts_from_host(c, device)
                           for c in ks.digit_convs),
         p_to_q=bc64.consts_from_host(ks.p_to_q, device),
-        pinv_mod_q=i64_tensor(ks.pinv_mod_q, device),
-        pinv_shoup=i64_tensor(ks.pinv_shoup, device),
+        pinv=po.limbs(cd.moduli, w=ks.pinv_mod_q, device=device),
         qlp=modulus_vec(qlp, device),
         pow64_mod_qlp=i64_tensor([(1 << 64) % q for q in qlp], device),
         modup_scale=i64_tensor(ks.modup_scale, device),
@@ -433,9 +420,15 @@ class Context(nn.Module):
     @property
     def key_mv(self) -> ModulusVec:
         """QP with its Barrett words (u64 contexts), on the context's
-        device."""
+        device: one ModulusVec while the NTT tables' buffers stay, so U4
+        packs its words (ModulusVec.words) once, not at every call;
+        made anew when `to()` has moved the buffers."""
         t = self.ntt64
-        return ModulusVec(t.q, t.ratio_lo, t.ratio_hi)
+        mv = self.__dict__.get("_key_mv")
+        if mv is None or mv.q is not t.q:
+            mv = self.__dict__["_key_mv"] = ModulusVec(t.q, t.ratio_lo,
+                                                       t.ratio_hi)
+        return mv
 
     def require_u32(self, what: str) -> None:
         """Raise where a 32-bit path meets a wide context."""

@@ -14,11 +14,11 @@ package verb for verb, and so do the results, bit for bit.
 
 The kernels: U1 (ops/ntt.py) takes every NTT, U2 (ops/bconv.py) every
 base conversion, U3 (schemes/keyswitch.py) every key inner product and
-U4 (ops/polyops.py) the tensor and plain products, the moddown's and
-the rescale's (x - delta) w, the balanced add's scaling, and the
-products and reductions of one row (the rescale's last limb mod each
-q_i, BGV's u mod t and its corrections u P and u q_last); additions and
-subtractions stay plain torch.  Every verb takes `ops`, the kernels
+U4 (ops/polyops.py) the tensor and plain products (the hoisted forms'
+multiply-adds as its fma), the moddown's (x - delta) P^-1 with the
+ciphertext's addend, the rescale's rounding correction and (x - delta)
+q_last^-1, BGV's modulus-switch delta and the balanced add's scaling;
+the other additions and subtractions stay plain torch.  Every verb takes `ops`, the kernels
 it calls (keyswitch.KERNELS64, or PLAIN64 for the plain versions).
 
 BFV's verbs (the HPS, BEHZ, HPSoverQ and leveled multiplies) come in the
@@ -35,12 +35,11 @@ import torch
 from ..fast32 import _balance_factors
 from ..ops import modmath as mm
 from ..ops import polyops as po
-from ..ops.rns_host import i64_tensor
 from . import galois as gal
 from .ciphertext import Ciphertext, Plaintext
 from .context import Context, ContextData
 from .keyswitch import (KERNELS64, Kernels64, evk_rows, inner_product_evk,
-                        keyswitch_from_ntt, moddown_ntt, modup_from_ntt)
+                        keyswitch_from_ntt, moddown_pair, modup_from_ntt)
 
 
 def _cd(ctx: Context, ct, what: str = "the u64 evaluator") -> ContextData:
@@ -107,12 +106,10 @@ def _balance_correction(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
         if m == 1:
             return ct.replace(correction_factor=f)
         centered = m - t if m > t // 2 else m
-        w = [centered % q for q in cd.moduli]
-        scaled = ops.sub_mul_shoup(
-            ct.data, i64_tensor(w, mv.q.device),
-            i64_tensor([(v << 64) // q for v, q in zip(w, cd.moduli)],
-                       mv.q.device), mv)
-        return ct.replace(data=scaled, correction_factor=f)
+        lw = po.limbs(cd.moduli, w=[centered % q for q in cd.moduli],
+                      device=mv.q.device)
+        return ct.replace(data=ops.shoup_rns(ct.data, lw),
+                          correction_factor=f)
 
     return scale_ct(ct1, m1), scale_ct(ct2, m2)
 
@@ -157,14 +154,14 @@ def add_many(ctx: Context, cts, ops: Kernels64 = KERNELS64) -> Ciphertext:
 
 def multiply(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
              ops: Kernels64 = KERNELS64) -> Ciphertext:
-    """The tensor product (U4 for two size-2 operands)."""
+    """The tensor product (U4)."""
     _check_compatible(ct1, ct2, check_scale=False)
     cd = _cd(ctx, ct1, "multiply")
     mv = cd.u64.mv
     if ct1.size == 2 and ct2.size == 2:
         prod = ops.tensor_prod_2x2(ct1.data, ct2.data, mv)
     else:
-        prod = po.tensor_prod_mxn(ct1.data, ct2.data, mv)
+        prod = ops.tensor_prod_mxn(ct1.data, ct2.data, mv)
     if ctx.params.scheme == "ckks":
         return ct1.replace(data=prod, scale=ct1.scale * ct2.scale)
     t = ctx.params.plain_modulus
@@ -191,10 +188,8 @@ def relinearize(ctx: Context, ct: Ciphertext, rlk: torch.Tensor,
     if ct.size != 3:
         raise ValueError("relinearize expects a size-3 ciphertext")
     cd = _cd(ctx, ct, "relinearize")
-    mv = cd.u64.mv
-    sw = keyswitch_from_ntt(ctx, cd, ct.data[2], rlk, ops)
-    return ct.replace(data=torch.stack([po.add_rns(ct.data[0], sw[0], mv),
-                                        po.add_rns(ct.data[1], sw[1], mv)]))
+    return ct.replace(data=keyswitch_from_ntt(ctx, cd, ct.data[2], rlk, ops,
+                                              (ct.data[0], ct.data[1])))
 
 
 def multiply_and_relin(ctx: Context, ct1: Ciphertext, ct2: Ciphertext,
@@ -259,20 +254,16 @@ def multiply_plain(ctx: Context, ct: Ciphertext, pt: Plaintext,
 
 def _divide_round_qlast_ntt(ctx: Context, cd: ContextData, x: torch.Tensor,
                             ops: Kernels64) -> torch.Tensor:
-    """round(x / q_last) over the remaining limbs, NTT form in and out."""
-    lv = cd.u64
-    rc = lv.rescale
+    """round(x / q_last) over the remaining limbs, NTT form in and out:
+    U1 inverse of the last limb, U4's rounding correction for every limb,
+    U1 forward, U4's (x - delta) q_last^-1 (x's limbs read in place)."""
+    lw = cd.u64.rescale
     k = cd.size_ql
-    mv = lv.mv
     xl = ops.ntt_inverse(x[..., k - 1:k, :], ctx.ntt64,
                          ctx.rows_qp[k - 1:k])
-    xl = mm.add_mod(xl, rc.half, mv.q[k - 1])
-    rest = mv.slice(0, k - 1)
-    red = po.rows_times(xl, None, None, rest, ops.sub_mul_shoup)
-    delta = mm.sub_mod(red, _col(rc.half_mod_q), _col(rest.q))
-    delta_ntt = ops.ntt_forward(delta, ctx.ntt64, _rows(ctx, k - 1))
-    return ops.sub_mul_shoup(x[..., :k - 1, :], rc.qlast_inv,
-                             rc.qlast_inv_shoup, rest, delta_ntt)
+    delta_ntt = ops.ntt_forward(ops.rescale_delta(xl, lw), ctx.ntt64,
+                                _rows(ctx, k - 1))
+    return ops.shoup_rns(x[..., :k - 1, :], lw, delta_ntt)
 
 
 def rescale_to_next(ctx: Context, ct: Ciphertext,
@@ -293,24 +284,17 @@ def _bgv_mod_switch(ctx: Context, cd: ContextData, ct: Ciphertext,
                     ops: Kernels64):
     """Subtract delta == c (mod q_last), == 0 (mod t), divide exactly by
     q_last; the plaintext picks up q_last^-1 mod t (the correction
-    factor)."""
+    factor).  U1 inverse of the last limb, U4's delta c_last + u q_last
+    with u = [-c_last q_last^-1]_t, U1 forward, U4's (x - delta)
+    q_last^-1."""
     lv = cd.u64
-    bgv, rc, mv = lv.bgv, lv.rescale, lv.mv
     k = cd.size_ql
     x = ct.data
     c_last = ops.ntt_inverse(x[..., k - 1:k, :], ctx.ntt64,
                              ctx.rows_qp[k - 1:k])
-    # u = [-c_last q_last^-1]_t: Shoup's product takes c_last unreduced
-    u = ops.sub_mul_shoup(c_last, *bgv.neg_qlast_inv_mod_t, bgv.t_mv)
-    rest = mv.slice(0, k - 1)
-    delta = mm.add_mod(po.rows_times(c_last, None, None, rest,
-                                     ops.sub_mul_shoup),
-                       po.rows_times(u, bgv.qlast_mod_qi,
-                                     bgv.qlast_mod_qi_shoup, rest,
-                                     ops.sub_mul_shoup), _col(rest.q))
+    delta = ops.modswitch_delta(c_last, lv.bgv.modswitch)
     delta_ntt = ops.ntt_forward(delta, ctx.ntt64, _rows(ctx, k - 1))
-    out = ops.sub_mul_shoup(x[..., :k - 1, :], rc.qlast_inv,
-                            rc.qlast_inv_shoup, rest, delta_ntt)
+    out = ops.shoup_rns(x[..., :k - 1, :], lv.rescale, delta_ntt)
     t_int = ctx.params.plain_modulus
     qlast = ctx.params.data_moduli[k - 1]
     return out, ct.correction_factor * pow(qlast % t_int, -1, t_int) % t_int
@@ -376,9 +360,8 @@ def apply_galois(ctx: Context, ct: Ciphertext, elt: int, glk,
     tool = _tool(ctx)
     c0p = tool.apply_ntt(ct.data[0], elt)
     c1p = tool.apply_ntt(ct.data[1], elt)
-    sw = keyswitch_from_ntt(ctx, cd, c1p, glk.data[kidx], ops)
-    return ct.replace(data=torch.stack([po.add_rns(c0p, sw[0], cd.u64.mv),
-                                        sw[1]]))
+    return ct.replace(data=keyswitch_from_ntt(ctx, cd, c1p, glk.data[kidx],
+                                              ops, (c0p, None)))
 
 
 def _naf(value: int):
@@ -460,10 +443,8 @@ def hoisting(ctx: Context, ct: Ciphertext, glk, steps,
                                  cd, ops, tool.ntt_perm(elt, ct.data.device))
         acc_c0 = c0p if acc_c0 is None else po.add_rns(acc_c0, c0p, lv.mv)
         acc_cx = prod if acc_cx is None else mm.add_mod(acc_cx, prod, qlp_q)
-    cx0 = moddown_ntt(ctx, cd, acc_cx[0], ops)
-    cx1 = moddown_ntt(ctx, cd, acc_cx[1], ops)
-    return ct.replace(data=torch.stack([po.add_rns(acc_c0, cx0, lv.mv),
-                                        cx1]))
+    return ct.replace(data=moddown_pair(ctx, cd, acc_cx, ops,
+                                        (acc_c0, None)))
 
 
 def hoisted_linear_combo(ctx: Context, ct: Ciphertext, glk, steps, pts_qlp,
@@ -489,31 +470,27 @@ def hoisted_linear_combo(ctx: Context, ct: Ciphertext, glk, steps, pts_qlp,
     if t_modup is None:
         t_modup = modup_from_ntt(ctx, cd, c1, ops)
     acc_c0 = acc_c1 = acc_cx = None
+
+    def mac(a, b, acc, mv):  # acc + a b, one U4 launch
+        return ops.mul_rns(a, b, mv) if acc is None else ops.fma_rns(
+            a, b, acc, mv)
+
     for s, pt in zip(steps, pts_qlp):
         if s % (n // 2) == 0:
-            term0 = ops.mul_rns(c0, pt[:k], mv)
-            term1 = ops.mul_rns(c1, pt[:k], mv)
-            acc_c1 = term1 if acc_c1 is None else po.add_rns(acc_c1, term1,
-                                                             mv)
-        else:
-            elt = gal.get_elt_from_step(s, n)
-            if elt not in glk.elts:
-                raise ValueError(f"no galois key for step {s}")
-            ki = glk.elts.index(elt)
-            prod = inner_product_evk(
-                t_modup, evk_rows(ctx, glk.data[ki], cd), cd, ops,
-                tool.ntt_perm(elt, c0.device))
-            weighted = ops.mul_rns(prod, pt, qlp)
-            term0 = ops.mul_rns(tool.apply_ntt(c0, elt), pt[:k], mv)
-            acc_cx = weighted if acc_cx is None else mm.add_mod(
-                acc_cx, weighted, _col(qlp.q))
-        acc_c0 = term0 if acc_c0 is None else po.add_rns(acc_c0, term0, mv)
+            acc_c0 = mac(c0, pt[:k], acc_c0, mv)
+            acc_c1 = mac(c1, pt[:k], acc_c1, mv)
+            continue
+        elt = gal.get_elt_from_step(s, n)
+        if elt not in glk.elts:
+            raise ValueError(f"no galois key for step {s}")
+        ki = glk.elts.index(elt)
+        prod = inner_product_evk(
+            t_modup, evk_rows(ctx, glk.data[ki], cd), cd, ops,
+            tool.ntt_perm(elt, c0.device))
+        acc_cx = mac(prod, pt, acc_cx, qlp)
+        acc_c0 = mac(tool.apply_ntt(c0, elt), pt[:k], acc_c0, mv)
     if acc_cx is None:
-        out0, out1 = acc_c0, acc_c1
+        data = torch.stack([acc_c0, acc_c1])
     else:
-        cx0 = moddown_ntt(ctx, cd, acc_cx[0], ops)
-        cx1 = moddown_ntt(ctx, cd, acc_cx[1], ops)
-        out0 = po.add_rns(acc_c0, cx0, mv)
-        out1 = cx1 if acc_c1 is None else po.add_rns(cx1, acc_c1, mv)
-    return ct.replace(data=torch.stack([out0, out1]),
-                      scale=ct.scale * pts_scale)
+        data = moddown_pair(ctx, cd, acc_cx, ops, (acc_c0, acc_c1))
+    return ct.replace(data=data, scale=ct.scale * pts_scale)

@@ -42,7 +42,6 @@ from ..ops import sampling as smp
 from ..ops.bconv32 import BaseConvConsts32, bconv_exact32
 from ..ops.modmath32 import mul_mod_shoup32, u32
 from ..ops.ntt32 import u32_tensor
-from ..ops.rns_host import i64_tensor
 from ..ops.pipeline32 import (KERNELS, Kernels, KeySwitch32, _fwd, _inv,
                               build_keyswitch32, moddown32_pair,
                               moddown_coeff32)
@@ -457,8 +456,7 @@ def encrypt_zero_sym_core64(ctx: Context, sk: torch.Tensor, a: torch.Tensor,
     mv = ctx.key_mv
     e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx)),
                             ctx.ntt64, ctx.rows_qp)
-    a_s = ops.mul_rns(a, sk, mv)
-    return po64.neg_rns(po64.add_rns(a_s, e_ntt, mv), mv), a
+    return po64.neg_rns(ops.fma_rns(a, sk, e_ntt, mv), mv), a
 
 
 def gen_kswitch_core64(ctx: Context, sk: torch.Tensor, new_key: torch.Tensor,
@@ -475,10 +473,8 @@ def gen_kswitch_core64(ctx: Context, sk: torch.Tensor, new_key: torch.Tensor,
     mv = ctx.key_mv
     pm = [big_p % v for v in p.coeff_modulus]
     dev = new_key.device
-    term = ops.sub_mul_shoup(
-        new_key, i64_tensor(pm, dev),
-        i64_tensor([(x << 64) // v for x, v in zip(pm, p.coeff_modulus)],
-                   dev), mv)
+    term = ops.shoup_rns(new_key, po64.limbs(p.coeff_modulus, w=pm,
+                                             device=dev))
     c0, c1 = encrypt_zero_sym_core64(ctx, sk, a, e, ops)
     q = mv.q.view(-1, 1)
     c0 = c0.clone()
@@ -522,17 +518,16 @@ def encrypt_zero_asym_core64(ctx: Context, pk: torch.Tensor, chain_index: int,
     """An NTT-form encryption of zero at `chain_index`, (2, size_ql, N):
     (u pk_i + e_i) at the key level (u (N,) ternary, e (2, N) CBD), its
     QlP rows, then the moddown of each half."""
-    from .keyswitch import moddown_ntt
+    from .keyswitch import moddown_pair
     cd = ctx.get_context_data(chain_index)
     mv = ctx.key_mv
     u_ntt = ops.ntt_forward(lift_signed_to_rns64(u, mv), ctx.ntt64,
                             ctx.rows_qp)
     e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx)),
                             ctx.ntt64, ctx.rows_qp)
-    x = po64.add_rns(ops.mul_rns(pk, u_ntt, mv), e_ntt, mv)
+    x = ops.fma_rns(pk, u_ntt, e_ntt, mv)
     x = x.index_select(1, cd.u64.ks.rows_qlp.long())
-    return torch.stack([moddown_ntt(ctx, cd, x[0], ops),
-                        moddown_ntt(ctx, cd, x[1], ops)])
+    return moddown_pair(ctx, cd, x, ops)
 
 
 def encrypt_asymmetric_core64(ctx: Context, pk: torch.Tensor,
@@ -570,8 +565,7 @@ def encrypt_symmetric_core64(ctx: Context, sk: torch.Tensor,
     e_ntt = ops.ntt_forward(
         lift_signed_to_rns64(e, mv, _t_mult64(ctx, k)), ctx.ntt64,
         ctx.rows_qp[:k])
-    c0 = po64.neg_rns(po64.add_rns(ops.mul_rns(a, sk[:k], mv), e_ntt, mv),
-                      mv)
+    c0 = po64.neg_rns(ops.fma_rns(a, sk[:k], e_ntt, mv), mv)
     pt = (plain.data if scheme == "ckks"
           else bgv_lift_plain_ntt64(ctx, cd, plain.data[0], ops))
     return Ciphertext(data=torch.stack([po64.add_rns(c0, pt, mv), a]),

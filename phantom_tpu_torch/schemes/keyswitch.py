@@ -7,12 +7,14 @@ base-extended to QlP (its own rows copied, the complement converted by
 U2), transformed (U1) and multiplied into the key with a 128-bit
 accumulator (U3); both halves come back to Ql by the P^-1-corrected
 moddown: the inverse NTT of the P rows, the exact conversion P -> Ql
-(BGV: centered, and forced to 0 mod t), the forward NTT, and (x - delta)
-P^-1 (U4).  For NTT-form input (`modup_from_ntt`) one inverse NTT folds
-n^-1 QhatInv in, the digit's own rows stay in NTT form and only the
-complement rows convert ("reduce", the scale already applied) and
-transform; the JAX package takes it where alpha divides size_ql, and
-the plain modup after an inverse NTT elsewhere, and so does the port.
+(BGV: centered, and forced to 0 mod t by U4's moddown_delta), the
+forward NTT, and (x - delta) P^-1 plus the caller's addend (U4), both
+halves written into one tensor.  For NTT-form input (`modup_from_ntt`)
+one inverse NTT folds n^-1 QhatInv in, the digit's own rows stay in NTT
+form and only the complement rows convert ("reduce", the scale already
+applied) and transform; the JAX package takes it where alpha divides
+size_ql, and the plain modup after an inverse NTT elsewhere, and so does
+the port.
 
 U3 (csrc/u64_ip.cu) is `inner_product_evk`: one thread a word of a QlP
 row, both key halves, the digits summed exactly over 128 bits and
@@ -104,18 +106,25 @@ class Kernels64(NamedTuple):
     fma_rns: Callable
     tensor_prod_2x2: Callable
     tensor_square_2x2: Callable
-    sub_mul_shoup: Callable
+    tensor_prod_mxn: Callable
+    shoup_rns: Callable
+    rescale_delta: Callable
+    modswitch_delta: Callable
+    moddown_delta: Callable
 
 
 KERNELS64 = Kernels64(nttmod.ntt_forward, nttmod.ntt_inverse, bc.bconv,
                       inner_product_evk_kernel, po.mul_rns, po.fma_rns,
                       po.tensor_prod_2x2, po.tensor_square_2x2,
-                      po.sub_mul_shoup)
+                      po.tensor_prod_mxn, po.shoup_rns, po.rescale_delta,
+                      po.modswitch_delta, po.moddown_delta)
 PLAIN64 = Kernels64(nttmod.ntt_forward_plain, nttmod.ntt_inverse_plain,
                     bc.bconv_plain, inner_product_evk_plain,
                     po.mul_rns_plain, po.fma_rns_plain,
                     po.tensor_prod_2x2_plain, po.tensor_square_2x2_plain,
-                    po.sub_mul_shoup_plain)
+                    po.tensor_prod_mxn_plain, po.shoup_rns_plain,
+                    po.rescale_delta_plain, po.modswitch_delta_plain,
+                    po.moddown_delta_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -155,48 +164,51 @@ def inner_product_evk(t_modup: torch.Tensor, evk: torch.Tensor,
 def _moddown_delta(ks, x_p: torch.Tensor, ops: Kernels64) -> torch.Tensor:
     """delta == x (mod P) over Ql; BGV also forces delta == 0 (mod t), by
     the centered conversion of x + (P - 1) / 2 to Ql and to {t} and the
-    correction u P (U4's Shoup form, as is u = [-delta_t P^-1]_t)."""
+    correction u P, u = [-delta_t P^-1]_t (U4's moddown_delta)."""
     if ks.p_to_t is None:
         return bc.bconv_exact(x_p, ks.p_to_q, ops.bconv)
-    q = ks.p_to_q.obase.q.view(-1, 1)
     shifted = mm.add_mod(x_p, ks.phalf_mod_p.view(-1, 1),
                          ks.p_to_q.ibase.q.view(-1, 1))
-    dq = mm.sub_mod(bc.bconv_exact(shifted, ks.p_to_q, ops.bconv),
-                    ks.phalf_mod_q.view(-1, 1), q)
-    t = ks.t_mv.q[0]
-    dt = mm.sub_mod(bc.bconv_exact(shifted, ks.p_to_t, ops.bconv),
-                    ks.phalf_mod_t, t)
-    u = ops.sub_mul_shoup(dt, *ks.neg_pinv_mod_t, ks.t_mv)
-    corr = po.rows_times(u, ks.bigp_mod_q, ks.bigp_shoup, ks.p_to_q.obase,
-                         ops.sub_mul_shoup)
-    return mm.add_mod(dq, corr, q)
+    return ops.moddown_delta(bc.bconv_exact(shifted, ks.p_to_q, ops.bconv),
+                             bc.bconv_exact(shifted, ks.p_to_t, ops.bconv),
+                             ks.delta)
 
 
 def moddown_ntt(ctx: Context, cd: ContextData, x: torch.Tensor,
-                ops: Kernels64 = KERNELS64) -> torch.Tensor:
-    """(x_Ql - delta(x_P)) P^-1 over Ql, NTT form in and out: (size_qlp,
-    N) -> (size_ql, N).  U1 inverse over P, U2 exact (BGV: twice, to Ql
-    and to {t}), U1 forward over Ql, U4's (x - .) P^-1."""
-    lv = cd.u64
-    ks = lv.ks
+                ops: Kernels64 = KERNELS64,
+                add: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(x_Ql - delta(x_P)) P^-1 (+ add) over Ql, NTT form in and out:
+    (size_qlp, N) -> (size_ql, N), into `out` if given.  U1 inverse over
+    P, U2 exact (BGV: twice, to Ql and to {t}, and U4's delta), U1
+    forward over Ql, U4's (x - .) P^-1 + add."""
+    ks = cd.u64.ks
     k = cd.size_ql
     p = ctx.params
     x_p = ops.ntt_inverse(x[k:], ctx.ntt64, ctx.rows_qp[p.size_q:])
     delta = ops.ntt_forward(_moddown_delta(ks, x_p, ops), ctx.ntt64,
                             ctx.rows_qp[:k])
-    return ops.sub_mul_shoup(x[:k], ks.pinv_mod_q, ks.pinv_shoup, lv.mv,
-                             delta)
+    return ops.shoup_rns(x[:k], ks.pinv, delta, add, out)
+
+
+def moddown_pair(ctx: Context, cd: ContextData, prod: torch.Tensor,
+                 ops: Kernels64 = KERNELS64,
+                 adds=(None, None)) -> torch.Tensor:
+    """The moddown of both halves of a (2, size_qlp, N) key-switch
+    product, each plus its addend (or None), written into one (2,
+    size_ql, N) tensor."""
+    out = prod.new_empty((2, cd.size_ql, prod.shape[-1]))
+    for h in range(2):
+        moddown_ntt(ctx, cd, prod[h], ops, adds[h], out[h])
+    return out
 
 
 def moddown_coeff(ctx: Context, cd: ContextData, x: torch.Tensor,
                   ops: Kernels64 = KERNELS64) -> torch.Tensor:
     """The moddown of a coefficient-form (size_qlp, N) input."""
-    lv = cd.u64
-    ks = lv.ks
-    k = cd.size_ql
-    delta = _moddown_delta(ks, x[k:], ops)
-    return ops.sub_mul_shoup(x[:k], ks.pinv_mod_q, ks.pinv_shoup, lv.mv,
-                             delta)
+    ks = cd.u64.ks
+    delta = _moddown_delta(ks, x[cd.size_ql:], ops)
+    return ops.shoup_rns(x[:cd.size_ql], ks.pinv, delta)
 
 
 def evk_rows(ctx: Context, evk_data: torch.Tensor,
@@ -215,8 +227,7 @@ def keyswitch(ctx: Context, cd: ContextData, c2: torch.Tensor,
     (2, size_ql, N) NTT form over Ql."""
     prod = inner_product_evk(modup(ctx, cd, c2, ops),
                              evk_rows(ctx, evk_data, cd), cd, ops)
-    return torch.stack([moddown_ntt(ctx, cd, prod[0], ops),
-                        moddown_ntt(ctx, cd, prod[1], ops)])
+    return moddown_pair(ctx, cd, prod, ops)
 
 
 def modup_from_ntt(ctx: Context, cd: ContextData, c2_ntt: torch.Tensor,
@@ -245,9 +256,10 @@ def modup_from_ntt(ctx: Context, cd: ContextData, c2_ntt: torch.Tensor,
 
 def keyswitch_from_ntt(ctx: Context, cd: ContextData, c2_ntt: torch.Tensor,
                        evk_data: torch.Tensor,
-                       ops: Kernels64 = KERNELS64) -> torch.Tensor:
-    """Hybrid key switch of an NTT-form c2 with the fused modup."""
+                       ops: Kernels64 = KERNELS64,
+                       adds=(None, None)) -> torch.Tensor:
+    """Hybrid key switch of an NTT-form c2 with the fused modup, each half
+    plus its addend (or None) in the moddown's last launch."""
     prod = inner_product_evk(modup_from_ntt(ctx, cd, c2_ntt, ops),
                              evk_rows(ctx, evk_data, cd), cd, ops)
-    return torch.stack([moddown_ntt(ctx, cd, prod[0], ops),
-                        moddown_ntt(ctx, cd, prod[1], ops)])
+    return moddown_pair(ctx, cd, prod, ops, adds)

@@ -169,6 +169,10 @@ u64_{ckks,bgv}_b{50,60}.npz: the u64 generic evaluator (evaluate.py,
   keep their decryption whole (dec_<verb>), CKKS also decoded
   (decoded_<verb>).
 
+u64_mxn_n1024.npz: tensor_prod_mxn, the product of ciphertexts past size
+  2, at n = 1024 over three primes of 50 bits and three of 61 (u64_mxn;
+  `u64_mxn` writes only this file).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -1342,6 +1346,36 @@ def u64_chain(scheme, bits):
 
 U64_FILES = {f"u64_{s}_b{b}": (lambda s=s, b=b: u64_chain(s, b))
              for s in ("ckks", "bgv") for b in (50, 60)}
+# the (m, n) pairs of u64_mxn_n1024.npz
+MXN_CASES = ((3, 2), (3, 3), (2, 3), (1, 2))
+
+
+def u64_mxn():
+    """tensor_prod_mxn of ciphertexts past size 2 (phantom_tpu/ops/
+    polyops.py:84) at n = 1024 over three primes of 50 bits and three of
+    61: per chain `b`, the inputs ct1_b<b>, ct2_b<b> (3, 3, N) uniform
+    (columns 0-3 all q - 1) and moduli_b<b> whole, the products of
+    ct1[:m] and ct2[:n] as digests under h__mxn<m><n>_b<b>."""
+    from phantom_tpu.ops import polyops as po
+    from phantom_tpu.ops.rns_host import modulus_vec
+    rng = np.random.default_rng(SEED + 64)
+    out = {}
+    for bits in (50, 61):
+        qs = numth.get_primes(2 * N, bits, 3)
+        q = np.array(qs, dtype=np.uint64)[:, None]
+        cts = []
+        for _ in range(2):
+            x = rng.integers(0, 1 << 63, (3, 3, N), dtype=np.uint64) % q
+            x[:, :, :4] = q - 1
+            cts.append(x)
+        out[f"moduli_b{bits}"] = q[:, 0]
+        out[f"ct1_b{bits}"], out[f"ct2_b{bits}"] = cts
+        mv = modulus_vec(qs)
+        for m, n in MXN_CASES:
+            got = po.tensor_prod_mxn(jnp.asarray(cts[0][:m]),
+                                     jnp.asarray(cts[1][:n]), mv)
+            out[f"h__mxn{m}{n}_b{bits}"] = digest(got)
+    _save("u64_mxn_n1024.npz", **out)
 
 
 def main(names):
@@ -1379,6 +1413,8 @@ def main(names):
     for name, make in U64_FILES.items():
         if name in names or "u64" in names:
             make()
+    if "u64_mxn" in names or "u64" in names:
+        u64_mxn()
 
 
 if __name__ == "__main__":

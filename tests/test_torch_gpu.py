@@ -1150,12 +1150,19 @@ def test_u3_inner_product(dev, logn, bits, perm):
 
 
 @pytest.mark.parametrize("bits", [50, 61])
-@pytest.mark.parametrize("logn", [10, 16])
+@pytest.mark.parametrize("logn", [1, 10, 16, 17])
 def test_u4_products(dev, logn, bits):
+    """Every U4 form bit-equal to its plain version: the products (b
+    broadcast and whole), the m x n product, the Shoup form with and
+    without s and c (a and c strided, into an out slot), a (..., 1, N) row
+    of any words into 1 and 63 limbs, and the rescale's and BGV's row
+    forms."""
     from phantom_tpu_torch.ops import polyops as u4
     from phantom_tpu_torch.ops.rns_host import i64_tensor
     qs, _, res, mv = _u64_setup(dev, logn, bits)
+    n = 1 << logn
     a, b, c = res((2,)), res((2,)), res((2,))
+    a[..., :1] = mv.q.view(-1, 1) - 1
     assert torch.equal(u4.mul_rns(a, b, mv), u4.mul_rns_plain(a, b, mv))
     assert torch.equal(u4.mul_rns(a, b[0], mv),
                        u4.mul_rns_plain(a, b[0], mv))
@@ -1165,19 +1172,97 @@ def test_u4_products(dev, logn, bits):
                        u4.tensor_prod_2x2_plain(a, b, mv))
     assert torch.equal(u4.tensor_square_2x2(a, mv),
                        u4.tensor_square_2x2_plain(a, mv))
-    w = [q // 3 for q in qs]
-    wv, ws = i64_tensor(w, dev), i64_tensor(
-        [(v << 64) // q for v, q in zip(w, qs)], dev)
-    for s in (None, b):
-        assert torch.equal(u4.sub_mul_shoup(a, wv, ws, mv, s),
-                           u4.sub_mul_shoup_plain(a, wv, ws, mv, s))
-    # one row of any 64-bit words read for every limb (rows_times)
+    for m, k in ((3, 2), (3, 3), (2, 3)):
+        x, y = res((m,)), res((k,))
+        assert torch.equal(u4.tensor_prod_mxn(x, y, mv),
+                           u4.tensor_prod_mxn_plain(x, y, mv))
+    # one row of any 64-bit words read for every limb, times w and mod q
+    lw = u4.limbs(qs, w=[q // 3 for q in qs], device=dev)
     x = (a[:, :1] << 3) ^ b[:, 2:]
-    for wr in ((wv, ws), (None, None)):
-        got = u4.rows_times(x, *wr, mv)
+    for lx in (lw, u4.limbs(qs, device=dev)):
+        got = u4.shoup_rns(x, lx)
         assert got.shape == a.shape
-        assert torch.equal(got, u4.rows_times(x, *wr, mv,
-                                              u4.sub_mul_shoup_plain))
+        assert torch.equal(got, u4.shoup_rns_plain(x, lx))
+    # (a - s) w + c, a and c read in place from (2, 6, N) tensors
+    wide = torch.cat([res((2,)), res((2,))], 1)
+    for aa in (a, wide[:, 3:]):
+        for s in (None, b):
+            for cc in (None, c, wide[:, :3]):
+                assert torch.equal(u4.shoup_rns(aa, lw, s, cc),
+                                   u4.shoup_rns_plain(aa, lw, s, cc))
+    out = torch.empty((2, 3, n), dtype=torch.int64, device=dev)
+    assert u4.shoup_rns(a[0], lw, b[0], c[0], out[1]).data_ptr() == \
+        out[1].data_ptr()
+    assert torch.equal(out[1], u4.shoup_rns_plain(a[0], lw, b[0], c[0]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(logn + bits)
+    t = PLAIN_T
+    for num_l in (1, 63):
+        qr = numth.get_primes(max(2 * n, 2048), bits, num_l + 1)
+        qlast, qr = qr[-1], qr[:-1]
+        q = i64_tensor(qr, dev).view(-1, 1)
+        row = torch.randint(-(1 << 62), 1 << 62, (2, 1, n), generator=gen,
+                            device=dev) * 3
+        xl = row.abs() % qlast
+        lr = u4.limbs(qr, w=[v // 5 for v in qr], e=[v // 3 for v in qr],
+                      scalars=(qlast, qlast >> 1), device=dev)
+        assert torch.equal(u4.shoup_rns(row, lr), u4.shoup_rns_plain(row, lr))
+        assert torch.equal(u4.rescale_delta(xl, lr),
+                           u4.rescale_delta_plain(xl, lr))
+        nq = 4321 % t
+        lm = u4.limbs(qr, w=[qlast % v for v in qr],
+                      scalars=(t, nq, (nq << 64) // t), device=dev)
+        assert torch.equal(u4.modswitch_delta(row, lm),
+                           u4.modswitch_delta_plain(row, lm))
+        ld = u4.limbs(qr, w=[v // 7 for v in qr], e=[v // 11 for v in qr],
+                      scalars=(t, 999, nq, (nq << 64) // t), device=dev)
+        dq = torch.randint(0, 1 << 62, (num_l, n), generator=gen,
+                           device=dev) % q
+        dt = torch.randint(0, t, (1, n), generator=gen, device=dev)
+        assert torch.equal(u4.moddown_delta(dq, dt, ld),
+                           u4.moddown_delta_plain(dq, dt, ld))
+
+
+def test_u4_one_launch_a_call(dev):
+    """Each U4 wrapper call is one kernel launch (the library's count)."""
+    from phantom_tpu_torch import _build
+    from phantom_tpu_torch.ops import polyops as u4
+    qs, _, res, mv = _u64_setup(dev, 12, 61)
+    a, b = res((2,)), res((2,))
+    lw = u4.limbs(qs, device=dev)
+    lib = _build.library()
+    before, calls = lib.ptk_u64_polyops_launches(), u4.mul_rns.launches
+    u4.tensor_prod_2x2(a, b, mv)
+    u4.shoup_rns(a, lw, b, a)
+    u4.rescale_delta(a[:, :1], u4.limbs(qs[:2], scalars=(qs[2], 5),
+                                        device=dev))
+    torch.cuda.synchronize()
+    assert lib.ptk_u64_polyops_launches() - before == 3
+    assert u4.mul_rns.launches - calls == 3
+
+
+def test_u4_refuses_bad_layout(dev):
+    """U4 refuses an operand whose rows are not contiguous, a misaligned
+    one and groups that are not one stride; nothing launches."""
+    from phantom_tpu_torch.ops import polyops as u4
+    qs, _, res, mv = _u64_setup(dev, 10, 50)
+    a = res((2,))
+    lw = u4.limbs(qs, device=dev)
+    wide = torch.cat([a, a], -1)
+    odd = torch.empty(2 * 3 * 1024 + 1, dtype=torch.int64,
+                      device=dev)[1:].view(2, 3, 1024)
+    launches = u4.mul_rns.launches
+    for bad in (lambda: u4.mul_rns(wide[..., ::2], a, mv),
+                lambda: u4.mul_rns(a, wide[..., ::2], mv),
+                lambda: u4.fma_rns(a, a, wide[..., ::2], mv),
+                lambda: u4.shoup_rns(a, lw, wide[..., ::2]),
+                lambda: u4.shoup_rns(odd, lw),
+                lambda: u4.tensor_square_2x2(a.transpose(0, 1), mv),
+                lambda: u4.shoup_rns(
+                    torch.cat([res((3, 2)), res((3, 2))], 1)[:, :2], lw)):
+        with pytest.raises(ValueError):
+            bad()
+    assert u4.mul_rns.launches == launches
 
 
 @pytest.mark.parametrize("fname", chip_smoke.U64_GOLDEN)

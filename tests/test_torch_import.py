@@ -391,7 +391,10 @@ def test_k8_held_rows(logn):
 @pytest.mark.parametrize("kernel", ["ntt_forward64", "ntt_inverse64",
                                     "bconv64", "inner_product_evk",
                                     "mul_rns", "fma_rns", "tensor_prod_2x2",
-                                    "tensor_square_2x2", "sub_mul_shoup"])
+                                    "tensor_square_2x2", "tensor_prod_mxn",
+                                    "shoup_rns",
+                                    "rescale_delta", "modswitch_delta",
+                                    "moddown_delta"])
 def test_u64_meta_tensor_raises(kernel):
     """U1-U4's wrappers on a tensor of a device without a kernel raise
     (a CUDA tensor launches, a CPU tensor takes the plain version)."""
@@ -421,8 +424,15 @@ def test_u64_meta_tensor_raises(kernel):
             m(2, 2, n), m(2, 2, n), mv),
         "tensor_square_2x2": lambda: polyops.tensor_square_2x2(m(2, 2, n),
                                                                mv),
-        "sub_mul_shoup": lambda: polyops.sub_mul_shoup(
-            m(2, n), mv.q, mv.q, mv),
+        "tensor_prod_mxn": lambda: polyops.tensor_prod_mxn(
+            m(3, 2, n), m(3, 2, n), mv),
+        "shoup_rns": lambda: polyops.shoup_rns(m(2, n), ks.pinv),
+        "rescale_delta": lambda: polyops.rescale_delta(
+            m(2, 1, n), ctx.get_context_data(1).u64.rescale),
+        "modswitch_delta": lambda: polyops.modswitch_delta(
+            m(2, 1, n), ctx.get_context_data(1).u64.rescale),
+        "moddown_delta": lambda: polyops.moddown_delta(
+            m(2, n), m(1, n), ks.pinv),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()

@@ -218,8 +218,7 @@ def test_products_and_inner_product():
             assert [sq[k][l][i] for k in range(3)] == [
                 a0 * a0 % q[l], 2 * a0 * a1 % q[l], a1 * a1 % q[l]]
     w = [a[0][0][0], a[0][1][0]]
-    ws = [(v << 64) // p for v, p in zip(w, q)]
-    assert lists(po.sub_mul_shoup(A, _t(w), _t(ws), mv, s=B)) == [
+    assert lists(po.shoup_rns(A, po.limbs(q, w=w), s=B)) == [
         [[(u - v) * w[l] % q[l] for u, v in zip(a[g][l], b[g][l])]
          for l in range(2)] for g in range(2)]
     beta = 3
