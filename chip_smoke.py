@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply (by each
-of the four techniques), BGV multiply, its Fast32 evaluator and the CKKS
-application path (the device encoder, LinearTransform, polynomial
-evaluation) on one NVIDIA GPU and check it.
+of the four techniques, on 32- and 64-bit words), BGV multiply, its
+Fast32 evaluator and the CKKS application path (the device encoder,
+LinearTransform, polynomial evaluation) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
@@ -280,8 +280,10 @@ Phases, one line each or more; any failure exits non-zero:
  41. u64       the IMADs of each U kernel in the SASS (U1's, U2's and
      golden    U4's kernels found there); the four u64 golden files (CKKS
                and BGV, 50- and 60-bit chains) through U1-U4, every output
-               bit-equal to the JAX package's, and u64_mxn_n1024.npz
-               through U4's mxn form
+               bit-equal to the JAX package's, u64_mxn_n1024.npz
+               through U4's mxn form, and the four BFV u64 files (one per
+               technique, keys, encryptions, every verb, decryptions,
+               noise budgets, scaleround's and behz's functions)
  42. u64 CKKS  bench.py --path u64: N = 2^16, 43 data primes of 50 bits, 22
                special of 51; the context's build time (at most 30 s), the
                keys and two encryptions on the card (relin key and
@@ -300,6 +302,16 @@ Phases, one line each or more; any failure exits non-zero:
  43. u64 BGV   the same for BGV (t the 20-bit batching prime):
                multiply_and_relin + mod_switch_to_next, decrypted right in
                every one of the 65536 slots
+ 44-47. u64    bench.py --scheme bfv --path u64 --limbs 31 (U64_BFV_CFG:
+     BFV       31 data primes of 50 bits, 22 special of 51, t = 786433),
+               one context per technique (HPS, BEHZ, HPSoverQ, leveled):
+               keys and two encryptions on the card, multiply_and_relin
+               with every U call probed (U2's scale_round form among
+               them), the launch counts, bit-equal to the plain path, the
+               product decrypted right in every slot and its noise budget,
+               leveled also with operands of noise_scale_deg 3 (a level
+               dropped, decrypted over that level), 10 chained steps, the
+               plain step timed, a profile as above
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -329,9 +341,9 @@ single PyTorch call computes a modular NTT or a modular product-sum, so
 library_ms is null for K1-K9; F1's is torch.fft.fft over complex128 (the
 bare form's calls; its row lists the fused forms' sums under "forms",
 with library_ms null: no PyTorch call fuses the scatter or the residues).
-U1-U4's rows sum the probed calls of phases 42-43 (U1's forward and
-inverse, U4's forms, each listed under "forms" with its calls, device
-time and host time a call; U1's, U2's and U4's "launches_per_call", the
+U1-U4's rows sum the probed calls of phases 42-47 (U1's forward and
+inverse, U2's forms by the form each call took, U4's forms, each listed
+under "forms" with its calls, device time and host time a call; U1's, U2's and U4's "launches_per_call", the
 kernels one call launches); their bound counts u64 work in 32-bit
 multiplies (MUL_HI, MUL_LO: a 64 x 64 product's high word 4, its low
 word 3, so a Shoup product 10, a Barrett-128 product 31, reduce128_any
@@ -1692,31 +1704,13 @@ def u64_golden(device, fname: str, ops=None) -> int:
         n, g["data_moduli"].tolist(), g["special_moduli"].tolist(), scheme,
         int(g["t"])), device=device)
 
-    def w(name):
-        return torch.from_numpy(g[name].astype(np.uint64).view(
-            np.int64)).to(device)
-
-    def s(name):
-        return torch.from_numpy(g[name].astype(np.int64)).to(device)
-
     held = [0]
 
     def cmp(name, x, meta_of=None):
         _u64_cmp(g, fname, name, x, meta_of)
         held[0] += 1
 
-    sk = keys.gen_secret_core64(ctx, s("s_tern"), ops)
-    cmp("sk", sk)
-    pk = torch.stack(keys.encrypt_zero_sym_core64(ctx, sk, w("pk_a"),
-                                                  s("pk_e"), ops))
-    cmp("pk", pk)
-    rlk = keys.gen_relin_core64(ctx, sk, w("rlk_a"), s("rlk_e"), ops)
-    cmp("rlk", rlk)
-    elts = tuple(g["elts"].tolist())
-    glk = keys.GaloisKeys(torch.stack([
-        keys.gen_galois_core64(ctx, sk, e, w("glk_a")[i], s("glk_e")[i], ops)
-        for i, e in enumerate(elts)]), elts)
-    cmp("glk", glk.data)
+    sk, pk, rlk, glk, w, s = _u64_keys(g, ctx, ops, cmp)
 
     def pt(name):
         meta = g[name + "__meta"].tolist()
@@ -1841,6 +1835,177 @@ def _u64_kernel_golden(g, fname, ctx, ops, device) -> int:
         if not np.array_equal(digest(v), g["h__" + name]):
             raise RuntimeError(f"golden {fname}: {name} differs (digest)")
     return len(res)
+
+
+# BFV on the u64 evaluator: the files' techniques (file name -> mul_tech),
+# verbs and leveled's chained products (the generator's)
+U64_BFV_TECHS = {"hps": "hps", "behz": "behz", "overq": "hps_overq",
+                 "leveled": "hps_overq_leveled"}
+U64_BFV_GOLDEN = tuple(f"u64_bfv_{tech}_b50.npz" for tech in U64_BFV_TECHS)
+U64_BFV_VERBS = ("negate", "add", "sub", "add_plain", "sub_plain",
+                 "multiply_plain", "multiply", "square", "relinearize",
+                 "multiply_and_relin", "mod_switch", "rotate_rows",
+                 "rotate_columns", "hoisting")
+U64_BFV_DEEP = ("deep2", "deep3", "deep4")
+
+
+def _u64_keys(g, ctx, ops, cmp, galois: bool = True):
+    """sk, pk, rlk and (`galois`, else None) the Galois keys of a u64
+    golden file, from its draws, each held against the file."""
+    import torch
+    from phantom_tpu_torch.schemes import keys
+    dev = ctx.key_q.device
+
+    def w(name):
+        return torch.from_numpy(g[name].astype(np.uint64).view(
+            np.int64)).to(dev)
+
+    def s(name):
+        return torch.from_numpy(g[name].astype(np.int64)).to(dev)
+
+    sk = keys.gen_secret_core64(ctx, s("s_tern"), ops)
+    cmp("sk", sk)
+    pk = torch.stack(keys.encrypt_zero_sym_core64(ctx, sk, w("pk_a"),
+                                                  s("pk_e"), ops))
+    cmp("pk", pk)
+    rlk = keys.gen_relin_core64(ctx, sk, w("rlk_a"), s("rlk_e"), ops)
+    cmp("rlk", rlk)
+    glk = None
+    if galois:
+        elts = tuple(g["elts"].tolist())
+        glk = keys.GaloisKeys(torch.stack([
+            keys.gen_galois_core64(ctx, sk, e, w("glk_a")[i], s("glk_e")[i],
+                                   ops)
+            for i, e in enumerate(elts)]), elts)
+        cmp("glk", glk.data)
+    return sk, pk, rlk, glk, w, s
+
+
+def u64_bfv_golden(device, fname: str, ops=None, shared: bool = True) -> int:
+    """One BFV u64 golden file (u64_bfv_<tech>_b50.npz) through the port
+    on `device` (`ops`: keyswitch.KERNELS64 by default): keys from the
+    JAX draws, both encryptions, every verb (leveled also its chained
+    products, the last with a level dropped, and that one's decryption
+    over its level), each decryption, the noise budgets and the modules'
+    functions (scale-and-round D -> Rl, D -> Ql, Ql -> Rl, the decryption's
+    and the plain lift's rounding; BEHZ's sm_mrq, fast_floor and
+    fastbconv_sk; leveled's Q -> Ql and Q -> Rl), bit-equal to the JAX
+    package's (RuntimeError otherwise).  Without `shared`, only what
+    depends on the technique: the keys but the Galois keys, the
+    encryptions, the products, their decryptions and budgets and the
+    technique's own functions.  Returns the outputs held."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, make_context
+    from phantom_tpu_torch.host.noise import find_levels_to_drop
+    from phantom_tpu_torch.ops import behz as bz
+    from phantom_tpu_torch.ops import scaleround as sr
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    from phantom_tpu_torch.schemes.ciphertext import Plaintext
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ops = ksw.KERNELS64 if ops is None else ops
+    g = np.load(os.path.join(FIXTURES, fname))
+    tech = fname.split("_")[2]
+    n = int(g["s_tern"].shape[0])
+    ctx = make_context(EncryptionParameters.create(
+        n, g["data_moduli"].tolist(), g["special_moduli"].tolist(), "bfv",
+        int(g["t"]), mul_tech=U64_BFV_TECHS[tech]), device=device)
+    held = [0]
+
+    def cmp(name, x, meta_of=None):
+        _u64_cmp(g, fname, name, x, meta_of)
+        held[0] += 1
+
+    sk, pk, rlk, glk, w, s = _u64_keys(g, ctx, ops, cmp, shared)
+    pt1, pt2 = (Plaintext(data=w(name)) for name in ("pt1", "pt2"))
+    enc = BatchEncoder(ctx)
+    cmp("pt1", enc.encode(g["z1"].astype(np.int64)).data.long())
+    c1 = keys.encrypt_asymmetric_core64(ctx, pk, pt1, s("enc_u"),
+                                        s("enc_e"), ops)
+    cmp("c1", c1.data, c1)
+    c2 = keys.encrypt_symmetric_core64(ctx, sk, pt2, w("sym_a"), s("sym_e"),
+                                       ops)
+    cmp("c2", c2.data, c2)
+    mul = ev.multiply(ctx, c1, c2, ops)
+    mr = ev.multiply_and_relin(ctx, c1, c2, rlk, ops)
+    res = dict(multiply=mul, square=ev.square(ctx, c1, ops),
+               relinearize=ev.relinearize(ctx, mul, rlk, ops),
+               multiply_and_relin=mr,
+               mod_switch=ev.mod_switch_to_next(ctx, mr, ops))
+    if shared:
+        res.update(negate=ev.negate(ctx, c1), add=ev.add(ctx, c1, c2, ops),
+                   sub=ev.sub(ctx, c1, c2, ops),
+                   add_plain=ev.add_plain(ctx, c1, pt2, ops),
+                   sub_plain=ev.sub_plain(ctx, c1, pt2, ops),
+                   multiply_plain=ev.multiply_plain(ctx, c1, pt2, ops),
+                   rotate_rows=ev.rotate_rows(ctx, c1, 1, glk, ops),
+                   rotate_columns=ev.rotate_columns(ctx, c1, glk, ops),
+                   hoisting=ev.hoisting(ctx, c1, glk, [1, 2], ops))
+    if tech == "leveled":
+        p = ctx.params
+        d = mr
+        for name in U64_BFV_DEEP:
+            lvl = find_levels_to_drop(
+                n, p.size_q, p.size_p,
+                len(ctx.get_context_data(1).ks.digit_convs),
+                p.plain_modulus, 50, d.noise_scale_deg - 1, False, True)
+            if lvl != int(g[name + "__lvl"]):
+                raise RuntimeError(f"golden {fname}: {name} drops {lvl}")
+            d = res[name] = ev.multiply_and_relin(ctx, d, d, rlk, ops)
+        low = d.replace(data=d.data[:, :p.size_q - lvl].contiguous(),
+                        chain_index=1 + lvl)
+        dec = keys.decrypt64(ctx, sk, low, ops)
+        cmp("dec_deep4_ql", dec.data, dec)
+    if shared and set(res) != set(U64_BFV_VERBS) | set(
+            U64_BFV_DEEP if tech == "leveled" else ()):
+        raise RuntimeError(f"golden {fname}: verbs {sorted(res)}")
+    for name, c in res.items():
+        cmp(name, c.data, c)
+        dec = keys.decrypt64(ctx, sk, c, ops)
+        cmp("dec_" + name, dec.data, dec)
+    budgets = [("mr", mr), ("mod_switch", res["mod_switch"])]
+    if shared:
+        budgets += [("c1", c1), ("c2", c2)]
+    for name, c in budgets:
+        if keys.invariant_noise_budget64(ctx, sk, c, ops) != int(
+                g["budget_" + name]):
+            raise RuntimeError(f"golden {fname}: budget of {name} differs")
+        held[0] += 1
+    lv = ctx.get_context_data(1).u64
+    hps = lv.hps
+    x_d, x_q = w("x_d"), w("x_q")
+    fns = {}
+    if shared:
+        fns.update(
+            sr_d_to_rl=sr.scale_and_round_exact(x_d, hps.sr_to_r, ops.bconv),
+            sr_d_to_ql=sr.scale_and_round_exact(x_d, hps.sr_final_overq,
+                                                ops.bconv),
+            sr_ql_to_rl=sr.scale_and_round_exact(x_q, hps.sr_ql_to_rl,
+                                                 ops.bconv),
+            decrypt_sr=sr.decrypt_scale_and_round(x_q, lv.decrypt_sr),
+            plain_up=sr.scale_plain_up(w("m_t"), lv.plain_lift,
+                                       ops.shoup_rns))
+        cmp("decrypt_sr", fns["decrypt_sr"])
+    if tech == "behz":
+        if list(ctx.bsk_moduli) != g["bsk_moduli"].tolist():
+            raise RuntimeError(f"golden {fname}: Bsk differs")
+        c = lv.behz
+        x_bsk = w("x_bsk")
+        fns.update(sm_mrq=bz.sm_mrq(x_q, c, ops),
+                   fast_floor=bz.fast_floor(x_q, x_bsk, c, ops),
+                   fastbconv_sk=bz.fastbconv_sk(x_bsk, c, ops))
+    if tech == "leveled":
+        lc = ctx.get_context_data(2).u64.leveled
+        fns.update(lev_q_to_ql=sr.scale_and_round_exact(x_q, lc.q_to_ql,
+                                                        ops.bconv),
+                   lev_q_to_rl=sr.scale_and_round_exact(x_q, lc.q_to_rl,
+                                                        ops.bconv))
+    for name, v in fns.items():
+        if not np.array_equal(digest(v), g["h__" + name]):
+            raise RuntimeError(f"golden {fname}: {name} differs (digest)")
+        held[0] += 1
+    return held[0]
 
 
 U64_MXN = "u64_mxn_n1024.npz"
@@ -2112,10 +2277,10 @@ def calls_only(card: str, dev, only_u64: bool = False) -> None:
     one through each of those epilogues, one BFV step on each engine and
     one BGV step on each route, under the probes (phases 4, 8, 11, 18 and
     23 without the rest; none of them with `only_u64`, --calls u64);
-    then the u64 CKKS and BGV steps (phases 42-43 without the golden
-    files and the plain step's timing: every U call probed, chained
-    timing, profile, U1's, U2's and U4's kernel launches per call, the
-    launch counts).  It passes the 32-bit wrappers only their common
+    then the u64 CKKS, BGV and BFV steps (phases 42-47 without the
+    golden files and the plain step's timing: every U call probed,
+    chained timing, profile, U1's, U2's and U4's kernel launches per
+    call, the launch counts).  It passes the 32-bit wrappers only their common
     arguments, so a copy of this file measures an earlier tree of the
     port's 32-bit paths the same way."""
     import torch
@@ -2123,8 +2288,9 @@ def calls_only(card: str, dev, only_u64: bool = False) -> None:
     from phantom_tpu_torch.ops import bfv32, bgv32
     from phantom_tpu_torch.ops import pipeline32 as pp
     if only_u64:
-        _u64_phases(card, {name: 0 for name, *_ in U64_KERNELS}, dev, None,
-                    calls=True)
+        launches64 = {name: 0 for name, *_ in U64_KERNELS}
+        probes64, _ = _u64_phases(card, launches64, dev, None, calls=True)
+        _u64_bfv_phases(card, probes64, launches64, dev, calls=True)
         return
     probes = _probes(pp, kernel_wrappers())
     since = {name: 0 for name in PROBE_NAMES}
@@ -2153,9 +2319,11 @@ def calls_only(card: str, dev, only_u64: bool = False) -> None:
     _print_calls(probes, card, since)
     del c, rlk, a, b
     torch.cuda.empty_cache()
-    # the u64 CKKS and BGV steps: every U call probed, chained, profiled
-    _u64_phases(card, {name: 0 for name, *_ in U64_KERNELS}, dev, None,
-                calls=True)
+    # the u64 CKKS, BGV and BFV steps: every U call probed, chained,
+    # profiled
+    launches64 = {name: 0 for name, *_ in U64_KERNELS}
+    probes64, _ = _u64_phases(card, launches64, dev, None, calls=True)
+    _u64_bfv_phases(card, probes64, launches64, dev, calls=True)
 
 
 def _probes(pp, wrappers):
@@ -3851,11 +4019,43 @@ EXPECTED64 = {
     # their sum), U1 forward and U4
     "u64 BGV step": _launches64(U1=8, U2=6, U3=1, U4=7),
     # u and e (U1 x2), u pk + e (U4's fma), the moddown of both halves;
-    # BGV also the plaintext's lift (U1) and moddown_delta per half
+    # BGV also t e (U4's Shoup form), the plaintext's lift (U1) and
+    # moddown_delta per half
     "u64 CKKS encrypt_asymmetric": _launches64(U1=6, U2=2, U4=3),
-    "u64 BGV encrypt_asymmetric": _launches64(U1=7, U2=4, U4=5),
-    # s^2, (P mod q) s^2 (U4's Shoup form), a s + e (U4's fma)
-    "u64 gen_relin_key": _launches64(U1=1, U4=3),
+    "u64 BGV encrypt_asymmetric": _launches64(U1=7, U2=4, U4=6),
+    # per digit a uniform draw's 2^62 hi (U4's Shoup form); s^2, (P mod
+    # q) s^2 (U4's Shoup form), a s + e (U4's fma); BGV also t e
+    "u64 CKKS gen_relin_key": _launches64(U1=1, U4=5),
+    "u64 BGV gen_relin_key": _launches64(U1=1, U4=6),
+    "u64 BFV gen_relin_key": _launches64(U1=1, U4=5),
+    # BFV (31 data primes, alpha 22): u (U1), u pk (U4), back (U1), per
+    # half the coefficient moddown (U2 exact, U4), round(Ql m / t)'s
+    # Delta m (U4's row form)
+    "u64 BFV encrypt_asymmetric": _launches64(U1=2, U2=2, U4=4),
+    # multiply_and_relin.  The relinearization of a coefficient-form c2:
+    # per digit U2, one U1 forward, U3, per half the moddown (U1 both
+    # ways, U2, U4), U1's inverse of both halves: U1=6 U2=4 U3=1 U4=2.
+    # HPS: per operand poly the exact lift Ql -> Rl (U2), U1 forward of
+    # each operand over D, the tensor product (U4), U1 inverse, per output
+    # poly U2's scale_round to Rl and the exact conversion Rl -> Ql
+    "u64 BFV hps step": _launches64(U1=9, U2=14, U3=1, U4=3),
+    # BEHZ: per operand poly SmMRq (U4 m_tilde x, U2 to Bsk and to {2^32},
+    # U4's row form for r mod bsk_j, U4 x2 for conv m_tilde^-1 + r Q
+    # m_tilde^-1), per operand U1 over Ql and over Bsk, the tensor
+    # products over Ql and Bsk (U4 x2), U1's inverses with t in their
+    # scale, per output poly the fast floor (U2, U4) and Shenoy-Kumaresan
+    # (U2 x2, U4 alpha, U4's row form alpha B)
+    "u64 BFV behz step": _launches64(U1=12, U2=21, U3=1, U4=29),
+    # HPSoverQ: ct1's lift (U2 per poly), per ct2 poly U2's scale_round
+    # Ql -> Rl and the exact conversion Rl -> Ql, U1 x3, U4, per output
+    # poly U2's scale_round D -> Ql; leveled without a drop the same
+    "u64 BFV hps_overq step": _launches64(U1=9, U2=13, U3=1, U4=3),
+    "u64 BFV hps_overq_leveled step": _launches64(U1=9, U2=13, U3=1,
+                                                  U4=3),
+    # leveled with a drop: ct1 scaled Q -> Ql first (U2 per poly), ct2 Q ->
+    # Rl, and per output poly the exact lift back to the dropped prime (U2)
+    "u64 BFV hps_overq_leveled step, drop 1": _launches64(U1=9, U2=18, U3=1,
+                                                          U4=3),
 }
 EXPECTED.update({
     # every transform K6: the modup's inverse and the complement rows'
@@ -3929,6 +4129,12 @@ def _work64(field: str, a: dict, out):
         c, form = a["c"], a["form"]
         k_in, m = x.shape
         k_out = c.obase.q.shape[0]
+        if form == "scale_round":  # y, y rho (wide), two exact divisions;
+            # per output the products and one reduction of their sum plus F
+            prep = SHOUP_OPS + MUL_HI + MUL_LO + 2 * BARRETT128_OPS
+            per = k_in * (MUL_HI + MUL_LO) + REDUCE_ANY_OPS
+            return (_words_bytes(x, out, c.omega_mod_out),
+                    m * (k_in * prep + k_out * per))
         prep = 0 if form == "reduce" else SHOUP_OPS
         if form == "exact":
             prep += FLOOR_SUM_OPS
@@ -3982,6 +4188,9 @@ class _Probe64(_Probe):
         if slot is not None:
             ba.arguments["out"] = None
         got = super().__call__(*ba.args, **ba.kwargs)
+        if self.field == "bconv":
+            ba.apply_defaults()
+            self.calls[-1]["form"] = ba.arguments["form"]
         if self.name.startswith("U4"):
             self.calls[-1]["host_ms"] = _enqueue_ms(
                 lambda: self.kernel(*ba.args, **ba.kwargs), HOST_REPS)
@@ -4019,7 +4228,9 @@ def _print_calls64(probes, card, since):
         for c in probe.calls[since.get(probe.name, 0):]:
             host = (f", host {c['host_ms']:.4f} ms a call"
                     if "host_ms" in c else "")
-            print(f"kernel {probe.name} {c['shape']}: bit-equal to plain; "
+            form = f" ({c['form']})" if "form" in c else ""
+            print(f"kernel {probe.name}{form} {c['shape']}: bit-equal to "
+                  "plain; "
                   f"{c['ms']:.4f} ms (device {c['dev_ms']:.4f}{host}) vs "
                   f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
                   f"ms by {c['bound_by']} ({c['bytes'] / 1e6:.1f} MB, "
@@ -4190,6 +4401,11 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
                   f"to the JAX package's ({time.time() - t0:.1f} s)")
         print(f"golden: {U64_MXN}: {u64_mxn_golden(dev)} products through "
               "U4's mxn form bit-equal to the JAX package's tensor_prod_mxn")
+        for fname in U64_BFV_GOLDEN:
+            t0 = time.time()
+            held = u64_bfv_golden(dev, fname)
+            print(f"golden: {fname}: {held} outputs through U1-U4 bit-equal "
+                  f"to the JAX package's ({time.time() - t0:.1f} s)")
     wrappers = kernel_wrappers64()
     probes = _probes64(U64_REPS)
     since, per_call = {}, {}
@@ -4208,7 +4424,7 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
         t0 = time.time()
         sk = keys.gen_secret_key64(ctx, gen)
         pk = keys.gen_public_key64(ctx, sk, gen)
-        rlk = _count64(wrappers, "u64 gen_relin_key",
+        rlk = _count64(wrappers, f"u64 {scheme.upper()} gen_relin_key",
                        lambda: keys.gen_relin_key64(ctx, sk, gen),
                        launches64)
         rng = np.random.default_rng(SEED + 64)
@@ -4303,6 +4519,140 @@ def _u64_phases(card, launches64, dev, lib, calls: bool = False):
                  lambda: sum(w.launches for w in wrappers))
         del ctx, sk, pk, rlk, c1, c2, out, ref, dec, dd, pts
     return probes, per_call
+
+
+U64_BFV_CFG = dict(n=1 << 16, limbs=31, alpha=22, bits=50)
+U64_BFV_TIMED = ("hps", "behz", "hps_overq", "hps_overq_leveled")
+# operands of noise_scale_deg 3: at U64_BFV_CFG the noise model drops one
+# level there
+U64_BFV_DROP_DEG = 3
+
+
+def _u64_bfv_phases(card, probes, launches64, dev, calls: bool = False):
+    """Phases 44-47: BFV on the u64 evaluator at bench.py --scheme bfv
+    --path u64 --limbs 31 width, one context per mul_tech: keygen and two
+    asymmetric encryptions of random slot vectors on the card, then
+    multiply_and_relin (as bench.py chains it: the first operand's data
+    replaced by the output, its metadata kept) with every U call under
+    `probes`, the launch counts (EXPECTED64) and U1's, U2's and U4's
+    kernel launches per call, the kernel path bit-equal to the plain path,
+    the decryption in every slot, the noise budget, chained timing and a
+    profile (device-busy, idle share, aten kernels by name, peak memory);
+    leveled also a product of operands of noise_scale_deg 3, which drops a
+    level, checked and decrypted over that level.  With `calls` no plain
+    step's timing."""
+    import torch
+    from phantom_tpu_torch import BatchEncoder, make_context
+    from phantom_tpu_torch.host.noise import find_levels_to_drop
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    wrappers = kernel_wrappers64()
+    since = {}
+    for tech in U64_BFV_TIMED:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        prm = mod_t_params(**U64_BFV_CFG, mul_tech=tech)
+        ctx = make_context(prm)
+        torch.cuda.synchronize()
+        t_ctx = time.time() - t0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 65)
+        t0 = time.time()
+        sk = keys.gen_secret_key64(ctx, gen)
+        pk = keys.gen_public_key64(ctx, sk, gen)
+        rlk = _count64(wrappers, "u64 BFV gen_relin_key",
+                       lambda: keys.gen_relin_key64(ctx, sk, gen),
+                       launches64)
+        rng = np.random.default_rng(SEED + 65)
+        n, t = prm.n, prm.plain_modulus
+        enc = BatchEncoder(ctx)
+        z = [rng.integers(0, t, n) for _ in range(2)]
+        c1 = _count64(wrappers, "u64 BFV encrypt_asymmetric",
+                      lambda: keys.encrypt_asymmetric64(
+                          ctx, pk, enc.encode(z[0]), gen), launches64)
+        c2 = keys.encrypt_asymmetric64(ctx, pk, enc.encode(z[1]), gen)
+        torch.cuda.synchronize()
+        label = f"u64 BFV {tech}"
+        print(f"{label} setup: N={n} L={prm.size_q} alpha={prm.size_p} "
+              f"({max(prm.data_moduli).bit_length()}-bit data, "
+              f"{max(prm.special_moduli).bit_length()}-bit special, "
+              f"{max(ctx.rl_moduli).bit_length()}-bit Rl"
+              + (f", {max(ctx.bsk_moduli).bit_length()}-bit Bsk primes"
+                 if ctx.bsk_moduli else " primes") + f", t={t}); context "
+              f"{t_ctx:.1f} s, keys and encryptions on the card "
+              f"{time.time() - t0:.1f} s")
+
+        def step(a, b, ops):
+            return ev.multiply_and_relin(ctx, a, b, rlk, ops)
+
+        step(c1, c2, probes)
+        _print_calls64(probes, card, since)
+        before = _u64_library_launches()
+        what = f"{label} step"
+        out = _count64(wrappers, what, lambda: step(c1, c2, ksw.KERNELS64),
+                       launches64)
+        _u64_per_call(before, _u64_library_launches(), wrappers, what)
+        if not _same(out, step(c1, c2, ksw.PLAIN64)):
+            raise RuntimeError(f"{what}: kernel path differs from the plain "
+                               "path")
+        want = z[0] * z[1] % t
+        got = enc.decode(keys.decrypt64(ctx, sk, out)).astype(np.int64)
+        right = int((got == want).sum())
+        budget = keys.invariant_noise_budget64(ctx, sk, out)
+        print(f"{what}: kernel path bit-equal to the plain path "
+              f"{tuple(out.data.shape)}; decrypts right in {right} of {n} "
+              f"slots; noise budget {budget} bits (fresh "
+              f"{keys.invariant_noise_budget64(ctx, sk, c1)})")
+        if right != n:
+            raise RuntimeError(f"{what}: wrong decryption")
+        if tech == "hps_overq_leveled":
+            deep = c1.replace(noise_scale_deg=U64_BFV_DROP_DEG)
+            lvl = find_levels_to_drop(
+                n, prm.size_q, prm.size_p,
+                len(ctx.get_context_data(1).ks.digit_convs), t,
+                U64_BFV_CFG["bits"], U64_BFV_DROP_DEG - 1, False, True)
+            dwhat = f"{what}, drop {lvl}"
+            d_out = _count64(wrappers, dwhat, lambda: step(
+                deep, c2, ksw.KERNELS64), launches64)
+            if not _same(d_out, step(deep, c2, ksw.PLAIN64)):
+                raise RuntimeError(f"{dwhat}: kernel path differs from the "
+                                   "plain path")
+            low = d_out.replace(
+                data=d_out.data[:, :prm.size_q - lvl].contiguous(),
+                chain_index=1 + lvl)
+            got = enc.decode(keys.decrypt64(ctx, sk, low)).astype(np.int64)
+            right = int((got == want).sum())
+            print(f"{dwhat}: kernel path bit-equal to the plain path "
+                  f"{tuple(d_out.data.shape)}; decrypts right over its "
+                  f"{prm.size_q - lvl} primes in {right} of {n} slots")
+            if right != n:
+                raise RuntimeError(f"{dwhat}: wrong decryption")
+            del deep, d_out, low
+
+        def chain(route):
+            ops = ksw.PLAIN64 if route == "plain path" else ksw.KERNELS64
+
+            def run(steps):
+                d = c1
+                for _ in range(steps):
+                    d = d.replace(data=step(d, c2, ops).data)
+                return d
+            return run
+
+        _chain_timing(("kernel path",), chain, U64_CHAIN_STEPS, card, what)
+        if not calls:
+            print(f"timing {what}, plain path: "
+                  f"{_time(lambda: step(c1, c2, ksw.PLAIN64), 1):.1f} ms/op "
+                  f"(one step after a warm-up) [{card}]")
+        dd = [c1]
+
+        def prof():
+            dd[0] = dd[0].replace(data=step(dd[0], c2, ksw.KERNELS64).data)
+        _profile(prof, PROFILE_STEPS, card, what,
+                 lambda: sum(w.launches for w in wrappers))
+        del ctx, sk, pk, rlk, c1, c2, out, dd
+    return probes
 
 
 def main() -> int:
@@ -4736,47 +5086,59 @@ def main() -> int:
     # 41-43. the u64 evaluator on U1-U4
     launches64 = {name: 0 for name, *_ in U64_KERNELS}
     probes64, per_call = _u64_phases(card, launches64, dev, path)
+    # 44-47. BFV on the u64 evaluator, each multiplication technique
+    _u64_bfv_phases(card, probes64, launches64, dev)
 
-    def summed(probe):
-        if not probe.calls:
-            raise RuntimeError(f"{probe.name}: not probed")
+    def summed(name, calls, library_ms=None):
+        if not calls:
+            raise RuntimeError(f"{name}: not probed")
         return dict(
-            max_abs_err=max(c["err"] for c in probe.calls),
-            ms=round(sum(c["ms"] for c in probe.calls), 5),
-            plain_ms=round(sum(c["plain_ms"] for c in probe.calls), 5),
-            bound_ms=round(sum(c["bound_ms"] for c in probe.calls), 5),
+            max_abs_err=max(c["err"] for c in calls),
+            ms=round(sum(c["ms"] for c in calls), 5),
+            plain_ms=round(sum(c["plain_ms"] for c in calls), 5),
+            bound_ms=round(sum(c["bound_ms"] for c in calls), 5),
             bound_by=max(("bytes", "operations"), key=lambda b: sum(
-                c["bound_ms"] for c in probe.calls if c["bound_by"] == b)),
-            library_ms=getattr(probe, "library_ms", None),
-            calls=len(probe.calls),
-            dev_ms=round(sum(c["dev_ms"] for c in probe.calls), 5),
-            dev_ms_a_call=round(sum(c["dev_ms"] for c in probe.calls)
-                                / len(probe.calls), 5),
-            **({} if "host_ms" not in probe.calls[0] else dict(
+                c["bound_ms"] for c in calls if c["bound_by"] == b)),
+            library_ms=library_ms,
+            calls=len(calls),
+            dev_ms=round(sum(c["dev_ms"] for c in calls), 5),
+            dev_ms_a_call=round(sum(c["dev_ms"] for c in calls)
+                                / len(calls), 5),
+            **({} if "host_ms" not in calls[0] else dict(
                 host_ms_a_call=round(float(np.mean([
-                    c["host_ms"] for c in probe.calls])), 5))))
+                    c["host_ms"] for c in calls])), 5))))
+
+    def probed(probe):
+        return summed(probe.name, probe.calls,
+                      getattr(probe, "library_ms", None))
 
     rows = []
     for (name, attr, src, repl), probe in zip(KERNELS, probes):
         rows.append(dict(name=f"{name} {attr}", route="cuda", source=src,
                          replaces=repl, launches=launches[name],
-                         **summed(probe)))
+                         **probed(probe)))
     # F1's fused forms: the same kernels and launch count, probed apart
     rows[-1]["forms"] = [
-        dict(name=f"{F1_FORMS[f]} {f}", **summed(getattr(probes, f)))
+        dict(name=f"{F1_FORMS[f]} {f}", **probed(getattr(probes, f)))
         for f in F1_FORMS]
     for name, attr, src, repl in U64_KERNELS:
         mine = [p for p in probes64 if p.name.split()[0] == name]
-        both = _Probe64.__new__(_Probe64)
-        both.name, both.calls = name, [c for p in mine for c in p.calls]
+        calls = [c for p in mine for c in p.calls]
         rows.append(dict(name=f"{name} {attr}", route="cuda", source=src,
                          replaces=repl, launches=launches64[name],
-                         **summed(both)))
+                         **summed(name, calls)))
         if name in per_call:  # kernel launches a call (one: U1, U2)
             rows[-1]["launches_per_call"] = per_call[name]
         if len(mine) > 1:
-            rows[-1]["forms"] = [dict(name=p.name, **summed(p))
+            rows[-1]["forms"] = [dict(name=p.name, **probed(p))
                                  for p in mine if p.calls]
+        if name == "U2":  # U2's forms, by the form each call took
+            forms = {}
+            for c in calls:
+                forms.setdefault(c["form"], []).append(c)
+            rows[-1]["forms"] = [
+                dict(name=f"U2 {form}", **summed(f"U2 {form}", cs))
+                for form, cs in forms.items()]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,25 @@
 // the sum of products below 2^61 x 2^61 x 63 < 2^128.  Any M: the last
 // block's columns past M read nothing and store nothing.
 //
+// Form 3, "scale_round", is BFV's exact scale-and-round (the JAX
+// package's scaleround.scale_and_round_exact, phantom_tpu/ops/
+// scaleround.py:224): round((num/den) x) from the input base D to an
+// output base whose primes divide G = num prod(D) / den.  With y_i as
+// above (I/d_i in Q/q_i's place), G = omega_i d_i + rho_i, `mat` holding
+// omega_i mod p_j and `V` rho_i:
+//
+//   out_j = [sum_i y_i omega_ji + F]_{p_j},
+//   F     = S1 + floor((S2 + 2^127) / 2^64),
+//   S1    = sum_i g_i,  g_i, r_i = divmod(y_i rho_i, d_i),
+//   S2    = sum_i floor(r_i 2^64 / d_i)
+//
+// over 128 bits.  The integer part is "approx"'s; the cascade is
+// "exact"'s with rho in V's place and no y U term, each part of a column
+// summed as there.  F (< 63 x 2^61) is added to each output row's sum (<
+// 63 x 2^122) before its one reduce128_any: the total stays below 2^128
+// and [sum + F]_p = [[sum]_p + [F]_p]_p, the plain version's two
+// reductions.
+//
 // Bound: at 22 -> 43 rows, M = 2^16, the 43 x 22 x 2^16 products at 7
 // 32-bit multiplies (the high word 4, the low word 3) and the 43 x 2^16
 // reductions at 45 are 0.56 G multiplies, 0.034 ms at 16.7 T/s, against
@@ -99,13 +118,14 @@ __device__ __forceinline__ void mac128(uint32_t (&a)[4], uint64_t y,
 }
 
 // words of shared memory: the y tile, mat, five words per output row,
-// and for "exact" the four 128-bit parts of S1 and S2 per column
+// and for "exact" and "scale_round" the four 128-bit parts of S1 and S2
+// per column
 int smem_words(int k_in, int k_out, int form) {
   return k_in * kTile + k_out * k_in + 5 * k_out +
-         (form == 2 ? 4 * kGroups * kTile : 0);
+         (form >= 2 ? 4 * kGroups * kTile : 0);
 }
 
-template <int kForm>  // 0 "approx", 1 "reduce", 2 "exact"
+template <int kForm>  // 0 "approx", 1 "reduce", 2 "exact", 3 "scale_round"
 __global__ void __launch_bounds__(kThreads)
 bconv64_kernel(Bconv64Args a) {
   extern __shared__ uint64_t sm[];
@@ -124,24 +144,24 @@ bconv64_kernel(Bconv64Args a) {
     ob[k_out + j] = a.prlo[j];
     ob[2 * k_out + j] = a.prhi[j];
     ob[3 * k_out + j] = a.pow64[j];
-    ob[4 * k_out + j] = a.q_mod_p[j];
+    ob[4 * k_out + j] = kForm == 2 ? a.q_mod_p[j] : 0;
   }
   uint64_t s1_hi = 0, s1_lo = 0, s2_hi = 0, s2_lo = 0;
   for (int i = g; i < k_in; i += kGroups) {
     uint64_t v = in ? a.x[i * a.m + col] : 0;
     if (kForm != 1) v = shoup(v, a.qhat_inv[i], a.qhat_inv_shoup[i], a.q[i]);
     ys[i * kTile + c] = v;
-    if (kForm == 2) {
+    if (kForm >= 2) {
       uint64_t r1, rem;
       const uint64_t q1 = div_mod128(__umul64hi(v, a.V[i]), v * a.V[i],
                                      a.q[i], a.rlo[i], a.rhi[i], r1);
       const uint64_t s2 = div_mod128(r1, 0, a.q[i], a.rlo[i], a.rhi[i], rem);
-      add128(s1_hi, s1_lo, 0, v * a.U[i]);
+      if (kForm == 2) add128(s1_hi, s1_lo, 0, v * a.U[i]);
       add128(s1_hi, s1_lo, 0, q1);
       add128(s2_hi, s2_lo, 0, s2);
     }
   }
-  if (kForm == 2) {
+  if (kForm >= 2) {
     part[(0 * kGroups + g) * kTile + c] = s1_hi;
     part[(1 * kGroups + g) * kTile + c] = s1_lo;
     part[(2 * kGroups + g) * kTile + c] = s2_hi;
@@ -149,7 +169,7 @@ bconv64_kernel(Bconv64Args a) {
   }
   __syncthreads();
   uint64_t vq = 0;  // v, for "exact"
-  if (kForm == 2) {
+  if (kForm >= 2) {
     s1_hi = s1_lo = s2_hi = s2_lo = 0;
 #pragma unroll
     for (int h = 0; h < kGroups; ++h) {
@@ -158,8 +178,13 @@ bconv64_kernel(Bconv64Args a) {
       add128(s2_hi, s2_lo, part[(2 * kGroups + h) * kTile + c],
              part[(3 * kGroups + h) * kTile + c]);
     }
-    const uint64_t lo = s1_lo + s2_hi;
-    vq = s1_hi + (lo < s1_lo ? 1 : 0);
+    if (kForm == 2) {
+      const uint64_t lo = s1_lo + s2_hi;
+      vq = s1_hi + (lo < s1_lo ? 1 : 0);
+    } else {  // F = S1 + S2_hi + carry(S2_lo + 2^127's low word)
+      const uint64_t half = uint64_t{1} << 63;
+      add128(s1_hi, s1_lo, 0, s2_hi + (s2_lo + half < s2_lo ? 1 : 0));
+    }
   }
   for (int j0 = g * kRows; j0 < k_out; j0 += kGroups * kRows) {
     const uint64_t* mr[kRows];
@@ -176,8 +201,9 @@ bconv64_kernel(Bconv64Args a) {
     for (int r = 0; r < kRows; ++r) {
       const int j = j0 + r;
       if (j >= k_out || !in) continue;
-      const uint64_t hi = (uint64_t{acc[r][3]} << 32) | acc[r][2];
-      const uint64_t lo = (uint64_t{acc[r][1]} << 32) | acc[r][0];
+      uint64_t hi = (uint64_t{acc[r][3]} << 32) | acc[r][2];
+      uint64_t lo = (uint64_t{acc[r][1]} << 32) | acc[r][0];
+      if (kForm == 3) add128(hi, lo, s1_hi, s1_lo);  // + F
       const uint64_t pj = ob[j], rl = ob[k_out + j], rh = ob[2 * k_out + j];
       uint64_t res = reduce128_any(hi, lo, pj, rl, rh, ob[3 * k_out + j]);
       if (kForm == 2)
@@ -216,14 +242,16 @@ long long ptk_u64_bconv_launches() { return launched.load(); }
 // U2.  out: (k_out, m); x: (k_in, m); the input base's q, Barrett words,
 // QhatInv and its Shoup word, U, V (k_in,); mat: (k_out, k_in)
 // [Q/q_i]_{p_j}; the output base's p, Barrett words, 2^64 mod p and Q mod
-// p (k_out,); form 0 "approx", 1 "reduce", 2 "exact".  k_in <= 63.
+// p (k_out,); form 0 "approx", 1 "reduce", 2 "exact", 3 "scale_round"
+// (I/d_i in Q/q_i's place, omega in mat's, rho in V's).  U and q_mod_p
+// are read by "exact" only and may be null otherwise.  k_in <= 63.
 int ptk_u64_bconv(void* out, const void* x, const void* q, const void* rlo,
                   const void* rhi, const void* qhat_inv,
                   const void* qhat_inv_shoup, const void* U, const void* V,
                   const void* mat, const void* p, const void* prlo,
                   const void* prhi, const void* pow64, const void* q_mod_p,
                   int k_in, int k_out, int m, int form, void* stream) {
-  if (k_in < 1 || k_in > 63 || k_out < 1 || m < 1 || form < 0 || form > 2)
+  if (k_in < 1 || k_in > 63 || k_out < 1 || m < 1 || form < 0 || form > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   using u64p = const uint64_t*;
   const Bconv64Args a{static_cast<uint64_t*>(out), static_cast<u64p>(x),
@@ -237,7 +265,8 @@ int ptk_u64_bconv(void* out, const void* x, const void* q, const void* rlo,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(form == 0   ? launch<0>(a, st)
                           : form == 1 ? launch<1>(a, st)
-                                      : launch<2>(a, st));
+                          : form == 2 ? launch<2>(a, st)
+                                      : launch<3>(a, st));
 }
 
 }  // extern "C"

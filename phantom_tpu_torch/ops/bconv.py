@@ -17,12 +17,29 @@ output prime, the small t of BGV's P -> {t} conversion included.  The
 JAX package's MXU digit-plane accumulation (:186-251) is a TPU
 workaround and has no counterpart.
 
-U2 (csrc/u64_bconv.cu) computes one of three forms per launch ("approx",
+U2 (csrc/u64_bconv.cu) computes one of four forms per launch ("approx",
 "reduce": raw from y given, as the fused modup's pre-scaled iNTT hands it
-over, "exact") on (k_in, M) columns, M any count: the key switch passes
-one digit, or the P rows of one half, at a time.  One launch a call and
-no scratch tensor: a block holds y for 64 columns in shared memory (see
-there).
+over, "exact", and "scale_round": BFV's exact scale-and-round, below) on
+(k_in, M) columns, M any count: the key switch passes one digit, or the P
+rows of one half, at a time.  One launch a call and no scratch tensor: a
+block holds y for 64 columns in shared memory (see there).
+
+"scale_round" is the JAX package's scaleround.scale_and_round_exact
+(phantom_tpu/ops/scaleround.py:224), round((num / den) x) from ibase to
+obase where every output prime divides G = num prod(ibase) / den: with
+y_i = [x_i (I/d_i)^-1]_{d_i} and G = omega_i d_i + rho_i,
+
+    out_j = [sum_i y_i [omega_i]_{p_j} + F]_{p_j},
+    F = sum_i g_i + floor((E + 2^127) / 2^64),  g_i, r_i = divmod(y_i rho_i,
+        d_i),  E = sum_i floor(r_i 2^64 / d_i)
+
+(the 128-bit words of its fixed-point cascade).  Its constants are a
+scaleround.ExactScaleRoundConsts; its plain version is
+`scale_round_plain`, operation for operation the JAX function.
+
+Every form sums at most 63 input rows (MAX_ROWS): the 128-bit sum of
+products of 61-bit words is exact only so far, and the JAX package
+asserts the same bound (phantom_tpu/ops/bconv.py:75).
 """
 
 from __future__ import annotations
@@ -33,10 +50,21 @@ import torch
 
 from .. import _build
 from . import modmath as mm
-from .ntt import check_words
+from .ntt import _ptr, check_words
 from .rns_host import ModulusVec, i64_tensor, modulus_vec
 
-FORMS = ("approx", "reduce", "exact")
+FORMS = ("approx", "reduce", "exact", "scale_round")
+MAX_ROWS = 63
+
+
+def check_rows(k_in: int, what: str) -> None:
+    """ValueError where a sum would take more than MAX_ROWS input rows."""
+    if k_in > MAX_ROWS:
+        raise ValueError(
+            f"{what}: {k_in} input rows; a base conversion or scale-and-round"
+            f" sums at most {MAX_ROWS} (its 128-bit sum of 61-bit products "
+            "is exact only so far; the JAX package asserts the same bound, "
+            "phantom_tpu/ops/bconv.py:75)")
 
 
 class BaseConvConsts(NamedTuple):
@@ -54,6 +82,12 @@ class BaseConvConsts(NamedTuple):
 
     def to(self, device) -> "BaseConvConsts":
         return BaseConvConsts(*(x.to(device) for x in self))
+
+    def kernel_words(self):
+        """U2's per-call words in its ABI's order: QhatInv, its Shoup
+        word, U, V, the (k_out, k_in) matrix, 2^64 mod p, Q mod p."""
+        return (self.qhat_inv, self.qhat_inv_shoup, self.U, self.V,
+                self.qhat_mod_p, self.pow64_mod_p, self.q_mod_p)
 
 
 def consts_from_host(conv, device=None) -> BaseConvConsts:
@@ -82,7 +116,8 @@ def accumulate_matmul_128(y: torch.Tensor, mat: torch.Tensor):
     """sum_i y[i] mat[:, i], exact over 128 bits: (hi, lo) (k_out, M);
     y (k_in, M) and mat (k_out, k_in) below 2^61, k_in <= 63."""
     k_in = y.shape[0]
-    if mat.shape[1] != k_in or k_in > 63:
+    check_rows(k_in, "accumulate_matmul_128")
+    if mat.shape[1] != k_in:
         raise ValueError(f"accumulate_matmul_128: k_in={k_in}, mat "
                          f"{tuple(mat.shape)}")
     hi = lo = None
@@ -134,9 +169,43 @@ def matmul_reduce(y: torch.Tensor, c: BaseConvConsts) -> torch.Tensor:
     return reduce_u128_any(hi, lo, p, rlo, rhi, c.pow64_mod_p.view(-1, 1))
 
 
+def scale_round_plain(x: torch.Tensor, c) -> torch.Tensor:
+    """The "scale_round" form's plain version: x (k_in, M) residues of
+    c.ibase -> (k_out, M) residues of round((num / den) x) over c.obase (c
+    a scaleround.ExactScaleRoundConsts), operation for operation the JAX
+    package's scale_and_round_exact."""
+    d_q, d_rlo, d_rhi = c.ibase.col()
+    y = mm.mul_mod_shoup(x, c.ihat_inv.view(-1, 1),
+                         c.ihat_inv_shoup.view(-1, 1), d_q)
+    hi, lo = accumulate_matmul_128(y, c.omega_mod_out)
+    out_q, out_rlo, out_rhi = c.obase.col()
+    pow64 = c.pow64_mod_out.view(-1, 1)
+    int_part = reduce_u128_any(hi, lo, out_q, out_rlo, out_rhi, pow64)
+    ph, plv = mm.mul_wide(y, c.rho.view(-1, 1))
+    g, r = mm.barrett_div_mod_u128(ph, plv, d_q, d_rlo, d_rhi)
+    f2, _ = mm.barrett_div_mod_u128(r, torch.zeros_like(r), d_q, d_rlo,
+                                    d_rhi)
+    z = torch.zeros_like(y[0])
+    g_hi, g_lo, e_hi, e_lo = z, z, z, z
+    for i in range(y.shape[0]):
+        g_lo, cr = mm.add_u64_carry(g_lo, g[i])
+        g_hi = g_hi + cr
+        e_lo, cr = mm.add_u64_carry(e_lo, f2[i])
+        e_hi = e_hi + cr
+    _, c3 = mm.add_u64_carry(e_lo, torch.full_like(e_lo, mm.SIGN))
+    g_lo, cr = mm.add_u64_carry(g_lo, e_hi + c3)
+    g_hi = g_hi + cr
+    frac_part = reduce_u128_any(g_hi.unsqueeze(0), g_lo.unsqueeze(0), out_q,
+                                out_rlo, out_rhi, pow64)
+    return mm.add_mod(int_part, frac_part, out_q)
+
+
 def bconv_plain(x: torch.Tensor, c: BaseConvConsts,
                 form: str = "approx") -> torch.Tensor:
-    """x (k_in, M) -> (k_out, M) in [0, p): `form` one of FORMS."""
+    """x (k_in, M) -> (k_out, M) in [0, p): `form` one of FORMS (c an
+    ExactScaleRoundConsts for "scale_round")."""
+    if form == "scale_round":
+        return scale_round_plain(x, c)
     y = x if form == "reduce" else scale_by_qhat_inv(x, c)
     raw = matmul_reduce(y, c)
     if form != "exact":
@@ -151,29 +220,27 @@ def bconv(x: torch.Tensor, c: BaseConvConsts,
           form: str = "approx") -> torch.Tensor:
     """U2 on CUDA tensors; the plain version on CPU tensors.  x (k_in, M)
     int64 residues of c.ibase (the pre-scaled y for "reduce") -> (k_out,
-    M) in [0, p)."""
+    M) in [0, p); c an ExactScaleRoundConsts for "scale_round"."""
     if form not in FORMS:
         raise ValueError(f"form {form!r} not in {FORMS}")
+    check_rows(x.shape[0], "bconv64")
     if _build.is_plain(x, "bconv64"):
         return bconv_plain(x, c, form)
     x = x.contiguous()
     k_in, m = x.shape
     k_out = c.obase.q.shape[0]
-    if c.ibase.q.shape[0] != k_in or k_in > 63:
+    if c.ibase.q.shape[0] != k_in:
         raise ValueError(f"bconv64: {k_in} input rows against a base of "
-                         f"{c.ibase.q.shape[0]} (at most 63)")
-    check_words(x, *c.ibase, *c.obase, *c[2:])
+                         f"{c.ibase.q.shape[0]}")
+    words = c.kernel_words()
+    check_words(x, *c.ibase, *c.obase, *words)
     out = torch.empty((k_out, m), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().ptk_u64_bconv(
-            out.data_ptr(), x.data_ptr(),
-            c.ibase.q.data_ptr(), c.ibase.ratio_lo.data_ptr(),
-            c.ibase.ratio_hi.data_ptr(), c.qhat_inv.data_ptr(),
-            c.qhat_inv_shoup.data_ptr(), c.U.data_ptr(), c.V.data_ptr(),
-            c.qhat_mod_p.data_ptr(), c.obase.q.data_ptr(),
-            c.obase.ratio_lo.data_ptr(), c.obase.ratio_hi.data_ptr(),
-            c.pow64_mod_p.data_ptr(), c.q_mod_p.data_ptr(), k_in, k_out, m,
-            FORMS.index(form), _build.stream(x))
+            out.data_ptr(), x.data_ptr(), *(v.data_ptr() for v in c.ibase),
+            *(_ptr(w) for w in words[:5]),
+            *(v.data_ptr() for v in c.obase), *(_ptr(w) for w in words[5:]),
+            k_in, k_out, m, FORMS.index(form), _build.stream(x))
     _build.check(err, "u64_bconv")
     bconv.launches += 1
     return out

@@ -36,22 +36,21 @@ def lt_u(a, b):
 
 
 def mul_wide(a, b):
-    """64 x 64 -> 128-bit product as (hi, lo), from four 32 x 32 -> 64
-    partial products."""
-    a0, a1 = a & MASK32, srl(a, 32)
-    b0, b1 = b & MASK32, srl(b, 32)
-    p00 = a0 * b0
-    p01 = a0 * b1
-    p10 = a1 * b0
-    mid = srl(p00, 32) + (p01 & MASK32) + (p10 & MASK32)
-    lo = (p00 & MASK32) | (mid << 32)
-    hi = a1 * b1 + srl(p01, 32) + srl(p10, 32) + srl(mid, 32)
-    return hi, lo
+    """64 x 64 -> 128-bit product as (hi, lo): the low word is int64's
+    wrapping product."""
+    return mul_hi(a, b), a * b
 
 
 def mul_hi(a, b):
-    """The high 64 bits of the 64 x 64 product."""
-    return mul_wide(a, b)[0]
+    """The high 64 bits of the 64 x 64 product, from four 32 x 32 -> 64
+    partial products (the middle sum is below 3 2^32, so its shift needs
+    no mask)."""
+    a0, a1 = a & MASK32, srl(a, 32)
+    b0, b1 = b & MASK32, srl(b, 32)
+    p01 = a0 * b1
+    p10 = a1 * b0
+    mid = srl(a0 * b0, 32) + (p01 & MASK32) + (p10 & MASK32)
+    return a1 * b1 + srl(p01, 32) + srl(p10, 32) + (mid >> 32)
 
 
 def add_wide(a_hi, a_lo, b_hi, b_lo):

@@ -14,32 +14,31 @@ as the JAX package's `_rescale_consts` / `_keyswitch_consts` /
 Shoup words here are the host's 64-bit ones, floor(w * 2^64 / q).
 
 BFV's auxiliary base Rl (size_q + 1 primes == 1 mod 2N below min(QP), as
-the JAX package picks them) has no table of its own: `ntt` is ONE
-NTTTables32 over QP then Rl, and the base D = Ql u Rl of the HPS product
-is table rows `BFVConsts.rows_d` of it, so the kernels, which take
-(tables, rows), transform D, Ql and QlP rows alike.  The Rl primes are
-below min(QP), 27 or 28 bits at N = 2^16; every kernel keeps its lazy
-values below 4q < 2^32 for any q < 2^30, so they need nothing else.
-A BFV context with mul_tech "behz" also holds BEHZ's base Bsk = B u
-{m_sk}, chosen as the JAX package chooses it: the first size_q + 1
-29-bit primes == 1 mod 2N outside QP, B then m_sk.  Its rows follow Rl
-in `ntt`; a level's Bsk is B[:size_ql] + [m_sk] (`BEHZConsts.rows_bsk`,
-indexed like rows_d).  Where some QP prime is 2^30 or more the JAX
-package takes 61-bit Bsk primes, which no 32-bit residue holds, so the
-port raises there.
+the JAX package picks them) has no table of its own: the NTT tables
+(`ntt`, or `ntt64` on a wide context) are ONE table over QP then Rl, and
+the base D = Ql u Rl of the HPS product is table rows `BFVConsts.rows_d`
+of it, so the kernels, which take (tables, rows), transform D, Ql and QlP
+rows alike.  A BFV context with mul_tech "behz" also holds BEHZ's base
+Bsk = B u {m_sk}, chosen as the JAX package chooses it (`bsk_base`): the
+first size_q + 1 primes == 1 mod 2N outside QP, of 29 bits (61 bits where
+some QP prime is 2^30 or more), B then m_sk.  Its rows follow Rl in the
+same table; a level's Bsk is B[:size_ql] + [m_sk] (`BEHZConsts.rows_bsk`,
+indexed like rows_d).  On a 32-bit context the Rl primes are below
+min(QP), 27 or 28 bits at N = 2^16; every kernel keeps its lazy values
+below 4q < 2^32 for any q < 2^30, so they need nothing else.
 BFV and BGV contexts also hold `plain_ntt`, the tables mod t of the batch
 encoder's slot map.
 
 A context with a prime of 2^30 or more (`wide`, up to the reference's
 61-bit bound) is the u64 evaluator's (schemes/evaluate.py, the JAX
-package's generic path): it holds `ntt64`, u64 tables over QP, and no
-32-bit tables (`ntt` is None; `key_q` holds the moduli as u64 words),
-and each level's u64 constants (`ContextData.u64`: the moduli with
-their Barrett words, the rescale, key-switch and BGV constants of the
-JAX package's context, as int64 words) are built on first use on the
-context's device, like the 32-bit ones.  The 32-bit paths raise on it
-(`require_u32`).  A wide BFV context raises: BFV on the u64 path comes
-in a later slice.
+package's generic path): it holds `ntt64`, u64 tables over QP (then Rl
+and Bsk for BFV), and no 32-bit tables (`ntt` is None; `key_q` holds the
+QP moduli as u64 words), and each level's u64 constants
+(`ContextData.u64`, a Level64: the moduli with their Barrett words, the
+rescale, key-switch and BGV constants of the JAX package's context, and
+for BFV the HPS, leveled, BEHZ, plain-lift and decryption constants, as
+int64 words) are built on first use on the context's device, like the
+32-bit ones.  The 32-bit paths raise on it (`require_u32`).
 """
 
 from __future__ import annotations
@@ -52,7 +51,9 @@ from torch import nn
 
 from .. import host
 from ..ops import bconv as bc64
+from ..ops import behz as bz64
 from ..ops import polyops as po
+from ..ops import scaleround as sr64
 from ..ops.ntt import NTTTables64
 from ..ops.ntt32 import NTTTables32, u32_tensor
 from ..ops.rns_host import ModulusVec, i64_tensor, modulus_vec
@@ -190,9 +191,13 @@ class Level64:
     level or the scheme has none; int64 words on `device`.  `rescale` is
     U4's table over q_0..q_{k-2} for the rescale and the modulus switch:
     w = q_last^-1 mod q_i (the division), e = floor(q_last / 2) mod q_i
-    and the scalars q_last, floor(q_last / 2) (the rounding's row form)."""
+    and the scalars q_last, floor(q_last / 2) (the rounding's row form).
+    BFV's constants (`hps`, `leveled`, `behz`, `plain_lift`, `decrypt_sr`)
+    and the samplers' tables (`t_mult`, `pow62`) are built on first use."""
 
     def __init__(self, cd: ContextData, device):
+        self._cd = cd
+        self._device = device
         self.mv = modulus_vec(cd.moduli, device)
         rc, ks, bgv = cd.rescale, cd.ks, cd.bgv
         self.rescale = None if rc is None else po.limbs(
@@ -210,6 +215,70 @@ class Level64:
                 cd.moduli[:-1], w=bgv.qlast_mod_qi,
                 scalars=_t_words(t, bgv.neg_qlast_inv_mod_t),
                 device=device))
+
+    @cached_property
+    def hps(self) -> Optional[sr64.HPSConsts]:
+        b = self._cd.bfv
+        return None if b is None else _hps_consts64(
+            self._cd, b, self._device)
+
+    @cached_property
+    def leveled(self) -> Optional["LeveledConsts64"]:
+        cd = self._cd
+        if cd.bfv is None or cd._params.mul_tech != "hps_overq_leveled":
+            return None
+        return _leveled_consts64(cd, self._device)
+
+    @cached_property
+    def behz(self) -> Optional[bz64.BEHZConsts]:
+        cd = self._cd
+        b = cd.behz
+        return None if b is None else bz64.make_behz_consts(
+            cd.moduli, b.bsk, cd._params.plain_modulus, cd._params.n,
+            b.rows_bsk, self._device)
+
+    @cached_property
+    def plain_lift(self) -> Optional[sr64.PlainLiftConsts]:
+        cd = self._cd
+        return None if cd.bfv is None else sr64.make_plain_lift_consts(
+            cd.moduli, cd._params.plain_modulus, self._device)
+
+    @cached_property
+    def decrypt_sr(self) -> Optional[sr64.DecryptScaleRoundConsts]:
+        cd = self._cd
+        return None if cd.bfv is None else sr64.make_decrypt_consts(
+            cd.moduli, cd._params.plain_modulus, self._device)
+
+    @cached_property
+    def t_mult(self) -> Optional[po.Limbs]:
+        """BGV's noise multiplier: U4's table with w = t mod q_i."""
+        p = self._cd._params
+        if p.scheme != "bgv":
+            return None
+        t = p.plain_modulus
+        return po.limbs(self._cd.moduli, w=[t % q for q in self._cd.moduli],
+                        device=self._device)
+
+    @cached_property
+    def pow62(self) -> po.Limbs:
+        """The uniform sampler's table: w = 2^62 mod q_i."""
+        return po.limbs(self._cd.moduli, w=[(1 << 62) % q
+                                            for q in self._cd.moduli],
+                        device=self._device)
+
+
+class LeveledConsts64(NamedTuple):
+    """HPSoverQ-leveled's tables at a level Ql below the full Q (the JAX
+    package's LeveledConsts): round(Ql/Q .) Q -> Ql and round(Rl/Q .) Q ->
+    Rl, the exact conversion Ql -> the dropped primes and the (Ql - 1)/2
+    shifts mod Ql and mod the dropped primes (None at the first data
+    level, which drops nothing)."""
+
+    q_to_ql: Optional[sr64.ExactScaleRoundConsts]
+    q_to_rl: sr64.ExactScaleRoundConsts
+    ql_to_drop: Optional[bc64.BaseConvConsts]
+    qlhalf_mod_ql: torch.Tensor
+    qlhalf_mod_drop: Optional[torch.Tensor]
 
 
 class KeySwitchConsts64(NamedTuple):
@@ -362,6 +431,52 @@ def _bgv_consts(data_moduli, t: int) -> BGVConsts:
         qlast_mod_qi=[qlast % q for q in data_moduli[:-1]] if last else None)
 
 
+def _prod(moduli) -> int:
+    out = 1
+    for q in moduli:
+        out *= q
+    return out
+
+
+def _hps_consts64(cd: ContextData, b: BFVConsts, device) -> sr64.HPSConsts:
+    t = cd._params.plain_modulus
+    ql, rl = list(cd.moduli), list(b.rl)
+    d = ql + rl
+    big_rl = _prod(rl)
+    return sr64.HPSConsts(
+        q_to_r=bc64.consts_from_host(b.q_to_r, device),
+        r_to_q=bc64.consts_from_host(b.r_to_q, device),
+        dbase=modulus_vec(d, device),
+        rows_d=torch.tensor(b.rows_d, dtype=torch.int32, device=device),
+        sr_to_r=sr64.make_exact_scale_round(d, t, b.big_ql, rl, device),
+        rl_half_mod_r=i64_tensor(b.rl_half_mod_r, device),
+        rl_half_mod_q=i64_tensor(b.rl_half_mod_q, device),
+        sr_ql_to_rl=sr64.make_exact_scale_round(ql, big_rl, b.big_ql, rl,
+                                                device),
+        sr_final_overq=sr64.make_exact_scale_round(d, t, big_rl, ql,
+                                                   device))
+
+
+def _leveled_consts64(cd: ContextData, device) -> LeveledConsts64:
+    full = list(cd._params.data_moduli)
+    ql = list(cd.moduli)
+    rl = list(cd.bfv.rl)
+    dropped = full[len(ql):]
+    big_q, big_ql = _prod(full), _prod(ql)
+    qlhalf = (big_ql - 1) >> 1
+    return LeveledConsts64(
+        q_to_ql=sr64.make_exact_scale_round(full, big_ql, big_q, ql, device)
+        if dropped else None,
+        q_to_rl=sr64.make_exact_scale_round(full, _prod(rl), big_q, rl,
+                                            device),
+        ql_to_drop=bc64.consts_from_host(host.BaseConverter(
+            host.RNSBase(ql), host.RNSBase(dropped)), device)
+        if dropped else None,
+        qlhalf_mod_ql=i64_tensor([qlhalf % q for q in ql], device),
+        qlhalf_mod_drop=i64_tensor([qlhalf % q for q in dropped], device)
+        if dropped else None)
+
+
 class Context(nn.Module):
     """Parameters, the NTT tables over all of QP (and Rl for BFV; the
     tables mod t for BFV and BGV; buffers: `.to(device)` moves them) and
@@ -378,31 +493,27 @@ class Context(nn.Module):
         self.wide = max(qp) >= WIDE_PRIME
         self.bsk_moduli = tuple(bsk_base(params)) if (
             bfv and params.mul_tech == "behz") else ()
-        if self.wide and bfv:
-            raise NotImplementedError(
-                "BFV with a prime of 2^30 or more (the u64 path: HPS, "
-                "HPSoverQ and the leveled multiplies) comes in the next "
-                "slice of the port")
         self.rl_moduli = tuple(host.numth.get_primes_below(
             min(qp), 2 * params.n, params.size_q + 1)) if bfv else ()
         self.ntt = self.ntt64 = None
+        rows = qp + list(self.rl_moduli) + list(self.bsk_moduli)
         if self.wide:
-            self.ntt64 = NTTTables64(host.make_rns_ntt_tables(params.n, qp))
+            self.ntt64 = NTTTables64(host.make_rns_ntt_tables(params.n,
+                                                              rows))
             self.register_buffer("key_q", i64_tensor(qp))
         else:
-            self.ntt = NTTTables32(host.make_rns_ntt_tables(
-                params.n, qp + list(self.rl_moduli) + list(self.bsk_moduli)))
+            self.ntt = NTTTables32(host.make_rns_ntt_tables(params.n, rows))
             self.register_buffer("key_q", u32_tensor(qp))
         self.plain_ntt = NTTTables32(host.make_rns_ntt_tables(
             params.n, [t])) if bfv or bgv else None
         self.register_buffer("rows_qp", torch.arange(len(qp),
                                                      dtype=torch.int32))
-        if bgv:  # t mod each QP prime and its Shoup word: BGV's t e noise
-            words = i64_tensor if self.wide else u32_tensor
-            shift = 64 if self.wide else 32
-            self.register_buffer("t_mod_q", words([t % q for q in qp]))
-            self.register_buffer("t_mod_q_shoup", words(
-                [(t % q << shift) // q for q in qp]))
+        if bgv and not self.wide:  # BGV's t e noise on the 32-bit paths
+            # (a wide level's is Level64.t_mult): t mod each QP prime and
+            # its Shoup word
+            self.register_buffer("t_mod_q", u32_tensor([t % q for q in qp]))
+            self.register_buffer("t_mod_q_shoup", u32_tensor(
+                [(t % q << 32) // q for q in qp]))
         data = params.data_moduli
         dev = lambda: self.key_q.device  # noqa: E731
         self.chain = (ContextData(params, 0, qp, device=dev),) + tuple(
@@ -420,15 +531,17 @@ class Context(nn.Module):
     @property
     def key_mv(self) -> ModulusVec:
         """QP with its Barrett words (u64 contexts), on the context's
-        device: one ModulusVec while the NTT tables' buffers stay, so U4
-        packs its words (ModulusVec.words) once, not at every call;
-        made anew when `to()` has moved the buffers."""
+        device: the tables' first size_qp rows, one ModulusVec while the
+        NTT tables' buffers stay, so U4 packs its words (ModulusVec.words)
+        once, not at every call; made anew when `to()` has moved the
+        buffers."""
         t = self.ntt64
-        mv = self.__dict__.get("_key_mv")
-        if mv is None or mv.q is not t.q:
-            mv = self.__dict__["_key_mv"] = ModulusVec(t.q, t.ratio_lo,
-                                                       t.ratio_hi)
-        return mv
+        held = self.__dict__.get("_key_mv")
+        if held is None or held[0] is not t.q:
+            k = self.params.size_qp
+            held = self.__dict__["_key_mv"] = (t.q, ModulusVec(
+                t.q[:k], t.ratio_lo[:k], t.ratio_hi[:k]))
+        return held[1]
 
     def require_u32(self, what: str) -> None:
         """Raise where a 32-bit path meets a wide context."""
@@ -439,11 +552,7 @@ class Context(nn.Module):
                 "schemes/evaluate.py, runs it)")
 
     def require_u64(self, what: str) -> None:
-        """Raise where the u64 evaluator meets a context it does not
-        run."""
-        if self.params.scheme == "bfv":
-            raise NotImplementedError(
-                f"{what}: BFV on the u64 path comes in the next slice")
+        """Raise where the u64 evaluator meets a 32-bit context."""
         if not self.wide:
             raise ValueError(
                 f"{what}: the u64 evaluator runs contexts with a prime of "
@@ -458,17 +567,14 @@ class Context(nn.Module):
 
 def bsk_base(params: EncryptionParameters) -> List[int]:
     """BEHZ's Bsk: B (size_q primes) then m_sk, the first size_q + 1 of
-    the 29-bit primes == 1 mod 2N that are not in QP, as the JAX package
-    picks them for 32-bit parameters.  It raises where some QP prime is
-    2^30 or more: the JAX package then takes 61-bit Bsk primes, which the
-    port's 32-bit residues cannot hold."""
+    the primes == 1 mod 2N that are not in QP, as the JAX package picks
+    them: 29-bit where every QP prime is below 2^30 (the 32-bit paths),
+    61-bit otherwise (the u64 evaluator)."""
     qp = params.coeff_modulus
-    if max(qp) >= 1 << 30:
-        raise ValueError("BEHZ with a QP prime of 2^30 or more needs 61-bit "
-                         "Bsk primes; the port's residues are 32-bit")
+    bits = 61 if max(qp) >= WIDE_PRIME else 29
     used = set(qp)
     pool = [p for p in host.numth.get_primes(
-        2 * params.n, 29, params.size_q + 1 + len(qp)) if p not in used]
+        2 * params.n, bits, params.size_q + 1 + len(qp)) if p not in used]
     return pool[:params.size_q + 1]
 
 

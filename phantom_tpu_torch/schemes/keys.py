@@ -26,6 +26,12 @@ Each `*_core32` takes its samples as tensors (ternary and CBD vectors
 draws; the other functions draw them from an explicit `torch.Generator`
 (ops/sampling.py), on the generator's device.  Every function takes
 `ops`, the kernels it calls (pipeline32.KERNELS or PLAIN).
+
+The `*64` functions are the same on a wide context (the u64 evaluator,
+every scheme): `*_core64` take the JAX draws, the others draw from a
+generator; `ops` is keyswitch.KERNELS64 or PLAIN64.  BFV's u64
+decryption is ops/scaleround.decrypt_scale_and_round, and
+invariant_noise_budget64 its budget.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ from ..ops import bconv as bconv64
 from ..ops import modmath as mm64
 from ..ops import polyops as po64
 from ..ops import sampling as smp
+from ..ops import scaleround as sr64
 from ..ops.bconv32 import BaseConvConsts32, bconv_exact32
 from ..ops.modmath32 import mul_mod_shoup32, u32
 from ..ops.ntt32 import u32_tensor
 from ..ops.pipeline32 import (KERNELS, Kernels, KeySwitch32, _fwd, _inv,
                               build_keyswitch32, moddown32_pair,
                               moddown_coeff32)
+from ..ops.rns_host import u64_values
 from ..ops.scaleround32 import ExactScaleRound32, scale_and_round_exact32
 from . import galois as gal
 from .ciphertext import Ciphertext, Plaintext
@@ -402,15 +410,20 @@ def invariant_noise_budget(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
         data = ops.ntt_forward(data, ctx.ntt, rows)
     x = u32(ops.ntt_inverse(_dot_with_sk_powers(ctx, sk, data), ctx.ntt,
                             rows)).cpu().numpy()
-    moduli = ctx.params.data_moduli[:k]
+    return _noise_budget(x, ctx.params.data_moduli[:k],
+                         ctx.params.plain_modulus)
+
+
+def _noise_budget(x: np.ndarray, moduli, t: int) -> int:
+    """The budget of the phase x (k, N) residues over `moduli`."""
     total = 1
     for q in moduli:
         total *= q
     acc = np.zeros(x.shape[1], dtype=object)
     for row, q in zip(x, moduli):
         punct = total // q
-        acc += (row * pow(punct % q, -1, q) % q).astype(object) * punct
-    v = acc % total * ctx.params.plain_modulus % total
+        acc += row.astype(object) * pow(punct % q, -1, q) % q * punct
+    v = acc % total * t % total
     norm = int(np.where(v > total // 2, total - v, v).max())
     if norm == 0:
         return total.bit_length() - 1
@@ -422,23 +435,19 @@ def invariant_noise_budget(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
 # keys.py on u64 words, the samples as tensors in the *_core64 functions
 # ---------------------------------------------------------------------------
 
-def lift_signed_to_rns64(e: torch.Tensor, mv, multiplier=None
-                         ) -> torch.Tensor:
+def lift_signed_to_rns64(e: torch.Tensor, mv, mult: po64.Limbs = None,
+                         ops: Kernels64 = KERNELS64) -> torch.Tensor:
     """Signed (..., N) small integers -> (..., L, N) u64 residues of mv,
-    times the per-limb u64 `multiplier` (L,) when given (BGV's t e)."""
-    q, rlo, rhi = mv.col()
-    r = mm64.reduce_i64_centered(e.long().unsqueeze(-2), q)
-    if multiplier is not None:
-        r = mm64.mul_mod(r, multiplier.view(-1, 1), q, rlo, rhi)
-    return r
+    times U4's per-limb multiplier table `mult` (L limbs) when given
+    (BGV's t e)."""
+    r = mm64.reduce_i64_centered(e.long().unsqueeze(-2), mv.q.view(-1, 1))
+    return r if mult is None else ops.shoup_rns(r, mult)
 
 
-def _t_mult64(ctx: Context, rows: int = None):
-    """BGV's noise multiplier t mod q over the first `rows` QP rows (all
-    by default); None for CKKS."""
-    if ctx.params.scheme != "bgv":
-        return None
-    return ctx.t_mod_q if rows is None else ctx.t_mod_q[:rows]
+def _t_mult64(ctx: Context, cd=None):
+    """BGV's noise multiplier t mod q (U4's table) over the level `cd`
+    (the key level by default); None for CKKS and BFV."""
+    return (ctx.chain[0] if cd is None else cd).u64.t_mult
 
 
 def gen_secret_core64(ctx: Context, s: torch.Tensor,
@@ -454,7 +463,7 @@ def encrypt_zero_sym_core64(ctx: Context, sk: torch.Tensor, a: torch.Tensor,
     """(c0, c1) = (-(a s + e), a) in NTT form at the key level (t e for
     BGV): a (..., K, N) uniform, e (..., N) CBD."""
     mv = ctx.key_mv
-    e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx)),
+    e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx), ops),
                             ctx.ntt64, ctx.rows_qp)
     return po64.neg_rns(ops.fma_rns(a, sk, e_ntt, mv), mv), a
 
@@ -500,10 +509,10 @@ def gen_galois_core64(ctx: Context, sk: torch.Tensor, elt: int,
     return gen_kswitch_core64(ctx, sk, sk[:, perm], a, e, ops)
 
 
-def bgv_lift_plain_ntt64(ctx: Context, cd, m: torch.Tensor,
-                         ops: Kernels64 = KERNELS64) -> torch.Tensor:
-    """BGV: m (N,) in [0, t) centered ([t/2, t) -> q - (t - m)) over Ql,
-    NTT form (k, N)."""
+def lift_plain_ntt64(ctx: Context, cd, m: torch.Tensor,
+                     ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """m (N,) in [0, t) centered ([t/2, t) -> q - (t - m)) over Ql, NTT
+    form (k, N): BGV's plaintext, and BFV's in multiply_plain."""
     t = ctx.params.plain_modulus
     m = m.long()
     k = cd.size_ql
@@ -514,20 +523,29 @@ def bgv_lift_plain_ntt64(ctx: Context, cd, m: torch.Tensor,
 
 def encrypt_zero_asym_core64(ctx: Context, pk: torch.Tensor, chain_index: int,
                              u: torch.Tensor, e: torch.Tensor,
-                             ops: Kernels64 = KERNELS64) -> torch.Tensor:
-    """An NTT-form encryption of zero at `chain_index`, (2, size_ql, N):
-    (u pk_i + e_i) at the key level (u (N,) ternary, e (2, N) CBD), its
-    QlP rows, then the moddown of each half."""
-    from .keyswitch import moddown_pair
+                             ops: Kernels64 = KERNELS64,
+                             ntt_form: bool = True) -> torch.Tensor:
+    """An encryption of zero at `chain_index`, (2, size_ql, N): (u pk_i +
+    e_i) at the key level (u (N,) ternary, e (2, N) CBD), its QlP rows,
+    then the moddown of each half; NTT form, or (`ntt_form` False, BFV)
+    u pk_i brought back by U1's inverse, e_i added in coefficient form and
+    the moddown of the coefficients."""
+    from .keyswitch import moddown_coeff, moddown_pair
     cd = ctx.get_context_data(chain_index)
     mv = ctx.key_mv
     u_ntt = ops.ntt_forward(lift_signed_to_rns64(u, mv), ctx.ntt64,
                             ctx.rows_qp)
-    e_ntt = ops.ntt_forward(lift_signed_to_rns64(e, mv, _t_mult64(ctx)),
-                            ctx.ntt64, ctx.rows_qp)
-    x = ops.fma_rns(pk, u_ntt, e_ntt, mv)
+    e_rns = lift_signed_to_rns64(e, mv, _t_mult64(ctx), ops)
+    if ntt_form:
+        x = ops.fma_rns(pk, u_ntt, ops.ntt_forward(e_rns, ctx.ntt64,
+                                                   ctx.rows_qp), mv)
+    else:
+        x = po64.add_rns(ops.ntt_inverse(ops.mul_rns(pk, u_ntt, mv),
+                                         ctx.ntt64, ctx.rows_qp), e_rns, mv)
     x = x.index_select(1, cd.u64.ks.rows_qlp.long())
-    return moddown_pair(ctx, cd, x, ops)
+    if ntt_form:
+        return moddown_pair(ctx, cd, x, ops)
+    return torch.stack([moddown_coeff(ctx, cd, h, ops) for h in x])
 
 
 def encrypt_asymmetric_core64(ctx: Context, pk: torch.Tensor,
@@ -535,18 +553,22 @@ def encrypt_asymmetric_core64(ctx: Context, pk: torch.Tensor,
                               e: torch.Tensor,
                               ops: Kernels64 = KERNELS64) -> Ciphertext:
     """Public-key encryption with the samples u (N,) and e (2, N): CKKS at
-    the plaintext's chain index, BGV at the first data level (correction
-    factor 1); NTT form."""
+    the plaintext's chain index, BFV and BGV at the first data level; NTT
+    form (BGV: correction factor 1), BFV in coefficient form with
+    round(Ql m / t) added to c0."""
     ctx.require_u64("encrypt_asymmetric")
     scheme = ctx.params.scheme
     ci = plain.chain_index if scheme == "ckks" else ctx.first_data_index
     cd = ctx.get_context_data(ci)
-    zero = encrypt_zero_asym_core64(ctx, pk, ci, u, e, ops)
-    pt = (plain.data if scheme == "ckks"
-          else bgv_lift_plain_ntt64(ctx, cd, plain.data[0], ops))
+    bfv = scheme == "bfv"
+    zero = encrypt_zero_asym_core64(ctx, pk, ci, u, e, ops, not bfv)
+    pt = (plain.data if scheme == "ckks" else
+          sr64.scale_plain_up(plain.data[0], cd.u64.plain_lift,
+                              ops.shoup_rns) if bfv else
+          lift_plain_ntt64(ctx, cd, plain.data[0], ops))
     c0 = po64.add_rns(zero[0], pt, cd.u64.mv)
     return Ciphertext(data=torch.stack([c0, zero[1]]), chain_index=ci,
-                      is_ntt_form=True,
+                      is_ntt_form=not bfv,
                       scale=plain.scale if scheme == "ckks" else 1.0)
 
 
@@ -555,38 +577,48 @@ def encrypt_symmetric_core64(ctx: Context, sk: torch.Tensor,
                              e: torch.Tensor,
                              ops: Kernels64 = KERNELS64) -> Ciphertext:
     """Secret-key encryption with the samples a (k, N) uniform over the
-    level and e (N,) CBD: (-(a s + e) + m, a), NTT form."""
+    level and e (N,) CBD: (-(a s + e) + m, a); NTT form, BFV in
+    coefficient form (a s and a brought back by U1's inverse, e and
+    round(Ql m / t) added there)."""
     ctx.require_u64("encrypt_symmetric")
     scheme = ctx.params.scheme
     ci = plain.chain_index if scheme == "ckks" else ctx.first_data_index
     cd = ctx.get_context_data(ci)
     k = cd.size_ql
     mv = cd.u64.mv
-    e_ntt = ops.ntt_forward(
-        lift_signed_to_rns64(e, mv, _t_mult64(ctx, k)), ctx.ntt64,
-        ctx.rows_qp[:k])
+    e_rns = lift_signed_to_rns64(e, mv, _t_mult64(ctx, cd), ops)
+    if scheme == "bfv":
+        back = ops.ntt_inverse(torch.stack([ops.mul_rns(a, sk[:k], mv), a]),
+                               ctx.ntt64, ctx.rows_qp[:k])
+        c0 = po64.neg_rns(po64.add_rns(back[0], e_rns, mv), mv)
+        c0 = po64.add_rns(c0, sr64.scale_plain_up(
+            plain.data[0], cd.u64.plain_lift, ops.shoup_rns), mv)
+        return Ciphertext(data=torch.stack([c0, back[1]]), chain_index=ci,
+                          is_ntt_form=False)
+    e_ntt = ops.ntt_forward(e_rns, ctx.ntt64, ctx.rows_qp[:k])
     c0 = po64.neg_rns(ops.fma_rns(a, sk[:k], e_ntt, mv), mv)
     pt = (plain.data if scheme == "ckks"
-          else bgv_lift_plain_ntt64(ctx, cd, plain.data[0], ops))
+          else lift_plain_ntt64(ctx, cd, plain.data[0], ops))
     return Ciphertext(data=torch.stack([po64.add_rns(c0, pt, mv), a]),
                       chain_index=ci, is_ntt_form=True,
                       scale=plain.scale if scheme == "ckks" else 1.0)
 
 
-def sample_uniform_rns64(gen: torch.Generator, n: int, mv) -> torch.Tensor:
-    """(L, N) u64 words, row l uniform in [0, q_l): (hi 2^62 + lo) mod q
-    for two 62-bit draws (hi's (L, N) first), statistical distance below
+def sample_uniform_rns64(gen: torch.Generator, n: int, cd,
+                         ops: Kernels64 = KERNELS64) -> torch.Tensor:
+    """(L, N) u64 words over the level `cd`, row l uniform in [0, q_l):
+    (hi 2^62 + lo) mod q for two 62-bit draws (hi's (L, N) first), the
+    product by 2^62 mod q U4's Shoup form; statistical distance below
     q / 2^124 from uniform."""
-    shape = (mv.q.shape[0], n)
-    q, rlo, rhi = mv.col()
+    lv = cd.u64
+    q = lv.mv.q.view(-1, 1)
+    shape = (q.shape[0], n)
     hi = torch.randint(0, 1 << smp.DRAW_BITS, shape, generator=gen,
                        device=gen.device)
     lo = torch.randint(0, 1 << smp.DRAW_BITS, shape, generator=gen,
                        device=gen.device)
-    pow62 = mm64.barrett_reduce_u64(
-        torch.full_like(q, 1 << smp.DRAW_BITS), q, rhi)
-    return mm64.add_mod(mm64.mul_mod(torch.remainder(hi, q), pow62, q, rlo,
-                                     rhi), torch.remainder(lo, q), q)
+    return mm64.add_mod(ops.shoup_rns(torch.remainder(hi, q), lv.pow62),
+                        torch.remainder(lo, q), q)
 
 
 def gen_secret_key64(ctx: Context, gen: torch.Generator,
@@ -598,15 +630,15 @@ def gen_secret_key64(ctx: Context, gen: torch.Generator,
 def gen_public_key64(ctx: Context, sk: torch.Tensor, gen: torch.Generator,
                      ops: Kernels64 = KERNELS64) -> torch.Tensor:
     """(2, K, N): a, then e."""
-    a = sample_uniform_rns64(gen, ctx.params.n, ctx.key_mv)
+    a = sample_uniform_rns64(gen, ctx.params.n, ctx.chain[0], ops)
     e = smp.sample_error_cbd(gen, ctx.params.n)
     return torch.stack(encrypt_zero_sym_core64(ctx, sk, a, e, ops))
 
 
-def _kswitch_draws64(ctx: Context, gen: torch.Generator):
+def _kswitch_draws64(ctx: Context, gen: torch.Generator, ops: Kernels64):
     """Per digit a uniform a, then a CBD e: (dnum, K, N), (dnum, N)."""
     p = ctx.params
-    draws = [(sample_uniform_rns64(gen, p.n, ctx.key_mv),
+    draws = [(sample_uniform_rns64(gen, p.n, ctx.chain[0], ops),
               smp.sample_error_cbd(gen, p.n))
              for _ in range(-(-p.size_q // p.size_p))]
     return (torch.stack([a for a, _ in draws]),
@@ -615,7 +647,7 @@ def _kswitch_draws64(ctx: Context, gen: torch.Generator):
 
 def gen_relin_key64(ctx: Context, sk: torch.Tensor, gen: torch.Generator,
                     ops: Kernels64 = KERNELS64) -> torch.Tensor:
-    return gen_relin_core64(ctx, sk, *_kswitch_draws64(ctx, gen), ops)
+    return gen_relin_core64(ctx, sk, *_kswitch_draws64(ctx, gen, ops), ops)
 
 
 def create_galois_keys64(ctx: Context, sk: torch.Tensor,
@@ -623,7 +655,8 @@ def create_galois_keys64(ctx: Context, sk: torch.Tensor,
                          ops: Kernels64 = KERNELS64) -> GaloisKeys:
     elts = galois_elts(ctx, steps, elts)
     return GaloisKeys(torch.stack([
-        gen_galois_core64(ctx, sk, elt, *_kswitch_draws64(ctx, gen), ops)
+        gen_galois_core64(ctx, sk, elt, *_kswitch_draws64(ctx, gen, ops),
+                          ops)
         for elt in elts]), elts)
 
 
@@ -643,50 +676,80 @@ def encrypt_symmetric64(ctx: Context, sk: torch.Tensor, plain: Plaintext,
     """a, then e."""
     ci = (plain.chain_index if ctx.params.scheme == "ckks"
           else ctx.first_data_index)
-    mv = ctx.get_context_data(ci).u64.mv
-    a = sample_uniform_rns64(gen, ctx.params.n, mv)
+    a = sample_uniform_rns64(gen, ctx.params.n, ctx.get_context_data(ci),
+                             ops)
     e = smp.sample_error_cbd(gen, ctx.params.n)
     return encrypt_symmetric_core64(ctx, sk, plain, a, e, ops)
 
 
 def _dot_with_sk_powers64(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
                           ops: Kernels64) -> torch.Tensor:
-    """[c0 + c1 s + c2 s^2 + ...]_Ql in NTT form (U4's fma and mul)."""
+    """[c0 + c1 s + c2 s^2 + ...]_Ql in NTT form (U4's fma and mul; a
+    coefficient-form ciphertext forward first, U1)."""
     cd = ctx.get_context_data(ct.chain_index)
     mv = cd.u64.mv
     s = sk[:cd.size_ql]
-    acc = ct.data[0]
+    data = ct.data
+    if not ct.is_ntt_form:
+        data = ops.ntt_forward(data, ctx.ntt64, ctx.rows_qp[:cd.size_ql])
+    acc = data[0]
     s_pow = s
     for i in range(1, ct.size):
-        acc = ops.fma_rns(ct.data[i], s_pow, acc, mv)
+        acc = ops.fma_rns(data[i], s_pow, acc, mv)
         if i + 1 < ct.size:
             s_pow = ops.mul_rns(s_pow, s, mv)
     return acc
 
 
+def _phase64(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
+             ops: Kernels64) -> torch.Tensor:
+    """[c0 + c1 s + ...]_Ql in coefficient form (k, N)."""
+    k = ctx.get_context_data(ct.chain_index).size_ql
+    return ops.ntt_inverse(_dot_with_sk_powers64(ctx, sk, ct, ops),
+                           ctx.ntt64, ctx.rows_qp[:k])
+
+
 def decrypt64(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
               ops: Kernels64 = KERNELS64) -> Plaintext:
     """CKKS: the NTT-form plaintext at the ciphertext's level and scale.
-    BGV: the message (1, N) mod t: the exact centered conversion of
-    [c0 + c1 s + ...]_Ql to {t} (U2), divided by the correction factor."""
+    BFV: the message (1, N) mod t, round(t [c0 + c1 s + ...]_Ql / Ql)
+    (ops/scaleround.decrypt_scale_and_round).  BGV: the message (1, N) mod
+    t: the exact centered conversion of [c0 + c1 s + ...]_Ql to {t} (U2),
+    divided by the correction factor (U4's Shoup form, by f^-1 mod t)."""
     ctx.require_u64("decrypt")
-    if not ct.is_ntt_form:
-        raise NotImplementedError("decrypt: coefficient-form ciphertexts "
-                                  "are BFV's, which comes in the next slice")
-    acc = _dot_with_sk_powers64(ctx, sk, ct, ops)
-    if ctx.params.scheme == "ckks":
-        return Plaintext(data=acc, chain_index=ct.chain_index,
-                         is_ntt_form=True, scale=ct.scale)
+    scheme = ctx.params.scheme
     cd = ctx.get_context_data(ct.chain_index)
     lv = cd.u64
+    if scheme == "bfv":
+        m = sr64.decrypt_scale_and_round(_phase64(ctx, sk, ct, ops),
+                                         lv.decrypt_sr)
+        return Plaintext(data=m.unsqueeze(0), chain_index=ct.chain_index)
+    if scheme == "ckks":
+        return Plaintext(data=_dot_with_sk_powers64(ctx, sk, ct, ops),
+                         chain_index=ct.chain_index, is_ntt_form=True,
+                         scale=ct.scale)
     b = lv.bgv
     t = ctx.params.plain_modulus
-    x = ops.ntt_inverse(acc, ctx.ntt64, ctx.rows_qp[:cd.size_ql])
+    x = _phase64(ctx, sk, ct, ops)
     shifted = mm64.add_mod(x, b.qhalf_mod_q.view(-1, 1),
                            lv.mv.q.view(-1, 1))
     conv = bconv64.bconv_exact(shifted, b.q_to_t, ops.bconv)
     m = mm64.sub_mod(conv, b.qhalf_mod_t, b.t_mv.q.view(-1, 1))
     f = ct.correction_factor % t
     if f != 1:
-        m = mm64.mul_mod(m, pow(f, -1, t), *b.t_mv.col())
+        m = ops.shoup_rns(m, po64.limbs([t], w=[pow(f, -1, t)],
+                                        device=m.device))
     return Plaintext(data=m, chain_index=ct.chain_index)
+
+
+def invariant_noise_budget64(ctx: Context, sk: torch.Tensor, ct: Ciphertext,
+                             ops: Kernels64 = KERNELS64) -> int:
+    """A BFV ciphertext's remaining noise budget in bits on the u64 path
+    (the JAX package's invariant_noise_budget): v = t [c0 + c1 s + ...]_Ql
+    composed by the CRT in Python integers and centered, then log2(Ql) -
+    log2(2 max |v|), each a bit length; 0 at the least."""
+    if ctx.params.scheme != "bfv":
+        raise ValueError("noise budget is defined for BFV")
+    x = u64_values(_phase64(ctx, sk, ct, ops))
+    return _noise_budget(x, ctx.get_context_data(ct.chain_index).moduli,
+                         ctx.params.plain_modulus)

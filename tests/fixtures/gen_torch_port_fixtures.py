@@ -173,6 +173,29 @@ u64_mxn_n1024.npz: tensor_prod_mxn, the product of ciphertexts past size
   2, at n = 1024 over three primes of 50 bits and three of 61 (u64_mxn;
   `u64_mxn` writes only this file).
 
+u64_bfv_{hps,behz,overq,leveled}_b50.npz: BFV through the u64 evaluator
+  with mul_tech HPS, BEHZ, HPS_OVERQ and HPS_OVERQ_LEVELED, at
+  u64_chain's 50-bit chain (n = 1024, five data primes, two of 51 bits,
+  alpha = 2), t = PlainModulus.batching(n, 20).  Stored as u64_chain's:
+  the key draws (s_tern, pk_a/pk_e, rlk_a/rlk_e, glk_a/glk_e for steps 1,
+  2 and conjugation, elts), pt1, pt2 of uniform slots z1, z2, the draws
+  of c1 = encrypt_asymmetric(pt1) and c2 = encrypt_symmetric(pt2), and
+  digests of the keys, c1, c2 and every verb of U64_BFV_VERBS (with
+  __meta and __scale), each verb's decryption whole (dec_<verb>), the
+  noise budgets of c1, c2, the product (mr) and its mod switch, and the
+  modules' functions on inputs near a rounding boundary (x_d over D = Ql
+  u Rl, x_q over Ql, m_t mod t, BEHZ's x_bsk over Bsk, stored whole):
+  scale_and_round_exact D -> Rl (sr_d_to_rl), D -> Ql (sr_d_to_ql), Ql ->
+  Rl (sr_ql_to_rl), decrypt_scale_and_round (decrypt_sr, also whole),
+  scale_plain_up (plain_up); BEHZ also sm_mrq, fast_floor, fastbconv_sk
+  and bsk_moduli; leveled also lev_q_to_ql, lev_q_to_rl (chain index 2)
+  and multiply_and_relin chained on its own output (deep2-deep4, each
+  with the noise model's drop, <name>__lvl): deep4's operands have
+  noise_scale_deg 4, it drops a level, and its decryption over that
+  level's primes (dec_deep4_ql) is asserted right before anything is
+  written.  `u64_bfv` writes the four, `u64_bfv_<tech>` one (about four
+  minutes each).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -1378,11 +1401,168 @@ def u64_mxn():
     _save("u64_mxn_n1024.npz", **out)
 
 
+# BFV on the u64 evaluator: the files' techniques and verbs
+U64_BFV_TECHS = {"hps": "HPS", "behz": "BEHZ", "overq": "HPS_OVERQ",
+                 "leveled": "HPS_OVERQ_LEVELED"}
+U64_BFV_VERBS = ("negate", "add", "sub", "add_plain", "sub_plain",
+                 "multiply_plain", "multiply", "square", "relinearize",
+                 "multiply_and_relin", "mod_switch", "rotate_rows",
+                 "rotate_columns", "hoisting")
+# leveled: multiply_and_relin chained on its own output; the last product
+# takes operands of noise_scale_deg 4, where the noise model drops a level
+U64_BFV_DEEP = ("deep2", "deep3", "deep4")
+
+
+def u64_bfv(tech):
+    """BFV through the u64 evaluator with mul_tech `tech` (u64_chain's
+    primes at 50 bits: five data primes, two of 51 bits, alpha = 2, t =
+    PlainModulus.batching(n, 20))."""
+    from phantom_tpu.host import noise as noise_mod
+    from phantom_tpu.ops import behz as jbz
+    from phantom_tpu.ops import scaleround as jsr
+    from phantom_tpu.schemes import MulTech
+    from phantom_tpu.schemes import galois as jgal
+    bits = 50
+    qs = numth.get_primes(2 * N, bits, K_DATA)
+    ps = numth.get_primes(2 * N, bits + 1, ALPHA)
+    t = PlainModulus.batching(N, U64_T_BITS).value
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.BFV, N, qs + ps, plain_modulus=t, special_modulus_size=ALPHA,
+        mul_tech=getattr(MulTech, U64_BFV_TECHS[tech])))
+    out = dict(data_moduli=np.array(qs, dtype=np.uint64),
+               special_moduli=np.array(ps, dtype=np.uint64),
+               t=np.array(t, dtype=np.uint64))
+    k = jax.random.split(jax.random.PRNGKey(bits * 7 + 3), 6)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    elts = jgal.get_elts_from_steps([1, 2], N) + [2 * N - 1]
+    glk = keys.create_galois_keys(ctx, sk, k[3], elts=elts)
+    for name, key in (("sk", sk), ("pk", pk), ("rlk", rlk), ("glk", glk)):
+        out["h__" + name] = digest(key.data)
+    out["elts"] = np.array(glk.elts, dtype=np.int64)
+    out["s_tern"] = np.asarray(jsmp.sample_ternary_vec(k[0], N)).astype(
+        np.int8)
+    out["pk_a"], out["pk_e"] = _zero_samples64(ctx, k[1])
+    out["rlk_a"], out["rlk_e"] = _kswitch_samples64(ctx, k[2])
+    rng, draws = k[3], []
+    for _ in glk.elts:
+        rng, sub = jax.random.split(rng)
+        draws.append(_kswitch_samples64(ctx, sub))
+    out["glk_a"] = np.stack([a for a, _ in draws])
+    out["glk_e"] = np.stack([e for _, e in draws])
+    rg = np.random.default_rng(bits + 17)
+    enc = BatchEncoder(ctx)
+    vals = [rg.integers(0, t, N, dtype=np.uint64) for _ in range(2)]
+    pts = [enc.encode(v) for v in vals]
+    out["z1"], out["z2"] = vals
+    _pt64(out, "pt1", pts[0], keep=True)
+    _pt64(out, "pt2", pts[1], keep=True)
+    c1 = keys.encrypt_asymmetric(ctx, pk, pts[0], k[4])
+    k_u, k_e0, k_e1 = jax.random.split(k[4], 3)
+    out["enc_u"] = np.asarray(jsmp.sample_ternary_vec(k_u, N)).astype(
+        np.int8)
+    out["enc_e"] = np.stack([np.asarray(jsmp.sample_error_cbd(x, N))
+                             for x in (k_e0, k_e1)]).astype(np.int8)
+    c2 = keys.encrypt_symmetric(ctx, sk, pts[1], k[5])
+    out["sym_a"], out["sym_e"] = _zero_samples64(
+        ctx, k[5], ctx.get_context_data(1).mv)
+    _ct64(out, "c1", c1)
+    _ct64(out, "c2", c2)
+    ev = evaluate
+    mul = ev.multiply(ctx, c1, c2)
+    mr = ev.multiply_and_relin(ctx, c1, c2, rlk)
+    res = dict(negate=ev.negate(ctx, c1), add=ev.add(ctx, c1, c2),
+               sub=ev.sub(ctx, c1, c2),
+               add_plain=ev.add_plain(ctx, c1, pts[1]),
+               sub_plain=ev.sub_plain(ctx, c1, pts[1]),
+               multiply_plain=ev.multiply_plain(ctx, c1, pts[1]),
+               multiply=mul, square=ev.square(ctx, c1),
+               relinearize=ev.relinearize(ctx, mul, rlk),
+               multiply_and_relin=mr,
+               mod_switch=ev.mod_switch_to_next(ctx, mr),
+               rotate_rows=ev.rotate_rows(ctx, c1, 1, glk),
+               rotate_columns=ev.rotate_columns(ctx, c1, glk),
+               hoisting=ev.hoisting(ctx, c1, glk, [1, 2]))
+    z1, z2 = (v.astype(object) for v in vals)
+    want = {"multiply": z1 * z2 % t, "multiply_and_relin": z1 * z2 % t,
+            "square": z1 * z1 % t, "add": (z1 + z2) % t}
+    if tech == "leveled":
+        d = mr
+        for name in U64_BFV_DEEP:
+            nsd = d.noise_scale_deg
+            lvl = noise_mod.find_levels_to_drop(
+                N, K_DATA, ALPHA, len(ctx.get_context_data(1).ks.digit_convs),
+                t, bits, nsd - 1, False, True)
+            out[name + "__lvl"] = np.array(lvl)
+            d = res[name] = ev.multiply_and_relin(ctx, d, d, rlk)
+        lvl = int(out["deep4__lvl"])
+        assert lvl > 0, "no level dropped"
+        # the product of a drop carries its level's Delta: it decrypts over
+        # that level's primes (the first K_DATA - lvl rows), not over Q
+        low = d.replace(data=d.data[:, :K_DATA - lvl], chain_index=1 + lvl)
+        dec = keys.decrypt(ctx, sk, low)
+        _pt64(out, "dec_deep4_ql", dec, keep=True)
+        got = np.asarray(enc.decode(dec)).astype(object)
+        assert (got == (z1 * z2 % t) ** 8 % t).all(), "deep4 decrypts wrong"
+    for name, c in res.items():
+        _ct64(out, name, c)
+        dec = keys.decrypt(ctx, sk, c)
+        _pt64(out, "dec_" + name, dec, keep=True)
+        if name in want:
+            got = np.asarray(enc.decode(dec)).astype(object)
+            assert (got == want[name]).all(), f"{tech}: {name} decrypts wrong"
+    for name, c in (("c1", c1), ("c2", c2), ("mr", mr), ("mod_switch",
+                                                        res["mod_switch"])):
+        out["budget_" + name] = np.array(keys.invariant_noise_budget(
+            ctx, sk, c))
+    # the modules' functions on seeded inputs (near a rounding boundary
+    # first, as _near_boundary makes them), digests of their outputs
+    cd = ctx.get_context_data(1)
+    hps = cd.hps
+    d_moduli = list(cd.moduli) + list(
+        np.asarray(hps.sr_to_r.obase.q).tolist())
+    rng = np.random.default_rng(bits + 29)
+    out["x_d"] = _near_boundary(rng, d_moduli, N)
+    out["x_q"] = _near_boundary(rng, cd.moduli, N)
+    out["m_t"] = rng.integers(0, t, N, dtype=np.uint64)
+    x_d, x_q = jnp.asarray(out["x_d"]), jnp.asarray(out["x_q"])
+    fns = dict(sr_d_to_rl=jsr.scale_and_round_exact(x_d, hps.sr_to_r),
+               sr_d_to_ql=jsr.scale_and_round_exact(x_d, hps.sr_final_overq),
+               sr_ql_to_rl=jsr.scale_and_round_exact(x_q, hps.sr_ql_to_rl),
+               decrypt_sr=jsr.decrypt_scale_and_round(x_q, cd.decrypt_sr),
+               plain_up=jsr.scale_plain_up(jnp.asarray(out["m_t"]),
+                                           cd.plain_lift))
+    out["decrypt_sr"] = np.asarray(fns["decrypt_sr"]).astype(np.uint64)
+    if tech == "behz":
+        bz = cd.behz
+        out["bsk_moduli"] = np.asarray(ctx.bsk_ntt.q).astype(np.uint64)
+        out["x_bsk"] = _near_boundary(rng, np.asarray(bz.bsk.q).tolist(), N)
+        x_bsk = jnp.asarray(out["x_bsk"])
+        fns.update(sm_mrq=jbz.sm_mrq(x_q, bz),
+                   fast_floor=jbz.fast_floor(x_q, x_bsk, bz),
+                   fastbconv_sk=jbz.fastbconv_sk(x_bsk, bz))
+    if tech == "leveled":
+        lc = ctx.get_context_data(2).leveled
+        fns.update(lev_q_to_ql=jsr.scale_and_round_exact(x_q, lc.q_to_ql),
+                   lev_q_to_rl=jsr.scale_and_round_exact(x_q, lc.q_to_rl))
+    for name, v in fns.items():
+        out["h__" + name] = digest(v)
+    print(f"u64_bfv {tech}: budgets " + ", ".join(
+        f"{k[7:]} {int(v)}" for k, v in out.items()
+        if k.startswith("budget_")))
+    _save(f"u64_bfv_{tech}_b{bits}.npz", **out)
+
+
+U64_BFV_FILES = {f"u64_bfv_{tech}": (lambda tech=tech: u64_bfv(tech))
+                 for tech in U64_BFV_TECHS}
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
                       "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
                       "fast32", "ckks_fft", "linear", "poly", "roll",
-                      "fast32_roll", "u64"]
+                      "fast32_roll", "u64", "u64_bfv"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -1415,6 +1595,9 @@ def main(names):
             make()
     if "u64_mxn" in names or "u64" in names:
         u64_mxn()
+    for name, make in U64_BFV_FILES.items():
+        if name in names or "u64_bfv" in names:
+            make()
 
 
 if __name__ == "__main__":

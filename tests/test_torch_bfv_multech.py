@@ -264,14 +264,19 @@ def test_mul_mod_2_32():
 
 
 def test_behz_refuses_primes_past_30_bits():
-    """A BEHZ context whose QP has a prime of 2^30 or more would need the
-    JAX package's 61-bit Bsk; the port raises rather than fall back."""
+    """A BEHZ context whose QP has a prime of 2^30 or more takes the JAX
+    package's 61-bit Bsk (the u64 evaluator runs it); the 32-bit BEHZ
+    pipeline refuses it rather than fall back."""
     n = 1024
     qs = numth.get_primes(2 * n, 28, 3)
-    with pytest.raises(ValueError, match="61-bit Bsk"):
-        make_context(EncryptionParameters.create(
-            n, qs, numth.get_primes(2 * n, 31, 1), "bfv",
-            PlainModulus.batching(n, 16), mul_tech="behz"), device=CPU)
+    ctx = make_context(EncryptionParameters.create(
+        n, qs, numth.get_primes(2 * n, 31, 1), "bfv",
+        PlainModulus.batching(n, 16), mul_tech="behz"), device=CPU)
+    assert {b.bit_length() for b in ctx.bsk_moduli} == {61}
+    with pytest.raises(ValueError, match="below 2\\^30"):
+        bfv32.build_bfv_behz32(ctx, torch.zeros((3, 2, 4, n),
+                                                dtype=torch.int64),
+                               device=CPU)
 
 
 def test_leveled_noise_scale_deg_drop(golden):

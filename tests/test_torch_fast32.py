@@ -209,17 +209,20 @@ def test_bfv_techniques_dispatch(tech, case):
 
 
 def test_bfv_behz_refuses_primes_past_30_bits():
-    """A BEHZ context (and so a Fast32 on it) whose QP has a prime of 2^30
-    or more raises: the JAX package's 61-bit Bsk has no 32-bit
-    counterpart, and nothing falls back to HPS."""
+    """A Fast32 on a BEHZ context whose QP has a prime of 2^30 or more
+    raises: the context is the u64 evaluator's, with the JAX package's
+    61-bit Bsk, which has no 32-bit counterpart, and nothing falls back
+    to HPS."""
     from phantom_tpu_torch.host import numth
     from phantom_tpu_torch.host.modulus import PlainModulus
     n = 1024
     params = EncryptionParameters.create(
         n, numth.get_primes(2 * n, 28, 3), numth.get_primes(2 * n, 31, 1),
         "bfv", PlainModulus.batching(n, 16), mul_tech="behz")
-    with pytest.raises(ValueError, match="61-bit Bsk"):
-        Fast32(make_context(params, device=CPU))
+    ctx = make_context(params, device=CPU)
+    assert ctx.wide and {b.bit_length() for b in ctx.bsk_moduli} == {61}
+    with pytest.raises(ValueError, match="below 2\\^30"):
+        Fast32(ctx)
 
 
 def test_engines_the_port_lacks_raise():

@@ -8,8 +8,9 @@ run these with
 
 Every kernel at several sizes, with every option of its wrapper; the
 tables are real NTT tables and the inputs seeded; bit-exact.  The u64
-kernels U1-U4 at N = 2 to 2^17 with 50- and 61-bit primes, the u64 golden
-files through them, and the roll engine's and the xla-bconv moddown's
+kernels U1-U4 at N = 2 to 2^17 with 50- and 61-bit primes (U2's
+scale_round form at 1 to 63 input rows), the u64 golden files (BFV's
+too) through them, and the roll engine's and the xla-bconv moddown's
 golden file.  The BFV step
 on both engines, BFV's other techniques and the fused lift, and the BGV
 step on each modup route against the plain path and the golden files.
@@ -1133,6 +1134,90 @@ def test_u2_refuses_64_rows(dev):
     x = torch.zeros((64, 128), dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
         u2.bconv(x, conv, "approx")
+
+
+def _scale_round(dev, k_in, k_out, m, seed):
+    """A v-free scale-and-round from k_in 61-bit primes to k_out others
+    (num = their product, den = the first half of the input primes') and
+    seeded input words, the first columns all d_i - 1 and zeros."""
+    from phantom_tpu_torch.ops import scaleround
+    primes = numth.get_primes(1 << 18, 61, k_in + k_out)
+    ib, ob = primes[:k_in], primes[k_in:]
+    num = den = 1
+    for p in ob:
+        num *= p
+    for d in ib[:k_in // 2]:
+        den *= d
+    c = scaleround.make_exact_scale_round(ib, num, den, ob, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = c.ibase.q.view(-1, 1)
+    x = torch.randint(0, 1 << 62, (k_in, m), generator=gen, device=dev) % q
+    x[:, :min(m, 3)] = q - 1
+    x[:, 3:5] = 0
+    return c, x
+
+
+@pytest.mark.parametrize("k_out", [1, 31, 32])
+@pytest.mark.parametrize("k_in", [1, 2, 17, 31, 62, 63])
+@pytest.mark.parametrize("logn", [1, 6, 10, 13, 16, 17])
+def test_u2_scale_round(dev, logn, k_in, k_out):
+    """U2's scale_round form bit-equal to its plain version at N = 2 to
+    2^17 columns, 1 to 63 input rows of 61-bit primes, 1, 31 and 32
+    output rows."""
+    from phantom_tpu_torch.ops import bconv as u2
+    c, x = _scale_round(dev, k_in, k_out, 1 << logn, logn * 100 + k_in)
+    assert torch.equal(u2.bconv(x, c, "scale_round"),
+                       u2.bconv_plain(x, c, "scale_round"))
+
+
+def test_u2_approx_to_mtilde(dev):
+    """U2's approximate form to the modulus 2^32 (BEHZ's m_tilde, not a
+    prime: Barrett words 2^32 and 0, 2^64 mod 2^32 = 0) and to Bsk, at
+    the BFV u64 width (31 rows of 50 bits), bit-equal to plain."""
+    from phantom_tpu_torch import host
+    from phantom_tpu_torch.ops import bconv as u2
+    ib = numth.get_primes(1 << 17, 50, 31)
+    for ob in ([1 << 32], numth.get_primes(1 << 17, 61, 32)):
+        conv = u2.consts_from_host(host.BaseConverter(
+            host.RNSBase(ib), host.RNSBase(ob)), dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(len(ob))
+        q = conv.ibase.q.view(-1, 1)
+        x = torch.randint(0, 1 << 62, (31, 1 << 16), generator=gen,
+                          device=dev) % q
+        x[:, :3] = q - 1
+        assert torch.equal(u2.bconv(x, conv, "approx"),
+                           u2.bconv_plain(x, conv, "approx"))
+
+
+def test_u2_scale_round_one_launch_refuses_64_rows(dev):
+    """Each scale_round call is one kernel launch (the library's count);
+    64 input rows are refused before any launch."""
+    from phantom_tpu_torch import _build
+    from phantom_tpu_torch.ops import bconv as u2
+    from phantom_tpu_torch.ops import scaleround
+    lib = _build.library()
+    c, x = _scale_round(dev, 63, 32, 1 << 16, 7)
+    before, calls = lib.ptk_u64_bconv_launches(), u2.bconv.launches
+    for _ in range(3):
+        scaleround.scale_and_round_exact(x, c)
+    torch.cuda.synchronize()
+    assert lib.ptk_u64_bconv_launches() - before == 3
+    assert u2.bconv.launches - calls == 3
+    primes = numth.get_primes(1 << 11, 61, 65)
+    c = scaleround.make_exact_scale_round(primes[:64], primes[64], 1,
+                                          primes[64:], dev)
+    with pytest.raises(ValueError, match="at most 63"):
+        scaleround.scale_and_round_exact(
+            torch.zeros((64, 128), dtype=torch.int64, device=dev), c)
+    assert u2.bconv.launches - calls == 3
+
+
+@pytest.mark.parametrize("fname", chip_smoke.U64_BFV_GOLDEN)
+def test_u64_bfv_golden_on_the_card(dev, fname):
+    """Every output of a BFV u64 golden file through U1-U4 on the card."""
+    assert chip_smoke.u64_bfv_golden(dev, fname) >= 45
 
 
 @pytest.mark.parametrize("perm", [False, True])

@@ -83,6 +83,16 @@ wide = pt.make_context(pt.EncryptionParameters.create(
     host.numth.get_primes(2 * n, 61, 1)), device="cpu")
 assert wide.ntt is None and wide.ntt64.root_powers.shape == (4, n)
 assert wide.get_context_data(1).u64.ks.qlp.q.shape == (4,)
+from phantom_tpu_torch.ops import behz, scaleround
+wbfv = pt.make_context(pt.EncryptionParameters.create(
+    n, wide.params.data_moduli, wide.params.special_moduli, "bfv",
+    host.modulus.PlainModulus.batching(n, 20), mul_tech="behz"),
+    device="cpu")
+assert wbfv.ntt64.root_powers.shape == (4 + 4 + 4, n)
+lv = wbfv.get_context_data(1).u64
+assert lv.behz.bsk.q.shape == (4,) and lv.hps.dbase.q.shape == (7,)
+assert isinstance(lv.hps.sr_to_r, scaleround.ExactScaleRoundConsts)
+assert isinstance(lv.behz, behz.BEHZConsts)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep

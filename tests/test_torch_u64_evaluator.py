@@ -62,8 +62,9 @@ def _wide(scheme="ckks", n=64, bits=50):
 
 def test_wide_context_holds_u64_tables_only():
     """A context with a prime of 2^30 or more holds u64 tables and no
-    32-bit ones; the 32-bit paths refuse it, a wide BFV context raises
-    NotImplementedError, and the u64 evaluator refuses a 32-bit context."""
+    32-bit ones; the 32-bit paths refuse it, a wide BFV context builds
+    with `ntt64` over QP u Rl (u Bsk, of 61-bit primes, for "behz"), and
+    the u64 evaluator refuses a 32-bit context."""
     ctx = make_context(_wide(), device=CPU)
     assert ctx.wide and ctx.ntt is None
     assert ctx.ntt64.root_powers.dtype == torch.int64
@@ -72,8 +73,19 @@ def test_wide_context_holds_u64_tables_only():
         tpp.build_keyswitch32(ctx, device=CPU)
     with pytest.raises(ValueError, match="below 2\\^30"):
         Fast32(ctx)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_context(_wide("bfv"), device=CPU)
+    for tech in ("hps", "behz"):
+        params = _wide("bfv")
+        params = EncryptionParameters.create(
+            params.n, params.data_moduli, params.special_moduli, "bfv",
+            params.plain_modulus, mul_tech=tech)
+        bfv = make_context(params, device=CPU)
+        rows = (list(params.coeff_modulus) + list(bfv.rl_moduli)
+                + list(bfv.bsk_moduli))
+        assert bfv.ntt is None and bfv.ntt64.q.tolist() == rows
+        assert len(bfv.rl_moduli) == params.size_q + 1
+        assert len(bfv.bsk_moduli) == (params.size_q + 1) * (tech == "behz")
+        assert all(b.bit_length() == 61 for b in bfv.bsk_moduli)
+        assert bfv.key_mv.q.tolist() == list(params.coeff_modulus)
     narrow = make_context(EncryptionParameters.create(
         64, numth.get_primes(128, 28, 2), numth.get_primes(128, 29, 1)),
         device=CPU)
