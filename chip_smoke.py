@@ -312,6 +312,30 @@ Phases, one line each or more; any failure exits non-zero:
                leveled also with operands of noise_scale_deg 3 (a level
                dropped, decrypted over that level), 10 chained steps, the
                plain step timed, a profile as above
+ 48. F1 wide   F1's wide forms (64-bit words, primes to 2^61) alone at N =
+               2^16 under the probes: encode over 43 primes of 50 bits and
+               of 61 bits (coefficients near 2^61), decode of centered
+               values up to 2^62 (two limbs and one), bit-equal to plain,
+               event and device time, bound; two CUDA launches a call; a
+               decode of uniform residues
+ 49. u64 app   golden: ckks_fft_wide.npz (the wide device encoder at 40- and
+     golden    50-bit primes), u64_linear_b50.npz (LinearTransform.apply),
+               u64_poly_b50.npz (poly_eval, poly_eval_cheb) through U1-U4
+               and F1's wide forms, bit-equal to the JAX package's
+ 50. u64 MLP   phase 36's network on the u64 evaluator at U64_CFG width
+               (43 data primes of 50 bits, 22 special of 51, N = 2^16),
+               the input's scale the prime q[41] (about 2^50): keys on the
+               card, the weights over QlP (prepare, timed), then encode
+               (the wide CKKSDeviceEncoder), layer 1 (dense, d = 64),
+               square + relinearize + rescale, layer 2 (banded),
+               poly_eval_cheb of degree 15 on (-8, 8) with the final
+               rescale (its constants through the host encoder), decode:
+               each stage's U1-U4 and F1 launches (EXPECTED_APP64) and
+               event time; the whole circuit once more on PLAIN64 from the
+               same plaintext and generator state, bit-equal; one modup a
+               layer, counted; the decoded output within MLP_TOL of
+               numpy's float64 evaluation; end to end timed, a profile,
+               peak memory
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -340,7 +364,9 @@ and the (k, N) residues written), the limbs and slot_of (decode).  No
 single PyTorch call computes a modular NTT or a modular product-sum, so
 library_ms is null for K1-K9; F1's is torch.fft.fft over complex128 (the
 bare form's calls; its row lists the fused forms' sums under "forms",
-with library_ms null: no PyTorch call fuses the scatter or the residues).
+with library_ms null: no PyTorch call fuses the scatter or the residues;
+the wide forms of phase 48 too, their bound adding a barrett64, 7 32-bit
+multiplies, a residue (encode) and Garner's 20 a coefficient (decode)).
 U1-U4's rows sum the probed calls of phases 42-47 (U1's forward and
 inverse, U2's forms by the form each call took, U4's forms, each listed
 under "forms" with its calls, device time and host time a call; U1's, U2's and U4's "launches_per_call", the
@@ -1468,15 +1494,26 @@ def call_bound(name: str, a: dict, out):
         n = a["t"].n
         f32 = (n // 2) * (n.bit_length() - 1) * F1_BUTTERFLY_OPS
         byt = 4 * a["t"].fwd.numel() + out.numel() * out.element_size()
+        ops = 0
         if name == "F1":
             f32 += 4 * n if a["inverse"] else 0
             byt += 4 * a["x"].numel()
         elif name == "F1 encode":
             f32 += 2 * n
             byt += 8 * a["z"].numel() + 4 * (n + a["q"].numel())
+        elif name == "F1 encode64":  # and a barrett64 a residue
+            k = a["q"].numel()
+            f32 += 2 * n
+            byt += 8 * a["z"].numel() + 4 * n + 8 * k
+            ops = k * n * BARRETT64_OPS
+        elif name == "F1 decode64":  # and, over two limbs, Garner's
+            # barrett64, Shoup product and q0 t_c a coefficient
+            byt += 8 * a["x"].numel() + 4 * n
+            if a["x"].shape[0] == 2:
+                ops = n * (BARRETT64_OPS + SHOUP_OPS + MUL_LO)
         else:
             byt += 4 * (a["x"].numel() + n)
-        return byt, 0, 0, f32
+        return byt, ops, 0, f32
     byt, ops = _call_work(name, a, out)
     tc_ops = 0
     if name == "K5":  # 16 plane products, 2 k_out k_in N operations each
@@ -2039,6 +2076,131 @@ def u64_mxn_golden(device, op=None) -> int:
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
+
+U64_APP_GOLDEN = ("u64_linear_b50.npz", "u64_poly_b50.npz")
+WIDE_FFT_GOLDEN = "ckks_fft_wide.npz"
+WIDE_FFT_CASES = {"w40": (1,), "w50": (1, 5)}  # chain: chain indices
+
+
+def _u64_app_case(g, device, ops, cmp):
+    """A u64 application golden file's context on `device`, its keys from
+    the stored JAX draws (each held), the encryption of `pt` from its
+    draws: (ctx, sk, rlk, glk, encrypt(pt))."""
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ctx = make_context(EncryptionParameters.create(
+        int(g["s_tern"].shape[0]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist()), device=device)
+    sk, pk, rlk, glk, _, s = _u64_keys(g, ctx, ops, cmp, "glk_a" in g)
+
+    def encrypt(pt):
+        return keys.encrypt_asymmetric_core64(ctx, pk, pt, s("enc_u"),
+                                              s("enc_e"), ops)
+    return ctx, sk, rlk, glk, encrypt
+
+
+def u64_linear_golden(device, ops=None) -> int:
+    """u64_linear_b50.npz through LinearTransform on the u64 evaluator on
+    `device` (`ops`: keyswitch.KERNELS64 by default): the keys, the
+    encoded input, prepare's QlP weights, the encryption and apply's
+    output (with its metadata) bit-equal to the JAX package's (digests,
+    RuntimeError otherwise), and its decode.  Returns the outputs held."""
+    from phantom_tpu_torch import CKKSEncoder, LinearTransform
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    ops = ksw.KERNELS64 if ops is None else ops
+    fname = U64_APP_GOLDEN[0]
+    held = [0]
+
+    def cmp(name, x, meta_of=None):
+        _u64_cmp(g, fname, name, x, meta_of)
+        held[0] += 1
+
+    g = np.load(os.path.join(FIXTURES, fname))
+    ctx, sk, _, glk, encrypt = _u64_app_case(g, device, ops, cmp)
+    enc = CKKSEncoder(ctx)
+    lt = LinearTransform(g["M"])
+    lt.prepare(enc, float(g["w_scale"]), 1, ops)
+    for i, w in enumerate(p for grp in lt._prepared[1] for p in grp):
+        cmp(f"w_{i}", w)
+    pt = enc.encode(np.tile(g["x"], enc.slots // lt.d), float(g["scale"]),
+                    ops=ops)
+    cmp("pt_in", pt.data, pt)
+    ct = encrypt(pt)
+    cmp("ct", ct.data, ct)
+    y = lt.apply(ctx, ct, glk, ops=ops)
+    cmp("y", y.data, y)
+    if not np.array_equal(enc.decode(keys.decrypt64(ctx, sk, y, ops), ops),
+                          g["decoded_y"]):
+        raise RuntimeError(f"golden {fname}: decoded_y differs")
+    return held[0] + 1
+
+
+def u64_poly_golden(device, ops=None) -> int:
+    """u64_poly_b50.npz through poly_eval and poly_eval_cheb on the u64
+    evaluator on `device` with the host encoder: the keys, the encryption
+    and both results (with their metadata) bit-equal to the JAX
+    package's.  Returns the outputs held."""
+    from phantom_tpu_torch import CKKSEncoder, poly_eval, poly_eval_cheb
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    ops = ksw.KERNELS64 if ops is None else ops
+    fname = U64_APP_GOLDEN[1]
+    held = [0]
+
+    def cmp(name, x, meta_of=None):
+        _u64_cmp(g, fname, name, x, meta_of)
+        held[0] += 1
+
+    g = np.load(os.path.join(FIXTURES, fname))
+    ctx, _, rlk, _, encrypt = _u64_app_case(g, device, ops, cmp)
+    enc = CKKSEncoder(ctx)
+    ct = encrypt(enc.encode(g["x"], float(g["scale"]), ops=ops))
+    cmp("ct", ct.data, ct)
+    y = poly_eval(ctx, ct, g["coeffs_mono"], rlk, enc, ops=ops)
+    cmp("y_mono", y.data, y)
+    y = poly_eval_cheb(ctx, ct, g["coeffs_cheb"], rlk, enc,
+                       interval=tuple(g["interval"].tolist()), ops=ops)
+    cmp("y_cheb", y.data, y)
+    return held[0]
+
+
+def wide_encoder_golden(device, ops=None) -> dict:
+    """ckks_fft_wide.npz through CKKSDeviceEncoder on wide contexts on
+    `device` (`ops`: keyswitch.KERNELS64 by default): {"<chain> <ci>
+    <what>": (port, JAX)} for the rounded coefficients (ints, the bare
+    transform's), the encoded plaintext (enc), the decode of the JAX
+    package's plaintext (dec) and the host encoder's decode of it
+    (host)."""
+    import torch
+    from phantom_tpu_torch import (CKKSDeviceEncoder, CKKSEncoder,
+                                   Plaintext, make_context)
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    ops = ksw.KERNELS64 if ops is None else ops
+    g = np.load(os.path.join(FIXTURES, WIDE_FFT_GOLDEN))
+    out = {}
+    for c, chain in WIDE_FFT_CASES.items():
+        z, scale = g[f"z_{c}"], float(g[f"scale_{c}"])
+        ctx = make_context(EncryptionParameters.create(
+            2 * z.shape[0], g[f"moduli_{c}"].tolist(),
+            g[f"special_{c}"].tolist()), device=device)
+        enc, host = CKKSDeviceEncoder(ctx), CKKSEncoder(ctx)
+        for ci in chain:
+            key = f"{c} {ci}"
+            want = g[f"enc_{c}_{ci}"]
+            jax_pt = Plaintext(data=torch.from_numpy(want.view(np.int64)).to(
+                ctx.key_q.device), chain_index=ci, is_ntt_form=True,
+                scale=scale)
+            out[f"{key} ints"] = (enc.encode_ints(z, scale).cpu().numpy(),
+                                  g[f"ints_{c}_{ci}"])
+            pt = enc.encode(z, scale, ci, ops)
+            out[f"{key} enc"] = (pt.data.cpu().numpy().view(np.uint64), want)
+            out[f"{key} dec"] = (enc.decode(jax_pt, ops), g[f"dec_{c}_{ci}"])
+            out[f"{key} host"] = (host.decode(jax_pt, ops),
+                                  g[f"host_{c}_{ci}"])
+    return out
+
 
 def _cmd(args):
     try:
@@ -3668,7 +3830,7 @@ def _encoder_parts(card, enc, f1ops, z, scale: float, ci: int, pt):
     enc.encode(z, scale, ci, ops=f1ops)
     enc.decode(pt, f1ops)
     fe, fd = f1ops.ckks_fft_encode.calls[-1], f1ops.ckks_fft_decode.calls[-1]
-    zh = enc._slots(z)
+    zh = enc._slots(z, scale)
     zd = zh.to(dev)
     rns = f1ops.ckks_fft_encode.kernel(zd, scale, ctx.key_q[:k], enc.tables)
     x2 = ntt_kernels.ntt_inverse(pt.data[:2].contiguous(), ctx.ntt,
@@ -3676,7 +3838,7 @@ def _encoder_parts(card, enc, f1ops, z, scale: float, ci: int, pt):
     out = f1ops.ckks_fft_decode.kernel(
         x2, ctx.get_context_data(ci).moduli[:2], pt.scale, enc.tables)
     parts_e = dict(
-        prep=_host_ms(lambda: enc._slots(z), REPS),
+        prep=_host_ms(lambda: enc._slots(z, scale), REPS),
         copy=_time(lambda: zh.to(dev), REPS),
         k2=_time(lambda: ntt_kernels.ntt_forward(rns, ctx.ntt,
                                                  ctx.rows_qp[:k]), REPS))
@@ -3985,6 +4147,9 @@ U4_FIELDS = ("mul_rns", "fma_rns", "tensor_prod_2x2", "tensor_square_2x2",
              "modswitch_delta", "moddown_delta")
 U64_FIELDS = {"ntt_forward": "U1", "ntt_inverse": "U1", "bconv": "U2",
               "inner_product": "U3", **{f: "U4" for f in U4_FIELDS}}
+# Kernels64's F1 fields (the wide forms): their probes' names
+U64_F1_FORMS = {"ckks_fft_encode": "F1 encode64",
+                "ckks_fft_decode": "F1 decode64"}
 # 32-bit multiplies per u64 operation, as the bounds count them: a 64 x 64
 # product's high word (__umul64hi) 4, its low word 3 (the 32-bit partial
 # products of one decomposition; phase 41 prints the IMADs each U kernel's
@@ -4219,6 +4384,8 @@ def _enqueue_ms(fn, reps: int) -> float:
 def _probes64(reps: int = REPS):
     from phantom_tpu_torch.schemes import keyswitch as ksw
     return ksw.Kernels64(*(
+        _Probe(U64_F1_FORMS[f], getattr(ksw.KERNELS64, f),
+               getattr(ksw.PLAIN64, f), reps) if f in U64_F1_FORMS else
         _Probe64(f, getattr(ksw.KERNELS64, f), getattr(ksw.PLAIN64, f), reps)
         for f in ksw.Kernels64._fields))
 
@@ -4655,6 +4822,343 @@ def _u64_bfv_phases(card, probes, launches64, dev, calls: bool = False):
     return probes
 
 
+# ---------------------------------------------------------------------------
+# phases 48-50: the u64 application layer (F1's wide forms, the device
+# encoder on the u64 evaluator's primes, LinearTransform.apply,
+# poly_eval_cheb)
+# ---------------------------------------------------------------------------
+
+# The u64 MLP + Chebyshev circuit's scale: one of the rescale primes
+# (U64_CFG's data primes have 50 bits).  poly_eval's power ladder keeps
+# its scale only where the primes are close to it; at U64_SCALE_BITS = 44
+# each rung would lose about 6 bits.
+U64_MLP_SCALE_PRIME = 2  # the input's scale is q[L - 2]
+F1_WIDE_BITS = (50, 61)  # the wide forms' primes, alone at full width
+EXPECTED_APP64 = {  # the u64 circuit's stages: U1-U4 and F1 launches
+    # the wide encode form, U1 over the level's 43 rows
+    "u64 MLP encode": dict(U1=1, U2=0, U3=0, U4=0, F1=1),
+    # d = 64 (bs 8, gs 8) at chain index 1 (k = 43, not a multiple of 22:
+    # the unfused modup, 2 digits): ONE modup (U1 x2, U2 x2) shared by the
+    # 8 groups; per group U3 for each of its 7 rotated baby steps, U4 twice
+    # a step (the QlP and c0 sums' fma; step 0: c0 and c1), one moddown
+    # pair (U1 x4, U2 x2, U4 x2); 7 giant rotations (U1 x6, U2 x4, U3, U4
+    # x2 each); the adds plain; the rescale (U1 x2, U4 x2).  A modup per
+    # group would add U1 x14 and U2 x14.
+    "u64 MLP layer 1": dict(U1=78, U2=46, U3=63, U4=160, F1=0),
+    # square (U4), relinearize (U1 x6, U2 x4, U3, U4 x2), rescale (U1 x2,
+    # U4 x2)
+    "u64 MLP square": dict(U1=8, U2=4, U3=1, U4=5, F1=0),
+    # the banded layer at chain index 3: 4 groups of 8 diagonals (28
+    # rotated baby steps), 3 giant rotations (steps 8, 48, 56), one modup
+    "u64 MLP layer 2": dict(U1=38, U2=22, U3=31, U4=80, F1=0),
+    # poly_eval_cheb of degree 15 with the interval map and the final
+    # rescale: 7 products (square or multiply, relinearize), 9 rescales,
+    # the constants through the host encoder (U1 each over their level)
+    "u64 MLP activation": dict(U1=81, U2=28, U3=7, U4=53, F1=0),
+    # U1's inverse of two limbs, the wide decode form
+    "u64 MLP decode": dict(U1=1, U2=0, U3=0, U4=0, F1=1),
+}
+
+
+def _count_app64(wrappers64, what: str, fn, launches: dict,
+                 launches64: dict):
+    """_count64 with F1 beside U1-U4, against EXPECTED_APP64[what]; U1-U4
+    add to launches64, F1 to launches."""
+    import torch
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    for w in wrappers64:
+        w.launches = 0
+    cf.ckks_fft.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: w.launches for (name, *_), w in zip(U64_KERNELS,
+                                                     wrappers64)}
+    got["F1"] = cf.ckks_fft.launches
+    print(f"launches, {what}: " + ", ".join(f"{k}={v}"
+                                            for k, v in got.items()))
+    want = EXPECTED_APP64.get(what)
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got} != {want}")
+    for k, v in got.items():
+        if k == "F1":
+            launches["F1"] += v
+        else:
+            launches64[k] += v
+    return out
+
+
+def _f1_wide_inputs(dev, n: int, bits: int, k: int, seed: int):
+    """Seeded inputs of F1's wide forms at N = n over k primes of `bits`
+    bits: the slots in the unit disc and the scale that brings the
+    largest coefficient near 2^61 (2^61 / max |slot| for 61-bit primes,
+    else 2^50), the moduli (k,) int64, and two limbs of centered values
+    up to 2^62 of both signs, their residues mod the first two primes."""
+    import torch
+    from phantom_tpu_torch.host import numth
+    rng = np.random.default_rng(seed)
+    moduli = numth.get_primes(2 * n, bits, k)
+    z = unit_disc(rng, n // 2)
+    scale = 2.0 ** 61 if bits > 60 else 2.0 ** 50
+    m = rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+    m[:4] = [(1 << 62) - 1, -(1 << 62) + 1, 0, -1]
+    mt = torch.from_numpy(m)
+    limbs = torch.stack([torch.remainder(mt, q) for q in moduli[:2]])
+    return dict(z=torch.from_numpy(z.view(np.float64).reshape(-1, 2)).to(
+        dev), scale=scale, q=torch.tensor(moduli, dtype=torch.int64,
+                                          device=dev),
+        limbs=limbs.to(dev), moduli=moduli[:2])
+
+
+def _f1_wide_phase(card, probes64, dev) -> None:
+    """Phase 48: F1's wide forms alone at N = 2^16 under the probes
+    (bit-equal to their plain versions, event and device times, bound),
+    over U64_CFG's 43 primes of 50 bits and over 43 of 61 bits (the
+    encode form's coefficients near 2^61 there; the decode form on
+    centered values up to 2^62, one limb and two), their CUDA launches
+    and blocks, and a decode of uniform residues that does not raise."""
+    import torch
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n, k = U64_CFG["n"], U64_CFG["limbs"]
+    t = cf.make_fft_tables(n, dev)
+    for bits in F1_WIDE_BITS:
+        a = _f1_wide_inputs(dev, n, bits, k, SEED + 48 + bits)
+        probes64.ckks_fft_encode(a["z"], a["scale"], a["q"], t)
+        probes64.ckks_fft_decode(a["limbs"], a["moduli"], 2.0 ** 40, t)
+        probes64.ckks_fft_decode(a["limbs"][:1].contiguous(),
+                                 a["moduli"][:1], 2.0 ** 40, t)
+        fe = probes64.ckks_fft_encode.calls[-1]
+        for c, what in ((fe, f"encode form, {k} primes"),
+                        (probes64.ckks_fft_decode.calls[-2],
+                         "decode form, 2 limbs"),
+                        (probes64.ckks_fft_decode.calls[-1],
+                         "decode form, 1 limb")):
+            print(f"F1 wide {what} of {bits} bits, N = {n}: bit-equal to "
+                  f"plain; {c['ms']:.5f} ms (device {c['dev_ms']:.5f}, "
+                  f"{c['dev_ms'] / c['bound_ms']:.1f}x its bound "
+                  f"{c['bound_ms']:.5f} ms by {c['bound_by']}: "
+                  f"{c['bytes'] / 1e6:.1f} MB, {c['f32_ops'] / 1e6:.1f} M "
+                  f"f32, {c['ops'] / 1e6:.1f} M mul) vs plain "
+                  f"{c['plain_ms']:.3f} ms [{card}]")
+    forms = {
+        "encode64": lambda: cf.ckks_fft_encode64(a["z"], a["scale"], a["q"],
+                                                 t),
+        "decode64": lambda: cf.ckks_fft_decode64(a["limbs"], a["moduli"],
+                                                 2.0 ** 40, t)}
+    for what, fn in forms.items():
+        blocks = f1_grids(fn)
+        print(f"F1 {what}, N = {n}: {len(blocks)} CUDA launches a call, "
+              f"blocks {blocks} (ptk_ckks_fft_grids)")
+        if len(blocks) != 2 or min(blocks) <= 32:
+            raise RuntimeError(f"F1 {what}: {len(blocks)} launches, blocks "
+                               f"{blocks}")
+    q = a["q"][:2].view(-1, 1)
+    junk = torch.randint(0, 1 << 62, (2, n), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED)) % q
+    out = cf.ckks_fft_decode64(junk, a["moduli"], 2.0 ** 40, t)
+    torch.cuda.synchronize()
+    print(f"F1 wide decode form of uniform residues: {out.shape[0]} slots, "
+          f"{int(torch.isfinite(out).all(dim=1).sum())} finite")
+
+
+def _u64_app_golden(dev) -> None:
+    """Phase 49: the wide device encoder's golden file (bit-equal to the
+    JAX package's eager evaluation) and the u64 application layer's
+    (LinearTransform.apply, poly_eval, poly_eval_cheb) through U1-U4 and
+    F1's wide forms."""
+    got = wide_encoder_golden(dev)
+    for name, (a, b) in got.items():
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"golden {WIDE_FFT_GOLDEN}: {name} differs "
+                               "from the JAX package's")
+    print(f"golden: {WIDE_FFT_GOLDEN}: {len(got)} outputs of the wide "
+          "device encoder (40- and 50-bit primes, one and five limbs) "
+          "bit-equal to the JAX package's eager evaluation")
+    for fname, fn in zip(U64_APP_GOLDEN, (u64_linear_golden,
+                                          u64_poly_golden)):
+        t0 = time.time()
+        print(f"golden: {fname}: {fn(dev)} outputs through U1-U4 bit-equal "
+              f"to the JAX package's ({time.time() - t0:.1f} s)")
+
+
+def _u64_mlp_phase(card, launches, launches64, dev) -> float:
+    """Phase 50: the MLP + Chebyshev circuit of phase 36 on the u64
+    evaluator at U64_CFG width (N = 2^16, 43 data primes of 50 bits, 22
+    special of 51, dnum 2): keys on the card, a dense LinearTransform (d
+    = 64, bs 8, gs 8, 14 Galois keys) at chain index 1, square +
+    relinearize + rescale, the banded one at chain index 3,
+    poly_eval_cheb of degree MLP_DEGREE on MLP_INTERVAL, the final
+    rescale; the input and output through the wide CKKSDeviceEncoder,
+    the weights and poly_eval_cheb's constants through the host encoder
+    (some constants are encoded at the square of the scale, past the
+    device encoder's 2^62).  The input's scale is the prime
+    q[L - U64_MLP_SCALE_PRIME], about 2^50: the power ladder keeps its
+    scale only where the primes are close to it.  Each stage's launch
+    counts (EXPECTED_APP64) and event time; one modup a layer, counted;
+    the whole circuit once more on PLAIN64 from the same plaintext and
+    generator state, bit-equal; the decoded output within MLP_TOL of
+    numpy's float64 evaluation; a profile and peak memory.  Returns the
+    error."""
+    import torch
+    from numpy.polynomial import chebyshev as C
+    from phantom_tpu_torch import (CKKSDeviceEncoder, CKKSEncoder,
+                                   LinearTransform, chebyshev_fit,
+                                   make_context, poly_eval_cheb)
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    from phantom_tpu_torch.schemes import linear
+    wrappers64 = kernel_wrappers64()
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    prm = chain_params(**U64_CFG)
+    ctx = make_context(prm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 66)
+    sk = keys.gen_secret_key64(ctx, gen)
+    pk = keys.gen_public_key64(ctx, sk, gen)
+    rlk = keys.gen_relin_key64(ctx, sk, gen)
+    w1, w2, x = mlp_weights(MLP_D, MLP_BAND, SEED + 33)
+    h2 = w2 @ (w1 @ x) ** 2
+    lt1, lt2 = LinearTransform(w1), LinearTransform(w2)
+    steps = sorted(set(lt1.steps_required()) | set(lt2.steps_required()))
+    glk = keys.create_galois_keys64(ctx, sk, gen, steps=steps)
+    enc, host = CKKSDeviceEncoder(ctx), CKKSEncoder(ctx)
+    q = prm.data_moduli
+    L = prm.size_q
+    s_in = float(q[L - U64_MLP_SCALE_PRIME])
+    torch.cuda.synchronize()
+    key_s = time.time() - t0
+    # layer 1's weights at the prime its rescale drops (chain index 1),
+    # layer 2's likewise at chain index 3: the scale stays s_in
+    for lt, ci in ((lt1, 1), (lt2, 3)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lt.prepare(host, float(ctx.get_context_data(ci).moduli[-1]), ci)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        nd = sum(len(st) for _, st, _ in lt.groups)
+        size = sum(w.numel() * 8 for grp in lt._prepared[ci] for w in grp)
+        print(f"u64 MLP prepare (host encode_extended over QlP) at chain "
+              f"index {ci}: {nd} diagonals in {ms:.0f} ms, "
+              f"{size / 2**30:.2f} GiB of weights [{card}]")
+    print(f"u64 MLP setup: N={prm.n} L={L} alpha={prm.size_p} "
+          f"({max(q).bit_length()}-bit data, "
+          f"{max(prm.special_moduli).bit_length()}-bit special primes), "
+          f"d={MLP_D} (bs {lt1.bs}, gs {lt1.gs}), layer 2 "
+          f"{sum(len(st) for _, st, _ in lt2.groups)} of {MLP_D} diagonals; "
+          f"{len(steps)} Galois keys; scale q[L-{U64_MLP_SCALE_PRIME}] = "
+          f"2^{np.log2(s_in):.4f}; keys on the card {key_s:.1f} s")
+    cc = chebyshev_fit(sigmoid, MLP_DEGREE, MLP_INTERVAL)
+    tiled = np.tile(x, enc.slots // MLP_D)
+    times = []
+
+    def stage(name, fn, reps=REPS):
+        out = _count_app64(wrappers64, f"u64 MLP {name}",
+                           lambda: fn(ksw.KERNELS64), launches, launches64)
+        times.append((name, _time(lambda: fn(ksw.KERNELS64), reps)))
+        return out
+
+    def activation(v, ops):
+        return ev.rescale_to_next(ctx, poly_eval_cheb(
+            ctx, v, cc, rlk, host, interval=MLP_INTERVAL, ops=ops), ops)
+
+    state = gen.get_state()
+    pt = stage("encode", lambda ops: enc.encode(tiled, s_in, ops=ops))
+    ct = keys.encrypt_asymmetric64(ctx, pk, pt, gen)
+    h = stage("layer 1", lambda ops: lt1.apply(ctx, ct, glk, ops=ops), 3)
+    h1 = stage("square", lambda ops: ev.rescale_to_next(ctx, ev.relinearize(
+        ctx, ev.square(ctx, h, ops), rlk, ops), ops))
+    h = stage("layer 2", lambda ops: lt2.apply(ctx, h1, glk, ops=ops), 3)
+    y = stage("activation", lambda ops: activation(h, ops), 3)
+    dec = keys.decrypt64(ctx, sk, y)
+    got = stage("decode", lambda ops: enc.decode(dec, ops))
+    print("u64 MLP circuit: " + ", ".join(f"{nm} {ms:.3f} ms"
+                                          for nm, ms in times)
+          + f"; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    # the whole circuit once more on the plain path, the same draws
+    after = gen.get_state()
+    gen.set_state(state)
+    t0 = time.time()
+    p_ = ksw.PLAIN64
+    v = keys.encrypt_asymmetric64(ctx, pk, enc.encode(tiled, s_in, ops=p_),
+                                  gen, p_)
+    v = lt1.apply(ctx, v, glk, ops=p_)
+    v = ev.rescale_to_next(ctx, ev.relinearize(ctx, ev.square(ctx, v, p_),
+                                               rlk, p_), p_)
+    v = activation(lt2.apply(ctx, v, glk, ops=p_), p_)
+    plain_got = enc.decode(keys.decrypt64(ctx, sk, v, p_), p_)
+    plain_s = time.time() - t0
+    gen.set_state(after)
+    if not (_same(v, y) and np.array_equal(plain_got, got)):
+        raise RuntimeError("u64 MLP circuit: the plain path's final "
+                           "ciphertext or output differs from the kernel "
+                           "path's")
+    modups = [0]
+    real = ksw.modup_from_ntt
+
+    def counted(*a, **kw):
+        modups[0] += 1
+        return real(*a, **kw)
+
+    ksw.modup_from_ntt = linear.modup_from_ntt = counted
+    try:
+        lt1.apply(ctx, ct, glk)
+        m1 = modups[0]
+        lt2.apply(ctx, h1, glk)
+    finally:
+        ksw.modup_from_ntt = linear.modup_from_ntt = real
+    m2 = modups[0] - m1
+    g1 = sum(1 for g, *_ in lt1.groups if g)
+    g2 = sum(1 for g, *_ in lt2.groups if g)
+    print(f"u64 MLP modups: layer 1 {m1} (1 shared by its "
+          f"{len(lt1.groups)} groups + {g1} giant rotations), layer 2 {m2} "
+          f"(1 shared by {len(lt2.groups)} groups + {g2})")
+    if (m1, m2) != (1 + g1, 1 + g2):
+        raise RuntimeError("u64 MLP: not one modup per layer")
+    a, b = MLP_INTERVAL
+    want = np.tile(C.chebval((2 * h2 - (a + b)) / (b - a), cc),
+                   enc.slots // MLP_D)
+    err = float(np.abs(got - want).max())
+    print(f"u64 MLP circuit: kernel path bit-equal to the plain path (the "
+          f"whole circuit, {plain_s:.1f} s) on the final ciphertext (chain "
+          f"index {y.chain_index}, scale 2^{np.log2(y.scale):.4f}) and the "
+          f"decoded output; decoded slots within {err:.3e} of numpy's "
+          f"float64 evaluation (bound {MLP_TOL})")
+
+    def run():
+        v = keys.encrypt_asymmetric64(ctx, pk, enc.encode(tiled, s_in), gen)
+        v = lt1.apply(ctx, v, glk)
+        v = ev.rescale_to_next(ctx, ev.relinearize(ctx, ev.square(ctx, v),
+                                                   rlk))
+        v = activation(lt2.apply(ctx, v, glk), ksw.KERNELS64)
+        return enc.decode(keys.decrypt64(ctx, sk, v))
+
+    print(f"timing u64 MLP circuit end to end (encode to decode): "
+          f"{_time(run, 3):.3f} ms [{card}]")
+    # U1-U4 launch one kernel a call, F1 two at N = 2^16
+    _profile(run, 2, card, "u64 MLP circuit, encode to decode",
+             lambda: sum(w.launches for w in wrappers64)
+             + 2 * cf.ckks_fft.launches)
+    print(f"u64 MLP circuit: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if not err <= MLP_TOL:
+        raise RuntimeError(f"u64 MLP circuit: error {err} > {MLP_TOL}")
+    return err
+
+
+def _u64_app_phases(card, probes64, launches, launches64, dev) -> None:
+    """Phases 48-50."""
+    import torch
+    _f1_wide_phase(card, probes64, dev)
+    _u64_app_golden(dev)
+    torch.cuda.empty_cache()
+    _u64_mlp_phase(card, launches, launches64, dev)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5088,6 +5592,10 @@ def main() -> int:
     probes64, per_call = _u64_phases(card, launches64, dev, path)
     # 44-47. BFV on the u64 evaluator, each multiplication technique
     _u64_bfv_phases(card, probes64, launches64, dev)
+    torch.cuda.empty_cache()
+    # 48-50. the u64 application layer: F1's wide forms, the golden files,
+    # the u64 MLP + Chebyshev circuit
+    _u64_app_phases(card, probes64, launches, launches64, dev)
 
     def summed(name, calls, library_ms=None):
         if not calls:
@@ -5117,10 +5625,13 @@ def main() -> int:
         rows.append(dict(name=f"{name} {attr}", route="cuda", source=src,
                          replaces=repl, launches=launches[name],
                          **probed(probe)))
-    # F1's fused forms: the same kernels and launch count, probed apart
+    # F1's fused forms, 32-bit and wide: the same kernels and launch count,
+    # probed apart
     rows[-1]["forms"] = [
         dict(name=f"{F1_FORMS[f]} {f}", **probed(getattr(probes, f)))
-        for f in F1_FORMS]
+        for f in F1_FORMS] + [
+        dict(name=f"{name} {f}64", **probed(getattr(probes64, f)))
+        for f, name in U64_F1_FORMS.items()]
     for name, attr, src, repl in U64_KERNELS:
         mine = [p for p in probes64 if p.name.split()[0] == name]
         calls = [c for p in mine for c in p.calls]

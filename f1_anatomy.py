@@ -13,11 +13,20 @@ versions.  Needs one CUDA card:
 
 A patch that no longer matches the source raises: update it with the
 source.  chip_smoke.py is the check; this script only measures.
+
+    python3 f1_anatomy.py --sass-against <an earlier tree's ckks_fft.cu>
+
+instead compiles both sources and compares the SASS of every F1 kernel
+function the two hold (names and bodies with the anonymous namespace's
+hash taken out), printing how many are the same instruction for
+instruction and which are new.
 """
 import ctypes
 import os
+import re
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -88,6 +97,50 @@ def start_probes() -> dict:
     return out
 
 
+def _f1_sass(src: str, tmp: str) -> dict:
+    """{function: its SASS lines} of every F1 kernel function of one
+    ckks_fft.cu, compiled with the library's flags, each function named
+    by its mangled name from ckks_fft_row_kernel or ckks_fft_col_kernel
+    on (the anonymous namespace's hash before it left out), without the
+    instructions' addresses, blanks collapsed (cuobjdump pads a file's
+    columns to a width of its own)."""
+    from phantom_tpu_torch import _build
+    so = os.path.join(tmp, f"f1_{len(os.listdir(tmp))}.so")
+    _build._run([([], subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+    out, name = {}, None
+    for line in cs._cuobjdump(so, "-sass").splitlines():
+        if "Function :" in line:
+            m = re.search(r"ckks_fft_(?:row|col)_kernel\w*", line)
+            name = m and m.group(0)
+            if name:
+                out[name] = []
+        elif name and line.strip():
+            out[name].append(" ".join(
+                re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split()))
+    return out
+
+
+def sass_against(other: str) -> int:
+    """Compare the SASS of this tree's F1 kernel functions with those that
+    `other`, an earlier tree's ckks_fft.cu, compiles to."""
+    from phantom_tpu_torch import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        mine = _f1_sass(os.path.join(_build.CSRC, "ckks_fft.cu"), tmp)
+        theirs = _f1_sass(other, tmp)
+    both = sorted(set(mine) & set(theirs))
+    same = [f for f in both if mine[f] == theirs[f]]
+    print(f"F1 SASS against {other}: {len(same)} of {len(both)} functions "
+          f"both hold the same instruction for instruction"
+          + "".join(f"; differs: {f}" for f in both if f not in same)
+          + f"; {len(set(mine) - set(theirs))} new, "
+          f"{len(set(theirs) - set(mine))} gone")
+    for f in sorted(set(mine) - set(theirs)):
+        print(f"F1 SASS new: {f}")
+    return 0
+
+
 class _ProbeLib:
     """The kernel library with F1's entry points taken from a probe."""
 
@@ -108,6 +161,8 @@ def main() -> int:
     card = cs._cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"]).splitlines()[0]
     print(card)
+    if sys.argv[1:2] == ["--sass-against"]:
+        return sass_against(sys.argv[2])
     started = start_probes()
     _build.build()
     base = _build.library()

@@ -20,11 +20,12 @@ relinearize by each technique on two engines (ops/bfv32.py,
 ops/behz32.py) and the BGV multiply + relinearize + modulus switch on
 two engines (ops/bgv32.py).  Primes of 2^30 and more, up to 61 bits,
 take the u64 evaluator (schemes/evaluate.py, the JAX package's generic
-path) for CKKS and BGV: every verb but BFV's, with keygen, encryption
-and decryption (schemes/keys.py's u64 half) and the host CKKSEncoder,
-on u64 words held as int64 tensors and four kernels of its own, U1-U4
-(the NTT, the base conversion, the key inner product and the
-Barrett-128 products).  They run on hand-written
+path) for CKKS, BFV and BGV: every verb, with keygen, encryption and
+decryption (schemes/keys.py's u64 half), both CKKS encoders (the device
+encoder on F1's wide forms), `LinearTransform.apply`, `poly_eval` and
+`poly_eval_cheb`, on u64 words held as int64 tensors and four kernels of
+its own, U1-U4 (the NTT, the base conversion, the key inner product and
+the Barrett-128 products).  They run on hand-written
 CUDA kernels for Hopper (sm_90a, csrc/): the NTTs, all on one one-pass
 radix-8 core that holds each row in a thread-block cluster, the base
 conversions (on the int8 tensor cores), the fused modup + key inner
@@ -45,8 +46,9 @@ from .schemes.batch_encoder import BatchEncoder  # noqa: F401
 from .schemes.ckks_encoder import (CKKSDeviceEncoder,  # noqa: F401
                                    CKKSEncoder, encode_extended)
 from .schemes.linear import LinearTransform  # noqa: F401
-from .schemes.poly import (chebyshev_fit,  # noqa: F401
-                           poly_eval_cheb_fast32, poly_eval_fast32)
+from .schemes.poly import (chebyshev_fit, poly_eval,  # noqa: F401
+                           poly_eval_cheb, poly_eval_cheb_fast32,
+                           poly_eval_fast32)
 from .schemes.keys import create_galois_keys  # noqa: F401
 from .schemes.params import EncryptionParameters  # noqa: F401
 from .ops.bfv32 import (BFVPipeline32, bfv_mult_relin32,  # noqa: F401

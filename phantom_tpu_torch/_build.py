@@ -41,6 +41,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 _SIGNATURES = {
     "ptk_error_string": ([_I], ctypes.c_char_p),
     "ptk_ntt_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -64,6 +65,10 @@ _SIGNATURES = {
                             _I),
     "ptk_ckks_fft_decode": ([_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
                              _P], _I),
+    "ptk_ckks_fft_encode64": ([_P, _I, _D, _P, _I, _P, _P, _P, _P, _I,
+                               _P], _I),
+    "ptk_ckks_fft_decode64": ([_P, _I, _U, _U, _U, _U, _U, _F, _P, _P, _P,
+                               _P, _I, _P], _I),
     "ptk_ckks_fft_grids": ([_P, _I], _I),
     "ptk_u64_ntt": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "ptk_u64_bconv": ([_P] * 15 + [_I] * 4 + [_P], _I),

@@ -34,6 +34,21 @@
 //                        times the f32 1/scale; the forward FFT; then each
 //                        slot's position (slot_of >= 0) writes hi + lo in
 //                        f64, per part: the (n/2, 2) float64 slot values.
+//   ptk_ckks_fft_encode64, ptk_ckks_fft_decode64
+//                        the same two forms on 64-bit words, for primes up
+//                        to 2^61 (the u64 evaluator's): the residues are
+//                        int64 words, x mod q in [0, q) for |x| < 2^62
+//                        (barrett64 of |x| with floor(2^64 / q), then q - r
+//                        for a negative x); the limbs are int64 words,
+//                        composed by the wide Garner step (x0 mod q1 first,
+//                        since q0 may pass q1; t = (x1 - x0) q0^-1 mod q1 by
+//                        Shoup, centered; m = x0 + q0 t_c in int64, which
+//                        wraps as the plain version's does for inputs that
+//                        cannot be decoded).  Only the two ends differ: the
+//                        transform passes and the launches are the 32-bit
+//                        forms', and each 32-bit form's instantiation is
+//                        the same code (the wide ones are the In / Out
+//                        values kInLimbs64 and kOutResidues64).
 //
 // Bound (NVIDIA H100 SXM: 3.35 TB/s; f32 at 132 SMs x 128 lanes x 1.98 GHz
 // = 33.5 T/s).  A butterfly is 162 f32 operations (cdf_mul: four df_mul of
@@ -41,7 +56,8 @@
 // n = 2^16 has 16 stages of 32768: 84.9 M operations, 2.53 us, against
 // 3.1 MB (x, the table, the result) = 0.94 us, so the bare form is bound by
 // operations; so is decode (2.4 MB).  Encode at chain index 1 (k = 43)
-// writes 11.3 MB of residues: about 13 MB, 3.9 us, bound by bytes.
+// writes 11.3 MB of residues: about 13 MB, 3.9 us, bound by bytes; the wide
+// encode form writes twice that, 22.5 MB.
 //
 // Design.  One vector of 2^16 words must be spread over all 132 SMs, which
 // no block and no cluster holds, so the transform splits by the butterfly
@@ -87,6 +103,8 @@
 
 #include <cstdint>
 
+#include "modarith64.cuh"
+
 namespace ptk {
 namespace {
 
@@ -100,8 +118,8 @@ constexpr int kLogMaxSub = 11;    // the largest subproblem, 2^11 words
 constexpr int kPad = 16;          // words after each subproblem in shared
 constexpr int kMaxGrids = 8;      // launches of one call recorded
 
-enum { kInPlanes, kInSlots, kInLimbs };
-enum { kOutPlanes, kOutSlots, kOutResidues };
+enum { kInPlanes, kInSlots, kInLimbs, kInLimbs64 };
+enum { kOutPlanes, kOutSlots, kOutResidues, kOutResidues64 };
 
 struct DF {
   float hi, lo;
@@ -201,6 +219,11 @@ __device__ __forceinline__ int sw(int j) { return j ^ (((j >> 5) & 1) * 31); }
 // it is not 0; slots: (n/2, 2) float64 written (kOutSlots); res, q, k: the
 // (k, n) residues modulo q[0..k) (kOutResidues); slot_of: position ->
 // slot j, or ~j for a conjugate; w: the direction's (4, n) twiddle table.
+// The wide forms (after inv_n, so the 32-bit forms' fields keep their
+// offsets): limbs64, the int64 limbs 0 (and 1) with Garner's q0w, q1w,
+// qinvw = q0^-1 mod q1, its Shoup word qinv_shoup and mu1w = floor(2^64 /
+// q1) (kInLimbs64); res64 and q64, the (k, n) int64 residues and the (k,)
+// int64 moduli (kOutResidues64).
 struct FftArgs {
   const float* x;
   const double* z;
@@ -219,6 +242,10 @@ struct FftArgs {
   const float* w;
   int logn, lr, lc;  // n = 2^logn = 2^lr x 2^lc; lc = 0: one block
   float inv_n;
+  const int64_t* limbs64;
+  int64_t* res64;
+  const int64_t* q64;
+  uint64_t q0w, q1w, qinvw, qinv_shoup, mu1w;
 };
 
 // -- the prologues' and epilogues' arithmetic ------------------------------
@@ -285,6 +312,28 @@ __device__ __forceinline__ int64_t centered(const FftArgs& a, uint32_t x0,
   const uint32_t u = reduce(static_cast<uint64_t>(dm) * a.qinv, a.q1, mu1);
   const int64_t uc = u > a.q1 / 2 ? static_cast<int64_t>(u) - a.q1 : u;
   return static_cast<int64_t>(x0) + static_cast<int64_t>(a.q0) * uc;
+}
+
+// the wide forms' centered value of limb words x0 (and x1), by Garner:
+// x0 mod q1 first (q0 may pass q1), t = (x1 - x0) q0^-1 mod q1 by Shoup,
+// centered against q1 / 2, m = x0 + q0 t_c mod 2^64
+__device__ __forceinline__ int64_t centered64(const FftArgs& a, uint64_t x0,
+                                              uint64_t x1) {
+  if (a.rows == 1)
+    return static_cast<int64_t>(x0 > a.q0w / 2 ? x0 - a.q0w : x0);
+  const uint64_t d =
+      ptk64::sub_mod(x1, ptk64::barrett64(x0, a.q1w, a.mu1w), a.q1w);
+  const uint64_t u = ptk64::shoup(d, a.qinvw, a.qinv_shoup, a.q1w);
+  const uint64_t uc = u > a.q1w / 2 ? u - a.q1w : u;
+  return static_cast<int64_t>(x0 + a.q0w * uc);
+}
+
+// v mod q in [0, q) for |v| < 2^62 and q < 2^61: |v| mod q by barrett64
+// with mu = floor(2^64 / q), then q - r for a negative v
+__device__ __forceinline__ int64_t floor_mod64(bool neg, uint64_t u,
+                                               uint64_t q, uint64_t mu) {
+  const uint64_t r = ptk64::barrett64(u, q, mu);
+  return static_cast<int64_t>(neg && r ? q - r : r);
 }
 
 // (re_hi, re_lo, 0, 0) of a centered value: its f32 split, times 1/scale
@@ -427,6 +476,11 @@ __device__ void row_body(const FftArgs& a, float* sm) {
         const uint32_t x1 = a.rows == 2 ? static_cast<uint32_t>(
             __ldcg(a.limbs + n + base + e)) : 0u;
         v = limb_word(a, centered(a, x0, x1, mu1));
+      } else if constexpr (In == kInLimbs64) {
+        const uint64_t x0 = static_cast<uint64_t>(__ldcg(a.limbs64 + base + e));
+        const uint64_t x1 = a.rows == 2 ? static_cast<uint64_t>(
+            __ldcg(a.limbs64 + n + base + e)) : 0ull;
+        v = limb_word(a, centered64(a, x0, x1));
       } else {
         v = make_float4(__ldcg(a.x + base + e), __ldcg(a.x + n + base + e),
                         __ldcg(a.x + 2 * n + base + e),
@@ -455,6 +509,10 @@ __device__ void row_body(const FftArgs& a, float* sm) {
     for (int i = threadIdx.x; i < a.k; i += blockDim.x)
       mu[i] = barrett_mu(static_cast<uint32_t>(__ldg(a.q + i)));
     __syncthreads();
+  } else if constexpr (Out == kOutResidues64) {
+    for (int i = threadIdx.x; i < a.k; i += blockDim.x)
+      mu[i] = ~0ull / static_cast<uint64_t>(__ldg(a.q64 + i));
+    __syncthreads();
   }
   for (int e = threadIdx.x; e < words; e += blockDim.x) {
     const float* b = sm + (e >> a.lr) * ss + sw(e & (r - 1));
@@ -471,6 +529,13 @@ __device__ void row_body(const FftArgs& a, float* sm) {
             __dadd_rn(static_cast<double>(b[0]), static_cast<double>(b[ps])),
             __dadd_rn(static_cast<double>(b[2 * ps]),
                       static_cast<double>(b[3 * ps])));
+    } else if constexpr (Out == kOutResidues64) {
+      const int64_t v = round_df(fmul(b[0], a.inv_n), fmul(b[ps], a.inv_n));
+      const bool neg = v < 0;
+      const uint64_t u = neg ? 0ull - static_cast<uint64_t>(v) : v;
+      for (int i = 0; i < a.k; ++i)
+        a.res64[i * n + pos] = floor_mod64(
+            neg, u, static_cast<uint64_t>(__ldg(a.q64 + i)), mu[i]);
     } else {
       const int64_t v = round_df(fmul(b[0], a.inv_n), fmul(b[ps], a.inv_n));
       for (int i = 0; i < a.k; ++i)
@@ -483,11 +548,12 @@ __device__ void row_body(const FftArgs& a, float* sm) {
 // -- the column pass -------------------------------------------------------
 
 // Shared floats of a column block: the planes, the twiddles, then (encode)
-// the int64 coefficients and the primes' Barrett constants.
-inline int col_smem(int lc, int k, bool residues) {
+// the int64 coefficients, the primes' Barrett constants and the primes
+// (32- or, wide, 64-bit).
+inline int col_smem(int lc, int k, bool residues, bool wide) {
   const int c = 1 << lc;
   return 4 * kSubs * (c + kPad) + 4 * c +
-         (residues ? 2 * (kSubs * c + k) + k : 0);
+         (residues ? 2 * (kSubs * c + k) + (wide ? 2 : 1) * k : 0);
 }
 
 // the column twiddles: local index i is the table's entry i
@@ -519,6 +585,25 @@ __device__ void col_body(const FftArgs& a, float* sm) {
           a.x + p * n + c0 + (static_cast<int64_t>(j) << a.lr)));
       sm[p * ps + sw(j)] = v.x;
       sm[p * ps + ss + sw(j)] = v.y;
+    }
+  } else if constexpr (In == kInLimbs64) {
+    for (int j = threadIdx.x; j < c; j += blockDim.x) {
+      const int64_t pos = c0 + (static_cast<int64_t>(j) << a.lr);
+      const longlong2 x0 =
+          __ldcg(reinterpret_cast<const longlong2*>(a.limbs64 + pos));
+      const longlong2 x1 = a.rows == 2 ? __ldcg(reinterpret_cast<
+          const longlong2*>(a.limbs64 + n + pos)) : make_longlong2(0, 0);
+      const float4 w0 = limb_word(a, centered64(a, x0.x, x1.x));
+      const float4 w1 = limb_word(a, centered64(a, x0.y, x1.y));
+      float* d = sm + sw(j);
+      d[0] = w0.x;
+      d[ps] = w0.y;
+      d[2 * ps] = w0.z;
+      d[3 * ps] = w0.w;
+      d[ss] = w1.x;
+      d[ps + ss] = w1.y;
+      d[2 * ps + ss] = w1.z;
+      d[3 * ps + ss] = w1.w;
     }
   } else {
     const uint64_t mu1 = a.rows == 2 ? barrett_mu(a.q1) : 0;
@@ -552,6 +637,40 @@ __device__ void col_body(const FftArgs& a, float* sm) {
       *reinterpret_cast<float2*>(a.y + p * n + c0 +
                                  (static_cast<int64_t>(j) << a.lr)) = v;
     }
+  } else if constexpr (Out == kOutResidues64) {
+    // as below, 16 bytes a prime a row (two adjacent classes' words)
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int rb = c / kClusterBlocks;
+    const int64_t cc0 = c0 - rank * kSubs;
+    int64_t* v = reinterpret_cast<int64_t*>(sm + 4 * ps + 4 * c);
+    uint64_t* mu = reinterpret_cast<uint64_t*>(v + kSubs * c);
+    uint64_t* qs = mu + a.k;
+    for (int e = threadIdx.x; e < kSubs * c; e += blockDim.x) {
+      const float* b = sm + (e >> a.lc) * ss + sw(e & (c - 1));
+      v[e] = round_df(fmul(b[0], a.inv_n), fmul(b[ps], a.inv_n));
+    }
+    for (int i = threadIdx.x; i < a.k; i += blockDim.x) {
+      qs[i] = static_cast<uint64_t>(__ldg(a.q64 + i));
+      mu[i] = ~0ull / qs[i];
+    }
+    cluster.sync();
+    for (int e = threadIdx.x; e < kClusterBlocks * rb; e += blockDim.x) {
+      const int o = e & (kClusterBlocks - 1), j = rank * rb + (e >> 2);
+      const int64_t* vo = cluster.map_shared_rank(v, o);
+      const int64_t v0 = vo[j], v1 = vo[c + j];
+      const bool n0 = v0 < 0, n1 = v1 < 0;
+      const uint64_t u0 = n0 ? 0ull - static_cast<uint64_t>(v0) : v0;
+      const uint64_t u1 = n1 ? 0ull - static_cast<uint64_t>(v1) : v1;
+      int64_t* dst = a.res64 + cc0 + kSubs * o +
+                     (static_cast<int64_t>(j) << a.lr);
+#pragma unroll 4
+      for (int i = 0; i < a.k; ++i)
+        *reinterpret_cast<longlong2*>(dst + i * n) =
+            make_longlong2(floor_mod64(n0, u0, qs[i], mu[i]),
+                           floor_mod64(n1, u1, qs[i], mu[i]));
+    }
+    cluster.sync();
   } else {
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
@@ -687,6 +806,8 @@ cudaError_t run_form(FftArgs a, FftArgs b, int n, int k,
     one.slots = b.slots;
     one.res = b.res;
     one.q = b.q;
+    one.res64 = b.res64;
+    one.q64 = b.q64;
     one.k = b.k;
     one.logn = logn;
     one.lr = logn;
@@ -703,8 +824,8 @@ cudaError_t run_form(FftArgs a, FftArgs b, int n, int k,
   b.inv_n = Inv ? inv_n : 0.0f;
   const int col_blocks = 1 << (lr - 1), row_blocks = 1 << (lc - 1);
   // encode's column pass writes its residues through clusters of four
-  const bool residues = OutB == kOutResidues;
-  const int cw = col_smem(lc, k, residues);
+  const bool residues = OutB == kOutResidues || OutB == kOutResidues64;
+  const int cw = col_smem(lc, k, residues, OutB == kOutResidues64);
   const int rw = row_smem(lr, lc, 0);
   cudaError_t e =
       Inv ? launch(ckks_fft_row_kernel<InA, OutA, Inv>, row_blocks, rw,
@@ -790,6 +911,57 @@ int ptk_ckks_fft_decode(const void* limbs, int rows, int q0, int q1,
   b.slots = static_cast<double*>(out);
   return static_cast<int>(
       run_form<kInLimbs, kOutPlanes, kInPlanes, kOutSlots, false>(
+          a, b, n, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// F1's wide encode form: as ptk_ckks_fft_encode, into res (k, n) int64
+// residues modulo q (k,) int64 primes below 2^61.
+int ptk_ckks_fft_encode64(const void* z, int count, double scale,
+                          const void* q, int k, const void* slot_of,
+                          const void* w, void* scratch, void* res, int n,
+                          void* stream) {
+  FftArgs a = {};
+  a.w = static_cast<const float*>(w);
+  a.slot_of = static_cast<const int32_t*>(slot_of);
+  a.z = static_cast<const double*>(z);
+  a.count = count;
+  a.scale = scale;
+  a.y = static_cast<float*>(scratch);
+  FftArgs b = a;
+  b.x = a.y;
+  b.res64 = static_cast<int64_t*>(res);
+  b.q64 = static_cast<const int64_t*>(q);
+  b.k = k;
+  return static_cast<int>(
+      run_form<kInSlots, kOutPlanes, kInPlanes, kOutResidues64, true>(
+          a, b, n, k, static_cast<cudaStream_t>(stream)));
+}
+
+// F1's wide decode form: limbs (rows, n) int64 words modulo q0 (and q1;
+// qinv = q0^-1 mod q1, qinv_shoup = floor(qinv 2^64 / q1), mu1 =
+// floor(2^64 / q1)), at 1/scale = inv_scale -> out (n/2, 2) float64.
+int ptk_ckks_fft_decode64(const void* limbs, int rows, uint64_t q0,
+                          uint64_t q1, uint64_t qinv, uint64_t qinv_shoup,
+                          uint64_t mu1, float inv_scale, const void* slot_of,
+                          const void* w, void* scratch, void* out, int n,
+                          void* stream) {
+  FftArgs a = {};
+  a.w = static_cast<const float*>(w);
+  a.slot_of = static_cast<const int32_t*>(slot_of);
+  a.limbs64 = static_cast<const int64_t*>(limbs);
+  a.rows = rows;
+  a.q0w = q0;
+  a.q1w = q1;
+  a.qinvw = qinv;
+  a.qinv_shoup = qinv_shoup;
+  a.mu1w = mu1;
+  a.inv_scale = inv_scale;
+  a.y = static_cast<float*>(scratch);
+  FftArgs b = a;
+  b.x = a.y;
+  b.slots = static_cast<double*>(out);
+  return static_cast<int>(
+      run_form<kInLimbs64, kOutPlanes, kInPlanes, kOutSlots, false>(
           a, b, n, 0, static_cast<cudaStream_t>(stream)));
 }
 

@@ -29,7 +29,14 @@ for bit, in three forms that share one launch count (`ckks_fft.launches`):
   ckks_fft_decode  the first two coefficient-form limbs in, slot values
                    out: the centered value by Garner (garner_centered),
                    split and scaled in f32, the forward transform, the
-                   slots gathered and summed in float64.
+                   slots gathered and summed in float64;
+  ckks_fft_encode64, ckks_fft_decode64
+                   the same two forms on 64-bit words for the u64
+                   evaluator's primes (up to 2^61): int64 residues, each
+                   rounded coefficient x as x mod q in [0, q) (the JAX
+                   package's reduce_i64_centered, for |x| < 2^62); int64
+                   limbs composed by the wide Garner step
+                   (garner_centered64).
 
 It is not a TPU kernel: the JAX package runs this transform as XLA
 fusions and the scatter in numpy on the host.  The plain transforms take
@@ -47,6 +54,7 @@ from torch import nn
 
 from .. import _build
 from ..host.ntt_tables import bit_reverse_indices
+from . import modmath as mm
 
 _SPLIT = 4097.0  # 2^12 + 1, the Veltkamp split for f32
 
@@ -289,7 +297,12 @@ def ckks_fft_decode_plain(x: torch.Tensor, moduli, scale: float,
     coefficient form -> the slot values (N/2, 2) float64 (re, im): the
     centered coefficients split into f32 (hi, lo), times the f32 1/scale,
     the forward transform, the slots gathered and hi + lo in float64."""
-    m = garner_centered(x, moduli)
+    return _decode_tail(garner_centered(x, moduli), scale, t)
+
+
+def _decode_tail(m: torch.Tensor, scale: float,
+                 t: CKKSFFTTables) -> torch.Tensor:
+    """The centered coefficients m (N,) int64 -> the slot values."""
     hi = m.float()
     lo = (m - hi.long()).float()
     inv = float(np.float32(1.0 / scale))
@@ -297,6 +310,56 @@ def ckks_fft_decode_plain(x: torch.Tensor, moduli, scale: float,
     ev = ckks_fft_plain(torch.stack([hi * inv, lo * inv, zero, zero]), t)
     g = ev[:, t.slot_pos].double()
     return torch.stack([g[0] + g[1], g[2] + g[3]], dim=1)
+
+
+def ckks_fft_encode64_plain(z: torch.Tensor, scale: float, q: torch.Tensor,
+                            t: CKKSFFTTables) -> torch.Tensor:
+    """The wide encode form's plain version: as ckks_fft_encode_plain, into
+    (k, N) int64 words modulo q, (k,) int64 primes below 2^61: each
+    rounded coefficient x (|x| < 2^62) as x mod q in [0, q)."""
+    c = ckks_fft_plain(scatter_plain(z, scale, t), t, inverse=True)
+    return torch.remainder(round_coeffs(c[0], c[1]), q.view(-1, 1))
+
+
+def _i64(v: int) -> int:
+    """A word below 2^64 as the int64 of its bit pattern."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def garner_constants(moduli) -> tuple:
+    """(q0, q1, q0^-1 mod q1, its Shoup word floor(q0^-1 2^64 / q1),
+    floor(2^64 / q1)) of the first two moduli, as Python ints; (q0, 1, 0,
+    0, 0) for one."""
+    q0 = int(moduli[0])
+    if len(moduli) == 1:
+        return q0, 1, 0, 0, 0
+    q1 = int(moduli[1])
+    inv = pow(q0 % q1, -1, q1)
+    return q0, q1, inv, (inv << 64) // q1, (1 << 64) // q1
+
+
+def garner_centered64(x: torch.Tensor, moduli) -> torch.Tensor:
+    """The centered value (N,) int64 of the first limbs x, (r, N) int64
+    words with r = len(moduli) of 1 or 2, by the wide Garner step: x0 mod
+    q1 first (q0 may pass q1), t = (x1 - x0) q0^-1 mod q1, centered
+    against q1 / 2, then m = x0 + q0 t_c in int64: exact for |value| <=
+    q0 (q1 - 1) / 2 below 2^63, wrapping as the JAX package's int64 does
+    beyond."""
+    q0, q1, inv, inv_shoup, _ = garner_constants(moduli)
+    x0 = x[0]
+    if len(moduli) == 1:
+        return torch.where(x0 > q0 // 2, x0 - q0, x0)
+    d = mm.sub_mod(x[1], torch.remainder(x0, q1), q1)
+    u = mm.mul_mod_shoup(d, inv, torch.tensor(_i64(inv_shoup),
+                                              device=x.device), q1)
+    return x0 + q0 * torch.where(u > q1 // 2, u - q1, u)
+
+
+def ckks_fft_decode64_plain(x: torch.Tensor, moduli, scale: float,
+                            t: CKKSFFTTables) -> torch.Tensor:
+    """The wide decode form's plain version: as ckks_fft_decode_plain on
+    int64 limbs x (r, N), the centered value by garner_centered64."""
+    return _decode_tail(garner_centered64(x, moduli), scale, t)
 
 
 # -- F1 ---------------------------------------------------------------------
@@ -400,5 +463,70 @@ def ckks_fft_decode(x: torch.Tensor, moduli, scale: float,
             t.slot_of.data_ptr(), t.fwd.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), n, _build.stream(x))
     _build.check(err, "ckks_fft_decode")
+    ckks_fft.launches += 1
+    return out
+
+
+def ckks_fft_encode64(z: torch.Tensor, scale: float, q: torch.Tensor,
+                      t: CKKSFFTTables) -> torch.Tensor:
+    """F1's wide encode form on a CUDA tensor, its plain version on a CPU
+    one: the slots z, (m, 2) float64 with m <= N/2, at `scale` -> (k, N)
+    int64 residues modulo q, (k,) int64 primes below 2^61, bit-equal to
+    ckks_fft_encode64_plain.  Counts in ckks_fft.launches."""
+    if _build.is_plain(z, "ckks_fft_encode64"):
+        return ckks_fft_encode64_plain(z, scale, q, t)
+    n = t.n
+    if (z.dim() != 2 or z.shape[1] != 2 or z.shape[0] > n // 2
+            or z.dtype != torch.float64 or not z.is_contiguous()
+            or t.fwd.device != z.device):
+        raise ValueError(f"ckks_fft_encode64: z must be a contiguous (m, 2) "
+                         f"float64 tensor, m <= {n // 2}, on the tables' "
+                         f"device")
+    _check_n(n, "ckks_fft_encode64")
+    if (q.dim() != 1 or q.dtype != torch.int64 or not q.is_contiguous()
+            or q.device != z.device):
+        raise ValueError("ckks_fft_encode64: q must be a contiguous (k,) "
+                         "int64 tensor on z's device")
+    _build.check_aligned(z)
+    k = q.shape[0]
+    out = torch.empty((k, n), dtype=torch.int64, device=z.device)
+    scratch = torch.empty((4, n), dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        err = _build.library().ptk_ckks_fft_encode64(
+            z.data_ptr(), z.shape[0], float(scale), q.data_ptr(), k,
+            t.slot_of.data_ptr(), t.inv.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), n, _build.stream(z))
+    _build.check(err, "ckks_fft_encode64")
+    ckks_fft.launches += 1
+    return out
+
+
+def ckks_fft_decode64(x: torch.Tensor, moduli, scale: float,
+                      t: CKKSFFTTables) -> torch.Tensor:
+    """F1's wide decode form on a CUDA tensor, its plain version on a CPU
+    one: the first limbs x, (r, N) int64 words in coefficient form with r
+    = len(moduli) of 1 or 2, at `scale` -> the slot values (N/2, 2)
+    float64, bit-equal to ckks_fft_decode64_plain.  Counts in
+    ckks_fft.launches."""
+    if _build.is_plain(x, "ckks_fft_decode64"):
+        return ckks_fft_decode64_plain(x, moduli, scale, t)
+    n = t.n
+    r = len(moduli)
+    if (r not in (1, 2) or x.shape != (r, n) or x.dtype != torch.int64
+            or not x.is_contiguous() or t.fwd.device != x.device):
+        raise ValueError(f"ckks_fft_decode64: x must be a contiguous ({r}, "
+                         f"{n}) int64 tensor on the tables' device, with "
+                         f"one or two moduli")
+    _check_n(n, "ckks_fft_decode64")
+    _build.check_aligned(x)
+    out = torch.empty((n // 2, 2), dtype=torch.float64, device=x.device)
+    scratch = torch.empty((4, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().ptk_ckks_fft_decode64(
+            x.data_ptr(), r, *garner_constants(moduli),
+            float(np.float32(1.0 / scale)), t.slot_of.data_ptr(),
+            t.fwd.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
+            _build.stream(x))
+    _build.check(err, "ckks_fft_decode64")
     ckks_fft.launches += 1
     return out

@@ -15,19 +15,26 @@ host.  On a context with primes of 2^30 or more (the u64 evaluator's)
 the residues are u64 words and both transforms are U1 (ops/ntt.py); the
 `ops` given map to KERNELS64 or, for pipeline32.PLAIN, PLAIN64.
 
-CKKSDeviceEncoder is the JAX package's device encoder on its u32 path
-(every prime below 2^30): the float stage is the double-float special FFT
+CKKSDeviceEncoder is the JAX package's device encoder, on its u32 path
+(every prime below 2^30) and on its wide one (the u64 evaluator's primes,
+up to 2^61): the float stage is the double-float special FFT
 (ops/ckks_fft.py, F1 on the card), and the exact stages stay on the
 device.  Encode copies the slot values to the device as they are and runs
 F1's encode form (the scatter at the scale, the inverse FFT, the rounding
 to int64 and the reduction into the level's primes in one call), then
-the forward NTT (K2); decode takes the inverse NTT (K1) of the first two
-limbs only and F1's decode form (the centered value composed from them by
-Garner, valid while |value| < q0 q1 / 2, so it never overflows where the
-host decode's exact CRT raises, then the forward FFT and the slots).  Its
-f32 arithmetic is the JAX package's evaluated op by op; the jitted JAX
-encoder's XLA fusions round some double-float words differently on the
-CPU, so its residues may differ by one in a coefficient.
+the forward NTT (K2; U1 on a wide context, over ntt64's rows); decode
+takes the inverse NTT (K1; U1) of the first two limbs only and F1's
+decode form (the centered value composed from them by Garner, valid
+while |value| < q0 q1 / 2 and, on the wide path, below 2^63, so it
+never overflows where the host decode's exact CRT raises, then the
+forward FFT and the slots).  The JAX package transforms every limb
+before its wide decode; the transform works row by row, so the answer
+is the same.  On a wide context F1's wide forms take int64 words
+(Kernels64's ckks_fft_encode and ckks_fft_decode; the `ops` given map
+as for the host encoder).  Its f32 arithmetic is the JAX package's
+evaluated op by op; the jitted JAX encoder's XLA fusions round some
+double-float words differently on the CPU, so its residues may differ by
+one in a coefficient.
 """
 
 from __future__ import annotations
@@ -44,26 +51,34 @@ from .context import Context, qlp_rows
 from .keyswitch import KERNELS64, PLAIN64, Kernels64
 
 
-def _rns(coeffs: np.ndarray, moduli, max_coeff: float,
-         wide: bool = False) -> np.ndarray:
+def _rns(coeffs: np.ndarray, moduli, wide: bool = False) -> np.ndarray:
     """Round the real coefficients to integers and reduce them mod each
-    prime: (len(moduli), N) int32, or int64 words for a wide context."""
-    if max_coeff < 2 ** 62:
-        ints64 = np.round(coeffs).astype(np.int64)
-        rns = np.stack([ints64 % np.int64(q) for q in moduli])
-    else:
-        ints = [int(round(c)) for c in coeffs]
-        rns = np.stack([np.array([x % q for x in ints], dtype=np.int64)
-                        for q in moduli])
+    prime: (len(moduli), N) int32, or int64 words for a wide context.
+    Coefficients of 2^62 or more take exact Python integers, the others
+    int64 (a constant at a large scale has one such coefficient)."""
+    small = np.abs(coeffs) < 2 ** 62
+    ints64 = np.round(np.where(small, coeffs, 0.0)).astype(np.int64)
+    big = np.flatnonzero(~small)
+    rns = np.stack([ints64 % np.int64(q) for q in moduli])
+    ints = [int(round(c)) for c in coeffs[big]]
+    for row, q in zip(rns, moduli):
+        row[big] = [x % q for x in ints]
     return rns if wide else rns.astype(np.int32)
+
+
+def _ops64(ops) -> Kernels64:
+    """The u64 kernels for `ops`: itself, or PLAIN64 for pipeline32.PLAIN,
+    else KERNELS64."""
+    if isinstance(ops, Kernels64):
+        return ops
+    return PLAIN64 if ops is PLAIN else KERNELS64
 
 
 def _transform(ctx: Context, ops, inverse: bool):
     """(transform, tables) over the context's words: ops' K2 / K1 on a
     32-bit context, U1 on a wide one."""
     if ctx.wide:
-        ops64 = ops if isinstance(ops, Kernels64) else (
-            PLAIN64 if ops is PLAIN else KERNELS64)
+        ops64 = _ops64(ops)
         fn = ops64.ntt_inverse if inverse else ops64.ntt_forward
         return fn, ctx.ntt64
     return (ops.ntt_inverse if inverse else ops.ntt_forward), ctx.ntt
@@ -134,8 +149,7 @@ class CKKSEncoder:
         coeffs = self._coeffs(values, scale)
         max_coeff = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
         _check_budget(max_coeff, cd.moduli)
-        rns = torch.from_numpy(_rns(coeffs, cd.moduli, max_coeff,
-                                    ctx.wide)).to(
+        rns = torch.from_numpy(_rns(coeffs, cd.moduli, ctx.wide)).to(
             ctx.key_q.device)
         fwd, tables = _transform(ctx, ops, False)
         data = fwd(rns, tables, ctx.rows_qp[:cd.size_ql])
@@ -178,7 +192,7 @@ def encode_extended(enc: CKKSEncoder, values, scale: float,
     max_coeff = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
     _check_budget(max_coeff, moduli)
     dev = ctx.key_q.device
-    rns = torch.from_numpy(_rns(coeffs, moduli, max_coeff, ctx.wide)).to(dev)
+    rns = torch.from_numpy(_rns(coeffs, moduli, ctx.wide)).to(dev)
     fwd, tables = _transform(ctx, ops, False)
     return fwd(rns, tables, torch.tensor(rows, dtype=torch.int32,
                                          device=dev))
@@ -186,28 +200,29 @@ def encode_extended(enc: CKKSEncoder, values, scale: float,
 
 class CKKSDeviceEncoder:
     """Encode and decode on the context's device through F1's fused forms,
-    the JAX package's CKKSDeviceEncoder on its u32 path.  Every method
-    takes `ops`, the kernels it calls (F1's forms, K1, K2; pipeline32.PLAIN
-    for the plain versions)."""
+    the JAX package's CKKSDeviceEncoder.  Every method takes `ops`, the
+    kernels it calls: F1's forms, K1, K2 (pipeline32.PLAIN for the plain
+    versions); on a wide context F1's wide forms and U1 (Kernels64, or
+    the mapping of _ops64)."""
 
     def __init__(self, ctx: Context):
         if ctx.params.scheme != "ckks":
             raise ValueError("CKKSDeviceEncoder requires a CKKS context")
-        if max(ctx.params.coeff_modulus) >= 1 << 30:
-            raise ValueError(
-                "CKKSDeviceEncoder runs the u32 path only (every prime below "
-                "2^30); wider primes wait for the u64 evaluator (ROADMAP.md "
-                "section 1, item 8)")
         self.ctx = ctx
         self.slots = ctx.params.n // 2
         self.tables = CKKSFFTTables(ctx.params.n).to(ctx.key_q.device)
 
-    def _slots(self, values) -> torch.Tensor:
+    def _slots(self, values, scale: float) -> torch.Tensor:
         """The slot values as an (m, 2) float64 (re, im) tensor on the
-        host, m <= N/2."""
+        host, m <= N/2.  Raises where a coefficient could reach 2^62 (each
+        is at most scale max |value|): the double-float path rounds to
+        int64, the host CKKSEncoder encodes such constants exactly."""
         v = np.asarray(values, dtype=np.complex128).ravel()
         if v.shape[0] > self.slots:
             raise ValueError("too many values for slot count")
+        if v.size and scale * float(np.abs(v).max()) >= 2.0 ** 62:
+            raise ValueError("CKKSDeviceEncoder: scale x |value| reaches "
+                             "2^62; encode with the host CKKSEncoder")
         return torch.from_numpy(v.view(np.float64).reshape(-1, 2))
 
     def encode_ints(self, values, scale: float,
@@ -215,7 +230,7 @@ class CKKSDeviceEncoder:
         """The rounded coefficients (N,) int64: the bare inverse FFT of the
         scattered slots, then round(hi) + round(lo + (hi - round(hi)))
         (half to even)."""
-        z = self._slots(values).to(self.ctx.key_q.device)
+        z = self._slots(values, scale).to(self.ctx.key_q.device)
         c = ops.ckks_fft(scatter_plain(z, scale, self.tables), self.tables,
                          inverse=True)
         return round_coeffs(c[0], c[1])
@@ -228,9 +243,12 @@ class CKKSDeviceEncoder:
         ctx = self.ctx
         ci = ctx.first_data_index if chain_index is None else chain_index
         k = ctx.get_context_data(ci).size_ql
-        z = self._slots(values).to(ctx.key_q.device)
+        z = self._slots(values, scale).to(ctx.key_q.device)
+        if ctx.wide:
+            ops = _ops64(ops)
         rns = ops.ckks_fft_encode(z, scale, ctx.key_q[:k], self.tables)
-        data = ops.ntt_forward(rns, ctx.ntt, ctx.rows_qp[:k])
+        fwd, tables = _transform(ctx, ops, False)
+        data = fwd(rns, tables, ctx.rows_qp[:k])
         return Plaintext(data=data, chain_index=ci, is_ntt_form=True,
                          scale=scale)
 
@@ -241,7 +259,9 @@ class CKKSDeviceEncoder:
         ctx = self.ctx
         moduli = ctx.get_context_data(plain.chain_index).moduli[:2]
         r = len(moduli)
-        x = ops.ntt_inverse(plain.data[:r].contiguous(), ctx.ntt,
-                            ctx.rows_qp[:r])
+        if ctx.wide:
+            ops = _ops64(ops)
+        inv, tables = _transform(ctx, ops, True)
+        x = inv(plain.data[:r].contiguous(), tables, ctx.rows_qp[:r])
         out = ops.ckks_fft_decode(x, moduli, plain.scale, self.tables)
         return torch.view_as_complex(out).cpu().numpy()

@@ -39,6 +39,10 @@ rescale, key-switch and BGV constants of the JAX package's context, and
 for BFV the HPS, leveled, BEHZ, plain-lift and decryption constants, as
 int64 words) are built on first use on the context's device, like the
 32-bit ones.  The 32-bit paths raise on it (`require_u32`).
+`make_context(params, u64=True)` builds a chain of primes below 2^30 the
+same way, for the u64 evaluator (as the JAX package runs its generic
+path on any chain): on the same keys it gives the same residues as a
+Fast32 run of the 32-bit context.
 """
 
 from __future__ import annotations
@@ -483,14 +487,14 @@ class Context(nn.Module):
     chain levels 0 to size_q.  Built on the CPU; `make_context` places
     it."""
 
-    def __init__(self, params: EncryptionParameters):
+    def __init__(self, params: EncryptionParameters, u64: bool = False):
         super().__init__()
         self.params = params
         qp = list(params.coeff_modulus)
         bfv = params.scheme == "bfv"
         bgv = params.scheme == "bgv"
         t = params.plain_modulus
-        self.wide = max(qp) >= WIDE_PRIME
+        self.wide = u64 or max(qp) >= WIDE_PRIME
         self.bsk_moduli = tuple(bsk_base(params)) if (
             bfv and params.mul_tech == "behz") else ()
         self.rl_moduli = tuple(host.numth.get_primes_below(
@@ -590,10 +594,12 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def make_context(params: EncryptionParameters, device=None) -> Context:
+def make_context(params: EncryptionParameters, device=None,
+                 u64: bool = False) -> Context:
     """The context with its tables on `device` (default: the CUDA
-    device)."""
-    return Context(params).to(resolve_device(device))
+    device); `u64` makes a chain of primes below 2^30 the u64 evaluator's
+    (a wide context)."""
+    return Context(params, u64).to(resolve_device(device))
 
 
 def qlp_rows(ctx: Context, size_ql: int) -> List[int]:

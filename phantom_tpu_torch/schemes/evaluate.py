@@ -518,8 +518,8 @@ def mod_switch_to_next(ctx: Context, ct: Ciphertext,
     cd = _cd(ctx, ct, "mod_switch_to_next")
     if cd.size_ql < 2:
         raise ValueError("cannot mod-switch: last level")
-    if ctx.params.scheme == "ckks":
-        return ct.replace(data=ct.data[..., :cd.size_ql - 1, :],
+    if ctx.params.scheme == "ckks":  # contiguous: the kernels' operands
+        return ct.replace(data=ct.data[..., :cd.size_ql - 1, :].contiguous(),
                           chain_index=ct.chain_index + 1)
     if ctx.params.scheme == "bfv":
         return ct.replace(data=_divide_round_qlast_coeff(cd, ct.data, ops),
@@ -541,7 +541,7 @@ def mod_switch_plain_to_next(ctx: Context, pt: Plaintext) -> Plaintext:
     cd = ctx.get_context_data(pt.chain_index)
     if cd.size_ql < 2:
         raise ValueError("cannot mod-switch plaintext: last level")
-    return pt.replace(data=pt.data[..., :cd.size_ql - 1, :],
+    return pt.replace(data=pt.data[..., :cd.size_ql - 1, :].contiguous(),
                       chain_index=pt.chain_index + 1)
 
 

@@ -24,6 +24,8 @@ reads them (a hoisted rotation's NTT-form permutation).
 `Kernels64` names the kernels every u64 function calls: KERNELS64
 dispatches each to its CUDA kernel (its plain version for CPU tensors),
 PLAIN64 forces the plain versions, which is how the card checks them.
+Its last two fields are F1's wide forms (ops/ckks_fft.py), the device
+encoder's on a wide context, so that every u64 caller takes one `ops`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from .. import _build
 from ..ops import bconv as bc
+from ..ops import ckks_fft as cf
 from ..ops import modmath as mm
 from ..ops import ntt as nttmod
 from ..ops import polyops as po
@@ -111,20 +114,24 @@ class Kernels64(NamedTuple):
     rescale_delta: Callable
     modswitch_delta: Callable
     moddown_delta: Callable
+    ckks_fft_encode: Callable    # F1's wide encode form (counts as F1)
+    ckks_fft_decode: Callable    # F1's wide decode form (counts as F1)
 
 
 KERNELS64 = Kernels64(nttmod.ntt_forward, nttmod.ntt_inverse, bc.bconv,
                       inner_product_evk_kernel, po.mul_rns, po.fma_rns,
                       po.tensor_prod_2x2, po.tensor_square_2x2,
                       po.tensor_prod_mxn, po.shoup_rns, po.rescale_delta,
-                      po.modswitch_delta, po.moddown_delta)
+                      po.modswitch_delta, po.moddown_delta,
+                      cf.ckks_fft_encode64, cf.ckks_fft_decode64)
 PLAIN64 = Kernels64(nttmod.ntt_forward_plain, nttmod.ntt_inverse_plain,
                     bc.bconv_plain, inner_product_evk_plain,
                     po.mul_rns_plain, po.fma_rns_plain,
                     po.tensor_prod_2x2_plain, po.tensor_square_2x2_plain,
                     po.tensor_prod_mxn_plain, po.shoup_rns_plain,
                     po.rescale_delta_plain, po.modswitch_delta_plain,
-                    po.moddown_delta_plain)
+                    po.moddown_delta_plain, cf.ckks_fft_encode64_plain,
+                    cf.ckks_fft_decode64_plain)
 
 
 # ---------------------------------------------------------------------------

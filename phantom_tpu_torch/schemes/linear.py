@@ -1,6 +1,6 @@
 """Encrypted linear transforms: the Halevi-Shoup diagonal method with
 baby-step/giant-step (BSGS) rotations (counterpart of
-phantom_tpu/schemes/linear.py, its Fast32 half).
+phantom_tpu/schemes/linear.py).
 
     M @ x = sum_j rot_{j bs}( sum_i rot_{-j bs}(diag_{j bs + i}) * rot_i(x) )
 
@@ -15,8 +15,11 @@ are all zero are skipped when the transform is built, which shrinks both
 the Galois key set and the work.
 
 `prepare` encodes the diagonals over QlP on the host (encode_extended),
-once per level; it is preparation, not serving.  The u64 evaluator's
-`apply` is not ported (ROADMAP.md section 1, item 8).
+once per level; it is preparation, not serving.  `apply` runs the matvec
+on the u64 evaluator (schemes/evaluate.py: keyswitch.modup_from_ntt once,
+hoisted_linear_combo per group, rotate_vector by the giant step, add,
+rescale_to_next), `apply_fast32` on a Fast32 evaluator; both take `ops`,
+the kernels their verbs call.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import numpy as np
 
 from ..ops import pipeline32 as pp
 from ..ops.pipeline32 import KERNELS, Kernels
+from . import evaluate as ev
 from .ckks_encoder import encode_extended
+from .keyswitch import KERNELS64, Kernels64, modup_from_ntt
 
 
 def bsgs_split(d: int, bs: int | None = None) -> tuple[int, int]:
@@ -108,6 +113,21 @@ class LinearTransform:
         except KeyError:
             raise ValueError(f"prepare(enc, scale, chain_index="
                              f"{chain_index}) has not been called") from None
+
+    def apply(self, ctx, ct, glk, rescale: bool = True,
+              ops: Kernels64 = KERNELS64):
+        """The BSGS matvec on the u64 evaluator; ct must be d-periodic.
+        One modup of c1 serves every group."""
+        pts = self._pts_at(ct.chain_index)
+        t_modup = modup_from_ntt(ctx, ev._cd(ctx, ct), ct.data[1], ops)
+        acc = None
+        for (gstep, steps, _), group_pts in zip(self.groups, pts):
+            inner = ev.hoisted_linear_combo(ctx, ct, glk, steps, group_pts,
+                                            self.pts_scale, t_modup, ops)
+            if gstep:
+                inner = ev.rotate_vector(ctx, inner, gstep, glk, ops)
+            acc = inner if acc is None else ev.add(ctx, acc, inner, ops)
+        return ev.rescale_to_next(ctx, acc, ops) if rescale else acc
 
     def apply_fast32(self, fast, ct, rescale: bool = True,
                      ops: Kernels = KERNELS):

@@ -1,6 +1,5 @@
 """Automatic CKKS polynomial evaluation: Paterson-Stockmeyer BSGS with
-exact scale management (counterpart of phantom_tpu/schemes/poly.py, its
-Fast32 half).
+exact scale management (counterpart of phantom_tpu/schemes/poly.py).
 
 p(ct) for a polynomial with plaintext coefficients, in the monomial or
 the Chebyshev basis, by the baby-step/giant-step split
@@ -13,11 +12,16 @@ because each plaintext coefficient is encoded at exactly the scale its
 term needs, so no correcting product by an encoded 1.0 is inserted.
 Results are unrescaled (scale about the input's squared): the caller
 spends the final rescale, as after multiply_and_relin.  The schedule, the
-scales and every verb are the JAX package's, so a Fast32 evaluation is
-bit-equal to it on the same inputs.  The encoder argument is either the
-host CKKSEncoder or the CKKSDeviceEncoder.  The u64 evaluator's
-poly_eval and poly_eval_cheb are not ported (ROADMAP.md section 1,
-item 8).
+scales and every verb are the JAX package's, so an evaluation is bit-equal
+to it on the same inputs: poly_eval and poly_eval_cheb on the u64
+evaluator (schemes/evaluate.py, `ops` a Kernels64), poly_eval_fast32 and
+poly_eval_cheb_fast32 on a Fast32 evaluator.  The encoder argument is
+either the host CKKSEncoder or the CKKSDeviceEncoder.
+
+Precision: as in all rescale-chain CKKS code, the power ladder's scale
+stays within a few bits of the input's only where the rescale primes are
+close to the scale (the standard choice); with 50-bit primes and a
+44-bit scale each rung loses about 6 bits.
 """
 
 from __future__ import annotations
@@ -25,9 +29,12 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.pipeline32 import KERNELS, Kernels
+from . import evaluate as ev
+from .keyswitch import KERNELS64, Kernels64
 
-__all__ = ["poly_eval_fast32", "poly_eval_cheb_fast32", "chebyshev_fit",
-           "poly_depth", "bsgs_counts"]
+__all__ = ["poly_eval", "poly_eval_fast32", "poly_eval_cheb",
+           "poly_eval_cheb_fast32", "chebyshev_fit", "poly_depth",
+           "bsgs_counts"]
 
 _TOL = 1e-6  # the JAX package's scale tolerance (evaluate._check_compatible)
 
@@ -83,6 +90,44 @@ class _Engine:
     def drop_prime(self, level: int) -> float:
         """The prime a rescale at `level` removes."""
         return float(self.ctx.get_context_data(level).moduli[-1])
+
+
+class _U64Engine(_Engine):
+    """The verbs on the u64 evaluator, each through `ops`."""
+
+    def __init__(self, ctx, rlk, enc, ops: Kernels64 = KERNELS64):
+        super().__init__(ctx, enc, ops)
+        self.rlk = rlk
+
+    def mult(self, a, b):
+        if a.chain_index != b.chain_index:
+            tgt = max(a.chain_index, b.chain_index)
+            a = ev.mod_switch_to(self.ctx, a, tgt, self.ops)
+            b = ev.mod_switch_to(self.ctx, b, tgt, self.ops)
+        if a is b:
+            return ev.relinearize(self.ctx, ev.square(self.ctx, a, self.ops),
+                                  self.rlk, self.ops)
+        return ev.multiply_and_relin(self.ctx, a, b, self.rlk, self.ops)
+
+    def rescale(self, c):
+        return ev.rescale_to_next(self.ctx, c, self.ops)
+
+    def mod_switch_to(self, c, level: int):
+        return ev.mod_switch_to(self.ctx, c, level, self.ops)
+
+    def mult_plain_const(self, c, value: float, s_pt: float):
+        return ev.multiply_plain(
+            self.ctx, c, self._pt(value, s_pt, c.chain_index), self.ops)
+
+    def add_const(self, c, value: float):
+        return ev.add_plain(
+            self.ctx, c, self._pt(value, c.scale, c.chain_index), self.ops)
+
+    def add(self, a, b):
+        return ev.add(self.ctx, a, b, self.ops)
+
+    def sub(self, a, b):
+        return ev.sub(self.ctx, a, b, self.ops)
 
 
 class _Fast32Engine(_Engine):
@@ -274,6 +319,16 @@ def _prep_coeffs(coeffs):
     return c
 
 
+def poly_eval(ctx, ct, coeffs, rlk, enc, bs: int | None = None,
+              ops: Kernels64 = KERNELS64):
+    """sum_i coeffs[i] ct^i on the u64 evaluator, coefficients in the
+    monomial basis, low order first; returns an unrescaled ciphertext
+    (scale about ct.scale^2): rescale_to_next it."""
+    c = _prep_coeffs(coeffs)
+    bs, _ = bsgs_counts(len(c) - 1, bs)
+    return _PolyEvaluator(_U64Engine(ctx, rlk, enc, ops), ct, bs).run(c)
+
+
 def poly_eval_fast32(fast, ct, coeffs, enc, bs: int | None = None,
                      ops: Kernels = KERNELS):
     """sum_i coeffs[i] ct^i on a Fast32 evaluator, coefficients in the
@@ -310,6 +365,15 @@ def _cheb_run(E, ct, c, bs, interval):
             ct = E.rescale(t)
     bs, _ = bsgs_counts(len(c) - 1, bs)
     return _PolyEvaluator(E, ct, bs, basis="chebyshev").run(c)
+
+
+def poly_eval_cheb(ctx, ct, cheb_coeffs, rlk, enc, bs: int | None = None,
+                   interval=None, ops: Kernels64 = KERNELS64):
+    """sum_i c_i T_i(ct) on the u64 evaluator (the same schedule through
+    T_i = 2 T_{i-m} T_m - T_{2m-i}).  `interval=(a, b)` first maps ct into
+    [-1, 1] (one level); returns an unrescaled ciphertext."""
+    c = _prep_coeffs(cheb_coeffs)
+    return _cheb_run(_U64Engine(ctx, rlk, enc, ops), ct, c, bs, interval)
 
 
 def poly_eval_cheb_fast32(fast, ct, cheb_coeffs, enc, bs: int | None = None,

@@ -196,6 +196,36 @@ u64_bfv_{hps,behz,overq,leveled}_b50.npz: BFV through the u64 evaluator
   written.  `u64_bfv` writes the four, `u64_bfv_<tech>` one (about four
   minutes each).
 
+u64_linear_b50.npz, u64_poly_b50.npz, ckks_fft_wide.npz: the CKKS
+  application layer on the u64 evaluator at n = 1024 with 50-bit primes
+  (`u64_app` writes the three; `u64_linear`, `u64_poly` and
+  `ckks_fft_wide` one each).  u64_linear_b50: three data primes of 50
+  bits, two special of 51 (alpha 2: the unfused modup), the key draws as
+  u64_chain stores them (Galois keys for LinearTransform.steps_required of
+  a d = 8 matrix M with diagonals 4 and 5 zero), x, the draws of ct =
+  encrypt_asymmetric of the tiled x at 2^40, digests of the encoded input
+  (pt_in), of prepare's QlP weights at the scale q_2 (w_<i>, in group
+  order), of ct and of y = LinearTransform.apply(ct) (with __meta and
+  __scale), and y's decoded slots (asserted within 1e-3 of M x).
+  u64_poly_b50: nine data primes of 50 bits, three special of 51 (alpha
+  3), the key draws (no Galois keys), x uniform in (-0.8, 0.8), the draws
+  of ct = encrypt_asymmetric(x at 2^50), and digests of ct, y_mono =
+  poly_eval of degree 7 (poly_coeffs("dense7")) and y_cheb =
+  poly_eval_cheb of degree 13 fitting tanh on the interval (-2, 2), each
+  with __meta and __scale; the coefficients stored (coeffs_mono,
+  coeffs_cheb), each decoded result asserted within 5e-3 of numpy.
+  ckks_fft_wide: the JAX CKKSDeviceEncoder's wide path (primes of 2^30 or
+  more: the double-float FFT eager, reduce_i64_centered into the level's
+  primes, the u64 NTT; decode by the wide Garner step) on two chains:
+  w40 (tests/test_ckks_device_encoder.py's primes at n = 1024: data q0
+  of 40 bits and q1 of 30, a special one of 40) at scale 2^30, chain
+  index 1; w50 (five data primes of 50 bits, two of 51) at 2^40, chain
+  indices 1 and 5 (one limb).  Per case <c>_<ci>: the moduli (moduli_<c>,
+  special_<c>), z_<c> (N/2 complex), scale, ints_<c>_<ci> (the rounded
+  coefficients, eager), enc_<c>_<ci> (the plaintext, NTT form, u64),
+  dec_<c>_<ci> (its decode), and the host CKKSEncoder's decode of it
+  (host_<c>_<ci>).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -1558,11 +1588,160 @@ U64_BFV_FILES = {f"u64_bfv_{tech}": (lambda tech=tech: u64_bfv(tech))
                  for tech in U64_BFV_TECHS}
 
 
+# ---------------------------------------------------------------------------
+# the CKKS application layer on the u64 evaluator
+# ---------------------------------------------------------------------------
+
+def _key_draws64(out, ctx, k, steps=None):
+    """Keys from the PRNG keys k (secret, public, relin, Galois), their
+    draws stored as u64_chain stores them."""
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    out["s_tern"] = np.asarray(jsmp.sample_ternary_vec(k[0], N)).astype(
+        np.int8)
+    out["pk_a"], out["pk_e"] = _zero_samples64(ctx, k[1])
+    out["rlk_a"], out["rlk_e"] = _kswitch_samples64(ctx, k[2])
+    for name, key in (("sk", sk), ("pk", pk), ("rlk", rlk)):
+        out["h__" + name] = digest(key.data)
+    glk = None
+    if steps is not None:
+        glk = keys.create_galois_keys(ctx, sk, k[3], steps=steps)
+        rng, draws = k[3], []
+        for _ in glk.elts:
+            rng, sub = jax.random.split(rng)
+            draws.append(_kswitch_samples64(ctx, sub))
+        out["glk_a"] = np.stack([a for a, _ in draws])
+        out["glk_e"] = np.stack([e for _, e in draws])
+        out["elts"] = np.array(glk.elts, dtype=np.int64)
+        out["h__glk"] = digest(glk.data)
+    return sk, pk, rlk, glk
+
+
+def _enc_draws64(out, key):
+    k_u, k_e0, k_e1 = jax.random.split(key, 3)
+    out["enc_u"] = np.asarray(jsmp.sample_ternary_vec(k_u, N)).astype(
+        np.int8)
+    out["enc_e"] = np.stack([np.asarray(jsmp.sample_error_cbd(x, N))
+                             for x in (k_e0, k_e1)]).astype(np.int8)
+
+
+def _app_ctx(data_bits, k_data, special_bits, alpha):
+    qs = numth.get_primes(2 * N, data_bits, k_data)
+    ps = numth.get_primes(2 * N, special_bits, alpha)
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.CKKS, N, qs + ps, special_modulus_size=alpha))
+    return ctx, dict(data_moduli=np.array(qs, dtype=np.uint64),
+                     special_moduli=np.array(ps, dtype=np.uint64),
+                     t=np.array(0, dtype=np.uint64))
+
+
+def u64_linear():
+    from phantom_tpu.schemes import LinearTransform
+    ctx, out = _app_ctx(50, 3, 51, 2)
+    rng = np.random.default_rng(SEED + 80)
+    d = 8
+    M = rng.standard_normal((d, d)) * 0.3
+    idx = np.arange(d)
+    M[idx, (idx + 4) % d] = 0.0
+    M[idx, (idx + 5) % d] = 0.0
+    x = rng.standard_normal(d) * 0.3
+    lt = LinearTransform(M)
+    k = jax.random.split(jax.random.PRNGKey(181), 5)
+    sk, pk, rlk, glk = _key_draws64(out, ctx, k, lt.steps_required())
+    enc = CKKSEncoder(ctx)
+    scale = 2.0 ** 40
+    w_scale = float(ctx.params.data_moduli[2])
+    lt.prepare(enc, w_scale)
+    pt = lt.encode_input(enc, x, scale)
+    ct = keys.encrypt_asymmetric(ctx, pk, pt, k[4])
+    _enc_draws64(out, k[4])
+    y = lt.apply(ctx, ct, glk)
+    got = enc.decode(keys.decrypt(ctx, sk, y))
+    np.testing.assert_allclose(got.real[:d], M @ x, atol=1e-3)
+    out["M"], out["x"] = M, x
+    out["scale"], out["w_scale"] = np.array(scale), np.array(w_scale)
+    _pt64(out, "pt_in", pt)
+    for i, w in enumerate(p for grp in lt._prepared[1] for p in grp):
+        out[f"h__w_{i}"] = digest(w)
+    _ct64(out, "ct", ct)
+    _ct64(out, "y", y)
+    out["decoded_y"] = got
+    _save("u64_linear_b50.npz", **out)
+
+
+def u64_poly():
+    from phantom_tpu.schemes.poly import (chebyshev_fit, poly_eval,
+                                          poly_eval_cheb)
+    ctx, out = _app_ctx(50, 9, 51, 3)
+    k = jax.random.split(jax.random.PRNGKey(183), 5)
+    sk, pk, rlk, _ = _key_draws64(out, ctx, k)
+    enc = CKKSEncoder(ctx)
+    scale = 2.0 ** 50
+    x = np.random.default_rng(SEED + 81).uniform(-0.8, 0.8, enc.slots)
+    ct = keys.encrypt_asymmetric(ctx, pk, enc.encode(x, scale), k[4])
+    _enc_draws64(out, k[4])
+    out["x"], out["scale"] = x, np.array(scale)
+    _ct64(out, "ct", ct)
+    mono = poly_coeffs("dense7")
+    interval = (-2.0, 2.0)
+    cheb = chebyshev_fit(np.tanh, 13, interval)
+    out["coeffs_mono"], out["coeffs_cheb"] = mono, cheb
+    out["interval"] = np.array(interval)
+    for name, y, want in (
+            ("y_mono", poly_eval(ctx, ct, mono, rlk, enc),
+             np.polyval(mono[::-1], x)),
+            ("y_cheb", poly_eval_cheb(ctx, ct, cheb, rlk, enc,
+                                      interval=interval),
+             np.polynomial.chebyshev.chebval(x / 2.0, cheb))):
+        got = enc.decode(keys.decrypt(
+            ctx, sk, evaluate.rescale_to_next(ctx, y))).real
+        np.testing.assert_allclose(got, want, atol=5e-3)
+        _ct64(out, name, y)
+    _save("u64_poly_b50.npz", **out)
+
+
+def ckks_fft_wide():
+    from phantom_tpu.ops import ckks_fft as cf
+    from phantom_tpu.schemes.ckks_encoder import CKKSDeviceEncoder
+    out = {}
+    rng = np.random.default_rng(SEED + 82)
+    q40 = numth.get_primes(2 * N, 40, 2) + numth.get_primes(2 * N, 30, 1)
+    q50 = numth.get_primes(2 * N, 50, 5) + numth.get_primes(2 * N, 51, 2)
+    for c, data, special, scale, chain in (
+            ("w40", [q40[0], q40[2]], [q40[1]], 2.0 ** 30, (1,)),
+            ("w50", q50[:5], q50[5:], 2.0 ** 40, (1, 5))):
+        ctx = make_context(EncryptionParameters.create(
+            Scheme.CKKS, N, data + special,
+            special_modulus_size=len(special)))
+        enc, host = CKKSDeviceEncoder(ctx), CKKSEncoder(ctx)
+        z = rng.standard_normal(enc.slots) + 1j * rng.standard_normal(
+            enc.slots)
+        out[f"moduli_{c}"] = np.array(data, dtype=np.uint64)
+        out[f"special_{c}"] = np.array(special, dtype=np.uint64)
+        out[f"z_{c}"], out[f"scale_{c}"] = z, np.array(scale)
+        for ci in chain:
+            with jax.disable_jit():
+                re, im = enc._scatter(z, scale)
+                hi, lo = cf.fft_inverse((re, im), enc.tables)[0]
+                a = jnp.round(hi).astype(jnp.int64)
+                b = jnp.round(lo + (hi - a.astype(jnp.float32))).astype(
+                    jnp.int64)
+                out[f"ints_{c}_{ci}"] = np.asarray(a + b)
+                pt = enc.encode(z, scale, ci)
+                dec = enc.decode(pt)
+            out[f"enc_{c}_{ci}"] = np.asarray(pt.data).astype(np.uint64)
+            out[f"dec_{c}_{ci}"] = dec
+            out[f"host_{c}_{ci}"] = host.decode(pt)
+            np.testing.assert_allclose(dec, z, atol=1e-6)
+    _save("ckks_fft_wide.npz", **out)
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
                       "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
                       "fast32", "ckks_fft", "linear", "poly", "roll",
-                      "fast32_roll", "u64", "u64_bfv"]
+                      "fast32_roll", "u64", "u64_bfv", "u64_app"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -1597,6 +1776,10 @@ def main(names):
         u64_mxn()
     for name, make in U64_BFV_FILES.items():
         if name in names or "u64_bfv" in names:
+            make()
+    for name, make in (("u64_linear", u64_linear), ("u64_poly", u64_poly),
+                       ("ckks_fft_wide", ckks_fft_wide)):
+        if name in names or "u64_app" in names:
             make()
 
 

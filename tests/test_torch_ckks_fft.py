@@ -173,15 +173,19 @@ def test_decode_of_uniform_residues_does_not_raise(small):
 
 
 def test_wide_primes_and_bad_operands_raise():
-    """The port's contexts hold primes below 2^30 only; a context with a
-    wider one (here a stand-in) is refused with the ROADMAP item that
-    would serve it."""
-    from types import SimpleNamespace
-    wide = SimpleNamespace(params=SimpleNamespace(
-        scheme="ckks", n=1024, coeff_modulus=(132120577, (1 << 30) + 12289)))
-    with pytest.raises(ValueError, match="item 8"):
-        CKKSDeviceEncoder(wide)
-    n = 1024
+    """A context with primes of 2^30 and more (the u64 evaluator's) builds
+    a working encoder: encode and decode round-trip through F1's wide
+    forms' plain versions and U1; a bad operand raises."""
+    from phantom_tpu_torch.host import numth
+    n = 64
+    wide = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 50, 2), numth.get_primes(2 * n, 51, 1)),
+        device=CPU)
+    enc = CKKSDeviceEncoder(wide)
+    z = np.random.default_rng(3).uniform(-1, 1, enc.slots)
+    pt = enc.encode(z, 2.0 ** 40)
+    assert pt.data.dtype == torch.int64 and pt.data.shape == (2, n)
+    np.testing.assert_allclose(enc.decode(pt), z, atol=1e-9)
     t = cf.make_fft_tables(n, "meta")
     with pytest.raises(ValueError):
         cf.ckks_fft(torch.zeros(4, n, device="meta"), t)

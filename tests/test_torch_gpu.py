@@ -933,7 +933,8 @@ def test_f1_decode_form(dev, logn, rows):
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
-@pytest.mark.parametrize("form", ["forward", "inverse", "encode", "decode"])
+@pytest.mark.parametrize("form", ["forward", "inverse", "encode", "decode",
+                                  "encode64", "decode64"])
 @pytest.mark.parametrize("logn", [1, 11, 12, 16, 17])
 def test_f1_grids(dev, logn, form):
     """The blocks of F1's CUDA launches as the library records them: one
@@ -952,12 +953,17 @@ def test_f1_grids(dev, logn, form):
             torch.zeros((n // 2, 2), dtype=torch.float64, device=dev),
             2.0 ** 30, q, t),
         "decode": lambda: cf.ckks_fft_decode(limbs, q[:2].tolist(),
-                                             2.0 ** 30, t)}
+                                             2.0 ** 30, t),
+        "encode64": lambda: cf.ckks_fft_encode64(
+            torch.zeros((n // 2, 2), dtype=torch.float64, device=dev),
+            2.0 ** 30, q.long(), t),
+        "decode64": lambda: cf.ckks_fft_decode64(limbs.long(), q[:2].tolist(),
+                                                 2.0 ** 30, t)}
     want = [1]
     if logn > 11:
         lr = logn // 2
         want = [1 << (lr - 1), 1 << (logn - lr - 1)]  # columns, rows
-        if form in ("inverse", "encode"):
+        if form in ("inverse", "encode", "encode64"):
             want.reverse()
     assert chip_smoke.f1_grids(calls[form]) == want
 
@@ -1016,6 +1022,90 @@ def test_linear_and_poly_golden(dev):
     for got in (chip_smoke.linear_golden(dev), chip_smoke.poly_golden(dev)):
         for name, (a, b) in got.items():
             np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _f1_wide_primes(bits: int, k: int) -> list:
+    # get_primes needs 2N | q - 1: take them for 2^17
+    return numth.get_primes(1 << 18, bits, k)
+
+
+@pytest.mark.parametrize("bits", [31, 50, 61])
+@pytest.mark.parametrize("logn", [10, 11, 12, 13, 16, 17])
+def test_f1_encode64_form(dev, logn, bits):
+    """F1's wide encode form against its plain version, word for word, over
+    1, 43 and 65 primes: random slots at scales that take the coefficients
+    near 2^62, of both signs; constant slots that put coefficient 0 at 0,
+    +-1, about +-(q - 1), +-q and +-(2^62 - 2^40); partial and empty slot
+    vectors; one launch a call."""
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n = 1 << logn
+    t = cf.make_fft_tables(n, dev)
+    qs = _f1_wide_primes(bits, 65)
+    rng = np.random.default_rng(logn + bits)
+    z = rng.uniform(-1, 1, (n // 2, 2))
+    ones = np.ones((n // 2, 2)) * [1.0, 0.0]
+    cases = [(z, 2.0 ** 61), (z[:n // 3], 2.0 ** 61), (z[:0], 2.0 ** 61),
+             (z, 2.0 ** 30)]
+    for scale in (1.0, float(qs[0] - 1), float(qs[0]), 2.0 ** 62 - 2.0 ** 40):
+        cases += [(ones, scale), (-ones, scale)]
+    cases.append((0 * ones, 1.0))
+    for k in (1, 43, 65):
+        q = torch.tensor(qs[:k], dtype=torch.int64, device=dev)
+        for vals, scale in cases:
+            x = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
+            before = cf.ckks_fft.launches
+            got = cf.ckks_fft_encode64(x, scale, q, t)
+            assert cf.ckks_fft.launches == before + 1
+            want = cf.ckks_fft_encode64_plain(x, scale, q, t)
+            assert torch.equal(got, want), (k, scale, len(vals))
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("bits", [(31, 31), (40, 30), (50, 50), (61, 61)])
+@pytest.mark.parametrize("logn", [10, 11, 12, 13, 16, 17])
+def test_f1_decode64_form(dev, logn, bits, rows):
+    """F1's wide decode form against its plain version, word for word, on
+    the residues of centered values of both signs up to Garner's range
+    (2^62 for 61-bit primes), one limb or two; uniform residues decode
+    without raising; one launch a call."""
+    from phantom_tpu_torch.ops import ckks_fft as cf
+    n = 1 << logn
+    t = cf.make_fft_tables(n, dev)
+    moduli = [_f1_wide_primes(bits[0], 1)[0],
+              _f1_wide_primes(bits[1], 2)[-1]][:rows]
+    top = moduli[0] // 2 if rows == 1 else min(
+        moduli[0] * (moduli[1] - 1) // 2, 1 << 62)
+    rng = np.random.default_rng(logn + bits[0] + rows)
+    m = [int(v) * top // (1 << 62) for v in rng.integers(
+        -(1 << 62), 1 << 62, n)]
+    m[:4] = [top, -top, 0, -1]
+    x = torch.tensor([[v % q for v in m] for q in moduli], dtype=torch.int64,
+                     device=dev)
+    before = cf.ckks_fft.launches
+    got = cf.ckks_fft_decode64(x, moduli, 2.0 ** 40, t)
+    assert cf.ckks_fft.launches == before + 1
+    want = cf.ckks_fft_decode64_plain(x, moduli, 2.0 ** 40, t)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    q = torch.tensor(moduli, dtype=torch.int64, device=dev).view(-1, 1)
+    junk = torch.randint(0, 1 << 62, (rows, n), device=dev) % q
+    assert cf.ckks_fft_decode64(junk, moduli, 2.0 ** 40, t).shape == (
+        n // 2, 2)
+
+
+def test_wide_encoder_golden_on_the_card(dev):
+    """ckks_fft_wide.npz through F1's wide forms and U1 on the card, bit
+    for bit."""
+    for name, (got, want) in chip_smoke.wide_encoder_golden(dev).items():
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("fname", chip_smoke.U64_APP_GOLDEN)
+def test_u64_app_golden_on_the_card(dev, fname):
+    """LinearTransform.apply, poly_eval and poly_eval_cheb on the u64
+    evaluator through U1-U4 on the card, bit-equal to the JAX package's."""
+    fn = (chip_smoke.u64_linear_golden if "linear" in fname
+          else chip_smoke.u64_poly_golden)
+    assert fn(dev) == (14 if "linear" in fname else 6)
 
 
 # ---------------------------------------------------------------------------

@@ -93,6 +93,16 @@ lv = wbfv.get_context_data(1).u64
 assert lv.behz.bsk.q.shape == (4,) and lv.hps.dbase.q.shape == (7,)
 assert isinstance(lv.hps.sr_to_r, scaleround.ExactScaleRoundConsts)
 assert isinstance(lv.behz, behz.BEHZConsts)
+import numpy as np, runpy
+wenc = pt.CKKSDeviceEncoder(wide)
+assert np.abs(wenc.decode(wenc.encode(np.full(wenc.slots, 0.25), 2.0 ** 40))
+              - 0.25).max() < 1e-9
+assert pt.make_context(params, device="cpu", u64=True).ntt is None
+for name in ("encrypted_matmul", "poly_eval", "logistic_inference",
+             "mlp_inference"):
+    runpy.run_path(os.path.join("phantom_tpu_torch", "examples",
+                                name + ".py"))
+assert callable(pt.poly_eval) and callable(pt.poly_eval_cheb)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -404,7 +414,8 @@ def test_k8_held_rows(logn):
                                     "tensor_square_2x2", "tensor_prod_mxn",
                                     "shoup_rns",
                                     "rescale_delta", "modswitch_delta",
-                                    "moddown_delta"])
+                                    "moddown_delta", "ckks_fft_encode64",
+                                    "ckks_fft_decode64"])
 def test_u64_meta_tensor_raises(kernel):
     """U1-U4's wrappers on a tensor of a device without a kernel raise
     (a CUDA tensor launches, a CPU tensor takes the plain version)."""
@@ -443,6 +454,49 @@ def test_u64_meta_tensor_raises(kernel):
             m(2, 1, n), ctx.get_context_data(1).u64.rescale),
         "moddown_delta": lambda: polyops.moddown_delta(
             m(2, n), m(1, n), ks.pinv),
+        "ckks_fft_encode64": lambda: ckks_fft.ckks_fft_encode64(
+            torch.empty((2, 2), dtype=torch.float64, device="meta"), 2.0,
+            m(2), ckks_fft.make_fft_tables(n, "meta")),
+        "ckks_fft_decode64": lambda: ckks_fft.ckks_fft_decode64(
+            m(2, n), ctx.params.data_moduli, 2.0,
+            ckks_fft.make_fft_tables(n, "meta")),
     }
     with pytest.raises(ValueError, match="no kernel for device meta"):
         calls[kernel]()
+
+
+def test_u64_application_path_needs_cuda_or_cpu(monkeypatch):
+    """The wide CKKSDeviceEncoder, LinearTransform.apply, poly_eval and
+    poly_eval_cheb run on the context's device: on a device without
+    kernels (meta) each raises rather than fall back to the CPU or to a
+    plain version."""
+    import numpy as np
+    from phantom_tpu_torch import (CKKSDeviceEncoder, LinearTransform,
+                                   poly_eval, poly_eval_cheb)
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 64
+    params = EncryptionParameters.create(n, numth.get_primes(2 * n, 50, 3),
+                                         numth.get_primes(2 * n, 51, 1))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        make_context(params)
+    meta = make_context(params, device="meta")
+    enc = CKKSDeviceEncoder(meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        enc.encode([0.5], 2.0 ** 20)
+
+    def m(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+    ct = Ciphertext(m(2, 3, n), scale=2.0 ** 20)
+    glk = keys.GaloisKeys(m(1, 3, 2, 4, n), (5,))
+    lt = LinearTransform(np.eye(2) + np.eye(2)[::-1])
+    lt._prepared[1] = [[m(4, n)] * 2]
+    lt.pts_scale = 2.0 ** 20
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        lt.apply(meta, ct, glk)
+    for fn in (poly_eval, poly_eval_cheb):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fn(meta, ct, [0.0, 0.5, 0.25], m(3, 2, 4, n), enc)
