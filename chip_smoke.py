@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply (by each
 of the four techniques, on 32- and 64-bit words), BGV multiply, its
-Fast32 evaluator and the CKKS application path (the device encoder,
-LinearTransform, polynomial evaluation) on one NVIDIA GPU and check it.
+Fast32 evaluator, the CKKS application path (the device encoder,
+LinearTransform, polynomial evaluation) and the runtime and utils layer
+(the reference's Salsa20 sampler S1, the wire formats, StreamExecutor, the
+range sanitizer) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
@@ -336,6 +338,40 @@ Phases, one line each or more; any failure exits non-zero:
                layer, counted; the decoded output within MLP_TOL of
                numpy's float64 evaluation; end to end timed, a profile,
                peak memory
+ 51. S1        the reference's Salsa20 sampler (csrc/salsa20.cu) alone at N
+               = 2^16 in its three forms (uniform, ternary, error) over 43
+               primes of 50 bits (U64_CFG), of 28 bits (the headline
+               chain) and of 61 bits that reject about one lane in nine
+               (rejecting_primes: retry chains), under the probe
+               (bit-equal to plain, event and device time, plain time,
+               bound); refformat_n1024.npz's samples (the JAX package's,
+               n = 1024) through S1, bit-equal
+ 52. wire      at U64_CFG (CKKS, 43 data primes of 50 bits, 22 special of
+               51): the keys (secret, public, relin, a Galois key) made on
+               the card through the reference format and back, bit-equal;
+               a client's two encrypt_symmetric_seeded (S1, U1, U4) saved
+               seed-compressed (c0 and 64 bytes against the full size);
+               the server's loads (S1 regenerates c1) bit-equal to what
+               was encrypted, multiply_and_relin + rescale_to_next, its
+               save; the client's load, decryption and decode within
+               U64_TOL of float64; every object through the port's own
+               format and a PTCS encryption, bit-equal; at U64_BFV_CFG a
+               seeded BFV ciphertext saved and loaded (S1, U1's inverse),
+               bit-equal and decrypted in every slot; each save and load
+               timed (host and CUDA events); S1's launches on the path
+               (EXPECTED_S1_WIRE)
+ 53. runtime   at the headline configuration: StreamExecutor(
+               mult_relin_rescale32, pipe, batch=4) over 10 request pairs
+               (two full batches and a tail of 2) on the shared side CUDA
+               stream: the launch counts (10 headline steps), the outputs
+               bit-equal in order to direct calls, the stats; items/s of
+               the kept executor and of pipeline_map (a new executor a
+               run) against the same direct calls in turns with CUDA
+               events, peak memory, a profile; the sanitizer enabled:
+               the step passes on canonical inputs and raises on an
+               input word equal to q
+ 54. examples  phantom_tpu_torch/examples/serialization.py and
+               kernel_fusing.py (JAX examples 4 and 5) as scripts
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -375,7 +411,12 @@ multiplies (MUL_HI, MUL_LO: a 64 x 64 product's high word 4, its low
 word 3, so a Shoup product 10, a Barrett-128 product 31, reduce128_any
 45, the floor sum 58 a word) and each operand's words once (a row form's
 (..., 1, N) row once, not once a limb); no PyTorch call computes a u64
-modular function, so their library_ms is null.
+modular function, so their library_ms is null.  S1's row sums phase
+51's calls (its forms under "forms"), its launches those of the wire path
+(phase 52); its bound counts 32-bit integer operations (S1_BLOCK_OPS a
+keystream block, the blocks this call's data needs, retries included) at
+the same 16.7 T/s, and the words written; library_ms is null: no PyTorch
+call computes this keystream.
 Last comes {"ok": true, "device": ...}.
 Without a CUDA device, or without the repo around it, it exits non-zero
 before printing any result.
@@ -2200,6 +2241,159 @@ def wide_encoder_golden(device, ops=None) -> dict:
             out[f"{key} host"] = (host.decode(jax_pt, ops),
                                   g[f"host_{c}_{ci}"])
     return out
+
+
+REF_GOLDEN = os.path.join(FIXTURES, "refformat_n1024.npz")
+SALSA_BITS = (28, 50, 61)  # the golden file's and phase 51's prime sizes
+SALSA_FORMS = ("uniform", "ternary", "error")
+
+
+def rejecting_primes(n: int, count: int) -> list:
+    """`count` 61-bit primes == 1 mod 2n just above 2^64 / 9, where the
+    Salsa20 uniform sampler rejects about one lane in nine (chains of
+    retries); the golden files' generator calls this one."""
+    from phantom_tpu_torch.host import numth
+    q = (1 << 64) // 9 + 1
+    q += (1 - q) % (2 * n)
+    out = []
+    while len(out) < count:
+        if numth.is_prime(q):
+            out.append(q)
+        q += 2 * n
+    return out
+
+
+def salsa_golden(device, path: str = REF_GOLDEN) -> int:
+    """The golden file's Salsa20 samples (the JAX package's numpy
+    samplers at n = 1024 over three primes of 28, 50 and 61 bits, the
+    last rejecting about one lane in nine) through utils/salsa20.sample on
+    `device` (S1 on the card), bit-equal; returns the count held."""
+    from phantom_tpu_torch.ops.rns_host import modulus_vec, u64_values
+    from phantom_tpu_torch.utils import salsa20
+    g = np.load(path)
+    seed = g["seed"].tobytes()
+    held = 0
+    for b in SALSA_BITS:
+        mv = modulus_vec(g[f"salsa_moduli_{b}"].tolist(), device)
+        for form in SALSA_FORMS:
+            want = g[f"{form}_{b}"]
+            got = salsa20.sample(form, seed, mv, want.shape[-1])
+            if not np.array_equal(u64_values(got), want):
+                raise RuntimeError(f"salsa20 golden: the {form} form at "
+                                   f"{b}-bit primes differs from the JAX "
+                                   "package's")
+            held += 1
+    return held
+
+
+def _resaved(save, obj, *extra) -> bytes:
+    import io
+    buf = io.BytesIO()
+    save(obj, *extra, buf)
+    return buf.getvalue()
+
+
+def _sha256(blob: bytes) -> np.ndarray:
+    import hashlib
+    return np.frombuffer(hashlib.sha256(blob).digest(), dtype=np.uint8)
+
+
+def wire_golden(device, path: str = REF_GOLDEN) -> int:
+    """The golden file's JAX blobs in the port on `device`: every
+    refformat blob (BFV keys, a ciphertext, a plaintext, a product, a
+    seeded symmetric ciphertext whose c1 S1 and U1's inverse regenerate)
+    loaded and saved again byte for byte; the port's serialize bytes of
+    each object hashed equal to the JAX package's; the JAX package's PTCS
+    blob refused; the decryptions right and the port's multiply_and_relin
+    of the loaded ciphertexts with the loaded relin key bit-equal to the
+    JAX product; a seeded CKKS ciphertext (NTT form) regenerated bit-equal
+    and decoded within 1e-6.  Returns the count of objects held."""
+    import io
+    from phantom_tpu_torch import (BatchEncoder, CKKSEncoder,
+                                   make_context)
+    from phantom_tpu_torch.schemes import evaluate, keys
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    from phantom_tpu_torch.utils import refformat as ref
+    from phantom_tpu_torch.utils import serialize as ser
+    g = np.load(path)
+    n = g["vals1"].shape[0]
+    qs, t = g["bfv_moduli"].tolist(), int(g["t"])
+    ctx = make_context(EncryptionParameters.create(
+        n, qs[:2], qs[2:], "bfv", t), device=device)
+    dev = ctx.key_q.device
+    elts = tuple(g["glk_elts"].tolist())
+    kinds = {
+        "sk": (ref.load_secret_key_ref, ref.save_secret_key_ref),
+        "pk": (ref.load_public_key_ref, ref.save_public_key_ref),
+        "rlk": (ref.load_relin_key_ref, ref.save_relin_key_ref),
+        "glk": (lambda f, d: ref.load_galois_key_ref(f, elts, d),
+                ref.save_galois_key_ref),
+        "ct": (ref.load_ciphertext_ref, ref.save_ciphertext_ref),
+        "pt": (ref.load_plaintext_ref, ref.save_plaintext_ref),
+        "prod": (ref.load_ciphertext_ref, ref.save_ciphertext_ref),
+    }
+    obj = {}
+    for name, (load, save) in kinds.items():
+        blob = g["ref_" + name].tobytes()
+        obj[name] = load(io.BytesIO(blob), dev)
+        if _resaved(save, obj[name]) != blob:
+            raise RuntimeError(f"refformat golden: {name} not saved again "
+                               "byte for byte")
+        if not np.array_equal(_sha256(ser.to_bytes(obj[name])),
+                              g["ser_" + name]):
+            raise RuntimeError(f"serialize golden: the port's bytes of "
+                               f"{name} differ from the JAX package's")
+    seed = g["sym_seed"].tobytes()
+    blob = g["ref_sym"].tobytes()
+    sym = ref.load_ciphertext_symmetric_ref(ctx, io.BytesIO(blob))
+    if not np.array_equal(digest(sym.data), g["h__sym_data"]):
+        raise RuntimeError("refformat golden: the seeded ciphertext's c1 "
+                           "differs from the JAX package's")
+    if _resaved(ref.save_ciphertext_symmetric_ref, sym, seed) != blob:
+        raise RuntimeError("refformat golden: the seeded ciphertext not "
+                           "saved again byte for byte")
+    try:
+        ser.from_bytes(g["ser_cts"].tobytes(), ctx)
+    except ValueError as e:
+        if "JAX" not in str(e):
+            raise
+    else:
+        raise RuntimeError("serialize: a JAX PTCS blob was not refused")
+    enc = BatchEncoder(ctx)
+    v1, v2 = g["vals1"], g["vals2"]
+    want = {"ct": v1, "sym": v2,
+            "prod": (v1.astype(object) * v2.astype(object) % t).astype(
+                np.uint64)}
+    for name, ct in (("ct", obj["ct"]), ("sym", sym),
+                     ("prod", obj["prod"])):
+        if not np.array_equal(enc.decode(keys.decrypt64(ctx, obj["sk"], ct)),
+                              want[name]):
+            raise RuntimeError(f"refformat golden: {name} decrypts wrong")
+    mine = evaluate.multiply_and_relin(ctx, obj["ct"], sym, obj["rlk"])
+    if not _same(mine, obj["prod"]):
+        raise RuntimeError("refformat golden: the port's multiply_and_relin"
+                           " of the loaded ciphertexts differs from the JAX "
+                           "product")
+    cq = g["ckks_moduli"].tolist()
+    cctx = make_context(EncryptionParameters.create(n, cq[:-1], cq[-1:]),
+                        device=device)
+    csk = ref.load_secret_key_ref(io.BytesIO(g["ckks_ref_sk"].tobytes()),
+                                  dev)
+    blob = g["ckks_ref_sym"].tobytes()
+    csym = ref.load_ciphertext_symmetric_ref(cctx, io.BytesIO(blob))
+    if not np.array_equal(digest(csym.data), g["h__ckks_sym_data"]):
+        raise RuntimeError("refformat golden: the seeded CKKS ciphertext "
+                           "differs from the JAX package's")
+    if _resaved(ref.save_ciphertext_symmetric_ref, csym,
+                g["ckks_seed"].tobytes()) != blob:
+        raise RuntimeError("refformat golden: the seeded CKKS ciphertext "
+                           "not saved again byte for byte")
+    z = CKKSEncoder(cctx).decode(keys.decrypt64(cctx, csk, csym))
+    err = float(np.abs(z - g["ckks_z"]).max())
+    if err > 1e-6:
+        raise RuntimeError(f"refformat golden: the seeded CKKS ciphertext "
+                           f"decodes within {err:.3e}, not 1e-6")
+    return len(kinds) + 2
 
 
 def _cmd(args):
@@ -5159,6 +5353,434 @@ def _u64_app_phases(card, probes64, launches, launches64, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# S1, the reference's Salsa20 sampler (phases 51-52)
+S1_SOURCE = "phantom_tpu_torch/csrc/salsa20.cu"
+S1_REPLACES = ("phantom_tpu/native/host_math.cpp:252, :292, :308 and "
+               "phantom_tpu/utils/salsa20.py:146, :111, :126 (host "
+               "sampler, no pallas_call)")
+# 32-bit integer operations of one keystream block: 10 double rounds of 32
+# quarter-round steps (add, funnel shift, xor), then 16 adds; priced at
+# INT_MULS_PER_S, the INT32 pipe's rate (64 lanes an SM a clock, as IMAD)
+S1_BLOCK_OPS = 10 * 32 * 3 + 16
+# per uniform lane: its 64-bit comparison (2) and barrett64 with the
+# conditional subtraction (2); per ternary or error coefficient its value
+# (mod 3, or six popcounts and their sum), then one select a limb
+S1_LANE_OPS = 2 + BARRETT64_OPS + 2
+S1_VALUE_OPS = {"ternary": 4, "error": 12}
+S1_REPS = 10
+WIRE_STEPS = (1,)  # the wire path's Galois key
+EXEC_ITEMS, EXEC_BATCH = 10, 4  # phase 53: two full batches and a tail of 2
+# S1's launches on the wire path (phase 52): the client's two seeded
+# encryptions and the server's two loads; the port's PTCS encryption and
+# load; the BFV seeded encryption and load
+EXPECTED_S1_WIRE = 8
+EXAMPLES = ("serialization", "kernel_fusing")
+EXEC_WHAT = f"StreamExecutor, {EXEC_ITEMS} headline steps"
+EXPECTED[EXEC_WHAT] = {k: v * EXEC_ITEMS
+                       for k, v in EXPECTED["headline step"].items()}
+
+
+def _s1_work(form: str, num_l: int, n: int, blocks: int):
+    """(bytes, 32-bit integer operations) of one S1 call: the (L, N)
+    words written once and the moduli read once; the uniform form's
+    blocks (retries included, as this call's data needs them) and lanes,
+    the other forms' N blocks and values and a select a word."""
+    byt = 8 * num_l * n + 16 * num_l
+    if form == "uniform":
+        return byt, blocks * S1_BLOCK_OPS + num_l * n * S1_LANE_OPS
+    return byt, n * (S1_BLOCK_OPS + S1_VALUE_OPS[form]) + num_l * n
+
+
+class _S1Probe:
+    """S1 under a probe: the kernel against its plain version on the same
+    seed and moduli (bit-equal), event and device time, the plain
+    version's time and the bound (_s1_work, the plain version's count of
+    blocks)."""
+
+    name = "S1"
+
+    def __init__(self, reps: int):
+        self.reps = reps
+        self.calls = []
+
+    def __call__(self, form: str, seed: bytes, mv, n: int, what: str):
+        import torch
+        from phantom_tpu_torch.utils import salsa20
+        out = salsa20.sample(form, seed, mv, n)
+        stats = {}
+        ref = salsa20.sample_plain(form, seed, mv, n, stats)
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        if err:
+            raise RuntimeError(f"S1 {form} ({what}): kernel differs from "
+                               f"plain: max_abs_err {err}")
+        num_l = mv.q.shape[0]
+        byt, ops = _s1_work(form, num_l, n, stats.get("blocks", n))
+        b_ms, b_by = bound_ms(byt, ops)
+        run = lambda: salsa20.sample(form, seed, mv, n)  # noqa: E731
+        self.calls.append(dict(
+            form=form, what=what, shape=(num_l, n), err=err, bound_ms=b_ms,
+            bound_by=b_by, bytes=byt, ops=ops, tc_ops=0, f32_ops=0,
+            tries=stats.get("tries", 1), dev_ms=_device_ms(run, self.reps),
+            ms=_time(run, self.reps),
+            plain_ms=_time(lambda: salsa20.sample_plain(form, seed, mv, n),
+                           2)))
+        return out
+
+
+def _s1_phase(card, probe: _S1Probe, dev) -> None:
+    """Phase 51: S1's three forms alone at N = 2^16 over 43 primes of 50
+    bits (U64_CFG), of 28 bits (the headline chain) and of 61 bits that
+    reject about one lane in nine, under the probe; then the golden
+    file's samples (the JAX package's, n = 1024) through S1."""
+    from phantom_tpu_torch.ops.rns_host import modulus_vec
+    n = U64_CFG["n"]
+    rng = np.random.default_rng(SEED + 51)
+    seed = rng.bytes(64)
+    for what, qs in (
+            ("43 primes of 50 bits", chain_params(**U64_CFG).data_moduli),
+            ("43 primes of 28 bits", chain_params(**HEADLINE).data_moduli),
+            ("43 rejecting primes of 61 bits", rejecting_primes(n, 43))):
+        mv = modulus_vec(qs, dev)
+        for form in SALSA_FORMS:
+            probe(form, seed, mv, n, what)
+            c = probe.calls[-1]
+            tries = f", chains to {c['tries']} tries" if form == "uniform" \
+                else ""
+            print(f"kernel S1 {form}, {what} {c['shape']}{tries}: bit-equal "
+                  f"to plain; {c['ms']:.4f} ms (device {c['dev_ms']:.4f}) "
+                  f"vs plain {c['plain_ms']:.4f} ms, bound "
+                  f"{c['bound_ms']:.4f} ms by {c['bound_by']} "
+                  f"({c['bytes'] / 1e6:.1f} MB, {c['ops'] / 1e9:.3f} G int "
+                  f"ops) [{card}]")
+    print(f"golden: {os.path.basename(REF_GOLDEN)}: {salsa_golden(dev)} "
+          "samples (uniform, ternary, error at 28, 50 and 61 bits, n = "
+          "1024) through S1 bit-equal to the JAX package's")
+
+
+def _timed(times: dict, what: str, fn):
+    """fn() with its host time (perf_counter to a synchronize) and its
+    CUDA-event time, kept under `what`."""
+    import torch
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    times.setdefault(what, []).append(
+        ((time.perf_counter() - t0) * 1e3, e0.elapsed_time(e1)))
+    return out
+
+
+def _round_trip(times: dict, what: str, save, load, obj,
+                nbytes: dict) -> int:
+    """save then load, each timed, the blob's bytes kept under both in
+    `nbytes`; the loaded object bit-equal; returns the blob's bytes."""
+    import io
+    buf = io.BytesIO()
+    _timed(times, f"save {what}", lambda: save(obj, buf))
+    blob = buf.getvalue()
+    nbytes[f"save {what}"] = nbytes[f"load {what}"] = len(blob)
+    back = _timed(times, f"load {what}", lambda: load(io.BytesIO(blob)))
+    if not _same(back, obj):
+        raise RuntimeError(f"wire: {what} differs after its round trip")
+    return len(blob)
+
+
+def _wire_phase(card, dev) -> int:
+    """Phase 52: the wire path at U64_CFG (CKKS, N = 2^16, 43 data primes
+    of 50 bits, 22 special of 51): the keys made on the card through the
+    reference format and back; a client's two seeded symmetric encryptions
+    (S1, U1, U4) saved seed-compressed; the server's loads (S1 regenerates
+    c1), multiply_and_relin + rescale_to_next (U1-U4) and its save; the
+    client's load and decryption; every object through the port's own
+    format, and a PTCS encryption; then at U64_BFV_CFG a seeded BFV
+    ciphertext saved and loaded (S1, U1's inverse) and decrypted.  Each
+    save and load timed.  Returns S1's launches on this path."""
+    import io
+    import torch
+    from phantom_tpu_torch import BatchEncoder, CKKSEncoder, make_context
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.utils import refformat as ref
+    from phantom_tpu_torch.utils import salsa20
+    from phantom_tpu_torch.utils import serialize as ser
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    prm = chain_params(**U64_CFG)
+    ctx = make_context(prm)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 52)
+    sk = keys.gen_secret_key64(ctx, gen)
+    pk = keys.gen_public_key64(ctx, sk, gen)
+    rlk = keys.gen_relin_key64(ctx, sk, gen)
+    glk = keys.create_galois_keys64(ctx, sk, gen, steps=list(WIRE_STEPS))
+    torch.cuda.synchronize()
+    print(f"wire setup: N={prm.n} L={prm.size_q} alpha={prm.size_p} "
+          f"(50-bit data, 51-bit special primes); keys on the card in "
+          f"{time.time() - t0:.1f} s")
+    times, sizes, nbytes = {}, {}, {}
+    salsa20.sample.launches = 0
+    for what, save, load, obj in (
+            ("secret key", ref.save_secret_key_ref,
+             lambda f: ref.load_secret_key_ref(f, dev), sk),
+            ("public key", ref.save_public_key_ref,
+             lambda f: ref.load_public_key_ref(f, dev), pk),
+            ("relin key", ref.save_relin_key_ref,
+             lambda f: ref.load_relin_key_ref(f, dev), rlk),
+            ("Galois key", ref.save_galois_key_ref,
+             lambda f: ref.load_galois_key_ref(f, glk.elts, dev), glk)):
+        sizes[what] = _round_trip(times, what, save, load, obj, nbytes)
+    print("wire: the keys through the reference format bit-equal: " + ", ".join(
+        f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items()))
+    # the client: two seeded encryptions, saved seed-compressed
+    enc = CKKSEncoder(ctx)
+    rng = np.random.default_rng(SEED + 52)
+    z = [rng.uniform(-1, 1, enc.slots) + 1j * rng.uniform(-1, 1, enc.slots)
+         for _ in range(2)]
+    seeds = [rng.bytes(ref.SEED_BYTES) for _ in range(2)]
+    pts = [enc.encode(v, 2.0 ** U64_SCALE_BITS) for v in z]
+    cts = [_timed(times, "encrypt_symmetric_seeded",
+                  lambda p=p, s=s: ref.encrypt_symmetric_seeded(
+                      ctx, sk, p, s, gen)) for p, s in zip(pts, seeds)]
+    blobs = []
+    for ct, s in zip(cts, seeds):
+        buf = io.BytesIO()
+        _timed(times, "save seed-compressed ciphertext",
+               lambda: ref.save_ciphertext_symmetric_ref(ct, s, buf))
+        blobs.append(buf.getvalue())
+    buf = io.BytesIO()
+    _timed(times, "save ciphertext", lambda: ref.save_ciphertext_ref(
+        cts[0], buf))
+    full = nbytes["save ciphertext"] = len(buf.getvalue())
+    nbytes["save seed-compressed ciphertext"] = nbytes[
+        "load seed-compressed ciphertext"] = len(blobs[0])
+    c0 = cts[0].data[0].numel() * 8
+    print(f"wire: seed-compressed ciphertext {len(blobs[0])} bytes (c0 "
+          f"{c0} + 64-byte seed + {len(blobs[0]) - c0 - 64}-byte header) "
+          f"against {full} bytes in full ({full / 2**20:.1f} MiB)")
+    if len(blobs[0]) != c0 + 64 + 58:
+        raise RuntimeError("wire: the seed-compressed blob is not c0, the "
+                           "seed and the header")
+    # the server: loads (S1 regenerates c1), the step, its save
+    loaded = [_timed(times, "load seed-compressed ciphertext",
+                     lambda b=b: ref.load_ciphertext_symmetric_ref(
+                         ctx, io.BytesIO(b))) for b in blobs]
+    for a, b in zip(loaded, cts):
+        if not _same(a, b):
+            raise RuntimeError("wire: a seed-compressed load differs from "
+                               "the ciphertext encrypted")
+    out = ev.rescale_to_next(ctx, ev.multiply_and_relin(
+        ctx, loaded[0], loaded[1], rlk))
+    buf = io.BytesIO()
+    _timed(times, "save product", lambda: ref.save_ciphertext_ref(out, buf))
+    blob = buf.getvalue()
+    nbytes["save product"] = nbytes["load product"] = len(blob)
+    # the client: load, decrypt, decode
+    back = _timed(times, "load product", lambda: ref.load_ciphertext_ref(
+        io.BytesIO(blob), dev))
+    if not _same(back, out):
+        raise RuntimeError("wire: the product differs after its round trip")
+    err = float(np.abs(enc.decode(keys.decrypt64(ctx, sk, back))
+                       - z[0] * z[1]).max())
+    print(f"wire: the loaded ciphertexts bit-equal to those encrypted; the "
+          f"server's product {tuple(out.data.shape)} loaded back bit-equal "
+          f"and decoded within {err:.3e} of numpy's float64 product (bound "
+          f"{U64_TOL})")
+    if not err <= U64_TOL:
+        raise RuntimeError(f"wire: error {err} > {U64_TOL}")
+    # the port's own format
+    for what, obj in (("secret key", sk), ("public key", pk),
+                      ("relin key", rlk), ("Galois key", glk),
+                      ("ciphertext", cts[0]), ("product", out),
+                      ("plaintext", pts[0])):
+        _round_trip(times, f"{what} (PTCT / PTPT / PTKY)", ser.save,
+                    lambda f: ser.from_bytes(f.getvalue(), ctx), obj, nbytes)
+    ct_c, words = ser.encrypt_symmetric_compressed(ctx, sk, pts[1], gen)
+    _round_trip(times, "ciphertext (PTCS)", lambda o, f:
+                ser.save_ciphertext_symmetric(o, words, f),
+                lambda f: ser.load_ciphertext_symmetric(f, ctx), ct_c,
+                nbytes)
+    print("wire: the keys, ciphertexts, product and plaintext through the "
+          "port's own format bit-equal; a PTCS ciphertext regenerated "
+          "bit-equal")
+    del ctx, sk, pk, rlk, glk, cts, loaded, out, back, ct_c, pts
+    torch.cuda.empty_cache()
+    # BFV: a seeded symmetric ciphertext out of NTT form
+    bprm = mod_t_params(**U64_BFV_CFG)
+    bctx = make_context(bprm)
+    bsk = keys.gen_secret_key64(bctx, gen)
+    benc = BatchEncoder(bctx)
+    vals = rng.integers(0, bprm.plain_modulus, bprm.n)
+    seed = rng.bytes(ref.SEED_BYTES)
+    ct = ref.encrypt_symmetric_seeded(bctx, bsk, benc.encode(vals), seed,
+                                      gen)
+    buf = io.BytesIO()
+    _timed(times, "save seed-compressed BFV ciphertext",
+           lambda: ref.save_ciphertext_symmetric_ref(ct, seed, buf))
+    blob = buf.getvalue()
+    nbytes["save seed-compressed BFV ciphertext"] = nbytes[
+        "load seed-compressed BFV ciphertext"] = len(blob)
+    back = _timed(times, "load seed-compressed BFV ciphertext",
+                  lambda: ref.load_ciphertext_symmetric_ref(
+                      bctx, io.BytesIO(blob)))
+    right = int((benc.decode(keys.decrypt64(bctx, bsk, back)).astype(
+        np.int64) == vals).sum())
+    print(f"wire: BFV (N={bprm.n} L={bprm.size_q}, t={bprm.plain_modulus}) "
+          f"seed-compressed ciphertext ({len(blob)} bytes) loaded through "
+          f"S1 and U1's inverse bit-equal: {_same(back, ct)}; decrypts "
+          f"right in {right} of {bprm.n} slots")
+    if not _same(back, ct) or right != bprm.n:
+        raise RuntimeError("wire: the BFV seed-compressed load is wrong")
+    s1 = salsa20.sample.launches
+    for what, v in times.items():
+        host = [h for h, _ in v]
+        dev_ms = [d for _, d in v]
+        rate = (f"{nbytes[what]} bytes, "
+                f"{nbytes[what] / np.mean(host) / 1e6:.3f} GB/s by host "
+                "time; " if what in nbytes else "")
+        print(f"timing wire {what}: {rate}host {np.mean(host):.3f} ms, CUDA "
+              f"events {np.mean(dev_ms):.3f} ms a call ({len(v)} calls) "
+              f"[{card}]")
+    print(f"launches, wire path: S1={s1}")
+    if s1 != EXPECTED_S1_WIRE:
+        raise RuntimeError(f"wire: S1 launched {s1} times, not "
+                           f"{EXPECTED_S1_WIRE}")
+    del bctx, bsk, ct, back
+    torch.cuda.empty_cache()
+    return s1
+
+
+def _runtime_phase(card, wrappers, launches, dev) -> None:
+    """Phase 53: StreamExecutor(mult_relin_rescale32, pipe, batch=4) at the
+    headline configuration over EXEC_ITEMS request pairs (two full
+    batches and a tail of 2): the launch counts (EXEC_ITEMS headline
+    steps), the outputs bit-equal in order to direct calls, the stats;
+    items/s against the same direct calls, in turns (direct, executor,
+    pipeline_map, pipeline_map, executor, direct; the executor kept, a new
+    one each pipeline_map call, both on the shared side stream), with CUDA
+    events, peak memory, a profile of the first two; the sanitizer
+    enabled: the same step passes on canonical inputs and raises on an
+    input word equal to q."""
+    import torch
+    from phantom_tpu_torch import make_context
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.runtime import StreamExecutor, pipeline_map
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.utils import debug
+    torch.cuda.empty_cache()
+    ctx = make_context(chain_params(**HEADLINE))
+    sk, pipe, d1, d2, _, _ = make_step_inputs(ctx, SEED + 53, DELTA_BITS, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 53)
+    rng = np.random.default_rng(SEED + 53)
+    cts = [d1, d2] + [keys.encrypt_symmetric(ctx, sk, encode_coeffs(
+        ctx, rng.integers(-3, 4, ctx.params.n), DELTA_BITS), gen)
+        for _ in range(3)]
+    pairs = [(cts[i % len(cts)], cts[(i + 1) % len(cts)])
+             for i in range(EXEC_ITEMS)]
+    direct = [pp.mult_relin_rescale32(pipe, a, b) for a, b in pairs]
+    ex = StreamExecutor(pp.mult_relin_rescale32, pipe, batch=EXEC_BATCH)
+    outs = _count(wrappers, EXEC_WHAT, lambda: ex.map(pairs), launches)
+    if not all(torch.equal(o, r) for o, r in zip(outs, direct)):
+        raise RuntimeError("runtime: the executor's outputs differ from "
+                           "direct calls")
+    st = ex.stats
+    print(f"runtime: {EXEC_ITEMS} items through StreamExecutor(batch="
+          f"{EXEC_BATCH}) bit-equal in order to direct calls; stats: items "
+          f"{st.items}, batches {st.batches}, padded lanes "
+          f"{st.padded_lanes}, dispatch {st.dispatch_s * 1e3:.3f} ms, first "
+          f"batch {st.first_batch_s * 1e3:.3f} ms")
+    if (st.items, st.batches, st.padded_lanes) != (
+            EXEC_ITEMS, -(-EXEC_ITEMS // EXEC_BATCH), 0):
+        raise RuntimeError(f"runtime: stats {st}")
+
+    def run_direct():
+        return [pp.mult_relin_rescale32(pipe, a, b) for a, b in pairs]
+
+    def run_exec():  # the same executor, as a server keeps one
+        return ex.map(pairs)
+
+    def run_map():  # a new executor a call, on the same side stream
+        return pipeline_map(pp.mult_relin_rescale32, pipe, pairs,
+                            batch=EXEC_BATCH)
+
+    if not all(torch.equal(o, r) for o, r in zip(run_map(), direct)):
+        raise RuntimeError("runtime: pipeline_map's outputs differ from "
+                           "direct calls")
+    fns = {"direct": run_direct, "executor": run_exec,
+           "pipeline_map": run_map}
+    res = {}
+    for name in ("direct", "executor", "pipeline_map", "pipeline_map",
+                 "executor", "direct"):
+        fn = fns[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time(fn, 3)
+        res.setdefault(name, []).append(
+            (ms, torch.cuda.max_memory_allocated() / 2**20))
+    print(f"timing runtime, {EXEC_ITEMS} headline steps: " + "; ".join(
+        f"{name} {np.mean([m for m, _ in v]):.3f} ms a run ("
+        + ", ".join(f"{m:.3f}" for m, _ in v) + f"), "
+        f"{EXEC_ITEMS * 1e3 / np.mean([m for m, _ in v]):.1f} items/s, peak "
+        f"{max(p for _, p in v):.0f} MiB" for name, v in res.items())
+        + f" [{card}]")
+    for name, fn in (("direct calls", run_direct),
+                     ("StreamExecutor", run_exec)):
+        _profile(fn, 2, card, f"runtime, {name}, {EXEC_ITEMS} headline "
+                 "steps")
+    debug.enable()
+    try:
+        got = debug.checked_call(pp.mult_relin_rescale32, pipe, d1, d2)
+        if not torch.equal(got, direct[0]):
+            raise RuntimeError("runtime: the checked step differs")
+        bad = d1.clone()
+        bad[0, 0, 0] = pipe.ks.mv_ql.q[0]
+        try:
+            debug.checked_call(pp.mult_relin_rescale32, pipe, bad, d2)
+        except debug.SanitizerError as e:
+            print(f"sanitizer: the checked step passes on canonical inputs, "
+                  f"bit-equal; an input word equal to q raises: {e}")
+        else:
+            raise RuntimeError("sanitizer: an input word equal to q passed")
+    finally:
+        debug.enable(False)
+    del ctx, sk, pipe, cts, pairs, direct, outs, ex
+    torch.cuda.empty_cache()
+
+
+def _examples_phase(card) -> None:
+    """Phase 54: examples 4 and 5 (serialization, kernel fusing) run as
+    scripts on the card."""
+    import runpy
+    argv = sys.argv
+    for name in EXAMPLES:
+        path = os.path.join(ROOT, "phantom_tpu_torch", "examples",
+                            name + ".py")
+        t0 = time.time()
+        sys.argv = [path]
+        try:
+            runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = argv
+        print(f"example {name}.py: passed in {time.time() - t0:.1f} s "
+              f"[{card}]")
+
+
+def _runtime_utils_phases(card, wrappers, launches, dev) -> tuple:
+    """Phases 51-54; returns S1's probe and its launches on the wire
+    path."""
+    probe = _S1Probe(S1_REPS)
+    _s1_phase(card, probe, dev)
+    s1 = _wire_phase(card, dev)
+    _runtime_phase(card, wrappers, launches, dev)
+    _examples_phase(card)
+    return probe, s1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5596,6 +6218,11 @@ def main() -> int:
     # 48-50. the u64 application layer: F1's wide forms, the golden files,
     # the u64 MLP + Chebyshev circuit
     _u64_app_phases(card, probes64, launches, launches64, dev)
+    torch.cuda.empty_cache()
+    # 51-54. the runtime and utils layer: S1, the wire path, the
+    # StreamExecutor, examples 4 and 5
+    s1_probe, s1_launches = _runtime_utils_phases(card, wrappers, launches,
+                                                  dev)
 
     def summed(name, calls, library_ms=None):
         if not calls:
@@ -5650,6 +6277,13 @@ def main() -> int:
             rows[-1]["forms"] = [
                 dict(name=f"U2 {form}", **summed(f"U2 {form}", cs))
                 for form, cs in forms.items()]
+    rows.append(dict(name="S1 sample", route="cuda", source=S1_SOURCE,
+                     replaces=S1_REPLACES, launches=s1_launches,
+                     **summed("S1", s1_probe.calls)))
+    rows[-1]["forms"] = [
+        dict(name=f"S1 {form}", **summed(f"S1 {form}", [
+            c for c in s1_probe.calls if c["form"] == form]))
+        for form in SALSA_FORMS]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

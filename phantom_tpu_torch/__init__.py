@@ -31,7 +31,11 @@ radix-8 core that holds each row in a thread-block cluster, the base
 conversions (on the int8 tensor cores), the fused modup + key inner
 product (NTT, coefficient and pre-converted form), the key inner product
 and the moddown epilogues; F1, the encoder's double-float FFT; and the
-u64 evaluator's U1-U4.  It
+u64 evaluator's U1-U4; and S1, the reference's Salsa20 sampler.  Beside
+them sit the wire formats (utils/refformat.py, the reference's, with
+seed-compressed ciphertexts; utils/serialize.py, the package's own),
+OpTimer, the range sanitizer and a batched StreamExecutor on its own
+CUDA stream (runtime/).  It
 imports torch and numpy and never JAX, and keeps its own copy of the
 host math (host/).  Its entry points run
 on the CUDA device unless the context was built with device="cpu", where

@@ -77,6 +77,7 @@ _SIGNATURES = {
     "ptk_u64_inner_product": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "ptk_u64_polyops": ([_I] + [_P] * 5 + [_L, _L] + [_I] * 5 + [_P], _I),
     "ptk_u64_polyops_launches": ([], ctypes.c_longlong),
+    "ptk_salsa20": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),
 }
 
 _lock = threading.Lock()

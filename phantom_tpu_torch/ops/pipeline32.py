@@ -110,6 +110,7 @@ from .modmath32 import mul_mod_shoup32, u32
 from .ntt32 import u32_tensor
 from ..schemes import galois as gal
 from ..schemes.context import Context, qlp_rows, resolve_device
+from ..utils import debug
 
 # the JAX package's default: the fused modup (K4, K3 self rows) up to this
 # special-base size, the xla-split modup above it (KeySwitch32.modup)
@@ -718,7 +719,24 @@ def mult_relin_rescale32(p: CKKSPipeline32, d1: torch.Tensor,
     modup route (the K4 route, _mult_relin_rescale_split,
     _mult_relin_rescale_preconv) and through each epilogue
     (_relin_rescale).  With merged_epilogue the result is a view: rows
-    [0, size_ql - 1) of K7's output."""
+    [0, size_ql - 1) of K7's output.  With the sanitizer enabled
+    (utils/debug.py) d1, d2 and the output are checked canonical, the JAX
+    package's three seams; disabled, the seams add no tensor op."""
+    ks = p.ks
+    if debug.enabled():
+        q = _qcol(ks.mv_ql.q)
+        debug.check_range(d1, q, "mult_relin_rescale32: d1 not canonical")
+        debug.check_range(d2, q, "mult_relin_rescale32: d2 not canonical")
+    res = _mult_relin_rescale(p, d1, d2, ops)
+    if debug.enabled():
+        debug.check_range(res, _qcol(ks.mv_ql.q[:-1]),
+                          "rescale output not canonical")
+    return res
+
+
+def _mult_relin_rescale(p: CKKSPipeline32, d1: torch.Tensor,
+                        d2: torch.Tensor, ops: Kernels) -> torch.Tensor:
+    """mult_relin_rescale32 without its seams: the route's step."""
     ks = p.ks
     if ks.engine == ROLL_ENGINE:
         return _mult_relin_rescale_roll(p, d1, d2, ops)

@@ -226,6 +226,12 @@ u64_linear_b50.npz, u64_poly_b50.npz, ckks_fft_wide.npz: the CKKS
   dec_<c>_<ci> (its decode), and the host CKKSEncoder's decode of it
   (host_<c>_<ci>).
 
+refformat_n1024.npz: the wire formats and the reference's Salsa20
+  sampler at n = 1024 (refformat_golden below): the JAX package's salsa20
+  samples, its refformat blobs of BFV keys, ciphertexts (a seeded
+  symmetric one too) and a plaintext, the sha256 of its serialize blobs,
+  and a seeded CKKS ciphertext.
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -258,6 +264,8 @@ from phantom_tpu.schemes import (BatchEncoder, CKKSEncoder,  # noqa: E402
                                  EncryptionParameters, Plaintext, Scheme,
                                  evaluate, keys, make_context)
 from phantom_tpu.schemes.ckks_encoder import encode_extended  # noqa: E402
+
+from chip_smoke import rejecting_primes  # noqa: E402
 
 DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port")
 N, K_DATA, ALPHA, SEED = 1024, 5, 2, 7
@@ -1737,11 +1745,130 @@ def ckks_fft_wide():
     _save("ckks_fft_wide.npz", **out)
 
 
+REF_SALSA_BITS = (28, 50, 61)
+REF_STEPS = (1,)
+
+
+def salsa_moduli(bits, n=N, count=3):
+    """61-bit primes that reject about one lane in nine
+    (chip_smoke.rejecting_primes, which the tests replay), else the
+    package's primes of `bits` bits."""
+    return rejecting_primes(n, count) if bits == 61 else numth.get_primes(
+        2 * n, bits, count)
+
+
+def _blob(save, *args):
+    import io
+    buf = io.BytesIO()
+    save(*args, buf)
+    return np.frombuffer(buf.getvalue(), dtype=np.uint8).copy()
+
+
+def _sha(blob):
+    import hashlib
+    return np.frombuffer(hashlib.sha256(blob.tobytes()).digest(),
+                         dtype=np.uint8).copy()
+
+
+def refformat_golden():
+    """refformat_n1024.npz: the JAX package's salsa20 samplers (numpy
+    path) at n = 1024 over three primes of 28, 50 and 61 bits (the last
+    rejecting about one lane in nine): seed, salsa_moduli_<b>,
+    <form>_<b>.  BFV at n = 1024 (two 40-bit data primes, one special, t
+    = PlainModulus.batching(n, 16), as JAX examples/4_serialization.py):
+    JAX keys, an asymmetric encryption ct of vals1, a seeded symmetric
+    encryption ct_sym of vals2 (refformat.encrypt_symmetric_seeded,
+    sym_seed), the plaintext pt of vals1, and prod = multiply_and_relin
+    (ct, ct_sym); each through refformat's writers as ref_<name> (uint8
+    blobs), and through serialize's as the sha256 of its bytes,
+    ser_<name> (ser_cts: the whole JAX PTCS blob of ct_sym, its threefry
+    seed 2 words).  h__sym_data is ct_sym's data digest.  CKKS at n =
+    1024 (three 50-bit data primes, one of 51): ckks_ref_sk, ckks_ref_sym
+    (a seeded encryption of ckks_z at scale 2^40, NTT form), its data
+    digest h__ckks_sym_data."""
+    from phantom_tpu.host.modulus import CoeffModulus
+    from phantom_tpu.utils import refformat as ref
+    from phantom_tpu.utils import salsa20
+    from phantom_tpu.utils import serialize as ser
+    out = {}
+    seed = bytes(range(3, 67))
+    out["seed"] = np.frombuffer(seed, dtype=np.uint8).copy()
+    for b in REF_SALSA_BITS:
+        qs = salsa_moduli(b)
+        out[f"salsa_moduli_{b}"] = np.array(qs, dtype=np.uint64)
+        for form in ("uniform", "ternary", "error"):
+            out[f"{form}_{b}"] = getattr(salsa20, f"sample_{form}_ref")(
+                seed, qs, N, use_native=False)
+    coeff = [m.value for m in CoeffModulus.create(N, [40, 40, 40])]
+    t = PlainModulus.batching(N, 16).value
+    ctx = make_context(EncryptionParameters.create(
+        Scheme.BFV, N, coeff, plain_modulus=t, special_modulus_size=1))
+    out["bfv_moduli"] = np.array(coeff, dtype=np.uint64)
+    out["t"] = np.array(t)
+    k = jax.random.split(jax.random.PRNGKey(SEED + 90), 7)
+    sk = keys.gen_secret_key(ctx, k[0])
+    pk = keys.gen_public_key(ctx, sk, k[1])
+    rlk = keys.gen_relin_key(ctx, sk, k[2])
+    glk = keys.create_galois_keys(ctx, sk, k[3], steps=list(REF_STEPS))
+    out["glk_elts"] = np.array(glk.elts, dtype=np.int64)
+    enc = BatchEncoder(ctx)
+    rng = np.random.default_rng(SEED + 90)
+    vals1 = rng.integers(0, t, N, dtype=np.uint64)
+    vals2 = rng.integers(0, t, N, dtype=np.uint64)
+    out["vals1"], out["vals2"] = vals1, vals2
+    pt = enc.encode(vals1)
+    ct = keys.encrypt_asymmetric(ctx, pk, pt, k[4])
+    sym_seed = bytes(range(100, 164))
+    out["sym_seed"] = np.frombuffer(sym_seed, dtype=np.uint8).copy()
+    ct_sym = ref.encrypt_symmetric_seeded(ctx, sk, enc.encode(vals2),
+                                          sym_seed, k[5])
+    out["h__sym_data"] = digest(ct_sym.data)
+    prod = evaluate.multiply_and_relin(ctx, ct, ct_sym, rlk)
+    np.testing.assert_array_equal(
+        enc.decode(keys.decrypt(ctx, sk, prod)),
+        (vals1.astype(object) * vals2.astype(object) % t).astype(np.uint64))
+    out["ref_sk"] = _blob(ref.save_secret_key_ref, sk)
+    out["ref_pk"] = _blob(ref.save_public_key_ref, pk)
+    out["ref_rlk"] = _blob(ref.save_relin_key_ref, rlk)
+    out["ref_glk"] = _blob(ref.save_galois_key_ref, glk)
+    out["ref_ct"] = _blob(ref.save_ciphertext_ref, ct)
+    out["ref_pt"] = _blob(ref.save_plaintext_ref, pt)
+    out["ref_prod"] = _blob(ref.save_ciphertext_ref, prod)
+    out["ref_sym"] = _blob(lambda c, f: ref.save_ciphertext_symmetric_ref(
+        c, sym_seed, f), ct_sym)
+    for name, obj in (("sk", sk), ("pk", pk), ("rlk", rlk), ("glk", glk),
+                      ("ct", ct), ("pt", pt), ("prod", prod)):
+        out[f"ser_{name}"] = _sha(np.frombuffer(ser.to_bytes(obj),
+                                                dtype=np.uint8))
+    ct_c, key = ser.encrypt_symmetric_compressed(ctx, sk, enc.encode(vals2),
+                                                 k[6])
+    out["ser_cts"] = _blob(lambda c, f: ser.save_ciphertext_symmetric(
+        c, key, f), ct_c)
+    q50 = numth.get_primes(2 * N, 50, 3) + numth.get_primes(2 * N, 51, 1)
+    cctx = make_context(EncryptionParameters.create(
+        Scheme.CKKS, N, q50, special_modulus_size=1))
+    out["ckks_moduli"] = np.array(q50, dtype=np.uint64)
+    kc = jax.random.split(jax.random.PRNGKey(SEED + 91), 2)
+    csk = keys.gen_secret_key(cctx, kc[0])
+    z = rng.standard_normal(N // 2) + 1j * rng.standard_normal(N // 2)
+    out["ckks_z"] = z
+    cpt = CKKSEncoder(cctx).encode(z, 2.0 ** 40)
+    cseed = bytes(range(200, 256)) + bytes(range(8))
+    out["ckks_seed"] = np.frombuffer(cseed, dtype=np.uint8).copy()
+    csym = ref.encrypt_symmetric_seeded(cctx, csk, cpt, cseed, kc[1])
+    out["h__ckks_sym_data"] = digest(csym.data)
+    out["ckks_ref_sk"] = _blob(ref.save_secret_key_ref, csk)
+    out["ckks_ref_sym"] = _blob(lambda c, f: ref.save_ciphertext_symmetric_ref(
+        c, cseed, f), csym)
+    _save("refformat_n1024.npz", **out)
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
                       "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
                       "fast32", "ckks_fft", "linear", "poly", "roll",
-                      "fast32_roll", "u64", "u64_bfv", "u64_app"]
+                      "fast32_roll", "u64", "u64_bfv", "u64_app",
+                      "refformat"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -1781,6 +1908,8 @@ def main(names):
                        ("ckks_fft_wide", ckks_fft_wide)):
         if name in names or "u64_app" in names:
             make()
+    if "refformat" in names:
+        refformat_golden()
 
 
 if __name__ == "__main__":

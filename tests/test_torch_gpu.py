@@ -14,6 +14,9 @@ too) through them, and the roll engine's and the xla-bconv moddown's
 golden file.  The BFV step
 on both engines, BFV's other techniques and the fused lift, and the BGV
 step on each modup route against the plain path and the golden files.
+S1 (the reference's Salsa20 sampler) in its three forms, the wire
+formats' golden file on the card and the StreamExecutor against direct
+calls.
 """
 
 import os
@@ -1451,3 +1454,99 @@ def test_roll_and_xla_moddown_golden_on_the_card(dev):
     (the xla-bconv moddown) on the card."""
     for name, (got, want) in chip_smoke.roll_golden(dev).items():
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the runtime and utils layer: S1, the wire formats, the StreamExecutor
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("form", chip_smoke.SALSA_FORMS)
+@pytest.mark.parametrize("bits", chip_smoke.SALSA_BITS)
+@pytest.mark.parametrize("logn,limbs", [(3, 1), (10, 5), (16, 43)])
+def test_s1_forms(dev, logn, limbs, bits, form):
+    """S1's three forms against the plain version on the card, bit for
+    bit, at N = 8 to 2^16 over 28-, 50- and 61-bit primes (the 61-bit ones
+    reject about one lane in nine); one launch a call."""
+    from phantom_tpu_torch.ops.rns_host import modulus_vec
+    from phantom_tpu_torch.utils import salsa20
+    n = 1 << logn
+    qs = (chip_smoke.rejecting_primes(max(n, 8), limbs) if bits == 61
+          else numth.get_primes(2 * max(n, 512), bits, limbs))
+    mv = modulus_vec(qs, dev)
+    seed = bytes(range(logn, logn + 64))
+    launches = salsa20.sample.launches
+    got = salsa20.sample(form, seed, mv, n)
+    torch.cuda.synchronize()
+    assert salsa20.sample.launches == launches + 1
+    assert got.shape == (limbs, n) and got.device.type == "cuda"
+    assert torch.equal(got, salsa20.sample_plain(form, seed, mv, n))
+
+
+def test_s1_refuses_bad_operands(dev):
+    """The uniform form refuses N not a multiple of 8; int32 moduli are
+    refused; nothing launches."""
+    from phantom_tpu_torch.ops.rns_host import ModulusVec, modulus_vec
+    from phantom_tpu_torch.utils import salsa20
+    mv = modulus_vec(numth.get_primes(2048, 50, 2), dev)
+    launches = salsa20.sample.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        salsa20.sample("uniform", bytes(64), mv, 1020)
+    with pytest.raises(ValueError, match="int64"):
+        salsa20.sample("ternary", bytes(64), ModulusVec(
+            mv.q.int(), mv.ratio_lo, mv.ratio_hi.int()), 1024)
+    assert salsa20.sample.launches == launches
+
+
+def test_wire_golden_on_the_card(dev):
+    """refformat_n1024.npz on the card: the JAX package's Salsa20 samples
+    through S1, and its blobs loaded (seeded ones through S1 and U1),
+    saved again byte for byte, hashed in the port's own format, decrypted
+    and multiplied, bit-equal."""
+    assert chip_smoke.salsa_golden(dev) == 9
+    assert chip_smoke.wire_golden(dev) == 9
+
+
+def test_executor_against_direct_calls(dev):
+    """StreamExecutor on the side CUDA stream: the CKKS step over 7 items in
+    batches of 3 (a tail of 1) bit-equal, in order, to direct calls, and
+    the outputs usable on the caller's stream after result()."""
+    from phantom_tpu_torch.runtime import StreamExecutor
+    ctx = make_context(chip_smoke.chain_params(1024, 5, 2), device=dev)
+    sk, pipe, d1, d2, _, _ = chip_smoke.make_step_inputs(ctx, 5, 20, dev)
+    pairs = [(d1, d2), (d2, d1), (d1, d1)] * 2 + [(d2, d2)]
+    want = [pp.mult_relin_rescale32(pipe, a, b) for a, b in pairs]
+    ex = StreamExecutor(pp.mult_relin_rescale32, pipe, batch=3)
+    handles = [ex.submit(a, b) for a, b in pairs]
+    ex.flush()
+    outs = [h.result() for h in handles]
+    total = sum(o.long().sum() for o in outs)  # on the caller's stream
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    assert int(total) == int(sum(w.long().sum() for w in want))
+    assert (ex.stats.items, ex.stats.batches, ex.stats.padded_lanes) == (
+        7, 3, 0)
+    assert ex.throughput() > 0
+
+
+def test_executor_against_jax_golden(dev):
+    """ckks_step_n1024.npz's d1, d2 and relin key on the card: six items
+    in batches of 4 (a tail of 2) through a StreamExecutor and through
+    pipeline_map, both on the one shared side stream, each output
+    bit-equal to the JAX package's."""
+    from phantom_tpu_torch.runtime import StreamExecutor, pipeline_map
+    from phantom_tpu_torch.runtime.executor import side_stream
+    g = np.load(chip_smoke.GOLDEN)
+    ctx = make_context(EncryptionParameters.create(
+        int(g["d1"].shape[-1]), g["data_moduli"].tolist(),
+        g["special_moduli"].tolist()), device=dev)
+    pipe = pp.build_pipeline32(ctx, convert.residues(g["rlk"]).to(dev))
+    d1, d2 = (convert.residues(g[k]).to(dev) for k in ("d1", "d2"))
+    pairs = [(d1, d2)] * 6
+    ex = StreamExecutor(pp.mult_relin_rescale32, pipe, batch=4)
+    outs = ex.map(pairs) + pipeline_map(pp.mult_relin_rescale32, pipe,
+                                        pairs, batch=4)
+    torch.cuda.synchronize()
+    assert side_stream(d1.device) is side_stream(d1.device)
+    for o in outs:
+        np.testing.assert_array_equal(o.cpu().numpy().view(np.uint32),
+                                      g["out"])

@@ -103,6 +103,14 @@ for name in ("encrypted_matmul", "poly_eval", "logistic_inference",
     runpy.run_path(os.path.join("phantom_tpu_torch", "examples",
                                 name + ".py"))
 assert callable(pt.poly_eval) and callable(pt.poly_eval_cheb)
+from phantom_tpu_torch.runtime import StreamExecutor, pipeline_map
+from phantom_tpu_torch.utils import (debug, refformat, salsa20, serialize,
+                                     timer)
+assert salsa20.sample_ternary_ref(bytes(64), [97, 193], 16,
+                                  "cpu").shape == (2, 16)
+for name in ("serialization", "kernel_fusing"):
+    runpy.run_path(os.path.join("phantom_tpu_torch", "examples",
+                                name + ".py"))
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -115,9 +123,9 @@ print("ok")
 
 
 def test_import_without_jax():
-    """phantom_tpu_torch, chip_smoke and f1_anatomy import, and a context
-    builds, with
-    JAX blocked; no module in sys.modules has a file under phantom_tpu/."""
+    """phantom_tpu_torch (its runtime and utils too), chip_smoke and
+    f1_anatomy import, a context builds and the examples load, with JAX
+    blocked; no module in sys.modules has a file under phantom_tpu/."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                        text=True, timeout=300, cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": ROOT})
@@ -500,3 +508,52 @@ def test_u64_application_path_needs_cuda_or_cpu(monkeypatch):
     for fn in (poly_eval, poly_eval_cheb):
         with pytest.raises(ValueError, match="no kernel for device meta"):
             fn(meta, ct, [0.0, 0.5, 0.25], m(3, 2, 4, n), enc)
+
+
+def test_s1_meta_tensor_raises():
+    """S1's wrapper on moduli of a device without a kernel raises (a CUDA
+    tensor launches, a CPU tensor takes the plain version)."""
+    from phantom_tpu_torch.ops.rns_host import modulus_vec
+    from phantom_tpu_torch.utils import salsa20
+    mv = modulus_vec([97, 193], "meta")
+    for form in salsa20.FORMS:
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            salsa20.sample(form, bytes(64), mv, 64)
+
+
+def test_runtime_and_utils_need_cuda_or_cpu(monkeypatch):
+    """The samplers, the loads and the StreamExecutor run on the CUDA
+    device unless given "cpu" (or CPU tensors); on a device without
+    kernels (meta) the executor's step raises rather than fall back."""
+    import io
+    from phantom_tpu_torch.host import numth
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.runtime import StreamExecutor
+    from phantom_tpu_torch.schemes.params import EncryptionParameters
+    from phantom_tpu_torch.utils import refformat, salsa20, serialize
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    qs = numth.get_primes(2048, 50, 2)
+    for form in salsa20.FORMS:
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            getattr(salsa20, f"sample_{form}_ref")(bytes(64), qs, 1024)
+        assert getattr(salsa20, f"sample_{form}_ref")(
+            bytes(64), qs, 1024, device="cpu").device.type == "cpu"
+    sk = torch.zeros((3, 64), dtype=torch.int64)
+    buf = io.BytesIO()
+    refformat.save_secret_key_ref(sk, buf)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        refformat.load_secret_key_ref(io.BytesIO(buf.getvalue()))
+    blob = serialize.to_bytes(sk)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        serialize.from_bytes(blob)
+    assert torch.equal(serialize.from_bytes(blob, device="cpu"), sk)
+    n = 1024
+    meta = make_context(EncryptionParameters.create(
+        n, numth.get_primes(2 * n, 28, 3), numth.get_primes(2 * n, 29, 1)),
+        device="meta")
+    pipe = pp.build_pipeline32(meta, torch.empty(
+        (3, 2, 4, n), dtype=torch.int32, device="meta"), device="meta")
+    d = torch.empty((2, 3, n), dtype=torch.int32, device="meta")
+    ex = StreamExecutor(pp.mult_relin_rescale32, pipe, batch=2)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ex.map([(d, d), (d, d)])
