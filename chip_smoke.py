@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port's CKKS key switching, BFV multiply (by each
 of the four techniques, on 32- and 64-bit words), BGV multiply, its
 Fast32 evaluator, the CKKS application path (the device encoder,
-LinearTransform, polynomial evaluation) and the runtime and utils layer
+LinearTransform, polynomial evaluation), the runtime and utils layer
 (the reference's Salsa20 sampler S1, the wire formats, StreamExecutor, the
-range sanitizer) on one NVIDIA GPU and check it.
+range sanitizer) and the coefficient-sharded steps over torch.distributed
+(P1, the sharded NTT's local phases) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
@@ -372,6 +373,24 @@ Phases, one line each or more; any failure exits non-zero:
                input word equal to q
  54. examples  phantom_tpu_torch/examples/serialization.py and
                kernel_fusing.py (JAX examples 4 and 5) as scripts
+ 55. parallel  phantom_tpu_torch/parallel on a world of one over NCCL
+               (a FileStore in a temporary directory): the u32 CKKS step
+               at the headline configuration, the u64 CKKS and BGV steps
+               at U64_CFG and the u64 BFV HPS step at U64_BFV_CFG, each
+               from chain index 1 on seeded uniform operands and relin
+               key (parallel/launch.step_setup): W, dp and coeff; P1's
+               calls of the u32 and u64 CKKS steps under the probe
+               (bit-equal to plain, event and device time, plain time,
+               bound); the launch counts (EXPECTED "sharded ... step":
+               P1, K5 and K9, or U2-U4) with the all-to-alls and their
+               bytes; the output bit-equal to the rank's block of the
+               local kernel step and to the sharded step on the plain
+               versions; 10 chained steps, local and sharded in turns
+               (A, B, B, A), peak memory; a profile.  With two or more
+               cards also W = 2 and 4 through the launcher
+               (parallel/launch.full_width: each rank's blocks bit-equal
+               to the local step's, chained ms, peak memory); with one
+               card those lines say "not run"
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -416,7 +435,13 @@ modular function, so their library_ms is null.  S1's row sums phase
 (phase 52); its bound counts 32-bit integer operations (S1_BLOCK_OPS a
 keystream block, the blocks this call's data needs, retries included) at
 the same 16.7 T/s, and the words written; library_ms is null: no PyTorch
-call computes this keystream.
+call computes this keystream.  P1's row sums phase 55's probed calls
+(its forms by word, phase and direction under "forms"), its launches
+those of the four counted sharded steps; its bound counts each call's
+input and output once and the twiddles and Shoup words of each distinct
+table row that the phase reads (phase B: every local column's), and a
+Shoup product a butterfly (3 32-bit multiplies in u32, SHOUP_OPS in
+u64); library_ms is null: no PyTorch call computes a modular NTT phase.
 Last comes {"ok": true, "device": ...}.
 Without a CUDA device, or without the repo around it, it exits non-zero
 before printing any result.
@@ -1033,13 +1058,14 @@ def encode_weights(ctx, ks, w: np.ndarray):
     return encode_coeffs(ctx, w, 0, ks.rows_qlp)
 
 
-def remix(out, q):
+def remix(out, q, dim: int = 1):
     """A step output (2, k-1, N) -> a full (2, k, N) input: the dropped
-    limb is row 0 reduced into its modulus (bench.py's re-pad)."""
+    limb is row 0 reduced into its modulus (bench.py's re-pad); dim: the
+    limbs' axis."""
     import torch
-    row0 = out[:, :1]
+    row0 = out.narrow(dim, 0, 1)
     pad = torch.where(row0 >= q, row0 - q, row0)
-    return torch.cat([out, pad], dim=1)
+    return torch.cat([out, pad], dim=dim)
 
 
 def rotate_golden_state(device, path: str = ROTATE_GOLDEN):
@@ -2684,12 +2710,13 @@ def calls_only(card: str, dev, only_u64: bool = False) -> None:
 
 def _probes(pp, wrappers):
     """A Kernels of probes: KERNELS' wrappers, then the fields past them
-    (F1's forms, where the tree has them)."""
+    (F1's forms and P1, where the tree has them)."""
     extra = pp.Kernels._fields[len(KERNELS):]
     return pp.Kernels(*(
         [_Probe(name, k, p, REPS) for (name, *_), k, p
          in zip(KERNELS, wrappers, pp.PLAIN)]
-        + [_Probe(F1_FORMS[f], getattr(pp.KERNELS, f), getattr(pp.PLAIN, f),
+        + [_P1Probe(REPS) if f == "ntt_phase" else
+           _Probe(F1_FORMS[f], getattr(pp.KERNELS, f), getattr(pp.PLAIN, f),
                   REPS) for f in extra]))
 
 
@@ -2708,20 +2735,36 @@ def _print_calls(probes, card, since):
         since[name] = len(probe.calls)
 
 
-def _count(wrappers, what: str, fn, launches: dict):
-    """Run fn with every launch count set to 0 just before and read just
-    after; check them against EXPECTED[what] and add them to launches."""
+def _count_named(named, what: str, fn, want: dict, extra=None):
+    """Run fn with the launch count of every (name, wrapper) of `named`
+    set to 0 just before and read just after, print them and check them
+    against `want`.  extra: a function that reads other counters ({name:
+    value}, the all-to-alls), read before and after as well and printed
+    beside.  Returns (fn's output, the launch counts, the other
+    counters' increase)."""
     import torch
-    for w in wrappers:
+    for _, w in named:
         w.launches = 0
+    before = extra() if extra else {}
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
-    got = {name: w.launches for (name, *_), w in zip(KERNELS, wrappers)}
+    got = {name: w.launches for name, w in named}
+    more = {k: v - before[k] for k, v in (extra() if extra else {}).items()}
     print(f"launches, {what}: " + ", ".join(f"{k}={v}"
-                                            for k, v in got.items()))
-    if got != EXPECTED[what]:
-        raise RuntimeError(f"{what}: launches {got} != {EXPECTED[what]}")
+                                            for k, v in got.items())
+          + "".join(f"; {k} {v}" for k, v in more.items()))
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got} != {want}")
+    return out, got, more
+
+
+def _count(wrappers, what: str, fn, launches: dict):
+    """Run fn with every launch count set to 0 just before and read just
+    after; check them against EXPECTED[what] and add them to launches."""
+    out, got, _ = _count_named(
+        [(name, w) for (name, *_), w in zip(KERNELS, wrappers)], what, fn,
+        EXPECTED[what])
     for k, v in got.items():
         launches[k] += v
     return out
@@ -4449,19 +4492,14 @@ def kernel_wrappers64():
             keyswitch.inner_product_evk_kernel, polyops.mul_rns]
 
 
+def _named64(wrappers):
+    return [(name, w) for (name, *_), w in zip(U64_KERNELS, wrappers)]
+
+
 def _count64(wrappers, what: str, fn, launches: dict):
     """_count for U1-U4 against EXPECTED64[what]."""
-    import torch
-    for w in wrappers:
-        w.launches = 0
-    torch.cuda.synchronize()
-    out = fn()
-    torch.cuda.synchronize()
-    got = {name: w.launches for (name, *_), w in zip(U64_KERNELS, wrappers)}
-    print(f"launches, {what}: " + ", ".join(f"{k}={v}"
-                                            for k, v in got.items()))
-    if got != EXPECTED64[what]:
-        raise RuntimeError(f"{what}: launches {got} != {EXPECTED64[what]}")
+    out, got, _ = _count_named(_named64(wrappers), what, fn,
+                               EXPECTED64[what])
     for k, v in got.items():
         launches[k] += v
     return out
@@ -4578,6 +4616,7 @@ def _enqueue_ms(fn, reps: int) -> float:
 def _probes64(reps: int = REPS):
     from phantom_tpu_torch.schemes import keyswitch as ksw
     return ksw.Kernels64(*(
+        _P1Probe(reps) if f == "ntt_phase" else
         _Probe(U64_F1_FORMS[f], getattr(ksw.KERNELS64, f),
                getattr(ksw.PLAIN64, f), reps) if f in U64_F1_FORMS else
         _Probe64(f, getattr(ksw.KERNELS64, f), getattr(ksw.PLAIN64, f), reps)
@@ -5058,22 +5097,9 @@ def _count_app64(wrappers64, what: str, fn, launches: dict,
                  launches64: dict):
     """_count64 with F1 beside U1-U4, against EXPECTED_APP64[what]; U1-U4
     add to launches64, F1 to launches."""
-    import torch
     from phantom_tpu_torch.ops import ckks_fft as cf
-    for w in wrappers64:
-        w.launches = 0
-    cf.ckks_fft.launches = 0
-    torch.cuda.synchronize()
-    out = fn()
-    torch.cuda.synchronize()
-    got = {name: w.launches for (name, *_), w in zip(U64_KERNELS,
-                                                     wrappers64)}
-    got["F1"] = cf.ckks_fft.launches
-    print(f"launches, {what}: " + ", ".join(f"{k}={v}"
-                                            for k, v in got.items()))
-    want = EXPECTED_APP64.get(what)
-    if got != want:
-        raise RuntimeError(f"{what}: launches {got} != {want}")
+    out, got, _ = _count_named(_named64(wrappers64) + [("F1", cf.ckks_fft)],
+                               what, fn, EXPECTED_APP64.get(what))
     for k, v in got.items():
         if k == "F1":
             launches["F1"] += v
@@ -5781,6 +5807,235 @@ def _runtime_utils_phases(card, wrappers, launches, dev) -> tuple:
     return probe, s1
 
 
+# ---------------------------------------------------------------------------
+# phase 55: the coefficient-sharded steps (phantom_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+P1_SOURCE = "phantom_tpu_torch/csrc/ntt_phase.cu"
+P1_REPLACES = ("phantom_tpu/parallel/ntt_sharded.py:86-211 and "
+               "phantom_tpu/parallel/sharded32.py:66-161 (XLA stage loops, "
+               "no pallas_call)")
+SHARDED_CHAIN_STEPS = 10
+# (W, dp) through the launcher, where the machine has the cards
+SHARDED_WORLDS = ((2, 1), (4, 1), (4, 2))
+SHARDED_PROBED = ("u32 CKKS", "u64 CKKS")  # P1 under the probe: both words
+U32_SHOUP_OPS = 3
+
+
+def _launches_all(**kw):
+    """A launch count over P1, KERNELS and U64_KERNELS."""
+    names = ["P1"] + [n for n, *_ in KERNELS] + [n for n, *_ in U64_KERNELS]
+    return {name: kw.get(name, 0) for name in names}
+
+
+# one sharded step at W = 1: each sharded NTT is two P1 launches (phase A,
+# phase B) around two all-to-alls, six NTTs a step (c2's inverse, the
+# modup's forward, the moddown's P-row inverse and delta forward over both
+# halves, the rescale's or switch's inverse and forward over both polys;
+# BFV: D forward, D inverse, the modup's forward, the moddown's two, the
+# switched halves' inverse)
+EXPECTED.update({
+    # K5 per digit (2) and the moddown's exact conversion (1); K9
+    "sharded u32 CKKS step": _launches_all(P1=12, K5=3, K9=1),
+    # U2 per digit and the moddown's exact conversion; U3; U4's tensor
+    # product, (x - .) P^-1 + c, the rescale's delta and its Shoup form
+    "sharded u64 CKKS step": _launches_all(P1=12, U2=3, U3=1, U4=4),
+    # BGV's moddown converts P to Ql and to {t} (U2 x2) and adds U4's
+    # moddown_delta; the switch's modswitch_delta
+    "sharded u64 BGV step": _launches_all(P1=12, U2=4, U3=1, U4=5),
+    # the four lifts (U2), three scale-and-rounds (U2 x2 each), the
+    # modup's two digits and the moddown's conversion; U4's tensor product
+    # and (x - .) P^-1
+    "sharded u64 BFV step": _launches_all(P1=12, U2=13, U3=1, U4=2),
+})
+
+
+def _p1_work(a: dict, out):
+    """(bytes, 32-bit multiplies) of one P1 call: its input read and its
+    output written once, each distinct table row's twiddles and Shoup words
+    that the phase reads (phase B: every column's), a Shoup product a
+    butterfly (and a word at the inverse's scale)."""
+    x, t, rows = a["x"], a["t"], a["rows"]
+    wb = t.word
+    num_l = rows.numel()
+    r_len, cols = ((t.n1, t.n2 // a["world"]) if a["phase"] == "A"
+                   else (t.n2, t.n1 // a["world"]))
+    tw_cols = 1 if a["phase"] == "A" else cols
+    byt = wb * (x.numel() + out.numel()
+                + int(rows.unique().numel()) * 2 * (r_len - 1) * tw_cols)
+    shoup = U32_SHOUP_OPS if wb == 4 else SHOUP_OPS
+    logr = r_len.bit_length() - 1
+    ops = num_l * cols * (r_len // 2) * logr * shoup
+    if a["inverse"] and a["phase"] == "A":
+        ops += x.numel() * shoup
+    return byt, ops
+
+
+class _P1Probe(_Probe):
+    """P1 (ops/ntt_phase_kernels.ntt_phase) under a probe: each call held
+    against its plain version and timed, its form (word, phase, direction)
+    recorded."""
+
+    def __init__(self, reps: int):
+        from phantom_tpu_torch.ops import ntt_phase_kernels as npk
+        super().__init__("P1", npk.ntt_phase, npk.ntt_phase_plain, reps)
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        ba = self.sig.bind(*args, **kw)
+        ba.apply_defaults()
+        a = ba.arguments
+        self.calls[-1]["form"] = (f"u{8 * a['t'].word} {a['phase']} "
+                                  + ("inverse" if a["inverse"]
+                                     else "forward"))
+        return out
+
+    def bound(self, arguments, out):
+        byt, ops = _p1_work(arguments, out)
+        return byt, ops, 0, 0
+
+
+def _init_nccl_world1(dev):
+    """The default group as a world of one over NCCL (a FileStore in a
+    fresh temporary directory); returns the directory."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0 if dev.index is None else dev.index)
+    tmp = tempfile.mkdtemp(prefix="ptk_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    return tmp
+
+
+def _parallel_phase(card, dev, steps=None, n=None) -> tuple:
+    """Phase 55: the four sharded steps at full width (launch.STEPS; or
+    `steps`, {what: cfg}, at N = n) on a world of one over NCCL: per step
+    W, dp and coeff; P1's calls probed on the u32 and u64 CKKS steps;
+    the launch counts (EXPECTED) with the all-to-alls and their bytes;
+    the output bit-equal to the rank's block of the local kernel step and
+    to the sharded step on the plain versions; chained ms a step, sharded
+    and local in turns (A, B, B, A), peak memory; a profile.  Each step
+    is the batched one (launch.step_setup) on a batch of one.  With two
+    or more cards, SHARDED_WORLDS through the launcher
+    (launch.full_width).  Returns (P1's probe, P1's launches)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from phantom_tpu_torch.ops import pipeline32 as pp
+    from phantom_tpu_torch.parallel import launch
+    from phantom_tpu_torch.parallel import ntt_sharded as ns
+    from phantom_tpu_torch.parallel.mesh import make_coeff_mesh, shard_coeff
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    probe = _P1Probe(U64_REPS)
+    launches = {"P1": 0}
+    named = ([("P1", ns.ntt_phase)]
+             + [(name, w) for (name, *_), w in zip(KERNELS,
+                                                   kernel_wrappers())]
+             + _named64(kernel_wrappers64()))
+    steps = {w: None for w in launch.STEPS} if steps is None else steps
+    n = 1 << launch.LOGN if n is None else n
+    tmp = _init_nccl_world1(dev)
+    try:
+        mesh = make_coeff_mesh()
+        for what, cfg in steps.items():
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            ctx, step, local, d1, d2, b1, b2 = launch.step_setup(
+                what, mesh, SEED + 55, n, cfg)
+            torch.cuda.synchronize()
+            wide = ctx.wide
+            kern, plain = ((ksw.KERNELS64, ksw.PLAIN64) if wide
+                           else (pp.KERNELS, pp.PLAIN))
+            prm = ctx.params
+            print(f"sharded {what} setup: N={prm.n} L={prm.size_q} "
+                  f"alpha={prm.size_p} ({max(prm.data_moduli).bit_length()}"
+                  f"-bit data primes), W={mesh.world} dp={mesh.dp} "
+                  f"coeff={mesh.coeff} over {dist.get_backend()}, block "
+                  f"{tuple(b1.shape)}; context, uniform operands and relin "
+                  f"key in {time.time() - t0:.1f} s [{card}]")
+            if what in SHARDED_PROBED:
+                since = len(probe.calls)
+                step(b1, b2, kern._replace(ntt_phase=probe))
+                for c in probe.calls[since:]:
+                    print(f"kernel P1 {c['form']} {c['shape']}: bit-equal "
+                          f"to plain; {c['ms']:.4f} ms (device "
+                          f"{c['dev_ms']:.4f}) vs plain {c['plain_ms']:.4f} "
+                          f"ms, bound {c['bound_ms']:.4f} ms by "
+                          f"{c['bound_by']} ({c['bytes'] / 1e6:.1f} MB, "
+                          f"{c['ops'] / 1e9:.3f} G mul) [{card}]")
+            label = f"sharded {what} step"
+            out, got, more = _count_named(
+                named, label, lambda: step(b1, b2, kern), EXPECTED[label],
+                lambda: {"all-to-alls": ns.exchange.calls,
+                         "bytes sent": ns.exchange.bytes})
+            launches["P1"] += got["P1"]
+            a2a, a2a_bytes = more["all-to-alls"], more["bytes sent"]
+            want = shard_coeff(local(d1, d2, kern), mesh)
+            if out.shape[0] != 1 or not torch.equal(out[0], want):
+                raise RuntimeError(f"{label}: differs from the local step")
+            if not torch.equal(out, step(b1, b2, plain)):
+                raise RuntimeError(f"{label}: differs from the sharded "
+                                   "plain step")
+            print(f"{label}: W={mesh.world} dp={mesh.dp} coeff="
+                  f"{mesh.coeff}: {tuple(out.shape)} bit-equal to the "
+                  "local kernel step's block and to the sharded step on "
+                  f"the plain versions; {a2a} all-to-alls a step, "
+                  f"{a2a_bytes / 2**20:.1f} MiB sent [{card}]")
+            k = d1.shape[1]
+            q_last = ctx.key_q[k - 1]
+
+            def chain(route):
+                sharded = route == "sharded W=1"
+
+                def run(count):
+                    a = b1 if sharded else d1
+                    for _ in range(count):
+                        o = step(a, b2) if sharded else local(a, d2)
+                        dim = 2 if sharded else 1
+                        a = remix(o, q_last, dim) if o.shape[dim] < k else o
+                    return a
+                return run
+            finals = _chain_timing(("local", "sharded W=1", "sharded W=1",
+                                    "local"), chain, SHARDED_CHAIN_STEPS,
+                                   card, label + " against the local step")
+            if not torch.equal(finals["local"].reshape(-1),
+                               finals["sharded W=1"].reshape(-1)):
+                raise RuntimeError(f"{label}: chained outputs differ")
+            aa = [b1]
+
+            def prof_step():
+                o = step(aa[0], b2)
+                aa[0] = remix(o, q_last, 2) if o.shape[2] < k else o
+            _profile(prof_step, PROFILE_STEPS, card, label + ", W = 1")
+            del ctx, step, local, d1, d2, b1, b2, out, want, finals, aa
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    for world, dp in SHARDED_WORLDS:
+        if world > cards:
+            print(f"sharded steps at W = {world}, dp = {dp}: not run "
+                  f"({cards} card{'s' if cards > 1 else ''} here)")
+            continue
+        t0 = time.time()
+        res = launch.run(launch.full_width, world, timeout=600,
+                         args=(SHARDED_CHAIN_STEPS,), dp=dp)
+        for per_rank in zip(*res):
+            for r in per_rank:
+                print(f"{launch.describe(r)} [{card}]")
+                if not r["equal"]:
+                    raise RuntimeError(f"sharded {r['step']} at W = {world}, "
+                                       f"rank {r['rank']}: differs from the "
+                                       "local step's block")
+        print(f"sharded steps at W = {world}, dp = {dp} through the "
+              f"launcher in {time.time() - t0:.1f} s")
+    return probe, launches["P1"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6223,6 +6478,9 @@ def main() -> int:
     # StreamExecutor, examples 4 and 5
     s1_probe, s1_launches = _runtime_utils_phases(card, wrappers, launches,
                                                   dev)
+    torch.cuda.empty_cache()
+    # 55. the coefficient-sharded steps over torch.distributed (P1)
+    p1_probe, p1_launches = _parallel_phase(card, dev)
 
     def summed(name, calls, library_ms=None):
         if not calls:
@@ -6284,6 +6542,13 @@ def main() -> int:
         dict(name=f"S1 {form}", **summed(f"S1 {form}", [
             c for c in s1_probe.calls if c["form"] == form]))
         for form in SALSA_FORMS]
+    rows.append(dict(name="P1 ntt_phase", route="cuda", source=P1_SOURCE,
+                     replaces=P1_REPLACES, launches=p1_launches,
+                     **summed("P1", p1_probe.calls)))
+    rows[-1]["forms"] = [
+        dict(name=f"P1 {form}", **summed(f"P1 {form}", cs)) for form, cs in
+        {c["form"]: [d for d in p1_probe.calls if d["form"] == c["form"]]
+         for c in p1_probe.calls}.items()]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,7 @@ from .bconv32 import (BaseConvConsts32, ModulusVec32, bconv_approx32,
                       bconv_exact32, exact_from_scaled32, floor_sum_div32,
                       matmul_reduce32, scale_by_qhat_inv32)
 from .modmath32 import mul_mod_shoup32, u32
+from .ntt_phase_kernels import ntt_phase, ntt_phase_plain
 from .ntt32 import u32_tensor
 from ..schemes import galois as gal
 from ..schemes.context import Context, qlp_rows, resolve_device
@@ -138,6 +139,7 @@ class Kernels(NamedTuple):
     ckks_fft: Callable           # F1, the CKKS encoder's FFT
     ckks_fft_encode: Callable    # F1, encode form (counts as F1)
     ckks_fft_decode: Callable    # F1, decode form (counts as F1)
+    ntt_phase: Callable          # P1, the sharded NTT's local phases
 
 
 KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
@@ -149,7 +151,7 @@ KERNELS = Kernels(ntt_kernels.ntt_inverse, ntt_kernels.ntt_forward,
                   ntt_roll_kernels.ntt_forward_roll,
                   ntt_roll_kernels.ntt_inverse_roll,
                   modup_ip_kernels.modup_ip_preconv, ckks_fft,
-                  ckks_fft_encode, ckks_fft_decode)
+                  ckks_fft_encode, ckks_fft_decode, ntt_phase)
 PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.bconv_ntt_forward_plain,
                 bconv_kernels.fold_matmul_plain,
@@ -161,7 +163,8 @@ PLAIN = Kernels(ntt_kernels.ntt_inverse_plain, ntt_kernels.ntt_forward_plain,
                 ntt_kernels.ntt_forward_plain,
                 ntt_kernels.ntt_inverse_plain,
                 modup_ip_kernels.modup_ip_preconv_plain, ckks_fft_plain,
-                ckks_fft_encode_plain, ckks_fft_decode_plain)
+                ckks_fft_encode_plain, ckks_fft_decode_plain,
+                ntt_phase_plain)
 
 
 def _rows(idx) -> torch.Tensor:

@@ -39,6 +39,7 @@ from ..ops import bconv as bc
 from ..ops import ckks_fft as cf
 from ..ops import modmath as mm
 from ..ops import ntt as nttmod
+from ..ops import ntt_phase_kernels as ntp
 from ..ops import polyops as po
 from ..ops.ntt import _ptr, check_words
 from .context import Context, ContextData
@@ -116,6 +117,7 @@ class Kernels64(NamedTuple):
     moddown_delta: Callable
     ckks_fft_encode: Callable    # F1's wide encode form (counts as F1)
     ckks_fft_decode: Callable    # F1's wide decode form (counts as F1)
+    ntt_phase: Callable          # P1, the sharded NTT's local phases
 
 
 KERNELS64 = Kernels64(nttmod.ntt_forward, nttmod.ntt_inverse, bc.bconv,
@@ -123,7 +125,8 @@ KERNELS64 = Kernels64(nttmod.ntt_forward, nttmod.ntt_inverse, bc.bconv,
                       po.tensor_prod_2x2, po.tensor_square_2x2,
                       po.tensor_prod_mxn, po.shoup_rns, po.rescale_delta,
                       po.modswitch_delta, po.moddown_delta,
-                      cf.ckks_fft_encode64, cf.ckks_fft_decode64)
+                      cf.ckks_fft_encode64, cf.ckks_fft_decode64,
+                      ntp.ntt_phase)
 PLAIN64 = Kernels64(nttmod.ntt_forward_plain, nttmod.ntt_inverse_plain,
                     bc.bconv_plain, inner_product_evk_plain,
                     po.mul_rns_plain, po.fma_rns_plain,
@@ -131,7 +134,7 @@ PLAIN64 = Kernels64(nttmod.ntt_forward_plain, nttmod.ntt_inverse_plain,
                     po.tensor_prod_mxn_plain, po.shoup_rns_plain,
                     po.rescale_delta_plain, po.modswitch_delta_plain,
                     po.moddown_delta_plain, cf.ckks_fft_encode64_plain,
-                    cf.ckks_fft_decode64_plain)
+                    cf.ckks_fft_decode64_plain, ntp.ntt_phase_plain)
 
 
 # ---------------------------------------------------------------------------

@@ -232,6 +232,24 @@ refformat_n1024.npz: the wire formats and the reference's Salsa20
   symmetric one too) and a plaintext, the sha256 of its serialize blobs,
   and a seeded CKKS ciphertext.
 
+sharded_n1024.npz: the coefficient-sharded functions of
+  phantom_tpu/parallel on a (1, 8) ("dp", "coeff") mesh of eight CPU
+  devices at n = 1024 (n1 = n2 = 32, four columns a device).  The NTTs:
+  u32 over the five 28-bit data primes of ckks_step_n1024.npz (x32,
+  ntt32_fwd, ntt32_inv; ntt32_inv_scaled with a uniform scale32 and its
+  Shoup words scale32_shoup) and u64 over three 50-bit primes (x64,
+  ntt64_fwd, ntt64_inv), each (L, n1, n2).  s32_out:
+  sharded_mult_relin_rescale32 on ckks_step_n1024.npz's chain, keys and
+  encryptions (s32_d1, s32_d2, s32_rlk; asserted equal to that file's
+  out).  u64: five data primes of 50 bits and two special of 51 (alpha
+  2), t = PlainModulus.batching(n, 16) for BGV and BFV, uniform operands
+  <s>_d1, <s>_d2 (2, 5, N) and a uniform relin key <s>_rlk (3, 2, 7, N)
+  for s = ckks, bgv, bfv; outputs ckks_out (sharded_mult_relin_rescale),
+  bgv_out (sharded_bgv_mult_relin_modswitch), bfv_out
+  (sharded_bfv_mult_relin, coefficient form), each asserted equal to the
+  JAX evaluator's local verbs.  Moduli: data_moduli, special_moduli
+  (u32 chain), q64 (the NTT's), u64_data, u64_special, t.
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -241,6 +259,13 @@ only bfv_multech_n1024.npz):
 
 import os
 import sys
+
+# the sharded file's (1, 8) coeff mesh: eight CPU devices, set before JAX
+# starts its backend (as tests/conftest.py does)
+if "xla_force_host_platform_device_count" not in os.environ.get(
+        "XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=8").strip()
 
 import jax
 
@@ -1863,12 +1888,135 @@ def refformat_golden():
     _save("refformat_n1024.npz", **out)
 
 
+def sharded():
+    from types import SimpleNamespace
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from phantom_tpu.parallel import make_coeff_mesh
+    from phantom_tpu.parallel import ntt_sharded as ns
+    from phantom_tpu.parallel import pipeline_sharded as psh
+    from phantom_tpu.parallel import sharded32 as s32
+    from phantom_tpu.schemes.ciphertext import Ciphertext
+    mesh = make_coeff_mesh(8, dp=1)
+    n1, n2 = ns._split_n(N)
+    sh3 = NamedSharding(mesh, P(None, None, "coeff"))
+    sh4 = NamedSharding(mesh, P(None, None, None, "coeff"))
+    rep = NamedSharding(mesh, P())
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+
+    def run3(f, x):
+        fn = jax.jit(f, in_shardings=sh3, out_shardings=sh3)
+        return np.asarray(fn(jnp.asarray(x.reshape(x.shape[0], n1, n2))))
+
+    # u32 NTTs over the ckks_step chain's data primes
+    qs, ps, ctx, sk, rlk, ct1, ct2 = _setup()
+    t32 = ntt32.tables32_from_tables64(ntt64.tables_from_host(
+        make_rns_ntt_tables(N, [Modulus(q) for q in qs])))
+    tp32 = s32.prepare_sharded_tables32(t32)
+    x32 = uniform(rng, qs, (), N)
+    sc = np.array([rng.integers(1, q) for q in qs], dtype=np.uint64)
+    sc_sh = np.array([(int(v) << 32) // q for v, q in zip(sc, qs)],
+                     dtype=np.uint64)
+    out.update(
+        data_moduli=np.array(qs, dtype=np.uint64),
+        special_moduli=np.array(ps, dtype=np.uint64), x32=x32,
+        ntt32_fwd=run3(lambda v: s32.ntt_forward_sharded32(v, tp32, mesh),
+                       x32),
+        ntt32_inv=run3(lambda v: s32.ntt_inverse_sharded32(v, tp32, mesh),
+                       x32),
+        ntt32_inv_scaled=run3(lambda v: s32.ntt_inverse_sharded32(
+            v, tp32, mesh, scale=jnp.asarray(u32(sc)),
+            scale_shoup=jnp.asarray(u32(sc_sh))), x32),
+        scale32=u32(sc), scale32_shoup=u32(sc_sh))
+    np.testing.assert_array_equal(
+        out["ntt32_fwd"].reshape(len(qs), N),
+        np.asarray(ntt32.ntt_forward32(jnp.asarray(x32), t32)))
+    # u64 NTTs over three 50-bit primes
+    q64 = numth.get_primes(2 * N, 50, 3)
+    t64 = ntt64.tables_from_host(make_rns_ntt_tables(
+        N, [Modulus(q) for q in q64]))
+    tp64 = ns.prepare_sharded_tables(t64)
+    x64 = np.stack([rng.integers(0, q, N, dtype=np.uint64) for q in q64])
+    out.update(
+        q64=np.array(q64, dtype=np.uint64), x64=x64,
+        ntt64_fwd=run3(lambda v: ns.ntt_forward_sharded3(v, tp64, mesh,
+                                                         "coeff"), x64),
+        ntt64_inv=run3(lambda v: ns.ntt_inverse_sharded3(v, tp64, mesh,
+                                                         "coeff"), x64))
+    np.testing.assert_array_equal(
+        out["ntt64_fwd"].reshape(3, N),
+        np.asarray(ntt64.ntt_forward(jnp.asarray(x64), t64)))
+    # the u32 CKKS step on ckks_step_n1024.npz's chain
+    consts = s32.build_sharded32(ctx, rlk)
+    fn = jax.jit(lambda c, a, b: s32.sharded_mult_relin_rescale32(
+        c, mesh, a, b), in_shardings=(rep, sh4, sh4), out_shardings=sh4)
+    d1, d2 = u32(ct1.data), u32(ct2.data)
+    s32_out = np.asarray(fn(consts, jnp.asarray(d1.reshape(2, -1, n1, n2)),
+                            jnp.asarray(d2.reshape(2, -1, n1, n2))))
+    ref = np.load(os.path.join(DIR, "ckks_step_n1024.npz"))
+    np.testing.assert_array_equal(s32_out.reshape(2, -1, N), ref["out"])
+    out.update(s32_d1=d1, s32_d2=d2, s32_rlk=u32(rlk.data), s32_out=s32_out)
+    # the u64 steps: five 50-bit data primes, two of 51, t of 16 bits
+    qd = numth.get_primes(2 * N, 50, K_DATA)
+    qp = numth.get_primes(2 * N, 51, ALPHA)
+    t = PlainModulus.batching(N, 16).value
+    out.update(u64_data=np.array(qd, dtype=np.uint64),
+               u64_special=np.array(qp, dtype=np.uint64),
+               t=np.array(t, dtype=np.uint64))
+    dnum = -(-K_DATA // ALPHA)
+    for name in ("ckks", "bgv", "bfv"):
+        extra = {} if name == "ckks" else dict(plain_modulus=t)
+        sctx = make_context(EncryptionParameters.create(
+            SCHEMES[name], N, qd + qp, special_modulus_size=ALPHA, **extra))
+        key = np.stack([np.stack([np.stack([
+            rng.integers(0, q, N, dtype=np.uint64) for q in qd + qp])
+            for _ in range(2)]) for _ in range(dnum)])
+        a, b = (np.stack([np.stack([rng.integers(0, q, N, dtype=np.uint64)
+                                    for q in qd]) for _ in range(2)])
+                for _ in range(2))
+        skey = SimpleNamespace(data=jnp.asarray(key))
+        ja, jb = (jnp.asarray(v.reshape(2, -1, n1, n2)) for v in (a, b))
+        ntt_form = name != "bfv"
+        c1, c2 = (Ciphertext(data=jnp.asarray(v), chain_index=1,
+                             is_ntt_form=ntt_form) for v in (a, b))
+        local = evaluate.multiply_and_relin(sctx, c1, c2, skey)
+        if name == "ckks":
+            c = psh.build_sharded_consts(sctx, skey)
+            got = jax.jit(lambda c_, x, y: psh.sharded_mult_relin_rescale(
+                c_, mesh, x, y), in_shardings=(rep, sh4, sh4),
+                out_shardings=sh4)(c, ja, jb)
+            local = evaluate.rescale_to_next(sctx, local)
+        elif name == "bgv":
+            c = psh.build_sharded_consts(sctx, skey)
+            bgv = sctx.get_context_data(1).bgv
+            got = jax.jit(lambda c_, g, x, y:
+                          psh.sharded_bgv_mult_relin_modswitch(
+                              c_, mesh, g, x, y),
+                          in_shardings=(rep, rep, sh4, sh4),
+                          out_shardings=sh4)(c, bgv, ja, jb)
+            local = evaluate.mod_switch_to_next(sctx, local)
+        else:
+            c = psh.build_bfv_sharded_consts(sctx, skey)
+            got = jax.jit(lambda c_, x, y: psh.sharded_bfv_mult_relin(
+                c_, mesh, x, y), in_shardings=(rep, sh4, sh4),
+                out_shardings=sh4)(c, ja, jb)
+        got = np.asarray(got)
+        np.testing.assert_array_equal(got.reshape(2, -1, N),
+                                      np.asarray(local.data))
+        out.update({f"{name}_d1": a, f"{name}_d2": b, f"{name}_rlk": key,
+                    f"{name}_out": got})
+        print(f"sharded: {name} bit-equal to the local verbs")
+    _save("sharded_n1024.npz", **out)
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
                       "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
                       "fast32", "ckks_fft", "linear", "poly", "roll",
                       "fast32_roll", "u64", "u64_bfv", "u64_app",
-                      "refformat"]
+                      "refformat", "sharded"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -1910,6 +2058,8 @@ def main(names):
             make()
     if "refformat" in names:
         refformat_golden()
+    if "sharded" in names:
+        sharded()
 
 
 if __name__ == "__main__":

@@ -1550,3 +1550,126 @@ def test_executor_against_jax_golden(dev):
     for o in outs:
         np.testing.assert_array_equal(o.cpu().numpy().view(np.uint32),
                                       g["out"])
+
+
+# ---------------------------------------------------------------------------
+# P1 and the coefficient-sharded steps (phantom_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+P1_ROWS = 65
+
+
+@pytest.fixture(scope="module")
+def p1_tables():
+    """Sharded u32 and u64 tables of 65 primes at N = 2^16 (28 and 50
+    bits), on the card, by word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from phantom_tpu_torch.host.ntt_tables import make_rns_ntt_tables
+    from phantom_tpu_torch.ops import ntt as ntt64
+    from phantom_tpu_torch.ops import ntt32
+    from phantom_tpu_torch.parallel import ntt_sharded as ns
+    n = 1 << 16
+    dev = torch.device("cuda")
+    t32 = ntt32.NTTTables32(make_rns_ntt_tables(
+        n, numth.get_primes(2 * n, 28, P1_ROWS))).to(dev)
+    t64 = ntt64.NTTTables64(make_rns_ntt_tables(
+        n, numth.get_primes(2 * n, 50, P1_ROWS))).to(dev)
+    return {4: ns.prepare_sharded_tables32(t32),
+            8: ns.prepare_sharded_tables(t64)}
+
+
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("inverse", [False, True],
+                         ids=["forward", "inverse"])
+@pytest.mark.parametrize("phase", ["A", "B"])
+@pytest.mark.parametrize("word", [4, 8], ids=["u32", "u64"])
+def test_p1_ntt_phase(dev, p1_tables, word, phase, inverse, world):
+    """P1 against its plain version at N = 2^16 on 65 rows (their table
+    rows permuted), each word, phase and direction, on the layouts of one
+    rank and of a rank of four (col0 its third column block), inputs over
+    the phase's whole range ([0, q) into the forward, [0, 4q) between its
+    phases, [0, 2q) into the inverse); the inverse's last phase with N^-1
+    and with a caller's scale."""
+    from phantom_tpu_torch.parallel import ntt_sharded as ns
+    t = p1_tables[word]
+    rows = ((torch.arange(P1_ROWS) * 7) % P1_ROWS).int().to(dev)
+    _, _, shape, _, _, _ = ns.phase_layout(t, phase, inverse, P1_ROWS,
+                                           world)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(word * 10 + world)
+    q = t.q[rows.long()].long() & ((1 << 8 * word) - 1)
+    span = 1 if (phase == "A" and not inverse) else (2 if inverse else 4)
+    shp = [1] * len(shape)
+    shp[-3 if len(shape) == 3 else 1] = P1_ROWS
+    x = torch.randint(0, 1 << 62, shape, generator=gen, device=dev) % (
+        span * q.view(shp))
+    if word == 4:
+        x = torch.where(x >= 1 << 31, x - (1 << 32), x).int()
+    col0 = 2 * (t.n1 // world) if world > 1 else 0
+    scales = [None]
+    if inverse and phase == "A":  # a caller's factor and its Shoup word
+        from phantom_tpu_torch.ops.ntt32 import u32_tensor
+        from phantom_tpu_torch.ops.rns_host import i64_tensor
+        rng = np.random.default_rng(word)
+        qs = [int(v) for v in q.cpu()]
+        sc = [int(rng.integers(1, v)) for v in qs]
+        scs = [(a << 8 * word) // v for a, v in zip(sc, qs)]
+        conv = u32_tensor if word == 4 else i64_tensor
+        scales.append((conv(sc).to(dev), conv(scs).to(dev)))
+    for s in scales:
+        kw = {} if s is None else dict(scale=s[0], scale_shoup=s[1])
+        launches = ns.ntt_phase.launches
+        got = ns.ntt_phase(x, t, rows, phase, inverse, world, col0, **kw)
+        assert ns.ntt_phase.launches == launches + 1
+        want = ns.ntt_phase_plain(x, t, rows, phase, inverse, world, col0,
+                                  **kw)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one over NCCL (a FileStore under tmp_path) and its
+    mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from phantom_tpu_torch.parallel import make_coeff_mesh
+    torch.cuda.set_device(0)
+    path = str(tmp_path_factory.mktemp("nccl") / "store")
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+    try:
+        yield make_coeff_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+SHARDED_SMALL = {"u32 CKKS": dict(scheme="ckks", limbs=5, alpha=2, bits=28),
+                 "u64 CKKS": dict(scheme="ckks", limbs=5, alpha=2, bits=50),
+                 "u64 BGV": dict(scheme="bgv", limbs=5, alpha=2, bits=50),
+                 "u64 BFV": dict(scheme="bfv", limbs=5, alpha=2, bits=50)}
+
+
+@pytest.mark.parametrize("logn", [12, 16])
+@pytest.mark.parametrize("what", list(SHARDED_SMALL))
+def test_sharded_step_nccl(nccl_mesh, what, logn):
+    """Each batched sharded step (build_sharded_step32 or
+    build_sharded_step, a batch of one) at W = 1 over NCCL (P1, the
+    all-to-alls through NCCL, K5 and K9 or U2-U4) bit-equal to the local
+    kernel step and to the sharded step on the plain versions, on seeded
+    uniform operands (five data primes, alpha 2, a short last digit)."""
+    from phantom_tpu_torch.ops import pipeline32 as pp_
+    from phantom_tpu_torch.parallel import launch, ntt_sharded as ns
+    from phantom_tpu_torch.parallel.mesh import shard_coeff
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    ctx, step, local, d1, d2, b1, b2 = launch.step_setup(
+        what, nccl_mesh, logn, 1 << logn, SHARDED_SMALL[what])
+    plain = ksw.PLAIN64 if ctx.wide else pp_.PLAIN
+    launches, calls = ns.ntt_phase.launches, ns.exchange.calls
+    got = step(b1, b2)
+    assert ns.ntt_phase.launches - launches == 12
+    assert ns.exchange.calls - calls == 12
+    assert got.shape[0] == 1
+    assert torch.equal(got[0], shard_coeff(local(d1, d2), nccl_mesh))
+    assert torch.equal(got, step(b1, b2, plain))

@@ -111,6 +111,11 @@ assert salsa20.sample_ternary_ref(bytes(64), [97, 193], 16,
 for name in ("serialization", "kernel_fusing"):
     runpy.run_path(os.path.join("phantom_tpu_torch", "examples",
                                 name + ".py"))
+from phantom_tpu_torch import parallel
+from phantom_tpu_torch.parallel import (launch, mesh, ntt_sharded,
+                                        pipeline_sharded, sharded32)
+assert ntt_sharded.split_n(1 << 16) == (256, 256)
+assert callable(parallel.sharded_bfv_mult_relin) and callable(launch.run)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -123,8 +128,8 @@ print("ok")
 
 
 def test_import_without_jax():
-    """phantom_tpu_torch (its runtime and utils too), chip_smoke and
-    f1_anatomy import, a context builds and the examples load, with JAX
+    """phantom_tpu_torch (its runtime, utils and parallel layers too),
+    chip_smoke and f1_anatomy import, a context builds and the examples load, with JAX
     blocked; no module in sys.modules has a file under phantom_tpu/."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                        text=True, timeout=300, cwd=ROOT,
