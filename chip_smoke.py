@@ -2449,7 +2449,8 @@ U64_NEW_KERNELS = ("ntt64_cluster_kernel", "bconv64_kernel",
 PTXAS_REPORTS = (("moddown_rescale.cu", K7_KERNELS),
                  ("u64_ntt.cu", U64_NEW_KERNELS[:1]),
                  ("u64_bconv.cu", U64_NEW_KERNELS[1:2]),
-                 ("u64_polyops.cu", U64_NEW_KERNELS[2:]))
+                 ("u64_polyops.cu", U64_NEW_KERNELS[2:]),
+                 ("ntt_phase.cu", ("ntt_phase_kernel",)))
 CORE_KERNELS = ("fwd_cluster_kernel", "inv_cluster_kernel",
                 "bconv_ntt_kernel", "modup_ip_kernel", "moddown_rows_kernel",
                 *K7_KERNELS, *U64_NEW_KERNELS)
@@ -2464,18 +2465,20 @@ def _cuobjdump(lib: str, *args) -> str:
 
 def _kernel_key(line: str, kernels):
     """The kernel of `kernels` that a line of cuobjdump or ptxas names, as
-    kernel<N, ...> for a build templated on ints or bools (U4's as "U4
-    <form>, <W> words"); None if none."""
+    kernel<N, ...> for a build templated on ints or bools, led by its word
+    (u32 or u64) where the template takes one first (U4's as "U4 <form>,
+    <W> words"); None if none."""
     import re
     name = next((k for k in kernels if k in line), None)
-    t = name and re.search(name + r"I((?:L[ib]\d+E)+)E", line)
+    t = name and re.search(name + r"I([jm]?)((?:L[ib]\d+E)+)E", line)
     if not t:
         return name
-    args = [int(v) for v in re.findall(r"L[ib](\d+)E", t.group(1))]
+    args = [int(v) for v in re.findall(r"L[ib](\d+)E", t.group(2))]
     if name in U64_NEW_KERNELS[2:]:
         from phantom_tpu_torch.ops import polyops
         return f"{name}<U4 {polyops.FORMS[args[0]]}, {2 * args[1]} words>"
-    return f"{name}<{', '.join(map(str, args))}>"
+    word = {"j": ["u32"], "m": ["u64"]}.get(t.group(1), [])
+    return f"{name}<{', '.join(word + [str(v) for v in args])}>"
 
 
 def resource_usage(lib: str, kernels) -> dict:
@@ -5819,6 +5822,23 @@ SHARDED_CHAIN_STEPS = 10
 # (W, dp) through the launcher, where the machine has the cards
 SHARDED_WORLDS = ((2, 1), (4, 1), (4, 2))
 SHARDED_PROBED = ("u32 CKKS", "u64 CKKS")  # P1 under the probe: both words
+# P1's device ms a call in these steps as radix-2 stages in shared memory,
+# before its radix-8 redesign (this phase on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), by (form, limbs)
+P1_RADIX2_DEVICE_MS = {
+    ("u32 B inverse", 43): 0.0710, ("u32 A inverse", 43): 0.0484,
+    ("u32 A forward", 130): 0.0991, ("u32 B forward", 130): 0.1432,
+    ("u32 B inverse", 44): 0.0609, ("u32 A inverse", 44): 0.0486,
+    ("u32 A forward", 86): 0.0768, ("u32 B forward", 86): 0.0828,
+    ("u32 B inverse", 2): 0.0313, ("u32 A inverse", 2): 0.0360,
+    ("u32 A forward", 84): 0.0743, ("u32 B forward", 84): 0.0809,
+    ("u64 B inverse", 43): 0.0690, ("u64 A inverse", 43): 0.0716,
+    ("u64 A forward", 130): 0.1451, ("u64 B forward", 130): 0.1743,
+    ("u64 B inverse", 44): 0.0641, ("u64 A inverse", 44): 0.0720,
+    ("u64 A forward", 86): 0.1038, ("u64 B forward", 86): 0.1228,
+    ("u64 B inverse", 2): 0.0216, ("u64 A inverse", 2): 0.0307,
+    ("u64 A forward", 84): 0.1044, ("u64 B forward", 84): 0.1227,
+}
 U32_SHOUP_OPS = 3
 
 
@@ -5895,6 +5915,35 @@ class _P1Probe(_Probe):
         return byt, ops, 0, 0
 
 
+def _p1_limbs(call) -> int:
+    """The limbs of a P1 call: dim 0 of a (L, n1, c2) input, else dim 1."""
+    shape = call["shape"]
+    return shape[0] if len(shape) == 3 else shape[1]
+
+
+def _p1_summary(calls, card) -> None:
+    """P1's device ms a call for each word x phase at the steps' widest
+    call (the forward's folded limbs), and each form's device ms summed
+    over the probed calls, beside the radix-2 design's and the bound."""
+    widest = max((_p1_limbs(c) for c in calls), default=0)
+    for c in calls:
+        if _p1_limbs(c) == widest:
+            old = P1_RADIX2_DEVICE_MS.get((c["form"], widest))
+            print(f"P1 {c['form']} at {c['shape']}: device {c['dev_ms']:.4f}"
+                  f" ms a call (radix-2: "
+                  f"{'-' if old is None else f'{old:.4f}'}), bound "
+                  f"{c['bound_ms']:.4f} ms: {c['dev_ms'] / c['bound_ms']:.2f}"
+                  f"x [{card}]")
+    forms = sorted({c["form"] for c in calls})
+    for form in forms:
+        cs = [c for c in calls if c["form"] == form]
+        olds = [P1_RADIX2_DEVICE_MS.get((form, _p1_limbs(c))) for c in cs]
+        old = (f"{sum(olds):.4f}" if None not in olds else "-")
+        dev, bound = (sum(c[k] for c in cs) for k in ("dev_ms", "bound_ms"))
+        print(f"P1 {form}: device {dev:.4f} ms over {len(cs)} calls (radix-2: "
+              f"{old}), bound {bound:.4f} ms: {dev / bound:.2f}x [{card}]")
+
+
 def _init_nccl_world1(dev):
     """The default group as a world of one over NCCL (a FileStore in a
     fresh temporary directory); returns the directory."""
@@ -5960,12 +6009,16 @@ def _parallel_phase(card, dev, steps=None, n=None) -> tuple:
                 since = len(probe.calls)
                 step(b1, b2, kern._replace(ntt_phase=probe))
                 for c in probe.calls[since:]:
+                    old = P1_RADIX2_DEVICE_MS.get((c["form"], _p1_limbs(c)))
                     print(f"kernel P1 {c['form']} {c['shape']}: bit-equal "
                           f"to plain; {c['ms']:.4f} ms (device "
-                          f"{c['dev_ms']:.4f}) vs plain {c['plain_ms']:.4f} "
-                          f"ms, bound {c['bound_ms']:.4f} ms by "
-                          f"{c['bound_by']} ({c['bytes'] / 1e6:.1f} MB, "
-                          f"{c['ops'] / 1e9:.3f} G mul) [{card}]")
+                          f"{c['dev_ms']:.4f}, radix-2 "
+                          f"{'-' if old is None else f'{old:.4f}'}) vs plain "
+                          f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f}"
+                          f" ms by {c['bound_by']} ({c['bytes'] / 1e6:.1f} "
+                          f"MB, {c['ops'] / 1e9:.3f} G mul; device "
+                          f"{c['dev_ms'] / c['bound_ms']:.2f}x the bound) "
+                          f"[{card}]")
             label = f"sharded {what} step"
             out, got, more = _count_named(
                 named, label, lambda: step(b1, b2, kern), EXPECTED[label],
@@ -6014,6 +6067,7 @@ def _parallel_phase(card, dev, steps=None, n=None) -> tuple:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+    _p1_summary(probe.calls, card)
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     for world, dp in SHARDED_WORLDS:

@@ -78,8 +78,7 @@ _SIGNATURES = {
     "ptk_u64_polyops": ([_I] + [_P] * 5 + [_L, _L] + [_I] * 5 + [_P], _I),
     "ptk_u64_polyops_launches": ([], ctypes.c_longlong),
     "ptk_salsa20": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),
-    "ptk_ntt_phase": ([_I] + [_P] * 8 + [_I] * 10 + ([_I] + [_L] * 4) * 2
-                      + [_P], _I),
+    "ptk_ntt_phase": ([_I] + [_P] * 8 + [_I] * 9 + [_P], _I),
 }
 
 _lock = threading.Lock()

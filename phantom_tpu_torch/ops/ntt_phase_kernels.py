@@ -26,6 +26,7 @@ only.  pipeline32.Kernels and keyswitch.Kernels64 carry both as their
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -35,9 +36,11 @@ from . import modmath as mm
 from . import modmath32 as m32
 
 PHASES = ("A", "B")
-# columns a P1 block holds: 32 u32 or 16 u64 words, 33 / 35 KB a tile of
-# 256 rows with its pad
+# columns a P1 tile holds: 32 u32 or 16 u64 words (a row of 128 bytes,
+# 32 KB a tile of 256 rows), halved down to 8 or 4 (32 bytes) while a call
+# has fewer than two blocks a multiprocessor
 TILE_COLS = {4: 32, 8: 16}
+TILE_COLS_MIN = {4: 8, 8: 4}
 
 
 def _dtype(t):
@@ -48,26 +51,33 @@ def _log2(v: int) -> int:
     return v.bit_length() - 1
 
 
-def phase_layout(t, phase: str, inverse: bool, num_l: int,
-                 world: int):
-    """(R, cols, input shape, output shape, input layout, output layout)
-    of one P1 call; a layout is (log2 chunk rows, chunk, limb, row and
-    column strides) of element i of the transform line (l, j)."""
+def phase_layout(t, phase: str, inverse: bool, num_l: int, world: int):
+    """(R, cols, input shape, output shape) of one P1 call, c1 = n1 / W,
+    c2 = n2 / W (the module docstring's table)."""
     n1, n2 = t.n1, t.n2
     c1, c2 = n1 // world, n2 // world
-    canon = ((num_l, n1, c2), (_log2(n1), 0, n1 * c2, c2, 1))
-    pa_along_a = ((world, num_l, c2, c1),
-                  (_log2(c1), num_l * c2 * c1, c2 * c1, 1, c1))
-    pa_along_b = ((world, num_l, c2, c1),
-                  (_log2(c2), num_l * c2 * c1, c2 * c1, c1, 1))
-    pb_along_b = ((world, num_l, c1, c2),
-                  (_log2(c2), num_l * c1 * c2, c1 * c2, 1, c2))
     if phase == "A":
-        r_len, cols, ends = n1, c2, (canon, pa_along_a)
+        r_len, cols = n1, c2
+        ends = ((num_l, n1, c2), (world, num_l, c2, c1))
     else:
-        r_len, cols, ends = n2, c1, (pa_along_b, pb_along_b)
+        r_len, cols = n2, c1
+        ends = ((world, num_l, c2, c1), (world, num_l, c1, c2))
     src, dst = ends[::-1] if inverse else ends
-    return r_len, cols, src[0], dst[0], src[1], dst[1]
+    return r_len, cols, src, dst
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_cols(word: int, num_l: int, cols: int, sms: int) -> int:
+    """The columns a P1 block holds for num_l limbs of cols columns on a
+    card of `sms` multiprocessors."""
+    tile = min(TILE_COLS[word], cols)
+    while tile > TILE_COLS_MIN[word] and num_l * (cols // tile) < 2 * sms:
+        tile //= 2
+    return tile
 
 
 def _check(x, t, rows, phase, world):
@@ -100,15 +110,13 @@ def ntt_phase(x: torch.Tensor, t, rows: torch.Tensor,
         return ntt_phase_plain(x, t, rows, phase, inverse, world, col0,
                                scale, scale_shoup)
     num_l = rows.numel()
-    r_len, cols, in_shape, out_shape, li, lo = phase_layout(
-        t, phase, inverse, num_l, world)
+    r_len, cols, in_shape, out_shape = phase_layout(t, phase, inverse,
+                                                    num_l, world)
     if tuple(x.shape) != in_shape:
         raise ValueError(f"ntt_phase {phase}: x {tuple(x.shape)} is not "
                          f"{in_shape}")
-    last = (phase == "B") != inverse
-    if inverse and last and scale is None:
-        scale = t.inv_degree[rows.long()]
-        scale_shoup = t.inv_degree_shoup[rows.long()]
+    if x.numel() >= 1 << 31:
+        raise ValueError(f"ntt_phase: {x.numel()} words, 2^31 or more")
     if (scale is None) != (scale_shoup is None):
         raise ValueError("scale and scale_shoup go together")
     for v in (x, rows, scale, scale_shoup):
@@ -118,8 +126,12 @@ def ntt_phase(x: torch.Tensor, t, rows: torch.Tensor,
         if v is not None and (v.dtype != x.dtype or v.shape != (num_l,)):
             raise ValueError(f"ntt_phase: a scale must be ({num_l},) "
                              f"{x.dtype} words")
+    # the inverse's last phase reads N^-1 by table row unless given one
+    by_row = inverse and phase == "A" and scale is None
+    if by_row:
+        scale, scale_shoup = t.inv_degree, t.inv_degree_shoup
     _build.check_device(x, t.q, rows, scale, scale_shoup)
-    tile = min(TILE_COLS[t.word], cols)
+    tile = tile_cols(t.word, num_l, cols, _multiprocessors(x.device.index))
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     tw, tws = (t.inv, t.inv_shoup) if inverse else (t.fwd, t.fwd_shoup)
     with torch.cuda.device(x.device):
@@ -128,9 +140,9 @@ def ntt_phase(x: torch.Tensor, t, rows: torch.Tensor,
             tw.data_ptr(), tws.data_ptr(), rows.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if scale_shoup is None else scale_shoup.data_ptr(),
-            num_l, t.n, _log2(r_len), cols, _log2(tile),
-            1 if phase == "A" else t.n1, col0, int(phase == "B"),
-            int(inverse), int(last), *li, *lo, _build.stream(x))
+            int(by_row), num_l, t.n, _log2(r_len), _log2(tile),
+            _log2(world), col0, int(phase == "B"), int(inverse),
+            _build.stream(x))
     _build.check(err, "ntt_phase")
     ntt_phase.launches += 1
     return out

@@ -1557,56 +1557,54 @@ def test_executor_against_jax_golden(dev):
 # ---------------------------------------------------------------------------
 
 P1_ROWS = 65
+P1_LOGN = (10, 13, 16)
 
 
 @pytest.fixture(scope="module")
 def p1_tables():
-    """Sharded u32 and u64 tables of 65 primes at N = 2^16 (28 and 50
-    bits), on the card, by word."""
+    """Sharded u32 and u64 tables of 65 primes (28 and 50 bits) at N =
+    2^10, 2^13 (n1 = 64, n2 = 128) and 2^16, on the card, by (word,
+    log2 N)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from phantom_tpu_torch.host.ntt_tables import make_rns_ntt_tables
     from phantom_tpu_torch.ops import ntt as ntt64
     from phantom_tpu_torch.ops import ntt32
     from phantom_tpu_torch.parallel import ntt_sharded as ns
-    n = 1 << 16
     dev = torch.device("cuda")
-    t32 = ntt32.NTTTables32(make_rns_ntt_tables(
-        n, numth.get_primes(2 * n, 28, P1_ROWS))).to(dev)
-    t64 = ntt64.NTTTables64(make_rns_ntt_tables(
-        n, numth.get_primes(2 * n, 50, P1_ROWS))).to(dev)
-    return {4: ns.prepare_sharded_tables32(t32),
-            8: ns.prepare_sharded_tables(t64)}
+    out = {}
+    for logn in P1_LOGN:
+        n = 1 << logn
+        t32 = ntt32.NTTTables32(make_rns_ntt_tables(
+            n, numth.get_primes(2 * n, 28, P1_ROWS))).to(dev)
+        t64 = ntt64.NTTTables64(make_rns_ntt_tables(
+            n, numth.get_primes(2 * n, 50, P1_ROWS))).to(dev)
+        out[4, logn] = ns.prepare_sharded_tables32(t32)
+        out[8, logn] = ns.prepare_sharded_tables(t64)
+    return out
 
 
-@pytest.mark.parametrize("world", [1, 4])
-@pytest.mark.parametrize("inverse", [False, True],
-                         ids=["forward", "inverse"])
-@pytest.mark.parametrize("phase", ["A", "B"])
-@pytest.mark.parametrize("word", [4, 8], ids=["u32", "u64"])
-def test_p1_ntt_phase(dev, p1_tables, word, phase, inverse, world):
-    """P1 against its plain version at N = 2^16 on 65 rows (their table
-    rows permuted), each word, phase and direction, on the layouts of one
-    rank and of a rank of four (col0 its third column block), inputs over
-    the phase's whole range ([0, q) into the forward, [0, 4q) between its
-    phases, [0, 2q) into the inverse); the inverse's last phase with N^-1
-    and with a caller's scale."""
+def _p1_case(t, rows, word, phase, inverse, world, seed):
+    """P1 against its plain version on seeded inputs over the phase's
+    whole range ([0, q) into the forward, [0, 4q) between its phases,
+    [0, 2q) into the inverse), on the layouts of a rank of `world` (col0
+    of rank world // 2); the inverse's last phase with N^-1 and with a
+    caller's scale.  One launch a call."""
     from phantom_tpu_torch.parallel import ntt_sharded as ns
-    t = p1_tables[word]
-    rows = ((torch.arange(P1_ROWS) * 7) % P1_ROWS).int().to(dev)
-    _, _, shape, _, _, _ = ns.phase_layout(t, phase, inverse, P1_ROWS,
-                                           world)
+    dev = rows.device
+    num_l = rows.numel()
+    _, _, shape, _ = ns.phase_layout(t, phase, inverse, num_l, world)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(word * 10 + world)
+    gen.manual_seed(seed)
     q = t.q[rows.long()].long() & ((1 << 8 * word) - 1)
     span = 1 if (phase == "A" and not inverse) else (2 if inverse else 4)
     shp = [1] * len(shape)
-    shp[-3 if len(shape) == 3 else 1] = P1_ROWS
+    shp[-3 if len(shape) == 3 else 1] = num_l
     x = torch.randint(0, 1 << 62, shape, generator=gen, device=dev) % (
         span * q.view(shp))
     if word == 4:
         x = torch.where(x >= 1 << 31, x - (1 << 32), x).int()
-    col0 = 2 * (t.n1 // world) if world > 1 else 0
+    col0 = (world // 2) * (t.n1 // world)
     scales = [None]
     if inverse and phase == "A":  # a caller's factor and its Shoup word
         from phantom_tpu_torch.ops.ntt32 import u32_tensor
@@ -1625,6 +1623,41 @@ def test_p1_ntt_phase(dev, p1_tables, word, phase, inverse, world):
         want = ns.ntt_phase_plain(x, t, rows, phase, inverse, world, col0,
                                   **kw)
         assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("logn", P1_LOGN)
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("inverse", [False, True],
+                         ids=["forward", "inverse"])
+@pytest.mark.parametrize("phase", ["A", "B"])
+@pytest.mark.parametrize("word", [4, 8], ids=["u32", "u64"])
+def test_p1_ntt_phase(dev, p1_tables, word, phase, inverse, world, logn):
+    """P1 against its plain version on 65 rows (their table rows
+    permuted), each word, phase and direction, at N = 2^10 (R = 32, down
+    to 8 columns a rank), 2^13 (n1 != n2) and 2^16, on the layouts of one
+    rank, of a rank of two and of a rank of four."""
+    rows = ((torch.arange(P1_ROWS) * 7) % P1_ROWS).int().to(dev)
+    _p1_case(p1_tables[word, logn], rows, word, phase, inverse, world,
+             word * 100 + world * 10 + logn)
+
+
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("inverse", [False, True],
+                         ids=["forward", "inverse"])
+@pytest.mark.parametrize("phase", ["A", "B"])
+@pytest.mark.parametrize("word", [4, 8], ids=["u32", "u64"])
+@pytest.mark.parametrize("limbs", ["folded", "small"])
+def test_p1_ntt_phase_rows(dev, p1_tables, limbs, word, phase, inverse,
+                           world):
+    """P1 at N = 2^16 on the calls of the sharded steps that differ from
+    test_p1_ntt_phase's: folded groups, two polynomials of 65 limbs
+    whose table rows repeat (130 limbs, ntt_sharded._fold), and the
+    rescale's small call of two limbs, which takes narrower tiles
+    (ntt_phase_kernels.tile_cols)."""
+    rows = (torch.arange(P1_ROWS).repeat(2) if limbs == "folded"
+            else torch.tensor([P1_ROWS - 1, 0])).int().to(dev)
+    _p1_case(p1_tables[word, 16], rows, word, phase, inverse, world,
+             word * 10 + world)
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ the blocks together.  The W = 4 spawn also runs a dp = 2 x coeff = 2
 mesh, each dp group its item of a batch of two.
 """
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import p1_anatomy
 from _torch_parallel_ranks import (GOLDEN, NTTS, STEPS, _ctx, _ntt_inputs,
                                    _step_inputs, _u32, local_step,
                                    rank_checks, sharded_ntts, sharded_step)
@@ -176,3 +178,40 @@ def test_ntt_phase_plain_layouts(world1, golden):
     d = ns.ntt_phase(c, st, rows, "A", True, 1)
     assert torch.equal(d.reshape(x32.shape), x32)
     assert ns.ntt_phase.launches == launches
+
+
+def test_ntt_phase_tiles():
+    """P1's tile: 32 u32 or 16 u64 columns while a call has two blocks a
+    multiprocessor (the steps' 43- to 130-limb calls on 132), halved for
+    the rescale's two limbs down to 32 bytes a row; never past the
+    columns; and each phase's shapes at W = 2 with n1 != n2."""
+    from phantom_tpu_torch.ops import ntt_phase_kernels as npk
+    for limbs in (43, 44, 130):
+        assert npk.tile_cols(4, limbs, 256, 132) == 32
+        assert npk.tile_cols(8, limbs, 256, 132) == 16
+    assert npk.tile_cols(4, 2, 256, 132) == 8
+    assert npk.tile_cols(8, 2, 256, 132) == 4
+    assert npk.tile_cols(4, 130, 8, 132) == 8
+    assert npk.tile_cols(8, 1000, 8, 132) == 8
+    t = type("T", (), dict(n1=64, n2=128))
+    c1, c2 = 32, 64
+    assert npk.phase_layout(t, "A", False, 3, 2) == (
+        64, c2, (3, 64, c2), (2, 3, c2, c1))
+    assert npk.phase_layout(t, "B", False, 3, 2) == (
+        128, c1, (2, 3, c2, c1), (2, 3, c1, c2))
+    assert npk.phase_layout(t, "B", True, 3, 2) == (
+        128, c1, (2, 3, c1, c2), (2, 3, c2, c1))
+    assert npk.phase_layout(t, "A", True, 3, 2) == (
+        64, c2, (2, 3, c2, c1), (3, 64, c2))
+
+
+@pytest.mark.parametrize("probe", sorted(p1_anatomy.PROBES))
+def test_p1_anatomy_patches_match_source(probe):
+    """Each of p1_anatomy.py's probes patches lines that csrc/ntt_phase.cu
+    holds, each once, so that the probe builds what its name says."""
+    from phantom_tpu_torch import _build
+    with open(os.path.join(_build.CSRC, "ntt_phase.cu")) as fh:
+        src = fh.read()
+    for old, new in p1_anatomy.PROBES[probe]:
+        assert src.count(old) == 1, old
+        assert old != new
