@@ -4,8 +4,9 @@ of the four techniques, on 32- and 64-bit words), BGV multiply, its
 Fast32 evaluator, the CKKS application path (the device encoder,
 LinearTransform, polynomial evaluation), the runtime and utils layer
 (the reference's Salsa20 sampler S1, the wire formats, StreamExecutor, the
-range sanitizer) and the coefficient-sharded steps over torch.distributed
-(P1, the sharded NTT's local phases) on one NVIDIA GPU and check it.
+range sanitizer), the coefficient-sharded steps over torch.distributed
+(P1, the sharded NTT's local phases), the bench setup cache and the
+limb-sharded step on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA device
     python3 chip_smoke.py --calls  # only every kernel call of each path
@@ -13,7 +14,8 @@ range sanitizer) and the coefficient-sharded steps over torch.distributed
     python3 chip_smoke.py --calls u64  # the same of the u64 steps only
 
 Four configurations, all N = 2^16 with 43 data primes of 28 bits from
-chain index 1, primes as phantom_tpu/utils/benchsetup.py builds them:
+chain index 1, primes as phantom_tpu_torch/utils/benchsetup.chain_primes
+(the JAX package's phantom_tpu/utils/benchsetup.py) builds them:
   headline  22 special primes of 29 bits (dnum 2, the last digit 21 rows):
             the multiply + relinearize + rescale step on the xla-split
             modup (K1, K2, K5, K9) through each epilogue: the pair (K1,
@@ -391,6 +393,21 @@ Phases, one line each or more; any failure exits non-zero:
                (parallel/launch.full_width: each rank's blocks bit-equal
                to the local step's, chained ms, peak memory); with one
                card those lines say "not run"
+ 56. limb      the bench setup and the ("dp", "limb") layout:
+               setup_bench("ckks", **U64_CFG) fresh into an empty cache
+               directory (PHANTOM_TORCH_SETUP_CACHE), timed, the context
+               build's share apart; the blob's bytes on disk; the setup
+               loaded, timed, bit-equal to the fresh one; on a world of
+               one over NCCL the limb-sharded step on its (ct1, ct2), a
+               batch of one: U1-U4's launches (EXPECTED "limb-sharded
+               step") with its collectives and the bytes received, the
+               output bit-equal to the local kernel step and to the limb
+               step on the plain versions, decrypted and decoded within
+               U64_TOL of values^2; 10 chained steps, local and limb in
+               turns (A, B, B, A), peak memory; a profile.  With two or
+               more cards W = 2, 4 and dp 2 x limb 2 through `launch
+               --layout limb` (44 data primes); with one card those
+               lines say "not run"
 In phases 28-30 every verb runs through the kernels under the launch
 counts (EXPECTED), then through the plain versions on the same inputs
 (the generator's state replayed) and is held bit-equal, then is timed
@@ -442,6 +459,7 @@ input and output once and the twiddles and Shoup words of each distinct
 table row that the phase reads (phase B: every local column's), and a
 Shoup product a butterfly (3 32-bit multiplies in u32, SHOUP_OPS in
 u64); library_ms is null: no PyTorch call computes a modular NTT phase.
+U1-U4's launches count phase 56's limb-sharded step too.
 Last comes {"ok": true, "device": ...}.
 Without a CUDA device, or without the repo around it, it exits non-zero
 before printing any result.
@@ -743,13 +761,13 @@ F32_OPS_PER_S = 132 * 128 * 1.98e9  # f32 lanes, one add or multiply each
 # ---------------------------------------------------------------------------
 
 def chain_params(n: int, limbs: int, alpha: int, bits: int = 28):
-    """Primes as utils/benchsetup.py builds them: `limbs` data primes of
+    """The bench's primes (phantom_tpu_torch/utils/benchsetup.chain_primes,
+    as the JAX package's benchsetup builds them): `limbs` data primes of
     `bits` bits, `alpha` special primes of bits + 1."""
     from phantom_tpu_torch import EncryptionParameters
-    from phantom_tpu_torch.host import numth
-    qs = numth.get_primes(2 * n, bits, limbs + 1)
-    ps = numth.get_primes(2 * n, bits + 1, alpha)
-    return EncryptionParameters.create(n, qs[:limbs], ps)
+    from phantom_tpu_torch.utils.benchsetup import chain_primes
+    return EncryptionParameters.create(n, *chain_primes(n, limbs, alpha,
+                                                        bits))
 
 
 def mod_t_params(n: int, limbs: int, alpha: int, bits: int = 28,
@@ -1060,12 +1078,10 @@ def encode_weights(ctx, ks, w: np.ndarray):
 
 def remix(out, q, dim: int = 1):
     """A step output (2, k-1, N) -> a full (2, k, N) input: the dropped
-    limb is row 0 reduced into its modulus (bench.py's re-pad); dim: the
-    limbs' axis."""
-    import torch
-    row0 = out.narrow(dim, 0, 1)
-    pad = torch.where(row0 >= q, row0 - q, row0)
-    return torch.cat([out, pad], dim=dim)
+    limb is row 0 reduced into its modulus (bench.py's re-pad,
+    parallel/launch.remix); dim: the limbs' axis."""
+    from phantom_tpu_torch.parallel.launch import remix as launch_remix
+    return launch_remix(out, q, dim)
 
 
 def rotate_golden_state(device, path: str = ROTATE_GOLDEN):
@@ -6090,6 +6106,242 @@ def _parallel_phase(card, dev, steps=None, n=None) -> tuple:
     return probe, launches["P1"]
 
 
+# ---------------------------------------------------------------------------
+# phase 56: the ("dp", "limb") layout and the bench setup cache
+# ---------------------------------------------------------------------------
+
+LIMB_GOLDEN = os.path.join(FIXTURES, "limb_n1024.npz")
+LIMB_ALPHAS = (4, 3)  # the golden file's configurations: fused, unfused
+LIMB_SEED = 22        # configuration alpha draws from LIMB_SEED + alpha
+
+
+def limb_inputs(data, special, n: int, seed: int):
+    """The limb golden file's inputs from numpy's default_rng(seed), uint64:
+    a uniform relin key (dnum, 2, K, N) over data + special, then two
+    batches d1, d2 of two items (2, 2, k, N) over data."""
+    rng = np.random.default_rng(seed)
+    qd = np.array(data, dtype=np.uint64)[:, None]
+    qk = np.array(list(data) + list(special), dtype=np.uint64)[:, None]
+    dnum = -(-len(data) // len(special))
+    key = rng.integers(0, qk, (dnum, 2, len(qk), n), dtype=np.uint64)
+    d1, d2 = (rng.integers(0, qd, (2, 2, len(qd), n), dtype=np.uint64)
+              for _ in range(2))
+    return key, d1, d2
+
+
+def limb_case(g, alpha: int, device):
+    """(ctx, rlk, d1, d2, want) of the golden file's configuration `alpha`
+    on `device`: the context over its primes, the inputs as int64 words,
+    the JAX package's output (numpy uint64)."""
+    import torch
+    from phantom_tpu_torch import EncryptionParameters, make_context
+    data = g["data_moduli"].tolist()
+    special = g[f"a{alpha}_special"].tolist()
+    want = g[f"a{alpha}_out"]
+    ctx = make_context(EncryptionParameters.create(want.shape[-1], data,
+                                                   special), device=device)
+    key, d1, d2 = (torch.from_numpy(a.view(np.int64)).to(device)
+                   for a in limb_inputs(data, special, want.shape[-1],
+                                        LIMB_SEED + alpha))
+    return ctx, key, d1, d2, want
+
+
+def limb_golden(mesh, ops=None) -> dict:
+    """Each configuration of limb_n1024.npz through the limb step on this
+    rank's blocks: {alpha: (the rank's output (B / dp, 2, k - 1, N) as
+    uint64, the golden items of its dp group)}."""
+    from phantom_tpu_torch.parallel import (shard_ciphertext_data,
+                                            sharded_mul_relin_rescale_step)
+    from phantom_tpu_torch.schemes.ciphertext import Ciphertext
+    g = np.load(LIMB_GOLDEN)
+    out = {}
+    for alpha in LIMB_ALPHAS:
+        ctx, key, d1, d2, want = limb_case(g, alpha, mesh.device)
+        proto = Ciphertext(d1[0], chain_index=1, is_ntt_form=True)
+        step = sharded_mul_relin_rescale_step(ctx, proto, proto, key, mesh,
+                                              ops)
+        got = step(shard_ciphertext_data(d1, mesh),
+                   shard_ciphertext_data(d2, mesh))
+        per = want.shape[0] // mesh.dp
+        out[alpha] = (got.cpu().numpy().view(np.uint64),
+                      want[mesh.dp_index * per:(mesh.dp_index + 1) * per])
+    return out
+
+
+# one limb-sharded step at W = 1, U64_CFG (k = 43, alpha = 22: two digits,
+# the unfused modup): U1's inverse of c2, its forward per digit, the P
+# rows' inverse, the moddown's forward over both halves, the rescale's
+# inverse and forward; U2 per digit and the exact conversion P -> Ql over
+# both halves; U3; U4's tensor product, (x - .) P^-1 + c, the rescale's
+# delta and its Shoup form
+EXPECTED["limb-sharded step"] = _launches_all(U1=7, U2=3, U3=1, U4=4)
+LIMB_KINDS = ("c2", "P rows", "last row", "result")
+# (W, dp) of the limb layout through the launcher, where the machine has
+# the cards
+LIMB_WORLDS = ((2, 1), (4, 1), (4, 2))
+
+
+def _limb_phase(card, dev, launches64, cfg=None) -> None:
+    """Phase 56: the bench setup and the limb-sharded step.
+    setup_bench("ckks", **U64_CFG) (or `cfg`) fresh into an empty cache
+    directory of its own (PHANTOM_TORCH_SETUP_CACHE), timed with the
+    context build's share; the blob's bytes on disk; the setup loaded,
+    timed, bit-equal to the fresh one.  On a world of one over NCCL the
+    limb step on (ct1, ct2), a batch of one: the launch counts
+    (EXPECTED["limb-sharded step"], added to launches64) with the
+    collectives and the bytes received; bit-equal to the local kernel
+    step (multiply_and_relin + rescale_to_next) and to the limb step on
+    PLAIN64; decrypted and decoded within U64_TOL of values^2; 10
+    chained steps, limb and local in turns (A, B, B, A) with peak memory;
+    a profile.  With two or more cards LIMB_WORLDS through `launch
+    --layout limb` (44 data primes); with one, "not run"."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from phantom_tpu_torch.parallel import (launch, make_mesh,
+                                            shard_ciphertext_data,
+                                            sharded_mul_relin_rescale_step)
+    from phantom_tpu_torch.parallel import limb_step as ls
+    from phantom_tpu_torch.parallel import ntt_sharded as ns
+    from phantom_tpu_torch.schemes import evaluate as ev
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    from phantom_tpu_torch.utils import benchcache, setup_bench
+    cfg = U64_CFG if cfg is None else cfg
+    named = ([("P1", ns.ntt_phase)]
+             + [(name, w) for (name, *_), w in zip(KERNELS,
+                                                   kernel_wrappers())]
+             + _named64(kernel_wrappers64()))
+    cache = tempfile.mkdtemp(prefix="ptk_setup_")
+    old = os.environ.get(benchcache.ENV)
+    os.environ[benchcache.ENV] = cache
+    try:
+        t0 = time.perf_counter()
+        s = setup_bench("ckks", **cfg, seed=SEED + 56, verbose=False,
+                        device=dev)
+        fresh = time.perf_counter() - t0
+        if s.cached:
+            raise RuntimeError("limb setup: a fresh cache directory hit")
+        tm = s.times
+        prm = s.params
+        print(f"limb setup: setup_bench ckks N={prm.n} L={prm.size_q} "
+              f"alpha={prm.size_p} fresh in {fresh:.2f} s: context build "
+              f"{tm['context']:.2f} s ({tm['context'] / fresh:.0%} of it), "
+              f"keys {tm['keys']:.2f} s, encode + two encryptions "
+              f"{tm['encrypt']:.2f} s, the blob's save {tm['save']:.2f} s "
+              f"[{card}]")
+        blob = os.path.getsize(s.path)
+        t0 = time.perf_counter()
+        back = setup_bench("ckks", **cfg, seed=SEED + 56, verbose=False,
+                           device=dev)
+        loaded = time.perf_counter() - t0
+        same = back.cached and all(
+            _same(getattr(back, k), getattr(s, k))
+            for k in ("sk", "pk", "rlk", "pt", "ct1", "ct2"))
+        if not same:
+            raise RuntimeError("limb setup: the loaded setup differs from "
+                               "the fresh one")
+        print(f"limb setup: cache blob {blob} bytes ({blob / 2**20:.1f} "
+              f"MiB) on disk; loaded in {loaded:.2f} s (context build "
+              f"{back.times['context']:.2f} s, load "
+              f"{back.times['load']:.2f} s), bit-equal to the fresh setup "
+              f"[{card}]")
+        del back
+    finally:
+        if old is None:
+            os.environ.pop(benchcache.ENV, None)
+        else:
+            os.environ[benchcache.ENV] = old
+        shutil.rmtree(cache, ignore_errors=True)
+    ctx, rlk, c1, c2 = s.ctx, s.rlk, s.ct1, s.ct2
+    tmp = _init_nccl_world1(dev)
+    try:
+        mesh = make_mesh()
+        step = sharded_mul_relin_rescale_step(ctx, c1, c2, rlk, mesh)
+        b1, b2 = (shard_ciphertext_data(c.data[None], mesh)
+                  for c in (c1, c2))
+        label = "limb-sharded step"
+
+        def counters():
+            return {f"{k} {w}": getattr(ls.collectives, w).get(k, 0)
+                    for k in LIMB_KINDS for w in ("calls", "bytes")}
+        ls.collectives.reset()
+        out, got, more = _count_named(named, label, lambda: step(b1, b2),
+                                      EXPECTED[label], counters)
+        for name in launches64:
+            launches64[name] += got[name]
+        local = ev.rescale_to_next(ctx, ev.multiply_and_relin(ctx, c1, c2,
+                                                              rlk))
+        if out.shape[0] != 1 or not torch.equal(out[0], local.data):
+            raise RuntimeError(f"{label}: differs from the local kernel step")
+        if not torch.equal(out, step(b1, b2, ksw.PLAIN64)):
+            raise RuntimeError(f"{label}: differs from the limb step on "
+                               "the plain versions")
+        err = float(np.abs(s.enc.decode(keys.decrypt64(ctx, s.sk, local))
+                           - s.values ** 2).max())
+        print(f"{label}: W={mesh.world} dp={mesh.dp} limb={mesh.limb} over "
+              f"{dist.get_backend()}: {tuple(out.shape)} bit-equal to the "
+              "local kernel step (multiply_and_relin + rescale_to_next) and "
+              "to the limb step on the plain versions; collectives a step: "
+              + ", ".join(f"{k} {more[f'{k} calls']} ("
+                          f"{more[f'{k} bytes'] / 1e6:.1f} MB received)"
+                          for k in LIMB_KINDS)
+              + f"; decoded within {err:.3e} of values^2 (bound {U64_TOL}) "
+              f"[{card}]")
+        if not err <= U64_TOL:
+            raise RuntimeError(f"{label}: error {err} > {U64_TOL}")
+        k = c1.data.shape[1]
+        q_last = ctx.key_q[k - 1]
+        limb_one = launch.limb_chain(step, b2, q_last, mesh)
+
+        def chain(route):
+            def run(count):
+                a = b1 if route == "limb W=1" else c1.data
+                for _ in range(count):
+                    a = (limb_one(a) if route == "limb W=1" else
+                         remix(ev.rescale_to_next(ctx, ev.multiply_and_relin(
+                             ctx, c1.replace(data=a), c2, rlk)).data, q_last))
+                return a
+            return run
+        finals = _chain_timing(("local", "limb W=1", "limb W=1", "local"),
+                               chain, SHARDED_CHAIN_STEPS, card,
+                               label + " against the local step")
+        if not torch.equal(finals["local"].reshape(-1),
+                           finals["limb W=1"].reshape(-1)):
+            raise RuntimeError(f"{label}: chained outputs differ")
+        aa = [b1]
+
+        def prof_step():
+            aa[0] = limb_one(aa[0])
+        _profile(prof_step, PROFILE_STEPS, card, label + ", W = 1")
+        del step, out, local, finals, aa, b1, b2
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del s, ctx, rlk, c1, c2
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    for world, dp in LIMB_WORLDS:
+        if world > cards:
+            print(f"limb-sharded step at W = {world}, dp = {dp}: not run "
+                  f"({cards} card{'s' if cards > 1 else ''} here)")
+            continue
+        t0 = time.time()
+        res = launch.run(launch.limb_full_width, world, timeout=600,
+                         args=(SHARDED_CHAIN_STEPS,), dp=dp, layout="limb")
+        for per_rank in zip(*res):
+            for r in per_rank:
+                print(f"{launch.describe(r)} [{card}]")
+                if not r["equal"]:
+                    raise RuntimeError(f"limb step at W = {world}, rank "
+                                       f"{r['rank']}: differs from the "
+                                       "local step")
+        print(f"limb-sharded step at W = {world}, dp = {dp} through the "
+              f"launcher in {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6535,6 +6787,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 55. the coefficient-sharded steps over torch.distributed (P1)
     p1_probe, p1_launches = _parallel_phase(card, dev)
+    torch.cuda.empty_cache()
+    # 56. the bench setup cache and the limb-sharded step (U1-U4)
+    _limb_phase(card, dev, launches64)
 
     def summed(name, calls, library_ms=None):
         if not calls:

@@ -13,12 +13,22 @@ is (..., n1, c2) (`shard_coeff`), which is not a contiguous range of
 coefficients.  NCCL runs on the card (one rank a card, device
 cuda:<local rank>), gloo on the CPU; each process initializes the
 default group first (parallel/launch.py does).
+
+The ("dp", "limb") layout (phantom_tpu/parallel/mesh.py:26 make_mesh,
+:64 ct_sharding, :69 replicate, :73 shard_ciphertext_data, :77
+sharded_mul_relin_rescale_step): the same grid, rank = d limb + l, but
+rank l of a dp group holds the rows [l L / limb, (l + 1) L / limb) of
+every (B / dp, size, L, N) ciphertext block, all N coefficients of each.
+`ct_sharding` and `replicate` are the placements the JAX package names
+with a PartitionSpec; `shard_ciphertext_data` cuts the rank's block by
+one.  The step itself is parallel/limb_step.py.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -127,3 +137,149 @@ def shard_batch(x: torch.Tensor, mesh: CoeffMesh) -> torch.Tensor:
     per = b // mesh.dp
     return shard_coeff(x[mesh.dp_index * per:(mesh.dp_index + 1) * per],
                        mesh)
+
+
+# ---------------------------------------------------------------------------
+# the ("dp", "limb") layout
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LimbMesh:
+    """One rank's view of the ("dp", "limb") mesh: the world's size, the
+    dp x limb grid, this rank's indices along both, its limb subgroup
+    (the group of the step's all-gathers and broadcast), the global ranks
+    of that group, and the device its tensors live on."""
+
+    world: int
+    dp: int
+    limb: int
+    rank: int
+    dp_index: int
+    limb_index: int
+    group: object
+    group_ranks: Tuple[int, ...]
+    device: torch.device
+
+
+def _largest_pow2_leq(n: int, cap: int) -> int:
+    p = 1
+    while p * 2 <= min(n, cap):
+        p *= 2
+    return p
+
+
+def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
+              limb: Optional[int] = None, device=None) -> LimbMesh:
+    """The ("dp", "limb") mesh of the initialized default group, with the
+    JAX package's defaults: unless both dp and limb are given, limb =
+    limb or the largest power of two <= min(n, 4) and dp = n // limb (a
+    dp given alone is overridden, as there).  n_devices must be the
+    world's size: a torch.distributed world cannot leave ranks out, as a
+    JAX mesh over the first n devices does.  Every rank calls
+    dist.new_group for every limb group, in the same order.  device:
+    cuda:<local rank> by default with NCCL; "cpu" (the default) with
+    gloo; any other mix raises."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: initialize the default process group "
+                           "first (parallel/launch.py)")
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(
+            f"make_mesh: n_devices = {n} against a world of {world}; a "
+            "torch.distributed world cannot leave ranks out, so the mesh "
+            "takes every rank")
+    if dp is None or limb is None:
+        limb = limb or _largest_pow2_leq(n, 4)
+        dp = n // limb
+    if dp < 1 or limb < 1 or dp * limb != n:
+        raise ValueError(f"make_mesh: dp = {dp} x limb = {limb} is not the "
+                         f"{n} devices")
+    dev = _device(dist.get_backend(), device)
+    rank = dist.get_rank()
+    mine, mine_ranks = None, ()
+    for d in range(dp):
+        ranks = list(range(d * limb, (d + 1) * limb))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine, mine_ranks = g, tuple(ranks)
+    return LimbMesh(world=world, dp=dp, limb=limb, rank=rank,
+                    dp_index=rank // limb, limb_index=rank % limb,
+                    group=mine, group_ranks=mine_ranks, device=dev)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where each axis of a tensor goes on a LimbMesh: `spec[i]` names the
+    mesh axis ("dp" or "limb") that splits axis i, None (or an axis past
+    the spec) keeps it whole (the JAX package's PartitionSpec)."""
+
+    mesh: LimbMesh
+    spec: Tuple[Optional[str], ...]
+
+
+def ct_sharding(mesh: LimbMesh) -> Placement:
+    """The placement of a ciphertext batch (B, size, L, N): B over "dp", L
+    over "limb"."""
+    return Placement(mesh, ("dp", None, "limb", None))
+
+
+def replicate(mesh: LimbMesh) -> Placement:
+    """Every axis whole on every rank."""
+    return Placement(mesh, ())
+
+
+def shard(x: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """This rank's block of x under `placement` (contiguous); ValueError
+    where an axis does not divide by its mesh axis (jax.device_put
+    refuses the same split)."""
+    m = placement.mesh
+    index = {"dp": (m.dp, m.dp_index), "limb": (m.limb, m.limb_index)}
+    for axis, name in enumerate(placement.spec):
+        if name is None:
+            continue
+        parts, i = index[name]
+        size = x.shape[axis]
+        if size % parts:
+            raise ValueError(f"axis {axis} of {tuple(x.shape)} ({size}) does "
+                             f"not divide by {name} = {parts}")
+        per = size // parts
+        x = x.narrow(axis, i * per, per)
+    return x.contiguous()
+
+
+def shard_ciphertext_data(data: torch.Tensor, mesh: LimbMesh) -> torch.Tensor:
+    """A (B, size, L, N) batch -> this rank's (B / dp, size, L / limb, N)
+    block."""
+    if data.dim() != 4:
+        raise ValueError(f"a ciphertext batch is (B, size, L, N), not "
+                         f"{tuple(data.shape)}")
+    return shard(data, ct_sharding(mesh))
+
+
+def sharded_mul_relin_rescale_step(ctx, ct_proto1, ct_proto2,
+                                   rlk: torch.Tensor, mesh: LimbMesh,
+                                   ops=None):
+    """The limb-sharded batched multiply + relinearize + rescale step
+    (parallel/limb_step.py) at the prototypes' level: returns step(d1,
+    d2) from the rank's (B / dp, 2, L / limb, N) blocks of two NTT-form
+    CKKS batches to (B / dp, 2, L - 1, N), whole on every rank of the limb
+    group, bit-equal to the u64 evaluator's rescale_to_next(
+    multiply_and_relin) of each item.  rlk: the relin key (dnum, 2, K, N)
+    as a tensor, whole on every rank.  ops: keyswitch.KERNELS64 (U1-U4,
+    the default) or PLAIN64 (their plain versions); step(d1, d2, ops)
+    takes another bundle for one call.  Raises on BFV and BGV, where
+    rescale_to_next does."""
+    from ..schemes.keyswitch import KERNELS64
+    from .limb_step import LimbStepConsts, limb_step
+    if ct_proto1.chain_index != ct_proto2.chain_index:
+        raise ValueError("ciphertexts are at different levels")
+    if not (ct_proto1.is_ntt_form and ct_proto2.is_ntt_form):
+        raise ValueError("the limb-sharded step takes NTT-form ciphertexts")
+    consts = LimbStepConsts(ctx, rlk, mesh, ct_proto1.chain_index)
+    default = KERNELS64 if ops is None else ops
+
+    def step(d1: torch.Tensor, d2: torch.Tensor, ops=None) -> torch.Tensor:
+        return limb_step(ctx, consts, mesh, d1, d2,
+                         default if ops is None else ops)
+    return step

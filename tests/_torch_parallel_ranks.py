@@ -142,3 +142,18 @@ def rank_checks(mesh, path) -> dict:
             _, step = build(ctx, rlk, m2)
             res[f"dp_{name}"] = step(b1, b2).numpy()
     return res
+
+
+def limb_rank_checks(mesh) -> dict:
+    """launch.run's function for the ("dp", "limb") layout: this rank's
+    outputs of limb_n1024.npz's configurations on its mesh (chip_smoke.
+    limb_golden), with its indices; on four ranks also on the dp = 2 x
+    limb = 2 mesh of the same world."""
+    import chip_smoke
+    res = dict(mesh=(mesh.dp, mesh.limb, mesh.dp_index, mesh.limb_index),
+               out=chip_smoke.limb_golden(mesh))
+    if mesh.world == 4:
+        m2 = pm.make_mesh(4, dp=2, limb=2)
+        res.update(mesh2=(m2.dp, m2.limb, m2.dp_index, m2.limb_index),
+                   out2=chip_smoke.limb_golden(m2))
+    return res

@@ -250,6 +250,27 @@ sharded_n1024.npz: the coefficient-sharded functions of
   JAX evaluator's local verbs.  Moduli: data_moduli, special_moduli
   (u32 chain), q64 (the NTT's), u64_data, u64_special, t.
 
+limb_n1024.npz: the ("dp", "limb") layout of phantom_tpu/parallel/mesh.py
+  (sharded_mul_relin_rescale_step) on make_mesh(8), dp 2 x limb 4 over
+  eight CPU devices, at n = 1024 with eight data primes of 50 bits.  Two
+  configurations: a4, four special primes of 51 bits (alpha divides
+  size_ql: the fused modup), and a3, three (three digits across the
+  ranks' blocks of two rows: the unfused modup).  The inputs are
+  chip_smoke.limb_inputs of the primes and seed LIMB_SEED + alpha (a
+  uniform key (dnum, 2, K, N), two batches of two distinct items (2, 2,
+  8, N)); stored per configuration <c>: <c>_special and <c>_out (2, 2,
+  7, N), the step's output, each item asserted equal to the JAX
+  evaluator's rescale_to_next(multiply_and_relin) first.  data_moduli:
+  the eight primes.
+
+benchsetup_n1024.npz: phantom_tpu/utils/benchsetup.setup_bench at n =
+  1024, two data primes and two special ones (BENCHSETUP), written to a
+  temporary PHANTOM_SETUP_CACHE and read back by benchcache.load_setup:
+  for s = ckks (bits 50), bgv and bfv (HPS, bits 28): the cache entry's
+  arrays <s>_sk, <s>_pk, <s>_rlk, <s>_pt, <s>_ct1, <s>_ct2 and its
+  metadata <s>_meta (JSON), the encoded <s>_values, the primes <s>_data
+  and <s>_special, and <s>_t (0 for CKKS).
+
 Run from the repo root (CPU, about four minutes for all; names choose
 files, e.g. `bfv_step` writes only bfv_step_n1024.npz, `bfv_multech`
 only bfv_multech_n1024.npz):
@@ -2011,12 +2032,82 @@ def sharded():
     _save("sharded_n1024.npz", **out)
 
 
+def limb():
+    from chip_smoke import LIMB_ALPHAS, LIMB_SEED, limb_inputs
+    from phantom_tpu.parallel import (make_mesh, shard_ciphertext_data,
+                                      sharded_mul_relin_rescale_step)
+    from phantom_tpu.schemes.ciphertext import Ciphertext
+    mesh = make_mesh(8)
+    assert (mesh.shape["dp"], mesh.shape["limb"]) == (2, 4), mesh.shape
+    qd = numth.get_primes(2 * N, 50, 8)
+    out = dict(data_moduli=np.array(qd, dtype=np.uint64))
+    for alpha in LIMB_ALPHAS:
+        qp = numth.get_primes(2 * N, 51, alpha)
+        ctx = make_context(EncryptionParameters.create(
+            Scheme.CKKS, N, qd + qp, special_modulus_size=alpha))
+        key, d1, d2 = limb_inputs(qd, qp, N, LIMB_SEED + alpha)
+        rlk = keys.RelinKey(data=jnp.asarray(key))
+        proto = Ciphertext(data=jnp.asarray(d1[0]), chain_index=1,
+                           is_ntt_form=True, scale=2.0 ** 40)
+        step = sharded_mul_relin_rescale_step(ctx, proto, proto, rlk, mesh)
+        got = np.asarray(step(shard_ciphertext_data(jnp.asarray(d1), mesh),
+                              shard_ciphertext_data(jnp.asarray(d2), mesh)))
+        for b in range(2):
+            c1, c2 = (proto.replace(data=jnp.asarray(d[b])) for d in (d1, d2))
+            local = evaluate.rescale_to_next(
+                ctx, evaluate.multiply_and_relin(ctx, c1, c2, rlk))
+            np.testing.assert_array_equal(got[b], np.asarray(local.data))
+        out.update({f"a{alpha}_special": np.array(qp, dtype=np.uint64),
+                    f"a{alpha}_out": got})
+        print(f"limb: alpha {alpha} bit-equal to the local step")
+    _save("limb_n1024.npz", **out)
+
+
+# benchsetup_n1024.npz: scheme -> setup_bench's keywords beside n = 1024
+BENCHSETUP = {"ckks": dict(limbs=2, alpha=2, bits=50),
+              "bgv": dict(limbs=2, alpha=2, bits=28),
+              "bfv": dict(limbs=2, alpha=2, bits=28, multech="hps")}
+
+
+def benchsetup():
+    import json
+    import tempfile
+
+    from phantom_tpu.utils import benchcache
+    from phantom_tpu.utils.benchsetup import setup_bench
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PHANTOM_SETUP_CACHE"] = tmp
+        for scheme, kw in BENCHSETUP.items():
+            s = setup_bench(scheme, n=N, seed=SEED, verbose=False, **kw)
+            cfg = dict(scheme=scheme, n=N, limbs=kw["limbs"],
+                       alpha=kw["alpha"], bits=kw["bits"],
+                       multech=kw.get("multech", ""), galois_steps=[],
+                       seed=SEED)
+            arrays, meta = benchcache.load_setup(**cfg)
+            out.update({f"{scheme}_{k}": np.asarray(v)
+                        for k, v in arrays.items()})
+            p = s.params
+            out.update({
+                f"{scheme}_meta": np.asarray(json.dumps(meta)),
+                f"{scheme}_values": np.asarray(s.values),
+                f"{scheme}_data": np.array(
+                    p.coeff_modulus[:kw["limbs"]], dtype=np.uint64),
+                f"{scheme}_special": np.array(
+                    p.coeff_modulus[kw["limbs"]:], dtype=np.uint64),
+                f"{scheme}_t": np.array(
+                    p.plain_modulus if scheme != "ckks" else 0,
+                    dtype=np.uint64)})
+            print(f"benchsetup: {scheme} {sorted(arrays)}")
+    _save("benchsetup_n1024.npz", **out)
+
+
 def main(names):
     names = names or ["ckks_step", "rotate", "step_n128", "bfv_step",
                       "bfv_multech", "bgv_step", "bfv_live", "ntt32_n128",
                       "fast32", "ckks_fft", "linear", "poly", "roll",
                       "fast32_roll", "u64", "u64_bfv", "u64_app",
-                      "refformat", "sharded"]
+                      "refformat", "sharded", "limb", "benchsetup"]
     if {"ckks_step", "rotate"} & set(names):
         setup = _setup()
         if "ckks_step" in names:
@@ -2060,6 +2151,10 @@ def main(names):
         refformat_golden()
     if "sharded" in names:
         sharded()
+    if "limb" in names:
+        limb()
+    if "benchsetup" in names:
+        benchsetup()
 
 
 if __name__ == "__main__":

@@ -1706,3 +1706,52 @@ def test_sharded_step_nccl(nccl_mesh, what, logn):
     assert got.shape[0] == 1
     assert torch.equal(got[0], shard_coeff(local(d1, d2), nccl_mesh))
     assert torch.equal(got, step(b1, b2, plain))
+
+
+# ---------------------------------------------------------------------------
+# the ("dp", "limb") layout and the bench setup (phantom_tpu_torch.parallel,
+# phantom_tpu_torch.utils)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_limb_mesh(nccl_mesh):
+    """The limb mesh of the same world of one over NCCL."""
+    from phantom_tpu_torch.parallel import make_mesh
+    return make_mesh()
+
+
+@pytest.mark.parametrize("route", ["kernels", "plain"])
+def test_limb_golden_nccl(nccl_limb_mesh, route):
+    """limb_n1024.npz (the JAX package's limb-sharded step on dp 2 x limb
+    4, alpha 4 and 3) replayed at W = 1 over NCCL, both items on the rank:
+    bit-equal through U1-U4 (which launch) and through PLAIN64 (which
+    launch none)."""
+    from phantom_tpu_torch.ops import ntt
+    from phantom_tpu_torch.schemes import keyswitch as ksw
+    ops = ksw.KERNELS64 if route == "kernels" else ksw.PLAIN64
+    before = ntt.ntt_forward.launches
+    out = chip_smoke.limb_golden(nccl_limb_mesh, ops)
+    launched = ntt.ntt_forward.launches - before
+    assert launched == (30 if route == "kernels" else 0)  # 7 a step at
+    # alpha 4 (two digits), 8 at alpha 3 (three), two items each
+    for alpha, (got, want) in out.items():
+        np.testing.assert_array_equal(got, want, err_msg=f"alpha {alpha}")
+
+
+def test_setup_bench_card(dev, tmp_path, monkeypatch):
+    """setup_bench on the card at n = 1024 (CKKS, two data primes of 50
+    bits, two special of 51): fresh, then loaded from its cache entry,
+    bit-equal; the encryptions decrypt to the values within 1e-2."""
+    from phantom_tpu_torch.schemes import keys
+    from phantom_tpu_torch.utils import benchcache, setup_bench
+    monkeypatch.setenv(benchcache.ENV, str(tmp_path))
+    kw = dict(n=1024, limbs=2, alpha=2, bits=50, seed=7, verbose=False,
+              device=dev)
+    s = setup_bench("ckks", **kw)
+    t = setup_bench("ckks", **kw)
+    assert not s.cached and t.cached and s.ct1.data.is_cuda
+    for name in ("sk", "pk", "rlk", "pt", "ct1", "ct2"):
+        assert chip_smoke._same(getattr(t, name), getattr(s, name)), name
+    for ct in (s.ct1, s.ct2):
+        got = s.enc.decode(keys.decrypt64(s.ctx, s.sk, ct))
+        assert np.abs(got - s.values).max() < 1e-2

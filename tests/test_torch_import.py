@@ -116,6 +116,14 @@ from phantom_tpu_torch.parallel import (launch, mesh, ntt_sharded,
                                         pipeline_sharded, sharded32)
 assert ntt_sharded.split_n(1 << 16) == (256, 256)
 assert callable(parallel.sharded_bfv_mult_relin) and callable(launch.run)
+from phantom_tpu_torch.parallel import limb_step
+from phantom_tpu_torch.utils import benchcache, benchsetup
+assert callable(parallel.sharded_mul_relin_rescale_step)
+assert callable(parallel.make_mesh) and callable(limb_step.limb_step)
+assert benchsetup.chain_primes(n, 5, 2) == (
+    list(params.data_moduli), list(params.special_moduli))
+assert chip_smoke.chain_params(n, 5, 2) == params
+assert benchcache.cache_path(a=1) != benchcache.cache_path(a=2)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 ref = os.path.join(os.path.abspath("."), "phantom_tpu") + os.sep
@@ -128,8 +136,9 @@ print("ok")
 
 
 def test_import_without_jax():
-    """phantom_tpu_torch (its runtime, utils and parallel layers too),
-    chip_smoke and f1_anatomy import, a context builds and the examples load, with JAX
+    """phantom_tpu_torch (its runtime, utils and parallel layers too, the
+    limb layout and the bench setup among them), chip_smoke and f1_anatomy
+    import, a context builds and the examples load, with JAX
     blocked; no module in sys.modules has a file under phantom_tpu/."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                        text=True, timeout=300, cwd=ROOT,
@@ -562,3 +571,26 @@ def test_runtime_and_utils_need_cuda_or_cpu(monkeypatch):
     ex = StreamExecutor(pp.mult_relin_rescale32, pipe, batch=2)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ex.map([(d, d), (d, d)])
+
+
+def test_setup_and_limb_mesh_need_cuda_or_cpu(monkeypatch, tmp_path):
+    """setup_bench builds on the CUDA device unless given "cpu"; the limb
+    mesh takes the CPU over gloo and refuses a CUDA device without one."""
+    import torch.distributed as dist
+    from phantom_tpu_torch.parallel import make_mesh
+    from phantom_tpu_torch.utils import setup_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PHANTOM_TORCH_SETUP_CACHE", "0")
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        setup_bench("ckks", n=64, limbs=2, alpha=1, bits=50, verbose=False)
+    s = setup_bench("ckks", n=64, limbs=2, alpha=1, bits=50, verbose=False,
+                    device="cpu")
+    assert s.ct1.data.device.type == "cpu" and s.ctx.wide
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        assert make_mesh().device.type == "cpu"
+        with pytest.raises(ValueError, match="no CUDA device"):
+            make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
